@@ -9,24 +9,33 @@ Phases (each synchronised; any failure exits non-zero):
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, one nvcc per source;
 3. kernel checks at the serving path's shapes: each CUDA kernel against its
    plain PyTorch version on the card (paged attention, both granularities,
-   with holes and partial pages; gather / scatter / compact exactly), and
-   their times (CUDA-graph replay for kernels and library calls, CUDA
-   events for the plain versions) beside the bytes bound at 3.35 TB/s;
+   with holes and partial pages; fused gather-attend with about half the
+   pages staged, and bit for bit against the page kernel where it reads
+   the same bytes; gather / scatter / compact exactly), and their times
+   (CUDA-graph replay for kernels and library calls, CUDA events for the
+   plain versions) beside the bytes bound at 3.35 TB/s;
 4. main path: qwen2.5-3b at its published width, bf16, random weights from
-   a seed, served by ``ServingEngine`` (mosaic, sync fault-in, 2x
-   oversubscribed) over a seeded stream with staggered priority arrivals;
-   during the run one dual-granularity attention call reads the engine's
-   pool through ``pack_dual`` frame tables, and a partial deallocation of
-   one request's pages makes CAC plan copies that the engine executes.
-   Every kernel's launch counter must be > 0 over this phase;
+   a seed, served by ``ServingEngine`` (mosaic, 2x oversubscribed) over a
+   seeded stream with staggered priority arrivals, three times on the same
+   weights: sync, async and fused fault-in (async and fused leave
+   ``decode_window_us`` unset, so their modeled clock follows the measured
+   decode time).  During each run one dual-granularity attention call
+   reads the engine's pool through ``pack_dual`` frame tables, and a
+   partial deallocation of one request's pages makes CAC plan copies that
+   the engine executes.  Launch counters are reset before and read after
+   each run: every kernel of that mode's path must have launched, the
+   counts must account for every decode layer, landing and fused step, and
+   the three modes must emit identical tokens;
 5. agreement on a small input: a narrow model served on the card (kernels)
-   and on the CPU (plain versions) emits the same greedy tokens;
+   and on the CPU (plain versions), in fused mode, emits the same greedy
+   tokens;
 6. application transparency: the stream without oversubscription under
    mosaic and gpu-mmu — same batches, identical tokens;
 7. paging round trip: a held preemption's host payloads come back into the
    pool bit for bit.
 
-Ends with a JSON line of per-kernel numbers and, last, the ok line.
+Ends with a JSON line of per-kernel numbers (launches summed over the
+three main-path runs) and, last, the ok line.  No phase is cut in depth.
 """
 
 from __future__ import annotations
@@ -56,9 +65,11 @@ BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
 ML_TOL = dict(rtol=1e-5, atol=1e-5)     # f32 accumulators, other sum order
 
+MODES = ("sync", "async", "fused")
 REPLACES = {
     "paged_attention.page": "src/repro/kernels/paged_attention.py:106",
     "paged_attention.frame": "src/repro/kernels/paged_attention.py:106",
+    "paged_attention.fused": "src/repro/kernels/paged_attention.py:293",
     "page_gather": "src/repro/kernels/page_compact.py:92",
     "page_scatter": "src/repro/kernels/page_compact.py:128",
     "page_compact": "src/repro/kernels/page_compact.py:40",
@@ -66,6 +77,7 @@ REPLACES = {
 SOURCES = {
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
     "paged_attention.frame": "src/repro_torch/csrc/paged_attention.cu",
+    "paged_attention.fused": "src/repro_torch/csrc/paged_attention.cu",
     "page_gather": "src/repro_torch/csrc/page_copy.cu",
     "page_scatter": "src/repro_torch/csrc/page_copy.cu",
     "page_compact": "src/repro_torch/csrc/page_copy.cu",
@@ -421,6 +433,65 @@ def phase_kernels(cfg, results):
     torch.testing.assert_close(dual, o / l[..., None], **ATTN_TOL)
     print("[kernel] frames+pages == page-only on the same sequences: ok")
 
+    # Fused gather-attend at the page kernel's shapes, about half of the
+    # valid pages staged.  The stage holds each staged page's bytes; the
+    # pool copies are overwritten, so reading the wrong source shows.
+    name = "paged_attention.fused"
+    q = randn(B, H, dh)
+    tb, nt = _tables(rng, B, mpps, NP, ptok)
+    late = (tb >= 0) & (rng.random(tb.shape) < 0.5)
+    n_staged = int(late.sum())
+    require(0 < n_staged < int((tb >= 0).sum()), "fused case stages no page")
+    slots = np.full(tb.shape, -1, np.int32)
+    slots[late] = np.arange(n_staged, dtype=np.int32)
+    ids = t(tb[late]).long()
+    tb, nt, sl = t(tb), t(nt), t(slots)
+    st_k, st_v = kall[:, ids].contiguous(), vall[:, ids].contiguous()
+    pk0, pv0 = kall[0].clone(), vall[0].clone()
+    pk0[ids], pv0[ids] = randn(n_staged, ptok, n_kv, dh), \
+        randn(n_staged, ptok, n_kv, dh)
+    args = (q, pk0, pv0, st_k[0], st_v[0], tb, sl, nt)
+    o, m, l = ops.fused_paged_attention_kernel(*args, scale=scale)
+    o_r, m_r, l_r = ref.fused_paged_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    on, on_r = o / l[..., None], o_r / l_r[..., None]
+    torch.testing.assert_close(on, on_r, **ATTN_TOL)
+    torch.testing.assert_close(m, m_r, **ML_TOL)
+    torch.testing.assert_close(l, l_r, **ML_TOL)
+    require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
+    # Same bytes as the page kernel reads: bit for bit, staged or not.
+    base = ops.paged_attention_kernel(q, kall[0], vall[0], tb, nt,
+                                      granularity="page", scale=scale)
+    for sl_case in (sl, torch.full_like(sl, -1)):
+        got = ops.fused_paged_attention_kernel(
+            q, kall[0], vall[0], st_k[0], st_v[0], tb, sl_case, nt,
+            scale=scale)
+        require(all(torch.equal(a, b) for a, b in zip(got, base)),
+                f"{name}: not bitwise the page kernel on the same bytes")
+    tokens = int(nt.sum())
+    nbytes = (2 * tokens * n_kv * dh * 2 + q.numel() * 2
+              + 3 * tb.numel() * 4 + B * H * (dh + 2) * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * H * dh * tokens)
+    # Timed over all L layers' pools and stages in turn, as decode reads
+    # them: 2 x 94 MB of pools plus the stages, beyond the 50 MB L2.
+    layers = [(q, kall[i], vall[i], st_k[i], st_v[i], tb, sl, nt)
+              for i in range(L)]
+    results[name] = dict(
+        max_abs_err=float((on - on_r).abs().max()),
+        ms=graph_ms(cycling(functools.partial(
+            ops.fused_paged_attention_kernel, scale=scale), layers)),
+        plain_ms=eager_ms(cycling(functools.partial(
+            ref.fused_paged_attention_ref, scale=scale), layers)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B={B} H={H} n_kv={n_kv} dh={dh} blocks={mpps} "
+              f"tokens={tokens} staged={n_staged}/{int((tb >= 0).sum())}")
+    r = results[name]
+    print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g}, bitwise "
+          f"== page kernel on the same bytes | kernel_ms {r['ms']:.4f} "
+          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+          f"library_ms none (no single PyTorch call computes it) | "
+          f"{r['shape']}")
+
     # Copies on the engine's stacked pools [L, NP, ptok, n_kv, dh].
     pool = randn(L, NP, ptok, n_kv, dh)
     n_pages = 13                  # a 768-token prompt + 64 new tokens
@@ -524,64 +595,128 @@ def phase_kernels(cfg, results):
     torch.cuda.synchronize()
 
 
-def phase_main_path(cfg):
-    """Full-width serving run; returns (engine stats, launch counts)."""
+def serve_mode(cfg, mode, params=None, device=None):
+    """One main-path run: the stream served in ``mode`` with the step
+    hook, launch counters reset just before and read just after.
+    Returns (engine, stream, events, launch counts, wall seconds)."""
     import torch
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
-    t0 = time.perf_counter()
     eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
                         max_seq=MAX_SEQ, manager_kind="mosaic",
-                        oversubscription=OVERSUB, fault_mode="sync", seed=0)
-    torch.cuda.synchronize()
-    print(f"[engine] built full-width {cfg.name} ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}) in "
-          f"{time.perf_counter() - t0:.1f}s; pool "
-          f"{eng.cache.pages_per_shard} pages x {eng.page_bytes} B")
+                        oversubscription=OVERSUB, fault_mode=mode, seed=0,
+                        params=params, device=device)
     stream = make_stream(cfg.vocab_size)
     events = MainPathEvents(cfg)
-
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     drive(eng, stream, events)
-    torch.cuda.synchronize()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    return eng, stream, events, ops.launch_counts(), wall
+
+
+def check_mode_run(cfg, mode, eng, stream, events, counts):
+    """What every main-path run must show, on the card or (counts all 0)
+    rehearsed on the CPU."""
     s = eng.stats
-    require(all(r.done for _, r in stream), "not every request completed")
+    require(all(r.done for _, r in stream), f"{mode}: not every request "
+            f"completed")
     for _, r in stream:
         require(len(r.out) == r.max_new
                 and all(0 <= tok < cfg.vocab_size for tok in r.out),
-                f"request {r.rid}: bad output {r.out[:8]}...")
+                f"{mode}: request {r.rid}: bad output {r.out[:8]}...")
     require(s.swaps_out >= 1 and s.faults >= 1 and s.compaction_copies >= 1,
-            f"paging not exercised: swaps {s.swaps_out} faults {s.faults} "
-            f"CAC copies {s.compaction_copies}")
-    require(events.cac_checked, "CAC coherence not checked")
-    require(events.probe_frames >= 1, "no coalesced frame in the probe")
-    require(all(n > 0 for n in counts.values()),
-            f"a kernel of the path never launched: {counts}")
-    # Every decode layer's attention and every fault batch went through a
-    # kernel (K and V pools: two page-copy launches per batch); the +1 is
-    # the dual probe's page partial.
+            f"{mode}: paging not exercised: swaps {s.swaps_out} faults "
+            f"{s.faults} CAC copies {s.compaction_copies}")
+    require(events.cac_checked, f"{mode}: CAC coherence not checked")
+    require(events.probe_frames >= 1, f"{mode}: no coalesced frame in the "
+            f"probe")
+    require(s.h2d_bytes == s.faults * eng.page_bytes,
+            f"{mode}: {s.h2d_bytes} B copied to the card for {s.faults} "
+            f"faulted pages of {eng.page_bytes} B")
+    if mode == "sync":
+        require(s.landings == s.fault_steps, "sync: one landing per fault "
+                "batch")
+    if mode == "async":
+        require(s.prefetch_hits > 0, "async: the stream made no prefetch "
+                "hit")
+    if mode == "fused":
+        require(s.fused_steps > 0
+                and s.fused_ready_pages + s.fused_drained_pages > 0,
+                "fused: no decode step read a staged page")
+    if eng.device.type != "cuda":
+        return
+    path = [k for k in counts if k != "paged_attention.fused"
+            or mode == "fused"]
+    require(all(counts[k] > 0 for k in path),
+            f"{mode}: a kernel of the path never launched: {counts}")
+    # Every decode layer's attention went through a kernel (the fused one
+    # on steps that read staged pages; +1: the dual probe's page partial),
+    # and every landing launched the scatter for the K and V pools.
+    L = cfg.n_layers
     require(counts["paged_attention.page"]
-            == cfg.n_layers * s.decode_steps + 1
-            and counts["page_scatter"] == 2 * s.fault_steps
+            == L * (s.decode_steps - s.fused_steps) + 1
+            and counts["paged_attention.fused"] == L * s.fused_steps
+            and counts["page_scatter"] == 2 * s.landings
             and counts["page_gather"] <= 2 * s.swaps_out,
-            f"launches {counts} do not account for {s.decode_steps} decode "
-            f"steps, {s.fault_steps} fault batches, {s.swaps_out} evictions")
-    print(f"[engine] {s.summary()}")
-    print(f"[engine] wall {wall:.2f}s | decode {s.decode_tokens} tok in "
-          f"{s.decode_steps} steps: {s.decode_tokens / s.decode_s:.1f} tok/s, "
-          f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step | prefill "
-          f"{s.prefill_tokens} tok: {s.prefill_s / s.prefill_tokens * 1e3:.3f}"
-          f" ms/token | PCIe out {s.d2h_bytes} B in {s.d2h_s:.4f}s, in "
-          f"{s.h2d_bytes} B in {s.h2d_s:.4f}s | CAC copies "
-          f"{s.compaction_copies} | dual probe {events.probe_frames} frames, "
-          f"max_abs_err {events.probe_err:.3g}")
-    print(f"[engine] launches on the main path: {json.dumps(counts)}")
-    params = {k: v for k, v in eng.lm.state_dict().items()}
-    return counts, params
+            f"{mode}: launches {counts} do not account for "
+            f"{s.decode_steps} decode steps ({s.fused_steps} fused), "
+            f"{s.landings} landings, {s.swaps_out} evictions")
+
+
+def phase_main_path(cfg):
+    """Full-width serving runs in the three fault modes; returns (launch
+    counts summed over the runs, the weights)."""
+    import torch
+    params = None
+    tokens, total = {}, {}
+    for mode in MODES:
+        t0 = time.perf_counter()
+        eng, stream, events, counts, wall = serve_mode(cfg, mode, params)
+        if params is None:
+            print(f"[engine] built full-width {cfg.name} ({cfg.n_layers} "
+                  f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+                  f"{cfg.dtype}); pool {eng.cache.pages_per_shard} pages x "
+                  f"{eng.page_bytes} B")
+            params = dict(eng.lm.state_dict())
+        check_mode_run(cfg, mode, eng, stream, events, counts)
+        tokens[mode] = {r.rid: list(r.out) for _, r in stream}
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        s = eng.stats
+        print(f"[engine:{mode}] {s.summary()}")
+        print(f"[engine:{mode}] measured: wall {wall:.2f}s (with build "
+              f"{time.perf_counter() - t0:.2f}s) | decode {s.decode_tokens} "
+              f"tok in {s.decode_steps} steps: "
+              f"{s.decode_tokens / s.decode_s:.1f} tok/s, "
+              f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step | prefill "
+              f"{s.prefill_tokens} tok: "
+              f"{s.prefill_s / s.prefill_tokens * 1e3:.3f} ms/token | PCIe "
+              f"out {s.d2h_bytes} B in {s.d2h_s:.4f}s, in {s.h2d_bytes} B "
+              f"in {s.h2d_s:.4f}s | {s.fused_steps} fused steps | dual "
+              f"probe {events.probe_frames} frames, max_abs_err "
+              f"{events.probe_err:.3g}")
+        print(f"[engine:{mode}] modeled (link model, clock = measured "
+              f"decode): faults {s.faults} in {s.fault_dmas} DMAs, "
+              f"transfer {s.transfer_us:.1f}us, hidden "
+              f"{s.fault_hidden_us:.1f}us, exposed {s.fault_exposed_us:.1f}"
+              f"us, prefetch hit/miss/wasted {s.prefetch_hits}/"
+              f"{s.prefetch_misses}/{s.prefetch_wasted}, evict "
+              f"{s.evict_pages} pages {s.evict_us:.1f}us, fused ready/"
+              f"drained {s.fused_ready_pages}/{s.fused_drained_pages}, "
+              f"tail {s.fused_tail_us:.1f}us")
+        print(f"[engine:{mode}] launches: {json.dumps(counts)}")
+        del eng
+        torch.cuda.empty_cache()
+    diff = [m for m in MODES if tokens[m] != tokens["sync"]]
+    require(not diff, f"tokens differ from sync in {diff}")
+    print(f"[engine] sync == async == fused on every greedy token")
+    return total, params
 
 
 def phase_small_agreement(cfg_full):
@@ -597,7 +732,8 @@ def phase_small_agreement(cfg_full):
     for dev in ("cuda", "cpu"):
         eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
                             max_seq=MAX_SEQ, oversubscription=OVERSUB,
-                            seed=0, params=params, device=dev)
+                            fault_mode="fused", seed=0, params=params,
+                            device=dev)
         if params is None:
             params = {k: v.cpu() for k, v in eng.lm.state_dict().items()}
         stream = make_stream(cfg.vocab_size)
@@ -607,8 +743,8 @@ def phase_small_agreement(cfg_full):
             torch.cuda.synchronize()
     diff = [rid for rid in outs["cpu"] if outs["cpu"][rid] != outs["cuda"][rid]]
     require(not diff, f"small model: card and CPU tokens differ for {diff}")
-    print("[small] narrow model, same weights: card (kernels) == CPU "
-          "(plain versions) on every greedy token")
+    print("[small] narrow model, same weights, fused mode: card (kernels) "
+          "== CPU (plain versions) on every greedy token")
 
 
 def phase_transparency(cfg, params):

@@ -25,6 +25,23 @@
 // memory once for all g heads.  Holes and the invalid tail of a partial page
 // are never loaded.  It leaves most SMs idle when B * n_kv is small;
 // splitting the KV walk across CTAs and TMA bulk loads are later work.
+//
+// Fused gather-attend (entry fused_paged_attention_fwd) replaces the TPU
+// kernel repro/kernels/paged_attention.py: fused_paged_attention_kernel (body
+// _fused_kernel).  It is the page-granularity kernel above with one change,
+// the template flag kFused: page blk of row b is read from the staging pool
+// at stage[slots[b, blk]] when that slot is >= 0 (a page that arrived from
+// the host this step and has not been scattered into the pool yet) and from
+// pool[tables[b, blk]] otherwise.  Only the base pointer of a block differs;
+// the instruction sequence that does the arithmetic is the same, so there is
+// one accumulator in canonical table order.  The TPU kernel instead keeps two
+// accumulators (ready and late pages) and combines them at the flush, which
+// is what its readiness_meta bookkeeping serves; with one accumulator the
+// result is bitwise the page kernel's when every slot is -1 or when the
+// staged bytes equal the pool's, which keeps decode tokens identical across
+// the engine's sync, async and fused modes on the card.  Bound by bytes like
+// the page kernel, and with its low occupancy (n_kv * B CTAs, 8 at B = 4 for
+// qwen2.5-3b); split-KV is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,12 +83,17 @@ size_t smem_bytes(int g, int dh) {
   return floats * sizeof(float);
 }
 
-template <typename T>
+// With kFused, stage_k / stage_v / slots name each block's staging slot
+// (-1: read the pool); without it they are unused.
+template <typename T, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q,
                        const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v,
+                       const T* __restrict__ stage_k,
+                       const T* __restrict__ stage_v,
                        const int* __restrict__ tables,
+                       const int* __restrict__ slots,
                        const int* __restrict__ ntok,
                        float* __restrict__ o_out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int H, int n_kv, int dh,
@@ -110,8 +132,19 @@ paged_attention_kernel(const float* __restrict__ q,
     int nt = ntok[b * nblk + blk];
     if (entry < 0 || nt <= 0) continue;   // hole: never loaded
     nt = min(nt, tokens_per_block);
+    const T* src_k = pool_k;
+    const T* src_v = pool_v;
+    size_t page = (size_t)entry;
+    if constexpr (kFused) {
+      const int slot = slots[b * nblk + blk];
+      if (slot >= 0) {           // staged this step: read it where it landed
+        src_k = stage_k;
+        src_v = stage_v;
+        page = (size_t)slot;
+      }
+    }
     const size_t base =
-        (size_t)entry * tokens_per_block * row_stride + (size_t)kvh * dh;
+        page * tokens_per_block * row_stride + (size_t)kvh * dh;
     for (int t0 = 0; t0 < nt; t0 += kTile) {
       const int cnt = min(kTile, nt - t0);
       __syncthreads();  // the previous tile is consumed; init is visible
@@ -119,8 +152,8 @@ paged_attention_kernel(const float* __restrict__ q,
         const int r = i / vec_per_row;
         const int c = (i % vec_per_row) * kVec;
         const size_t off = base + (size_t)(t0 + r) * row_stride + c;
-        const uint4 kr = *reinterpret_cast<const uint4*>(pool_k + off);
-        const uint4 vr = *reinterpret_cast<const uint4*>(pool_v + off);
+        const uint4 kr = *reinterpret_cast<const uint4*>(src_k + off);
+        const uint4 vr = *reinterpret_cast<const uint4*>(src_v + off);
         const T* ke = reinterpret_cast<const T*>(&kr);
         const T* ve = reinterpret_cast<const T*>(&vr);
 #pragma unroll
@@ -177,22 +210,24 @@ paged_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool kFused>
 cudaError_t launch(const float* q, const void* pool_k, const void* pool_v,
-                   const int* tables, const int* ntok, float* o, float* m,
+                   const void* stage_k, const void* stage_v, const int* tables,
+                   const int* slots, const int* ntok, float* o, float* m,
                    float* l, int B, int H, int n_kv, int dh, int nblk,
                    int tokens_per_block, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / n_kv, dh);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
+        paged_attention_kernel<T, kFused>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(n_kv, B);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(pool_k), static_cast<const T*>(pool_v), tables,
-      ntok, o, m, l, H, n_kv, dh, nblk, tokens_per_block, scale);
+  paged_attention_kernel<T, kFused><<<grid, kThreads, smem, stream>>>(
+      q, static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
+      static_cast<const T*>(stage_k), static_cast<const T*>(stage_v), tables,
+      slots, ntok, o, m, l, H, n_kv, dh, nblk, tokens_per_block, scale);
   return cudaGetLastError();
 }
 
@@ -210,11 +245,33 @@ int paged_attention_fwd(const float* q, const void* pool_k,
                         float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_is_f32)
-    return (int)launch<float>(q, pool_k, pool_v, tables, ntok, o, m, l, B, H,
-                              n_kv, dh, nblk, tokens_per_block, scale, s);
-  return (int)launch<__nv_bfloat16>(q, pool_k, pool_v, tables, ntok, o, m, l,
-                                    B, H, n_kv, dh, nblk, tokens_per_block,
-                                    scale, s);
+    return (int)launch<float, false>(q, pool_k, pool_v, nullptr, nullptr,
+                                     tables, nullptr, ntok, o, m, l, B, H,
+                                     n_kv, dh, nblk, tokens_per_block, scale,
+                                     s);
+  return (int)launch<__nv_bfloat16, false>(
+      q, pool_k, pool_v, nullptr, nullptr, tables, nullptr, ntok, o, m, l, B,
+      H, n_kv, dh, nblk, tokens_per_block, scale, s);
+}
+
+// As paged_attention_fwd at page granularity, plus stage_k / stage_v
+// [NS * page_tokens, n_kv, dh] in the pools' dtype (null when NS = 0) and
+// slots int32 [B, nblk]: the staging slot of each block, -1 to read the pool.
+int fused_paged_attention_fwd(const float* q, const void* pool_k,
+                              const void* pool_v, const void* stage_k,
+                              const void* stage_v, const int* tables,
+                              const int* slots, const int* ntok, float* o,
+                              float* m, float* l, int B, int H, int n_kv,
+                              int dh, int nblk, int page_tokens, int kv_is_f32,
+                              float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_is_f32)
+    return (int)launch<float, true>(q, pool_k, pool_v, stage_k, stage_v,
+                                    tables, slots, ntok, o, m, l, B, H, n_kv,
+                                    dh, nblk, page_tokens, scale, s);
+  return (int)launch<__nv_bfloat16, true>(
+      q, pool_k, pool_v, stage_k, stage_v, tables, slots, ntok, o, m, l, B, H,
+      n_kv, dh, nblk, page_tokens, scale, s);
 }
 
 const char* error_string(int err) {

@@ -19,11 +19,13 @@ from repro_torch.kernels.page_compact import (
 )
 from repro_torch.kernels.paged_attention import (
     combine_granularities,
+    fused_paged_attention_kernel,
     paged_attention_kernel,
 )
 
-KERNELS = ("paged_attention.page", "paged_attention.frame", "page_gather",
-           "page_scatter", "page_compact")
+KERNELS = ("paged_attention.page", "paged_attention.frame",
+           "paged_attention.fused", "page_gather", "page_scatter",
+           "page_compact")
 
 
 def paged_attention_dual(q, pool_k, pool_v, frame_tables, frame_ntok,
@@ -51,6 +53,7 @@ def launch_counts() -> Dict[str, int]:
     return {
         "paged_attention.page": paged_attention_kernel.page_launches,
         "paged_attention.frame": paged_attention_kernel.frame_launches,
+        "paged_attention.fused": fused_paged_attention_kernel.fused_launches,
         "page_gather": page_gather.launches,
         "page_scatter": page_scatter.launches,
         "page_compact": page_compact.launches,
@@ -60,11 +63,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     paged_attention_kernel.page_launches = 0
     paged_attention_kernel.frame_launches = 0
+    fused_paged_attention_kernel.fused_launches = 0
     page_gather.launches = 0
     page_scatter.launches = 0
     page_compact.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
+           "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
            "page_compact", "launch_counts", "reset_launch_counts"]

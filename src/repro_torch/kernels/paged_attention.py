@@ -8,10 +8,17 @@ large-page fast path: one table lookup per frame).  Both return
 unnormalized fp32 ``(o, m, l)`` partials that :func:`combine_granularities`
 flash-combines.
 
-For CPU tensors the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.paged_attention_ref`); for CUDA tensors it
-launches the kernel or raises.  ``paged_attention_kernel.page_launches`` and
-``.frame_launches`` count kernel launches per granularity.
+:func:`fused_paged_attention_kernel` replaces the reference's Pallas
+``fused_paged_attention_kernel``: the page kernel over partially-resident
+KV, reading each page whose staging slot is >= 0 from the staging pool
+(the fused fault-in decode of ``ServingEngine(fault_mode="fused")``).
+
+For CPU tensors the wrappers run the plain versions
+(:func:`repro_torch.kernels.ref.paged_attention_ref`,
+:func:`~repro_torch.kernels.ref.fused_paged_attention_ref`); for CUDA
+tensors they launch the kernel or raise.  ``paged_attention_kernel.
+page_launches`` / ``.frame_launches`` and ``fused_paged_attention_kernel.
+fused_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -42,8 +49,39 @@ def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
                                        scale=scale, frame_pages=fp)
     if q.device.type != "cuda":
         raise ValueError(f"no paged-attention path for device {q.device}")
+    _check_inputs(q, pool_k, pool_v, tables, ntok, fp)
     B, H, dh = q.shape
-    NP, ptok, n_kv, dh_k = pool_k.shape
+    ptok, n_kv = pool_k.shape[1:3]
+    qf = q.float().contiguous()
+    o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return o, m, l
+    lib = _lib()
+    err = lib.paged_attention_fwd(
+        qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        tables.data_ptr(), ntok.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, H, n_kv, dh, tables.shape[1], fp * ptok,
+        int(pool_k.dtype == torch.float32), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "paged_attention_fwd")
+    if granularity == "page":
+        paged_attention_kernel.page_launches += 1
+    else:
+        paged_attention_kernel.frame_launches += 1
+    return o, m, l
+
+
+paged_attention_kernel.page_launches = 0
+paged_attention_kernel.frame_launches = 0
+
+
+def _check_inputs(q, pool_k, pool_v, tables, ntok, fp: int) -> None:
+    """Raise on what the kernels do not take (device, dtype, shape,
+    contiguity, alignment)."""
+    B, H, dh = q.shape
+    NP, _ptok, n_kv, dh_k = pool_k.shape
     if pool_v.shape != pool_k.shape or dh_k != dh:
         raise ValueError(f"pools {tuple(pool_k.shape)} / "
                          f"{tuple(pool_v.shape)} do not match q {tuple(q.shape)}"
@@ -74,6 +112,54 @@ def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def fused_paged_attention_kernel(q, pool_k, pool_v, stage_k, stage_v, tables,
+                                 slots, ntok, *, scale: float = 1.0):
+    """Page-granularity paged attention over partially-resident KV.
+
+    As :func:`paged_attention_kernel` with ``granularity="page"``, plus
+    stage_k/v [NS, ptok, n_kv, dh] in the pools' dtype (NS may be 0) and
+    slots int32 [B, n_blocks]: page ``blk`` of row ``b`` is read from
+    ``stage[slots[b, blk]]`` when that slot is >= 0, else from the pool.
+    Returns (o [B,H,dh] f32, m [B,H] f32, l [B,H] f32).
+    """
+    if q.device.type == "cpu":
+        return ref.fused_paged_attention_ref(q, pool_k, pool_v, stage_k,
+                                             stage_v, tables, slots, ntok,
+                                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-attention path for device {q.device}")
+    _check_inputs(q, pool_k, pool_v, tables, ntok, 1)
+    NS = stage_k.shape[0]
+    if stage_v.shape != stage_k.shape \
+            or tuple(stage_k.shape[1:]) != tuple(pool_k.shape[1:]):
+        raise ValueError(f"stages {tuple(stage_k.shape)} / "
+                         f"{tuple(stage_v.shape)} do not match pool pages "
+                         f"{tuple(pool_k.shape[1:])}")
+    for name, t in (("stage_k", stage_k), ("stage_v", stage_v)):
+        if t.dtype != pool_k.dtype:
+            raise ValueError(f"{name} is {t.dtype}, the pools {pool_k.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if NS and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if slots.shape != tables.shape or slots.dtype != torch.int32:
+        raise ValueError(f"slots must be int32 {tuple(tables.shape)}, got "
+                         f"{slots.dtype} {tuple(slots.shape)}")
+    if slots.device != q.device or not slots.is_contiguous():
+        raise ValueError("slots must be contiguous and on q's device")
+    if not torch.cuda.is_current_stream_capturing():
+        # One host synchronisation to read the slot range back; a CUDA
+        # graph capture cannot synchronise, so it trusts its inputs.
+        top = int(slots.max()) if slots.numel() else -1
+        if top >= NS:
+            raise ValueError(f"slot {top} out of range for {NS} staged "
+                             f"pages")
+    B, H, dh = q.shape
+    ptok, n_kv = pool_k.shape[1:3]
     qf = q.float().contiguous()
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
@@ -81,22 +167,20 @@ def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
     if B == 0:
         return o, m, l
     lib = _lib()
-    err = lib.paged_attention_fwd(
+    err = lib.fused_paged_attention_fwd(
         qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        tables.data_ptr(), ntok.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, n_kv, dh, tables.shape[1], fp * ptok,
+        stage_k.data_ptr() if NS else None,
+        stage_v.data_ptr() if NS else None, tables.data_ptr(),
+        slots.data_ptr(), ntok.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, H, n_kv, dh, tables.shape[1], ptok,
         int(pool_k.dtype == torch.float32), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, err, "paged_attention_fwd")
-    if granularity == "page":
-        paged_attention_kernel.page_launches += 1
-    else:
-        paged_attention_kernel.frame_launches += 1
+    build.check(lib, err, "fused_paged_attention_fwd")
+    fused_paged_attention_kernel.fused_launches += 1
     return o, m, l
 
 
-paged_attention_kernel.page_launches = 0
-paged_attention_kernel.frame_launches = 0
+fused_paged_attention_kernel.fused_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +190,10 @@ def _lib() -> ctypes.CDLL:
     lib.paged_attention_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I,
                                         I, I, I, ctypes.c_float, P]
     lib.paged_attention_fwd.restype = I
+    lib.fused_paged_attention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
+                                              P, I, I, I, I, I, I, I,
+                                              ctypes.c_float, P]
+    lib.fused_paged_attention_fwd.restype = I
     return lib
 
 

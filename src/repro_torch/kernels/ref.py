@@ -36,6 +36,17 @@ def paged_attention_ref(q, pool_k, pool_v, tables, ntok, *, scale,
     return paged_attention_local(q, pool_k, pool_v, tables, ntok, scale=scale)
 
 
+def fused_paged_attention_ref(q, pool_k, pool_v, stage_k, stage_v, tables,
+                              slots, ntok, *, scale):
+    """Unnormalized (o, m, l) over page tables where page ``blk`` of row
+    ``b`` is read from ``stage[slots[b, blk]]`` when that slot is >= 0 and
+    from ``pool[tables[b, blk]]`` otherwise; one accumulator in table
+    order, so every slot -1 gives :func:`paged_attention_ref` bitwise."""
+    return paged_attention_local(q, pool_k, pool_v, tables, ntok, scale=scale,
+                                 stage_k=stage_k, stage_v=stage_v,
+                                 slots=slots)
+
+
 def paged_attention_full_ref(q, pool_k, pool_v, tables, ntok, *, scale):
     """Normalized single-shard paged attention over page tables."""
     o, m, l = paged_attention_local(q, pool_k, pool_v, tables, ntok,

@@ -1,10 +1,12 @@
 """Where the serving time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--batch 4 --prompt 512]
+        [--fault-mode sync|async|fused]
 
 Builds the port's engine for an architecture at its published width
-(random weights from ``--seed``), admits ``--batch`` requests of
-``--prompt`` tokens, and measures on the card:
+(random weights from ``--seed``) in fault mode ``--fault-mode`` (default:
+the engine's, async), admits ``--batch`` requests of ``--prompt`` tokens,
+and measures on the card:
 
 * warm prefill: host ms per prompt token over admissions 2..batch,
   after the first one has paid CUDA's lazy start-up costs;
@@ -13,6 +15,11 @@ Builds the port's engine for an architecture at its published width
 * a ``torch.profiler`` trace of ``--trace-steps`` decode steps: device
   time by kernel name per step, and the device's busy share of an
   unprofiled step (the rest is the card waiting on the host).
+
+The pool is not oversubscribed, so no page faults in: the fault modes
+differ here only by their per-step host work (async and fused drain and
+issue prefetches), and the fused kernel launches only on steps that read
+staged pages (``fused_launches`` in the output says how many did).
 
 Prints one JSON object as its last line.  Needs a CUDA device.
 """
@@ -36,19 +43,22 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fault-mode", default="async",
+                    choices=["sync", "async", "fused"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = get_config(args.arch)
     max_seq = 2 * (args.prompt + args.steps + args.trace_steps + 8)
     eng = ServingEngine(cfg, geometry=PoolGeometry(),
                         max_batch=args.batch, max_seq=max_seq,
-                        seed=args.seed)
+                        fault_mode=args.fault_mode, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     max_new = args.steps + args.trace_steps + 16
 
@@ -68,6 +78,7 @@ def main(argv=None):
                        / max(eng.stats.prefill_tokens - t0, 1) * 1e3)
 
     d0, n0 = eng.stats.decode_s, eng.stats.decode_steps
+    ops.reset_launch_counts()
     for _ in range(args.steps):
         eng.step()
     torch.cuda.synchronize()
@@ -97,7 +108,8 @@ def main(argv=None):
     out = {
         "device": smi.stdout.strip().splitlines()[0] if smi.stdout
         else torch.cuda.get_device_name(0),
-        "arch": cfg.name, "batch": len(eng.active),
+        "arch": cfg.name, "fault_mode": args.fault_mode,
+        "batch": len(eng.active),
         "prompt_tokens": args.prompt,
         "warm_prefill_ms_per_token": warm_prefill_ms,
         "decode_step_ms": step_ms,
@@ -106,6 +118,7 @@ def main(argv=None):
         "device_busy_ms_per_step": busy_s / per * 1e3,
         # Against the unprofiled step: tracing slows the host, not the card.
         "device_busy_share": busy_s / per * 1e3 / step_ms,
+        "fused_launches": ops.launch_counts()["paged_attention.fused"],
         "top_kernels_ms_per_step": [
             {"name": name[:80], "ms": us / per * 1e-3, "calls": n // per}
             for name, us, n in kernels[:12]],

@@ -1,8 +1,9 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Stands up the port's multi-tenant engine on the Mosaic pool (sync fault-in)
-and replays a synthetic request stream; ``--manager gpu-mmu`` flips to the
-baseline allocator.  Runs on ``cuda`` by default; ``--device cpu`` runs the
+Stands up the port's multi-tenant engine on the Mosaic pool in the engine's
+default fault mode (async, as the reference's launcher) and replays a
+synthetic request stream; ``--manager gpu-mmu`` flips to the baseline
+allocator.  The prefix cache stays off until the prefix-cache slice.  Runs on ``cuda`` by default; ``--device cpu`` runs the
 kernels' plain versions.  The cluster path (``--engines``) comes with a
 later slice.
 

@@ -106,13 +106,20 @@ def write_prefill_kv(k_pool, v_pool, k_seq, v_seq, tables, *,
 
 def paged_attention_local(
     q, k_pool, v_pool, tables, ntok, *, scale: Optional[float] = None,
-    page_block: int = 8,
+    page_block: int = 8, stage_k=None, stage_v=None, slots=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Partial paged attention over a set of pages (plain version).
 
     q:      [B, H, dh] single decode query per sequence
     tables: [B, mpps] page ids; ntok: [B, mpps] valid tokens/page
     Returns unnormalized (o [B,H,dh_v], m [B,H], l [B,H]) fp32 partials.
+
+    ``stage_k``/``stage_v`` [NS, ptok, n_kv, dh] + ``slots`` [B, mpps]
+    read partially-resident KV: a page whose slot is >= 0 is loaded from
+    the staging pool at that slot instead of the pool.  Only the load
+    source changes, never the accumulation order, so with staged bytes
+    equal to the pool's the result is bitwise the slot-free call's, and
+    ``slots=None`` is the all-resident path byte for byte.
     """
     B, H, dh = q.shape
     _np, ptok, n_kv, _ = k_pool.shape
@@ -126,7 +133,11 @@ def paged_attention_local(
     if pad:
         tables = F.pad(tables, (0, pad), value=-1)
         ntok = F.pad(ntok, (0, pad))
+        if slots is not None:
+            slots = F.pad(slots, (0, pad), value=-1)
         mpps += pad
+    # An empty stage (NS = 0) can only come with every slot -1.
+    staged = slots is not None and stage_k.shape[0] > 0
     qg = (q.float() * scale).reshape(B, n_kv, groups, dh)
     m = torch.full((B, n_kv, groups), NEG_INF, dtype=torch.float32,
                    device=dev)
@@ -137,8 +148,15 @@ def paged_attention_local(
         tb = tables[:, blk * pb:(blk + 1) * pb]
         nt = ntok[:, blk * pb:(blk + 1) * pb]
         safe = tb.clamp(min=0).long()
-        k = k_pool[safe].reshape(B, pb * ptok, n_kv, dh).float()
-        v = v_pool[safe].reshape(B, pb * ptok, n_kv, dh_v).float()
+        k, v = k_pool[safe], v_pool[safe]        # [B, pb, ptok, n_kv, dh]
+        if staged:
+            sl = slots[:, blk * pb:(blk + 1) * pb]
+            sel = (sl >= 0)[..., None, None, None]
+            ssafe = sl.clamp(min=0).long()
+            k = torch.where(sel, stage_k[ssafe], k)
+            v = torch.where(sel, stage_v[ssafe], v)
+        k = k.reshape(B, pb * ptok, n_kv, dh).float()
+        v = v.reshape(B, pb * ptok, n_kv, dh_v).float()
         # Grouped GQA scores without materializing repeated K/V.
         s = torch.einsum("bngd,bknd->bngk", qg, k)
         valid = (tb >= 0)[:, :, None] & (slot < nt[:, :, None])

@@ -9,7 +9,8 @@ reference's ``lax.scan`` over layers is a Python loop over layer slices.
     scatter of each layer's K/V into its pool slice;
   * decode: one token per sequence, written into the paged pool and
     attended through the paged decode-attention kernel (plain version on
-    CPU tensors).
+    CPU tensors), or, when the step carries staged pages
+    (``PageCtx.slots``), through the fused gather-attend kernel.
 
 Pools are updated in place.
 """
@@ -17,13 +18,16 @@ Pools are updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.paged_attention import paged_attention_kernel
+from repro_torch.kernels.paged_attention import (
+    fused_paged_attention_kernel,
+    paged_attention_kernel,
+)
 from repro_torch.models import paged
 from repro_torch.models.common import dense_init_
 from repro_torch.models.layers import (
@@ -44,6 +48,11 @@ class PageCtx:
     """Device-side paged-KV addressing for one engine step.
 
     tables/ntok: [B, S, mpps]; wpage: [B, S]; wslot: [B] (int32 tensors).
+
+    Fused fault-in decode adds ``slots`` [B, S, mpps] (staging slot of each
+    page, -1 = read the pool) and the step's staged pages ``stage_k`` /
+    ``stage_v``, layer-stacked [L, NS, ptok, n_kv, dh]; each layer's
+    attention reads its own slice.
     """
 
     tables: torch.Tensor
@@ -51,6 +60,9 @@ class PageCtx:
     wpage: torch.Tensor
     wslot: torch.Tensor
     frame_pages: int = 16       # frame striping granularity (prefill scatter)
+    slots: Optional[torch.Tensor] = None
+    stage_k: Optional[torch.Tensor] = None
+    stage_v: Optional[torch.Tensor] = None
 
 
 # ------------------------------------------------------------------ params
@@ -168,8 +180,13 @@ def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):
     # One shard column holds the write page; the rest are -1.
     wpage = ctx.wpage.reshape(B, -1).amax(dim=1)
     paged.write_kv(k_pool, v_pool, k_new, v_new, wpage, ctx.wslot)
-    o, m, l = paged_attention_kernel(q, k_pool, v_pool, tables, ntok,
-                                     granularity="page", scale=scale)
+    if ctx.slots is not None:
+        o, m, l = fused_paged_attention_kernel(
+            q, k_pool, v_pool, ctx.stage_k, ctx.stage_v, tables,
+            ctx.slots.reshape(B, -1), ntok, scale=scale)
+    else:
+        o, m, l = paged_attention_kernel(q, k_pool, v_pool, tables, ntok,
+                                         granularity="page", scale=scale)
     return paged.combine_partials(o, m, l).to(q.dtype)
 
 
@@ -222,8 +239,11 @@ def decoder_stack_decode(cfg: ModelConfig, params: DecoderParams, x, pos,
     for l in range(params.n_layers):
         lp = params.layer(l)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        # Staged pages arrive layer-stacked; each layer reads its slice.
+        lctx = ctx if ctx.stage_k is None else dataclasses.replace(
+            ctx, stage_k=ctx.stage_k[l], stage_v=ctx.stage_v[l])
         x = x + attn_block_decode(cfg, lp["attn"], h, pos, k_pools[l],
-                                  v_pools[l], ctx)
+                                  v_pools[l], lctx)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn_block(cfg, lp["mlp"], h)
     return x, pools

@@ -1,7 +1,7 @@
 """ShardedKVCache: host-side bridge between Mosaic managers and the device.
 
 Counterpart of the reference's ``serving/kv_cache.py`` (the methods the
-sync serving path uses).  Pages of one sequence are spread over ``S``
+sync, async and fused serving paths use).  Pages of one sequence are spread over ``S``
 sub-pools; global virtual frame ``f`` of a sequence lives in sub-pool
 ``f % S``, so frames never straddle shards and each sub-pool runs its own
 CoCoA / coalescer / CAC instance.
@@ -125,6 +125,24 @@ class ShardedKVCache:
             m.residency.demote(ppns)
             n += len(ppns)
         return n
+
+    def host_backed_pages(self, seqs: Sequence[int], host
+                          ) -> List[Tuple[int, int, int, int]]:
+        """Mapped-but-non-resident pages of ``seqs`` whose payload sits in
+        the host store, as [(seq, shard, vpn, ppn)] — the prefetchable
+        set, carrying the owner so callers need no reverse-map lookup."""
+        out: List[Tuple[int, int, int, int]] = []
+        for s, m in enumerate(self.mgrs):
+            for seq in seqs:
+                if seq not in m.tables:
+                    continue
+                table = m.tables[seq]
+                for vpn in table.mapped_vpns():
+                    ppn = table.ppn[vpn]
+                    if not m.residency.resident[ppn] \
+                            and host.has(seq, s, vpn):
+                        out.append((seq, s, vpn, ppn))
+        return out
 
     def resident_page_count(self, seq: int) -> int:
         """HBM-resident pages mapped by ``seq`` (the eviction-cost term

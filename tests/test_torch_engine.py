@@ -42,6 +42,17 @@ PROMPTS = [[5, 6, 7, 8, 9, 10, 11, 12],
            [11, 3, 5]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's plain versions run on tiny tensors here: one intra-op
+    thread keeps them from spinning against the other test workers'
+    threads (a parallel run is otherwise many times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     cfg = dataclasses.replace(j_smoke("qwen2.5-3b"), dtype="float32")
@@ -222,8 +233,6 @@ def test_chip_smoke_transparency_batches_match():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(fault_mode="async"), "async"),
-    (dict(fault_mode="fused"), "fused"),
     (dict(prefix_cache=True), "prefix cache"),
     (dict(translation="radix"), "translation"),
     (dict(host=object()), "cluster"),
