@@ -11,21 +11,36 @@ Phases (each synchronised; any failure exits non-zero):
    plain PyTorch version on the card (paged attention, both granularities,
    with holes and partial pages; fused gather-attend with about half the
    pages staged, and bit for bit against the page kernel where it reads
-   the same bytes; gather / scatter / compact exactly), and their times
-   (CUDA-graph replay for kernels and library calls, CUDA events for the
-   plain versions) beside the bytes bound at 3.35 TB/s;
+   the same bytes; gather / scatter / compact exactly; prefill flash
+   attention on a full 1152-token prompt and on its suffix from position
+   576, whose rows must equal the full call's bit for bit), and their
+   times (CUDA-graph replay for kernels and library calls, CUDA events for
+   the plain versions) beside their bound: bytes at 3.35 TB/s or bf16
+   operations at 989 TFLOP/s, whichever is larger;
 4. main path: qwen2.5-3b at its published width, bf16, random weights from
    a seed, served by ``ServingEngine`` (mosaic, 2x oversubscribed) over a
    seeded stream with staggered priority arrivals, three times on the same
    weights: sync, async and fused fault-in (async and fused leave
    ``decode_window_us`` unset, so their modeled clock follows the measured
-   decode time).  During each run one dual-granularity attention call
-   reads the engine's pool through ``pack_dual`` frame tables, and a
-   partial deallocation of one request's pages makes CAC plan copies that
-   the engine executes.  Launch counters are reset before and read after
-   each run: every kernel of that mode's path must have launched, the
-   counts must account for every decode layer, landing and fused step, and
+   decode time), each with the prefix cache on (the default; the stream
+   shares no prefix, so admissions miss and completions park).  During
+   each run one dual-granularity attention call reads the engine's pool
+   through ``pack_dual`` frame tables, and a partial deallocation of one
+   request's pages makes CAC plan copies that the engine executes.  Launch
+   counters are reset before and read after each run: every kernel of that
+   mode's path must have launched, the counts must account for every
+   prefill layer, decode layer, landing, eviction, park and fused step, and
    the three modes must emit identical tokens;
+4b. prefix cache at full width, same weights.  First a probe, printed and
+   not checked: whether 64 rows of a bf16 product over the FFN's inputs
+   get the same bits alone as inside a 576-row product (the reason prefill
+   runs on fixed row blocks).  Then six requests over three
+   tenants share a 512-token system prompt, two arrive first and four
+   after those drain; served in sync, async and fused with the cache on and
+   in async with it off.  The four runs must emit identical tokens, the
+   cache must hit at least four times and cut prefill tokens by exactly
+   the reused tokens, and each run's launches must account for every
+   prefill layer (full or suffix) as above;
 5. agreement on a small input: a narrow model served on the card (kernels)
    and on the CPU (plain versions), in fused mode, emits the same greedy
    tokens;
@@ -35,7 +50,8 @@ Phases (each synchronised; any failure exits non-zero):
    pool bit for bit.
 
 Ends with a JSON line of per-kernel numbers (launches summed over the
-three main-path runs) and, last, the ok line.  No phase is cut in depth.
+three main-path runs of phase 4) and, last, the ok line.  No phase is cut
+in depth.
 """
 
 from __future__ import annotations
@@ -60,6 +76,8 @@ ARRIVE_STEP = 10        # the two priority-1 requests arrive here
 PROBE_STEP = 3          # dual-granularity attention over the engine's pool
 TRIM_STEP = 6           # partial deallocation of request 0's pages
 TRIM_VPNS = range(2, 14)
+FLASH_T, FLASH_P = 1152, 576   # phase 3: full prompt, cached prefix length
+PREFIX_TOKENS, PREFIX_NEW = 512, 16      # phase 4b: system prompt, max_new
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
@@ -73,6 +91,7 @@ REPLACES = {
     "page_gather": "src/repro/kernels/page_compact.py:92",
     "page_scatter": "src/repro/kernels/page_compact.py:128",
     "page_compact": "src/repro/kernels/page_compact.py:40",
+    "flash_attention": "src/repro/kernels/flash_attention.py:82",
 }
 SOURCES = {
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
@@ -81,6 +100,7 @@ SOURCES = {
     "page_gather": "src/repro_torch/csrc/page_copy.cu",
     "page_scatter": "src/repro_torch/csrc/page_copy.cu",
     "page_compact": "src/repro_torch/csrc/page_copy.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -117,6 +137,21 @@ def make_stream(vocab: int, seed: int = 0):
         rid=i, tenant=i % 3, priority=prio[i], max_new=news[i],
         prompt=rng.integers(0, vocab, lens[i]).astype(np.int32)))
         for i in range(8)]
+
+
+def make_prefix_waves(vocab: int, seed: int = 1):
+    """Phase 4b's requests as two waves: six requests over three tenants,
+    each a shared ``PREFIX_TOKENS``-token system prompt followed by its own
+    64-256-token suffix (distinct lengths), ``PREFIX_NEW`` new tokens."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, PREFIX_TOKENS).astype(np.int32)
+    lens = rng.permutation(np.arange(64, 257))[:6]
+    reqs = [Request(rid=i, tenant=i % 3, max_new=PREFIX_NEW,
+                    prompt=np.concatenate([shared, rng.integers(
+                        0, vocab, int(n)).astype(np.int32)]))
+            for i, n in enumerate(lens)]
+    return reqs[:2], reqs[2:]
 
 
 def drive(eng, stream, hook=None, max_steps: int = 4000):
@@ -492,6 +527,57 @@ def phase_kernels(cfg, results):
           f"library_ms none (no single PyTorch call computes it) | "
           f"{r['shape']}")
 
+    # Prefill flash attention at the path's shapes: (a) a full FLASH_T-token
+    # prompt, (b) its suffix from position FLASH_P over all FLASH_T keys (a
+    # cache hit on a FLASH_P-token prefix).  Compute-bound: its bound is
+    # the bf16 operations of the causal pairs at the tensor-core peak.
+    import torch.nn.functional as F
+    name = "flash_attention"
+    T, P = FLASH_T, FLASH_P
+    q, k, v = randn(1, T, H, dh), randn(1, T, n_kv, dh), randn(1, T, n_kv, dh)
+    qs = q[:, P:].contiguous()
+    full = ops.flash_attention(q, k, v)
+    suffix = ops.flash_attention(qs, k, v, q_offset=P)
+    plain_full = ref.flash_attention_ref(q, k, v, causal=True)
+    plain_suffix = ref.flash_attention_ref(qs, k, v, causal=True, q_offset=P)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want in ((full, plain_full), (suffix, plain_suffix)):
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+        require(bool(torch.isfinite(got.float()).all()), f"{name}: "
+                f"non-finite")
+        errs.append(float((got.float() - want.float()).abs().max()))
+    require(torch.equal(suffix, full[:, P:]), f"{name}: suffix rows are not "
+            f"the full call's bit for bit")
+
+    def flash_bound(tq):
+        """Bytes (q, k, v read once, o written once) and operations (QK^T
+        and PV over the causal pairs) of queries T - tq .. T - 1."""
+        pairs = sum(range(T - tq + 1, T + 1))
+        return bound_ms(2 * (2 * tq * H + 2 * T * n_kv) * dh,
+                        4 * H * dh * pairs)
+    b_ms, b_by = flash_bound(T)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    results[name] = dict(
+        max_abs_err=max(errs),
+        ms=graph_ms(lambda: ops.flash_attention(q, k, v)),
+        plain_ms=eager_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                          causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        shape=f"B=1 H={H} n_kv={n_kv} dh={dh} T={T} causal")
+    r = results[name]
+    sb_ms, _ = flash_bound(T - P)
+    s_ms = graph_ms(lambda: ops.flash_attention(qs, k, v, q_offset=P))
+    print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g}, suffix "
+          f"rows bitwise == full | (a) full: kernel_ms {r['ms']:.4f} "
+          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+          f"({r['bound_by']}) library_ms {r['library_ms']:.4f} "
+          f"(scaled_dot_product_attention) | (b) suffix Tq={T - P} "
+          f"q_offset={P}: kernel_ms {s_ms:.4f} bound_ms {sb_ms:.5f} | "
+          f"{r['shape']}")
+
     # Copies on the engine's stacked pools [L, NP, ptok, n_kv, dh].
     pool = randn(L, NP, ptok, n_kv, dh)
     n_pages = 13                  # a 768-token prompt + 64 new tokens
@@ -649,24 +735,36 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
         require(s.fused_steps > 0
                 and s.fused_ready_pages + s.fused_drained_pages > 0,
                 "fused: no decode step read a staged page")
+    require(s.prefix_misses == len(stream) and s.prefix_parked_pages > 0,
+            f"{mode}: the prefix cache did not miss and park as expected "
+            f"({s.prefix_misses} misses, {s.prefix_parked_pages} parked)")
     if eng.device.type != "cuda":
         return
     path = [k for k in counts if k != "paged_attention.fused"
             or mode == "fused"]
     require(all(counts[k] > 0 for k in path),
             f"{mode}: a kernel of the path never launched: {counts}")
-    # Every decode layer's attention went through a kernel (the fused one
-    # on steps that read staged pages; +1: the dual probe's page partial),
-    # and every landing launched the scatter for the K and V pools.
+    check_launches(cfg, mode, s, counts, probes=1)
+
+
+def check_launches(cfg, label, s, counts, probes=0):
+    """Every prefill layer (full or suffix) ran the flash kernel, every
+    decode layer a paged kernel (the fused one on steps that read staged
+    pages; ``probes``: extra page-kernel calls of the dual probe), every
+    landing the scatter and every eviction or park the gather, each for
+    the K and V pools."""
     L = cfg.n_layers
-    require(counts["paged_attention.page"]
-            == L * (s.decode_steps - s.fused_steps) + 1
+    require(counts["flash_attention"] == L * (s.admit_colds + s.admit_hits)
+            and counts["paged_attention.page"]
+            == L * (s.decode_steps - s.fused_steps) + probes
             and counts["paged_attention.fused"] == L * s.fused_steps
             and counts["page_scatter"] == 2 * s.landings
-            and counts["page_gather"] <= 2 * s.swaps_out,
-            f"{mode}: launches {counts} do not account for "
+            and counts["page_gather"] == 2 * s.gathers,
+            f"{label}: launches {counts} do not account for "
+            f"{s.admit_colds} + {s.admit_hits} prefills (cold + suffix), "
             f"{s.decode_steps} decode steps ({s.fused_steps} fused), "
-            f"{s.landings} landings, {s.swaps_out} evictions")
+            f"{s.landings} landings, {s.gathers} gathers ({s.swaps_out} "
+            f"evictions, {s.prefix_parked_pages} pages parked)")
 
 
 def phase_main_path(cfg):
@@ -706,8 +804,8 @@ def phase_main_path(cfg):
               f"transfer {s.transfer_us:.1f}us, hidden "
               f"{s.fault_hidden_us:.1f}us, exposed {s.fault_exposed_us:.1f}"
               f"us, prefetch hit/miss/wasted {s.prefetch_hits}/"
-              f"{s.prefetch_misses}/{s.prefetch_wasted}, evict "
-              f"{s.evict_pages} pages {s.evict_us:.1f}us, fused ready/"
+              f"{s.prefetch_misses}/{s.prefetch_wasted}, out (evict + "
+              f"park) {s.evict_pages} pages {s.evict_us:.1f}us, fused ready/"
               f"drained {s.fused_ready_pages}/{s.fused_drained_pages}, "
               f"tail {s.fused_tail_us:.1f}us")
         print(f"[engine:{mode}] launches: {json.dumps(counts)}")
@@ -717,6 +815,129 @@ def phase_main_path(cfg):
     require(not diff, f"tokens differ from sync in {diff}")
     print(f"[engine] sync == async == fused on every greedy token")
     return total, params
+
+
+def serve_prefix(cfg, mode, prefix_cache, params=None, device=None):
+    """One phase-4b run: the two waves served in ``mode``, the second
+    submitted once the first has drained, launch counters reset just
+    before and read just after.  Returns (engine, requests, launch counts,
+    wall seconds)."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
+                        max_seq=MAX_SEQ, fault_mode=mode,
+                        prefix_cache=prefix_cache, seed=0, params=params,
+                        device=device)
+    waves = make_prefix_waves(cfg.vocab_size)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for wave in waves:
+        for r in wave:
+            eng.submit(r)
+        eng.run_until_drained(max_steps=400)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, waves[0] + waves[1], ops.launch_counts(), wall
+
+
+def check_prefix_run(cfg, label, eng, reqs, counts):
+    """What every phase-4b run must show, on the card or (counts all 0)
+    rehearsed on the CPU."""
+    s = eng.stats
+    require(all(r.done and len(r.out) == r.max_new
+                and all(0 <= t < cfg.vocab_size for t in r.out)
+                for r in reqs), f"{label}: a request did not complete")
+    eng.cache.check_invariants()
+    require(s.admit_hits + s.admit_colds == len(reqs),
+            f"{label}: {s.admit_hits} + {s.admit_colds} admissions for "
+            f"{len(reqs)} requests")
+    require(s.h2d_bytes == s.faults * eng.page_bytes,
+            f"{label}: {s.h2d_bytes} B copied to the card for {s.faults} "
+            f"faulted pages")
+    if eng.prefix is not None:
+        require(s.prefix_hits >= 4 and s.admit_hits == s.prefix_hits,
+                f"{label}: {s.prefix_hits} prefix hits, expected >= 4")
+        require(s.faults >= s.prefix_reused_tokens // eng.geo.page_tokens,
+                f"{label}: reused pages did not fault in")
+        require(s.prefix_h2d_bytes == s.prefix_reused_tokens
+                // eng.geo.page_tokens * eng.page_bytes,
+                f"{label}: cached prefix uploaded {s.prefix_h2d_bytes} B")
+    if eng.device.type != "cuda":
+        return
+    require(counts["flash_attention"] > 0 and counts["paged_attention.page"]
+            > 0 and (eng.prefix is None or counts["page_scatter"] > 0
+                     and counts["page_gather"] > 0),
+            f"{label}: a kernel of the path never launched: {counts}")
+    check_launches(cfg, label, s, counts)
+
+
+def row_probe(cfg):
+    """The reason prefill runs on fixed row blocks (``PREFILL_ROWS``): the
+    last 64 rows of a 576-row bf16 product over the FFN's d_ff inputs,
+    against the same 64 rows multiplied alone.  Prints whether the library
+    gave them the same bits; checks nothing."""
+    import torch
+    from repro_torch.models.transformer import PREFILL_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((576, cfg.d_ff), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn((cfg.d_ff, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    whole, alone = (x @ w)[512:], x[512:] @ w
+    torch.cuda.synchronize()
+    diff = float((whole.float() - alone.float()).abs().max())
+    print(f"[prefix] row invariance of a bf16 product over {cfg.d_ff} "
+          f"inputs: rows 512..575 of a 576-row product vs the same 64 rows "
+          f"alone: bitwise {torch.equal(whole, alone)}, max abs diff "
+          f"{diff:.4g} (prefill therefore multiplies fixed "
+          f"{PREFILL_ROWS}-row blocks)")
+
+
+def phase_prefix(cfg, params):
+    """Phase 4b: the prefix cache at full width (see the module doc)."""
+    import torch
+    row_probe(cfg)
+    runs = [("sync", True), ("async", True), ("fused", True),
+            ("async", False)]
+    tokens, stats = {}, {}
+    for mode, on in runs:
+        label = f"prefix:{mode}:{'on' if on else 'off'}"
+        eng, reqs, counts, wall = serve_prefix(cfg, mode, on, params)
+        check_prefix_run(cfg, label, eng, reqs, counts)
+        s = eng.stats
+        tokens[label] = {r.rid: list(r.out) for r in reqs}
+        stats[on] = s
+        prompt = sum(len(r.prompt) for r in reqs)
+        print(f"[{label}] {s.summary()}")
+        print(f"[{label}] measured: wall {wall:.2f}s | prefill "
+              f"{s.prefill_tokens} of {prompt} prompt tok in "
+              f"{s.prefill_s:.3f}s + cached prefix upload "
+              f"{s.prefix_h2d_bytes} B in {s.prefix_h2d_s:.4f}s: "
+              f"{(s.prefill_s + s.prefix_h2d_s) / prompt * 1e3:.4f} ms per "
+              f"prompt token | admissions {s.admit_colds} cold "
+              f"{s.admit_cold_mean_us() / 1e3:.1f} ms, {s.admit_hits} hit "
+              f"{s.admit_hit_mean_us() / 1e3:.1f} ms mean | decode "
+              f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step")
+        print(f"[{label}] launches: {json.dumps(counts)}")
+        del eng
+        torch.cuda.empty_cache()
+    first = next(iter(tokens.values()))
+    diff = [k for k, t in tokens.items() if t != first]
+    require(not diff, f"prefix cache: tokens differ in {diff}")
+    on, off = stats[True], stats[False]
+    require(on.prefill_tokens == off.prefill_tokens
+            - on.prefix_reused_tokens,
+            f"prefix cache: prefill tokens {on.prefill_tokens} (on) != "
+            f"{off.prefill_tokens} (off) - {on.prefix_reused_tokens} reused")
+    print(f"[prefix] cache on (sync, async, fused) == off on every greedy "
+          f"token; {on.prefix_hits} hits reused {on.prefix_reused_tokens} "
+          f"tokens: prefill {on.prefill_tokens} vs {off.prefill_tokens} "
+          f"tokens")
 
 
 def phase_small_agreement(cfg_full):
@@ -810,6 +1031,7 @@ def main() -> int:
     phase_kernels(cfg, results)
     counts, params = phase_main_path(cfg)
     torch.cuda.empty_cache()
+    phase_prefix(cfg, params)
     phase_small_agreement(cfg)
     phase_transparency(cfg, params)
     line = [dict(name=name, route="cuda", source=SOURCES[name],

@@ -1,0 +1,336 @@
+// Causal or non-causal GQA flash attention for prefill, full or suffix-only.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py: flash_attention
+// (body _flash_kernel).  Computes, for every query row (batch b, position i,
+// head h) at absolute position q_offset + i,
+//   o = sum_j softmax_j(scale * q . k_j) v_j
+// over the keys j < kv_len[b] (all Tk keys without kv_len) and, when causal,
+// j <= q_offset + i.  Suffix prefill passes the cached prefix's keys in
+// front of the in-flight ones (Tk = P + Tq, q_offset = P); full prefill has
+// Tq = Tk and q_offset = 0.  Lengths need not be multiples of any tile.
+//
+// What bounds it on the card: operations.  A causal call at the serving
+// shapes (Tq = Tk = 1152, 16 heads, head dim 128, bf16) reads ~11 MB and
+// does ~5.4 GFLOP, ~1600 flops per byte, far above the ~295 where an H100
+// turns compute-bound.  This first design is simple and runs the f32
+// arithmetic on CUDA cores (tensor cores with wgmma and TMA are later work):
+// one CTA of 256 threads per (tile of query positions, KV head, batch row)
+// holds all g = H / n_kv query heads of the group for 64 / g positions (64
+// rows; the GQA trick of the Pallas kernel: each K/V byte staged in shared
+// memory serves the whole group), walks key tiles of 64 in shared memory,
+// and keeps the online-softmax m, l and the f32 output accumulator in
+// registers.  Each thread owns a 4 x 4 block of a tile's scores and a
+// 4-row x dh/16-column block of the output.  Causal CTAs stop at their last
+// row's diagonal and are scheduled heaviest first.
+//
+// Bitwise contract (the prefix cache relies on it): a row's result does not
+// depend on Tq, q_offset's split between prefix and suffix, or which other
+// rows share its CTA.  Key tiles start at absolute key positions 0, 64, ...;
+// a row's arithmetic is one fixed instruction sequence; a tile past a row's
+// diagonal that its CTA still processes is an exact no-op for it (m starts
+// at -1e30, not -inf, as the Pallas kernel; masked probabilities are zeroed
+// explicitly, so alpha = exp(m - m) = 1 and P.V adds exact zeros).  So the
+// rows of a suffix call equal the same rows of the full call bit for bit.
+// A row with no valid key returns 0 (l = 0), as the Pallas kernel.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kRows = 64;          // query rows (group heads x positions)
+constexpr int kKeys = 64;          // keys per shared-memory tile
+constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
+constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value, not -inf
+
+size_t smem_bytes(int dh) {
+  // q^T [dh][kRows], k^T [dh][kKeys], v [kKeys][dh], p [kKeys][kRows] in f32.
+  return ((size_t)2 * dh * kRows + (size_t)kKeys * dh
+          + (size_t)kKeys * kRows) * sizeof(float);
+}
+
+// Reads the 16 bytes at element offset off of a bf16 (f32 = false) or f32
+// array as floats; returns how many (8 or 4).
+__device__ __forceinline__ int load16(const void* base, size_t off, bool f32,
+                                      float* out) {
+  if (f32) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        static_cast<const float*>(base) + off);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+    return 4;
+  }
+  const uint4 x = *reinterpret_cast<const uint4*>(
+      static_cast<const __nv_bfloat16*>(base) + off);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+  return 8;
+}
+
+// Max and sum over the 16 lanes that share a row group (xor shuffles stay
+// inside each half-warp; every lane ends with the same bits).
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// NC2 = dh / 32: each thread owns output columns 32 * c + 2 * tx + {0, 1}.
+template <int NC2>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                       const void* __restrict__ v, void* __restrict__ o,
+                       const int* __restrict__ kv_len, int Tq, int Tk, int H,
+                       int n_kv, int q_offset, int causal, int is_f32,
+                       float scale) {
+  constexpr int dh = NC2 * 32;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [dh][kRows], pre-scaled
+  float* k_s = q_s + dh * kRows;      // [dh][kKeys]
+  float* v_s = k_s + dh * kKeys;      // [kKeys][dh]
+  float* p_s = v_s + kKeys * dh;      // [kKeys][kRows]
+  const bool f32 = is_f32 != 0;
+  const int g = H / n_kv;
+  const int bq = kRows / g;           // query positions per CTA
+  // Heaviest (latest) causal tiles first: they have the most key tiles.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;            // score key block / output columns
+  const int ty = tid / 16;            // rows 4 * ty .. 4 * ty + 3
+  const int pos0 = qt * bq;
+  const int n_pos = min(bq, Tq - pos0);
+
+  // Row r of the CTA is head kvh * g + r / bq at query index pos0 + r % bq.
+  const size_t q_row_stride = (size_t)H * dh;     // between positions
+  const size_t kv_row_stride = (size_t)n_kv * dh;
+  const int vec = f32 ? 4 : 8;
+  float buf[8];
+  for (int i = tid; i < kRows * (dh / vec); i += kThreads) {
+    const int r = i % kRows;
+    const int c = (i / kRows) * vec;
+    const int j = r / bq, p = r % bq;
+    if (j < g && p < n_pos) {
+      const size_t off = ((size_t)b * Tq + pos0 + p) * q_row_stride
+                         + (size_t)(kvh * g + j) * dh + c;
+      load16(q, off, f32, buf);
+      for (int e = 0; e < vec; ++e) q_s[(c + e) * kRows + r] = buf[e] * scale;
+    } else {
+      for (int e = 0; e < vec; ++e) q_s[(c + e) * kRows + r] = 0.f;
+    }
+  }
+
+  int rpos[4];
+  bool rvalid[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty * 4 + a;
+    rvalid[a] = r / bq < g && r % bq < n_pos;
+    rpos[a] = q_offset + pos0 + r % bq;
+  }
+  float m[4], l[4], acc[4][2 * NC2];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = kNegInf;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2 * NC2; ++c) acc[a][c] = 0.f;
+  }
+
+  const int kvl = kv_len != nullptr ? min(kv_len[b], Tk) : Tk;
+  int kend = kvl;                                     // keys [0, kend)
+  if (causal) kend = min(kend, q_offset + pos0 + n_pos);
+  const int n_tiles = kend > 0 ? (kend + kKeys - 1) / kKeys : 0;
+
+  const float4* q4 = reinterpret_cast<const float4*>(q_s);
+  const float4* k4 = reinterpret_cast<const float4*>(k_s);
+  const float4* p4 = reinterpret_cast<const float4*>(p_s);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * kKeys;
+    __syncthreads();  // the previous tile is consumed; q_s is visible
+    // K transposed (consecutive threads on consecutive keys: no bank
+    // conflicts on the transposing store), V row-major.
+    for (int i = tid; i < kKeys * (dh / vec); i += kThreads) {
+      const int key = i % kKeys;
+      const int c = (i / kKeys) * vec;
+      if (key0 + key < Tk) {
+        load16(k, ((size_t)b * Tk + key0 + key) * kv_row_stride
+                      + (size_t)kvh * dh + c, f32, buf);
+      } else {
+        for (int e = 0; e < vec; ++e) buf[e] = 0.f;
+      }
+      for (int e = 0; e < vec; ++e) k_s[(c + e) * kKeys + key] = buf[e];
+    }
+    for (int i = tid; i < kKeys * (dh / vec); i += kThreads) {
+      const int key = i / (dh / vec);
+      const int c = (i % (dh / vec)) * vec;
+      if (key0 + key < Tk) {
+        load16(v, ((size_t)b * Tk + key0 + key) * kv_row_stride
+                      + (size_t)kvh * dh + c, f32, buf);
+      } else {
+        for (int e = 0; e < vec; ++e) buf[e] = 0.f;
+      }
+      float4* dst = reinterpret_cast<float4*>(v_s + key * dh + c);
+      dst[0] = make_float4(buf[0], buf[1], buf[2], buf[3]);
+      if (vec == 8) dst[1] = make_float4(buf[4], buf[5], buf[6], buf[7]);
+    }
+    __syncthreads();
+
+    // Scores of rows 4 ty + a against keys key0 + 4 tx + bb, summed over the
+    // head dim in order.
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) s[a][bb] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < dh; ++d) {
+      const float4 qa = q4[d * (kRows / 4) + ty];
+      const float4 kb = k4[d * (kKeys / 4) + tx];
+      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+      const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) s[a][bb] = fmaf(qv[a], kv[bb], s[a][bb]);
+    }
+
+    // Online softmax.  Masked scores never enter the max and their
+    // probabilities are exact zeros.
+    float pr[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      bool ok[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int key = key0 + tx * 4 + bb;
+        ok[bb] = rvalid[a] && key < kvl && (!causal || key <= rpos[a]);
+        if (ok[bb]) mx = fmaxf(mx, s[a][bb]);
+      }
+      mx = group_max(mx);
+      const float m_new = fmaxf(m[a], mx);
+      const float alpha = expf(m[a] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        pr[a][bb] = ok[bb] ? expf(s[a][bb] - m_new) : 0.f;
+        psum += pr[a][bb];
+      }
+      psum = group_sum(psum);
+      l[a] = l[a] * alpha + psum;
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < 2 * NC2; ++c) acc[a][c] *= alpha;
+    }
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb)
+      reinterpret_cast<float4*>(p_s)[(tx * 4 + bb) * (kRows / 4) + ty] =
+          make_float4(pr[0][bb], pr[1][bb], pr[2][bb], pr[3][bb]);
+    __syncthreads();
+
+    // acc += P V over the tile's keys in order.
+    for (int kk = 0; kk < kKeys; ++kk) {
+      const float4 pa = p4[kk * (kRows / 4) + ty];
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+      const float2* vrow = reinterpret_cast<const float2*>(v_s + kk * dh);
+#pragma unroll
+      for (int c = 0; c < NC2; ++c) {
+        const float2 vv = vrow[c * 16 + tx];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          acc[a][2 * c] = fmaf(pv[a], vv.x, acc[a][2 * c]);
+          acc[a][2 * c + 1] = fmaf(pv[a], vv.y, acc[a][2 * c + 1]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    if (!rvalid[a]) continue;
+    const int r = ty * 4 + a;
+    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * q_row_stride
+                       + (size_t)(kvh * g + r / bq) * dh;
+    const float den = fmaxf(l[a], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NC2; ++c) {
+      const int col = c * 32 + 2 * tx;
+      const float x0 = acc[a][2 * c] / den;
+      const float x1 = acc[a][2 * c + 1] / den;
+      if (f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(o) + off + col) =
+            make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(
+            static_cast<__nv_bfloat16*>(o) + off + col) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+template <int NC2>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const int* kv_len, int B, int Tq, int Tk, int H, int n_kv,
+                   int q_offset, int causal, int is_f32, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(NC2 * 32);
+  // Raised once per instantiation, at its first launch, so that a later
+  // launch inside a CUDA-graph capture makes no attribute call.
+  static bool smem_raised = false;
+  if (smem > 48 * 1024 && !smem_raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<NC2>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_raised = true;
+  }
+  const int bq = kRows / (H / n_kv);
+  const dim3 grid((Tq + bq - 1) / bq, n_kv, B);
+  flash_attention_kernel<NC2><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, kv_len, Tq, Tk, H, n_kv, q_offset, causal, is_f32, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q / o [B, Tq, H, dh], k / v [B, Tk, n_kv, dh], all bf16 (is_f32 = 0) or
+// all f32; kv_len int32 [B] or null; dh a multiple of 32 up to 256; H / n_kv
+// at most 64.  Returns the launch's cudaError_t (0 on success).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                        const int* kv_len, int B, int Tq, int Tk, int H,
+                        int n_kv, int dh, int q_offset, int causal, int is_f32,
+                        float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+#define CASE(D)                                                              \
+  case D:                                                                    \
+    return (int)launch<D / 32>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,       \
+                               q_offset, causal, is_f32, scale, s);
+    CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
+    CASE(256)
+#undef CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

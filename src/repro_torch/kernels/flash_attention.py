@@ -1,0 +1,111 @@
+"""Prefill flash attention: wrapper of ``csrc/flash_attention.cu``.
+
+Replaces the reference's Pallas ``flash_attention``
+(``repro/kernels/flash_attention.py``).  Causal or non-causal GQA attention
+of queries at absolute positions ``q_offset .. q_offset + Tq - 1`` over
+``Tk >= Tq`` keys, optionally cut at ``kv_len`` per row: full prefill
+(``Tq == Tk``) and suffix-only prefill over a cached prefix (keys = the
+prefix's then the suffix's, ``q_offset`` = the prefix length) run it once
+per layer.  A row's result does not depend on how many rows the call holds,
+so a suffix call reproduces the full call's rows bit for bit.
+
+For CPU tensors the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); for CUDA tensors it
+launches the kernel or raises.  ``flash_attention.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = tuple(range(32, 257, 32))
+MAX_GROUP = 64          # query heads per KV head the kernel's CTA can hold
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    kv_len=None, scale=None):
+    """q [B, Tq, H, dh]; k/v [B, Tk, n_kv, dh] in q's dtype (bf16 or f32);
+    kv_len int32 [B] or None.  Returns [B, Tq, H, dh] in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_inputs(q, k, v, kv_len, q_offset)
+    B, Tq, H, dh = q.shape
+    Tk, n_kv = k.shape[1:3]
+    scale = dh ** -0.5 if scale is None else scale
+    o = torch.empty_like(q)
+    if B == 0 or Tq == 0:
+        return o
+    lib = _lib()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(), B, Tq, Tk, H, n_kv,
+        dh, int(q_offset), int(bool(causal)), int(q.dtype == torch.float32),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
+def _check_inputs(q, k, v, kv_len, q_offset) -> None:
+    """Raise on what the kernel does not take (device, dtype, shape,
+    contiguity, alignment)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, Tq, H, dh] and "
+                         f"k / v {tuple(k.shape)} / {tuple(v.shape)} one "
+                         f"[B, Tk, n_kv, dh] shape")
+    B, Tq, H, dh = q.shape
+    Bk, Tk, n_kv, dh_k = k.shape
+    if Bk != B or dh_k != dh:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} (a value head dim != key head "
+                         f"dim is not ported)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} unsupported: multiples of 32 up "
+                         f"to 256")
+    if H % n_kv or H // n_kv > MAX_GROUP:
+        raise ValueError(f"{H} query heads do not group over {n_kv} KV "
+                         f"heads in groups of at most {MAX_GROUP}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is negative")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype {q.dtype} unsupported (bfloat16 or "
+                         f"float32)")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if kv_len is not None:
+        if kv_len.shape != (B,) or kv_len.dtype != torch.int32:
+            raise ValueError(f"kv_len must be int32 [{B}], got "
+                             f"{kv_len.dtype} {tuple(kv_len.shape)}")
+        if kv_len.device != q.device or not kv_len.is_contiguous():
+            raise ValueError("kv_len must be contiguous and on q's device")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                        I, ctypes.c_float, P]
+    lib.flash_attention_fwd.restype = I
+    return lib

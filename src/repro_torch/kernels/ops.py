@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.page_compact import (
     page_compact,
     page_gather,
@@ -25,7 +26,7 @@ from repro_torch.kernels.paged_attention import (
 
 KERNELS = ("paged_attention.page", "paged_attention.frame",
            "paged_attention.fused", "page_gather", "page_scatter",
-           "page_compact")
+           "page_compact", "flash_attention")
 
 
 def paged_attention_dual(q, pool_k, pool_v, frame_tables, frame_ntok,
@@ -57,6 +58,7 @@ def launch_counts() -> Dict[str, int]:
         "page_gather": page_gather.launches,
         "page_scatter": page_scatter.launches,
         "page_compact": page_compact.launches,
+        "flash_attention": flash_attention.launches,
     }
 
 
@@ -67,9 +69,11 @@ def reset_launch_counts() -> None:
     page_gather.launches = 0
     page_scatter.launches = 0
     page_compact.launches = 0
+    flash_attention.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
-           "page_compact", "launch_counts", "reset_launch_counts"]
+           "page_compact", "flash_attention", "launch_counts",
+           "reset_launch_counts"]

@@ -11,7 +11,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import attention
 from repro_torch.models.paged import combine_partials, paged_attention_local
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+                        scale=None):
+    """Prefill attention of queries at positions ``q_offset ..`` over
+    [B, Tk, n_kv, dh] keys: the blockwise online-softmax loop of
+    :func:`repro_torch.models.layers.attention`."""
+    return attention(q, k, v, causal=causal, q_offset=q_offset,
+                     kv_len=kv_len, scale=scale)
 
 
 def frames_to_pages(tables, ntok, *, frame_pages: int, page_tokens: int):

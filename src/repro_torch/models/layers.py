@@ -1,8 +1,10 @@
 """Core layers: norms, RoPE, blockwise (flash-style) attention, SwiGLU.
 
-Counterpart of the reference's ``models/layers.py``.  Prefill attention
-keeps the reference's blockwise online-softmax form (the reference engine
-runs no kernel there either), so both packages accumulate in the same order.
+Counterpart of the reference's ``models/layers.py``.  :func:`attention`
+keeps the reference's blockwise online-softmax form, so both packages
+accumulate in the same order; it is the plain version of the port's
+flash-attention kernel (``repro_torch.kernels.flash_attention``), which the
+prefill path calls.
 """
 
 from __future__ import annotations

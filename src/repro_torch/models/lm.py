@@ -90,19 +90,40 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, pools, ctx: PageCtx,
-                last_pos: Optional[torch.Tensor] = None):
+                last_pos: Optional[torch.Tensor] = None, prefix_kv=None,
+                prefix_len: int = 0):
         """Full-sequence forward; writes K/V into the paged pools in place.
 
         ``batch["tokens"]`` [B, T] (right-padded to a page multiple);
         ``last_pos`` [B]: index of the last valid token per sequence
         (defaults to T-1).  Returns (logits at last_pos [B, V], pools).
+
+        Suffix-only prefill (prefix-cache reuse): with ``prefix_kv=(k [L, B,
+        P, Hkv, dh], v [...])`` and ``prefix_len=P`` (a page multiple),
+        ``tokens`` holds only the suffix: positions start at P, queries
+        attend to the cached prefix K/V, and only the suffix pages are
+        written to the pools.  ``last_pos`` stays an index into the suffix.
         """
         tokens = batch["tokens"]
         B, T = tokens.shape
+        if prefix_len:
+            if prefix_kv is None:
+                raise ValueError(f"prefix_len={prefix_len} without "
+                                 f"prefix_kv")
+            # Dense only, as the reference: MoE capacity depends on the
+            # forward's token count, so a suffix pass would not be bitwise
+            # (the guard matters once the non-dense families are ported).
+            if self.cfg.family != "dense" or self.cfg.mla is not None:
+                raise NotImplementedError(
+                    f"prefix-cache reuse unsupported for {self.cfg.family} "
+                    f"/ mla")
         x = self._embed(tokens)
-        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        positions = (prefix_len + torch.arange(T, device=x.device))[
+            None].expand(B, T)
         x, pools = decoder_stack_prefill(self.cfg, self.decoder, x,
-                                         positions, pools, ctx)
+                                         positions, pools, ctx,
+                                         prefix_kv=prefix_kv,
+                                         tok_offset=prefix_len)
         if last_pos is None:
             x_last = x[:, -1:, :]
         else:

@@ -5,8 +5,12 @@ Counterpart of the dense, ``mesh is None`` paths of the reference's
 the reference's shapes (``wq [L, d, H, dh]``, ``wo [L, H, dh, d]``, ...); the
 reference's ``lax.scan`` over layers is a Python loop over layer slices.
 
-  * prefill: full-sequence causal blockwise attention, plus an en-masse
-    scatter of each layer's K/V into its pool slice;
+  * prefill: full-sequence causal attention through the flash-attention
+    kernel (plain version on CPU tensors), plus an en-masse scatter of each
+    layer's K/V into its pool slice; suffix-only prefill prepends a cached
+    prefix's K/V to the keys and writes only the suffix pages.  The
+    row-wise work runs on fixed-shape row blocks (:data:`PREFILL_ROWS`), so
+    a suffix row gets the full prefill's bits;
   * decode: one token per sequence, written into the paged pool and
     attended through the paged decode-attention kernel (plain version on
     CPU tensors), or, when the step carries staged pages
@@ -18,12 +22,14 @@ Pools are updated in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     fused_paged_attention_kernel,
     paged_attention_kernel,
@@ -32,7 +38,6 @@ from repro_torch.models import paged
 from repro_torch.models.common import dense_init_
 from repro_torch.models.layers import (
     apply_rope,
-    attention,
     gqa_qkv,
     rms_norm,
     rope_angles,
@@ -158,14 +163,59 @@ def _project_qkv(cfg: ModelConfig, p, x, positions):
     return q, k, v
 
 
-def attn_block_train(cfg: ModelConfig, p, x, positions, *, causal=True,
-                     kv_len=None):
-    """Full-sequence attention.  Returns (out [B,T,d], k, v)."""
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    o = attention(q, k, v, causal=causal, kv_len=kv_len)
-    B, T = o.shape[:2]
-    y = o.reshape(B, T, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
-    return y, k, v
+# Prefill's row-wise work (norms, projections, RoPE, SwiGLU) runs on blocks
+# of this many rows, the last zero-padded, so that every matrix product and
+# row reduction of prefill has one shape whatever the prompt's length.  A
+# library picks its kernel, and with it the summation order, by shape:
+# cuBLAS on the H100 sums a 64-row product over 11008 inputs in another
+# order than a 576-row one.  Without the blocks a suffix prefill would not
+# reproduce the full prefill's bits, and the prefix cache could change
+# tokens.
+PREFILL_ROWS = 512
+
+
+def _row_blocks(fn, *xs):
+    """``fn`` applied to [B, T, ...] inputs in blocks of PREFILL_ROWS rows
+    (the last zero-padded); returns its output tensor(s) for the T rows."""
+    T = xs[0].shape[1]
+    pad = (-T) % PREFILL_ROWS
+    if pad:
+        xs = [torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))],
+                        dim=1) for x in xs]
+    outs = [fn(*(x[:, i:i + PREFILL_ROWS] for x in xs))
+            for i in range(0, T + pad, PREFILL_ROWS)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1)[:, :T].contiguous()
+                     for parts in zip(*outs))
+    return torch.cat(outs, dim=1)[:, :T].contiguous()
+
+
+def _attn_in(cfg: ModelConfig, lp, x, positions):
+    """Rows of the residual stream -> the layer's roped q, k, v."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    return _project_qkv(cfg, lp["attn"], h, positions)
+
+
+def _attn_out_ffn(cfg: ModelConfig, lp, x, o):
+    """Rows of the residual stream and of the attention output -> the
+    layer's output rows (output projection, residual, norm, SwiGLU)."""
+    wo = lp["attn"]["wo"]
+    x = x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn_block(cfg, lp["mlp"], h)
+
+
+def prefill_attention(q, k, v, prefix_kv=None):
+    """Causal attention of q [B,T,H,dh] over k/v [B,T,Hkv,dh].
+    ``prefix_kv=(pk, pv)`` ([B, P, Hkv, dh], already roped: cached pool
+    bytes) prepends P cached-context keys the in-flight queries, at
+    positions P.., attend to (suffix-only prefill)."""
+    if prefix_kv is None:
+        return flash_attention(q, k, v)
+    pk, pv = prefix_kv
+    return flash_attention(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                           torch.cat([pv.to(v.dtype), v], dim=1),
+                           q_offset=pk.shape[1])
 
 
 def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):
@@ -219,17 +269,24 @@ def ffn_block(cfg: ModelConfig, p, x):
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
-                          positions, pools, ctx: PageCtx):
-    """pools: (k_pool [L,...], v_pool [L,...]), written in place."""
+                          positions, pools, ctx: PageCtx, prefix_kv=None,
+                          tok_offset: int = 0):
+    """pools: (k_pool [L,...], v_pool [L,...]), written in place.
+
+    ``prefix_kv``: layer-stacked cached-prefix K/V ([L, B, P, Hkv, dh]
+    pair) for suffix-only prefill; each layer attends over its slice, and
+    ``tok_offset`` (= P) keeps the cached pages out of the pool write."""
     k_pools, v_pools = pools
     for l in range(params.n_layers):
         lp = params.layer(l)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, k, v = attn_block_train(cfg, lp["attn"], h, positions)
-        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx)
-        x = x + a
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_block(cfg, lp["mlp"], h)
+        q, k, v = _row_blocks(functools.partial(_attn_in, cfg, lp), x,
+                              positions)
+        pkv = None if prefix_kv is None else (prefix_kv[0][l],
+                                              prefix_kv[1][l])
+        o = prefill_attention(q, k, v, pkv)
+        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx,
+                         tok_offset=tok_offset)
+        x = _row_blocks(functools.partial(_attn_out_ffn, cfg, lp), x, o)
     return x, pools
 
 

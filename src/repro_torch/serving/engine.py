@@ -33,18 +33,31 @@ Fault modes (the reference's, same names, same default):
   identical across the three modes because attention folds pages in the
   same order whatever their source.
 
-On a CUDA device every page movement and every decode attention runs in
-the port's hand-written kernels (``repro_torch.kernels``); the eviction
-gather's ``.cpu()`` and the fault-in scatter's ``.to(device)`` are the real
-PCIe transfers, timed into :class:`EngineStats`.  The modeled counters
-(``faults``, ``fault_dmas``, ``bytes_in``, ``transfer_us``) come from the
-same link model as the reference's, so both engines report them equal for
-the same schedule.
+Prefix-cache reuse (``prefix_cache=True``, the default, as in the
+reference): finished prompts park their full pages' KV in the
+:class:`PrefixIndex`, keyed by chained per-page content hash; the parking
+gather rides the channels' "out" lanes.  An admission whose prompt shares a
+cached page-aligned prefix prefills only the suffix, its queries attending
+over the cached KV (uploaded for the attention), while the matched pages
+are demoted and fault in through the modeled DMA pipeline like any other
+host-backed page (prefetched at admission in async and fused mode).
+Tokens are identical with the cache on or off where ``cfg.dtype`` is the
+pools' bf16: the flash-attention kernel and prefill's fixed-shape row
+blocks give a suffix row the full prefill's bits.
 
-Not in this slice (raise ``NotImplementedError``): the prefix cache, the
-translation meter, and the cluster tier's shared host store, prefix index,
-failure injection and spill promotion.  The pools and the pool writes of
-decode, fault-in and compaction are updated in place.
+On a CUDA device every page movement, every prefill attention and every
+decode attention runs in the port's hand-written kernels
+(``repro_torch.kernels``); the gathers' ``.cpu()`` and the fault-in
+scatter's ``.to(device)`` are the real PCIe transfers, timed into
+:class:`EngineStats`.  The modeled counters (``faults``, ``fault_dmas``,
+``bytes_in``, ``transfer_us``, the prefix counters) come from the same
+link model and bookkeeping as the reference's, so both engines report them
+equal for the same schedule.
+
+Not in this slice (raise ``NotImplementedError``): the translation meter,
+and the cluster tier's shared host store, prefix index, failure injection
+and spill promotion.  The pools and the pool writes of prefill, decode,
+fault-in and compaction are updated in place.
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.transformer import PageCtx
 from repro_torch.serving.dma import (AsyncDMAEngine, DMAJob, Key, Prefetcher,
                                      StagingBuffer)
-from repro_torch.serving.host_tier import HostPageStore
+from repro_torch.serving.host_tier import HostPageStore, PrefixIndex
 from repro_torch.serving.kv_cache import ShardedKVCache
 
 
@@ -118,6 +131,19 @@ class EngineStats:
     fused_ready_pages: int = 0
     fused_drained_pages: int = 0
     fused_tail_us: float = 0.0
+    # Prefix-cache reuse, as the reference.
+    prefix_hits: int = 0            # admissions that matched a cached prefix
+    prefix_misses: int = 0          # cache-enabled admissions with no match
+    prefix_reused_tokens: int = 0   # prompt tokens NOT re-prefilled
+    prefix_parked_pages: int = 0    # pages parked into the index
+    prefix_fault_us: float = 0.0    # modeled µs to fault reused prefixes in
+    admit_hits: int = 0             # admissions via the suffix-prefill path
+    admit_colds: int = 0            # admissions via the full-prefill path
+    admit_hit_us: float = 0.0       # wall µs spent in cache-hit admissions
+    admit_cold_us: float = 0.0      # wall µs spent in cold admissions
+    # Per-admission modeled latency samples (µs): prefilled tokens x
+    # prefill_us_per_token.
+    admit_lat_us: List[float] = dataclasses.field(default_factory=list)
     # Measured on this engine's device (host clock around synchronised work).
     prefill_s: float = 0.0       # prefill forwards, argmax included
     decode_s: float = 0.0        # decode forwards, argmax included
@@ -126,6 +152,9 @@ class EngineStats:
     h2d_bytes: int = 0           # fault-in payloads copied onto the device
     h2d_s: float = 0.0
     landings: int = 0            # page_scatter batches (K and V launch each)
+    gathers: int = 0             # page_gather batches: evictions and parks
+    prefix_h2d_bytes: int = 0    # cached prefix KV copied up for attention
+    prefix_h2d_s: float = 0.0
     fused_steps: int = 0         # decode steps that read staged pages
     deadline_hits: Dict[int, int] = dataclasses.field(default_factory=dict)
     deadline_misses: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -154,6 +183,12 @@ class EngineStats:
     def occupancy_mean(self) -> float:
         return self.occupancy_sum / max(self.decode_steps, 1)
 
+    def admit_hit_mean_us(self) -> float:
+        return self.admit_hit_us / max(self.admit_hits, 1)
+
+    def admit_cold_mean_us(self) -> float:
+        return self.admit_cold_us / max(self.admit_colds, 1)
+
     def tok_per_s(self) -> float:
         if self.wall_s <= 0.0:
             return 0.0
@@ -161,8 +196,8 @@ class EngineStats:
 
     def summary(self) -> str:
         """One-line summary: throughput, the modeled fault split and
-        prefetch and outbound counts, measured PCIe traffic, swaps and CAC
-        copies."""
+        prefetch and outbound counts, measured PCIe traffic, swaps, CAC
+        copies and prefix-reuse totals."""
         line = (
             f"{self.tok_per_s():.1f} tok/s | "
             f"{self.prefill_tokens} prefill + {self.decode_tokens} decode "
@@ -180,6 +215,9 @@ class EngineStats:
             f"{self.d2h_s * 1e3:.1f} ms | "
             f"swaps {self.swaps_out}/{self.swaps_in} | "
             f"CAC copies {self.compaction_copies}")
+        if self.prefix_hits or self.prefix_misses:
+            line += (f" | prefix {self.prefix_hits}/{self.prefix_misses} "
+                     f"hit/miss ({self.prefix_reused_tokens} tok reused)")
         if self.fused_ready_pages or self.fused_drained_pages:
             line += (f" | fused {self.fused_ready_pages} ready + "
                      f"{self.fused_drained_pages} drained in-kernel "
@@ -206,12 +244,14 @@ class ServingEngine:
     ``cuda`` and raises when CUDA is absent; ``device="cpu"`` runs every
     kernel's plain version.  ``dma_channels``, ``prefetch_depth``,
     ``duplex`` and ``slo_urgency_us`` shape the async/fused pipeline as in
-    the reference.  ``prefix_cache`` stays ``False`` until the prefix-cache
-    slice (True raises).  ``use_pallas``, ``prefill_us_per_token``,
-    ``prefix_capacity_pages``, ``engine_id`` and ``translation_kw`` are
-    accepted for signature parity and have no effect here: in the reference
-    they act only with the prefix cache, the translation meter or in a
-    cluster.
+    the reference.  ``prefix_cache`` (default True, as the reference) parks
+    finished prompts in a :class:`PrefixIndex` of ``prefix_capacity_pages``
+    pages and prefills only the suffix of a prompt whose page-aligned
+    prefix is cached; ``prefill_us_per_token`` prices the modeled
+    admission latencies.  ``use_pallas``, ``engine_id`` and
+    ``translation_kw`` are accepted for signature parity and have no effect
+    here: in the reference they act only with the translation meter or in
+    a cluster.
     """
 
     def __init__(self, cfg: ModelConfig, *, geometry: PoolGeometry,
@@ -224,7 +264,7 @@ class ServingEngine:
                  prefetch_depth: int = 2, victim_policy: str = "cost",
                  decode_window_us: Optional[float] = None,
                  prefill_us_per_token: float = 50.0,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
                  prefix_capacity_pages: int = 4096,
                  duplex: bool = True,
                  slo_urgency_us: float = 1000.0,
@@ -252,9 +292,6 @@ class ServingEngine:
             raise ValueError(
                 f"translation must be 'off', 'flat' or 'radix', "
                 f"got {translation!r}")
-        if prefix_cache:
-            raise _not_in_slice("prefix_cache=True", "prefix cache and "
-                                "suffix prefill")
         if translation != "off":
             raise _not_in_slice(f"translation={translation!r}",
                                 "translation meter (core/ptw.py)")
@@ -280,6 +317,9 @@ class ServingEngine:
         # Modeled compute window per decode step (µs) for the engine clock;
         # None = measured decode wall time.
         self.decode_window_us = decode_window_us
+        # Modeled prefill compute per prompt token (µs): the basis of the
+        # per-admission latency samples (admit_lat_us).
+        self.prefill_us_per_token = prefill_us_per_token
         self.lm = LM(cfg, device=self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -311,6 +351,16 @@ class ServingEngine:
                                     manager_kind, link=self.link,
                                     page_bytes=self.page_bytes)
         self.host = HostPageStore()
+        # Content-hash prefix cache.  Suffix-only prefill needs attention
+        # over cached KV pages, which only the dense-transformer family
+        # replays bitwise (the reference's condition; the port's LM is
+        # dense-only so far).
+        self.prefix_supported = (cfg.family == "dense" and cfg.mla is None
+                                 and bool(self.page_bytes))
+        self.prefix: Optional[PrefixIndex] = None
+        if prefix_cache and self.prefix_supported:
+            self.prefix = PrefixIndex(self.host, geometry.page_tokens,
+                                      capacity_pages=prefix_capacity_pages)
         shapes = self.lm.pool_shapes(per_shard * n_shards,
                                      geometry.page_tokens)
         self.pools = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
@@ -457,8 +507,9 @@ class ServingEngine:
 
     def _gather_pages(self, entries: List[Tuple[int, int, int]]
                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Device→host gather of [(shard, vpn, ppn)] pool pages: one kernel
-        launch per pool over all layers, then one copy to the host.
+        """Device→host gather of [(shard, vpn, ppn)] pool pages (an
+        eviction or a park): one kernel launch per pool over all layers,
+        then one copy to the host.
         Returns per-page (k_page, v_page) CPU payloads."""
         if not entries:
             return []
@@ -472,6 +523,7 @@ class ServingEngine:
         kp, vp = kp.cpu(), vp.cpu()
         self.stats.d2h_s += time.perf_counter() - t0
         self.stats.d2h_bytes += kp.nbytes + vp.nbytes
+        self.stats.gathers += 1
         return [(kp[:, i], vp[:, i]) for i in range(len(entries))]
 
     def _enqueue_outbound(self, keys: List[Key],
@@ -581,7 +633,7 @@ class ServingEngine:
         if not self._alloc_with_preemption(req, len(req.prompt),
                                            below_priority=req.priority):
             return False
-        self._prefill_full(req)
+        self._prefill(req)
         return True
 
     # --------------------------------------------------- demand fault-in
@@ -939,17 +991,194 @@ class ServingEngine:
                 [self.host.peek(*k) for k in keys],
                 self._clock_us, kind="prefetch"))
         for job in jobs:
-            for key in job.keys:
-                self.prefetch.in_flight[key] = job
-            self.prefetch.stats["issued_pages"] += len(job.keys)
-            self.stats.fault_dmas += job.dma_count
-            self.stats.bytes_in += job.nbytes
-            self.stats.transfer_us += job.transfer_us
+            self._account_prefetch(job)
+
+    def _account_prefetch(self, job: DMAJob) -> None:
+        """Register an issued inbound prefetch job: in-flight tracking and
+        the transfer accounting (one site for the per-step predictor and
+        the admission-time prefix prefetches)."""
+        for key in job.keys:
+            self.prefetch.in_flight[key] = job
+        self.prefetch.stats["issued_pages"] += len(job.keys)
+        self.stats.fault_dmas += job.dma_count
+        self.stats.bytes_in += job.nbytes
+        self.stats.transfer_us += job.transfer_us
 
     # --------------------------------------------------------- prefill
 
+    def _match_prefix(self, req: Request):
+        """Longest cached page-aligned prefix usable for this admission.
+
+        Capped one page short of the prompt when the whole prompt is
+        cached: the engine always prefills ≥ 1 real token, so the first
+        output token comes from live computation."""
+        if self.prefix is None:
+            return None
+        ptok = self.geo.page_tokens
+        T = len(req.prompt)
+        n, pages = self.prefix.match(req.prompt)
+        n = min(n, (T - 1) // ptok)
+        if n <= 0:
+            self.stats.prefix_misses += 1
+            return None
+        self.stats.prefix_hits += 1
+        return pages[:n]
+
+    def _prefill(self, req: Request):
+        """Prefill an already-allocated request: suffix-only when a cached
+        prefix matches, full otherwise.  Each admission records a modeled
+        latency sample (admit_lat_us): tokens actually prefilled x
+        prefill_us_per_token.  (The reference adds the stall of promoting
+        spilled prefix frames and falls back to full prefill when a
+        promote lost them; both come with the cluster slice's spill
+        tier.)"""
+        t0 = time.perf_counter()
+        T = len(req.prompt)
+        match = self._match_prefix(req)
+        if match:
+            self._prefill_suffix(req, match)
+            self.stats.admit_hits += 1
+            self.stats.admit_hit_us += (time.perf_counter() - t0) * 1e6
+            model_us = (T - len(match) * self.geo.page_tokens) \
+                * self.prefill_us_per_token
+        else:
+            self._prefill_full(req)
+            self.stats.admit_colds += 1
+            self.stats.admit_cold_us += (time.perf_counter() - t0) * 1e6
+            model_us = T * self.prefill_us_per_token
+        self.stats.admit_lat_us.append(model_us)
+
+    def _prefill_suffix(self, req: Request, pages) -> None:
+        """Cache-hit admission: restore the matched prefix pages through
+        the host tier instead of recomputing them, and forward only the
+        suffix (its queries attend over the cached KV).
+
+        The matched pages' payloads are (1) registered in the host store
+        under this request (the index's own copies stay, shared and
+        unpopped), (2) their freshly-allocated pages demoted to
+        non-resident, so they fault in like any host-backed page, and (3)
+        in async and fused mode prefetched through the DMA pipeline now,
+        at admission.  The attention needs the prefix KV now, so the
+        payloads are also copied to the card once for it (counted apart,
+        in ``prefix_h2d_*``: the modeled transfer is the fault-in's)."""
+        ptok = self.geo.page_tokens
+        T = len(req.prompt)
+        P = len(pages) * ptok
+        self._run_compaction()
+        payloads = [self.prefix.payload(pg) for pg in pages]
+        locs = [(pg.shard, pg.vpn) for pg in pages]
+        for (s, vpn), (kp, vp) in zip(locs, payloads):
+            self.host.put(req.rid, s, vpn, kp, vp, kind="reuse")
+        entries = self.cache.demote_prefix_pages(req.rid, locs)
+        self.prefix.stats["reused_tokens"] += P
+        # [L, B=1, P, kv, dh] stacked prefix KV for the layer loop.
+        pk = torch.stack([p[0] for p in payloads], dim=1)
+        pv = torch.stack([p[1] for p in payloads], dim=1)
+        L = pk.shape[0]
+        pk = pk.reshape(L, 1, P, *pk.shape[3:])
+        pv = pv.reshape(L, 1, P, *pv.shape[3:])
+        self._sync()
+        t0 = time.perf_counter()
+        pk, pv = pk.to(self.device), pv.to(self.device)
+        self._sync()
+        self.stats.prefix_h2d_s += time.perf_counter() - t0
+        self.stats.prefix_h2d_bytes += pk.nbytes + pv.nbytes
+        t0 = time.perf_counter()
+        Tpad = ((T + ptok - 1) // ptok) * ptok
+        tokens = torch.zeros((1, Tpad - P), dtype=torch.int32)
+        tokens[0, :T - P] = torch.from_numpy(
+            np.asarray(req.prompt[P:], np.int32))
+        ctx = self._ctx_global(self.cache.pack_ctx(
+            [req.rid], self.mpps, device=self.device))
+        logits, _ = self.lm.prefill(
+            {"tokens": tokens.to(self.device)}, self.pools, ctx,
+            last_pos=self._index([T - 1 - P]), prefix_kv=(pk, pv),
+            prefix_len=P)
+        req.out.append(int(torch.argmax(logits[0])))
+        self.stats.prefill_s += time.perf_counter() - t0
+        self.stats.prefill_tokens += T - P      # compute actually done
+        self.stats.prefix_reused_tokens += P
+        # Admission-time fault-in through the async pipeline: the first
+        # decode step that touches these pages finds them in flight (or
+        # already staged) instead of paying a cold demand fault.  (The
+        # reference first dedups against pages the cluster router
+        # pre-staged toward this engine; that comes with the cluster
+        # slice.)
+        if self.fault_mode in ("async", "fused"):
+            by_shard: Dict[int, List[int]] = {}
+            for i, (s, _vpn, _ppn) in enumerate(entries):
+                by_shard.setdefault(s, []).append(i)
+            for s, idxs in sorted(by_shard.items()):
+                job = self.dma.enqueue(
+                    [(req.rid, entries[i][0], entries[i][1]) for i in idxs],
+                    [entries[i][2] for i in idxs],
+                    self.cache.mgrs[s].residency.page_bytes,
+                    [payloads[i] for i in idxs],
+                    self._clock_us, kind="prefetch")
+                self._account_prefetch(job)
+                self.stats.prefix_fault_us += job.transfer_us
+
+    def _park_prefix(self, req: Request) -> None:
+        """Completion hook: park the finished request's full prompt pages
+        in the prefix index so future admissions sharing the prefix fault
+        them in instead of re-prefilling.
+
+        Only the chain suffix the index is missing is parked (chained
+        hashes dedupe shared prefixes for free).  Payloads come from the
+        device pool (resident pages: one batched gather that rides the
+        outbound DMA lanes) or from the request's own host copies (pages
+        still swapped out); a page with neither truncates the chain,
+        keeping the index prefix-closed.  (The reference also skips parks
+        of non-dense families into a cluster-shared index and refuses them
+        under spill back-pressure; both come with the cluster slice.)"""
+        if self.prefix is None:
+            return
+        hashes = self.prefix.chain_hashes(req.prompt)
+        start = self.prefix.missing_from(hashes)
+        if start >= len(hashes):
+            return
+        # Pending compaction plans rewrote tables; land the copies before
+        # gathering through them (same rule as _preempt).
+        self._run_compaction()
+        rid = req.rid
+        to_park: List[Tuple[int, int, int, Optional[Tuple]]] = []
+        gather_entries: List[Tuple[int, int, int]] = []
+        for gp in range(start, len(hashes)):
+            s, vpn = self.cache.locate_page(gp)
+            mgr = self.cache.mgrs[s]
+            if rid not in mgr.tables or vpn >= len(mgr.tables[rid].ppn):
+                break
+            ppn = mgr.tables[rid].ppn[vpn]
+            if ppn >= 0 and mgr.residency.resident[ppn]:
+                gather_entries.append((s, vpn, ppn))
+                to_park.append((gp, s, vpn, None))
+            elif self.host.has(rid, s, vpn):
+                to_park.append((gp, s, vpn, self.host.peek(rid, s, vpn)))
+            else:
+                break
+        if not to_park:
+            return
+        gathered = self._gather_pages(gather_entries)
+        git = iter(gathered)
+        out_keys: List[Key] = []
+        parent = hashes[start - 1] if start else None
+        for gp, s, vpn, payload in to_park:
+            from_device = payload is None
+            if from_device:
+                payload = next(git)
+            page = self.prefix.park(hashes[gp], parent, gp, s, vpn,
+                                    *payload)
+            if from_device:
+                out_keys.append((page.owner, s, vpn))
+            parent = hashes[gp]
+        self.stats.prefix_parked_pages += len(to_park)
+        # The device gather is outbound traffic on the duplex channels.
+        self._enqueue_outbound(out_keys, gather_entries, gathered,
+                               kind="park")
+
     def _prefill_full(self, req: Request):
-        """Full-prompt forward for an already-allocated request."""
+        """Cold admission: full-prompt forward for an already-allocated
+        request."""
         ptok = self.geo.page_tokens
         T = len(req.prompt)
         Tpad = ((T + ptok - 1) // ptok) * ptok
@@ -1088,6 +1317,9 @@ class ServingEngine:
                     self.stats.note_deadline(
                         r.priority, self._clock_us <= r.deadline_us)
         for r in done_now:
+            # Park the finished prompt's pages in the prefix cache before
+            # the pages are freed and the host copies dropped.
+            self._park_prefix(r)
             self.active.remove(r)
             self.cache.free(r.rid)
             self.host.drop_seq(r.rid)

@@ -1,7 +1,8 @@
 """ShardedKVCache: host-side bridge between Mosaic managers and the device.
 
 Counterpart of the reference's ``serving/kv_cache.py`` (the methods the
-sync, async and fused serving paths use).  Pages of one sequence are spread over ``S``
+single-engine serving paths use; ``pages_needed`` serves only the cluster
+router and comes with it).  Pages of one sequence are spread over ``S``
 sub-pools; global virtual frame ``f`` of a sequence lives in sub-pool
 ``f % S``, so frames never straddle shards and each sub-pool runs its own
 CoCoA / coalescer / CAC instance.
@@ -92,6 +93,37 @@ class ShardedKVCache:
         return out
 
     # ------------------------------------------------------- host tier
+
+    def locate_page(self, gp: int) -> Tuple[int, int]:
+        """Global page index → (shard, local vpn) under frame striping.
+
+        The inverse of ``write_prefill_kv``'s vpn reconstruction: global
+        frame ``f = gp // frame_pages`` lives on shard ``f % S`` as its
+        ``f // S``-th local frame.  Deterministic per geometry, so the
+        same prompt page lands at the same (shard, vpn) for every
+        sequence — the property the prefix cache's content-hash keys
+        rely on.
+        """
+        fp = self.geo.frame_pages
+        f = gp // fp
+        return f % self.S, (f // self.S) * fp + gp % fp
+
+    def demote_prefix_pages(self, seq: int,
+                            pages: Sequence[Tuple[int, int]]
+                            ) -> List[Tuple[int, int, int]]:
+        """Mark freshly-allocated pages of ``seq`` non-resident so the
+        fault-in path restores them from cached-prefix host payloads.
+        ``pages``: [(shard, local vpn)].  Returns [(shard, vpn, ppn)] in
+        input order for admission-prefetch enqueueing."""
+        out: List[Tuple[int, int, int]] = []
+        by_shard: Dict[int, List[int]] = {}
+        for s, vpn in pages:
+            ppn = self.mgrs[s].tables[seq].ppn[vpn]
+            by_shard.setdefault(s, []).append(ppn)
+            out.append((s, vpn, ppn))
+        for s, ppns in by_shard.items():
+            self.mgrs[s].residency.demote(ppns)
+        return out
 
     def mapped_pages(self, seq: int) -> List[Tuple[int, int, int]]:
         """All of ``seq``'s mapped pages as [(shard, local vpn, ppn)]."""

@@ -4,9 +4,9 @@ Both engines serve the f32 smoke config on the same weights (the
 reference's ``LM.init`` bridged into the port), 2x oversubscribed, with a
 fixed modeled decode window so that the modeled µs come from the same
 numpy DMA timeline in both packages.  Greedy tokens must be identical and
-the modeled counters equal.  The reference runs with ``prefix_cache=False``
-(its default parks finished prompts on the outbound lanes, which the port
-cannot do before the prefix-cache slice).  Inside the port, tokens are
+the modeled counters equal.  Both run with their default prefix cache on:
+finished prompts park on the outbound lanes, which the outbound counters
+cover.  Inside the port, tokens are
 identical across sync, async and fused under both managers.  The port runs
 its kernels' plain versions here (CPU tensors).  The fused mode's
 counterparts are in tests/test_torch_fused_engine.py, which shares this
@@ -77,7 +77,7 @@ def _engine(package, mode, weights, *, manager="mosaic", max_batch=6,
               oversubscription=2.0, fault_mode=mode, decode_window_us=window)
     if package == "jax":
         cfg = dataclasses.replace(j_smoke("qwen2.5-3b"), dtype="float32")
-        return cfg, JEngine(cfg, geometry=JGeo(**GEO_KW), prefix_cache=False,
+        return cfg, JEngine(cfg, geometry=JGeo(**GEO_KW),
                             params=jax.tree.map(jax.numpy.asarray, params_j),
                             **kw)
     cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), dtype="float32")

@@ -7,12 +7,15 @@ imports JAX and the reference package).  Every test here is marked
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: normalized attention 2e-2 for bf16 and 2e-5 for f32 inputs, as
-tests/test_kernels.py (other summation order and rounding points); the
-f32 accumulators m and l 1e-5; copies exact.  The fused gather-attend
-kernel is also held bitwise to the page kernel where it reads the same
-bytes.
+Tolerances: normalized attention (decode and prefill) 2e-2 for bf16 and
+2e-5 for f32 inputs, as tests/test_kernels.py (other summation order and
+rounding points); the f32 accumulators m and l 1e-5; copies exact.  The
+fused gather-attend kernel is also held bitwise to the page kernel where
+it reads the same bytes, and the flash kernel's suffix rows bitwise to
+its full rows.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -214,3 +217,166 @@ def test_cuda_fused_wrapper_refuses_bad_stages(cuda_device):
     with pytest.raises(ValueError, match="out of range"):
         ops.fused_paged_attention_kernel(q, pk, pv, sk[:0], sv[:0], tables,
                                          slots, ntok, scale=scale)
+
+
+def _flash_case(dev, B, Tq, Tk, H, n_kv, dh, dtype, seed=31):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Tq, H, dh), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Tk, n_kv, dh), generator=gen,
+                        device=dev).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv,dh", [
+    (16, 2, 128),     # qwen2.5-3b
+    (4, 4, 32),       # MHA, smallest head dim
+    (32, 2, 64),      # 16 query heads per KV head
+    (8, 1, 256),      # largest head dim: > 48 KB of shared memory
+    (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
+])
+@pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
+    (200, 200, 0, False, True),     # full prefill, lengths off the tiles
+    (77, 300, 223, False, True),    # suffix prefill over a cached prefix
+    (130, 130, 0, True, False),     # non-causal, rows cut at kv_len
+    (50, 181, 131, True, True),     # suffix with kv_len
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, H, n_kv, dh, dtype,
+                                            Tq, Tk, q_offset, with_len,
+                                            causal):
+    q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, dh,
+                          getattr(torch, dtype))
+    kv_len = (torch.tensor([Tk, Tk - 37], dtype=torch.int32,
+                           device=cuda_device) if with_len else None)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+              scale=dh ** -0.5)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("P", [64, 576, 100])
+def test_cuda_flash_suffix_rows_equal_full_rows_bitwise(cuda_device, dtype,
+                                                        P):
+    """A suffix call (queries from position P over all keys) gives the
+    full call's rows bit for bit: the prefix cache's contract."""
+    q, k, v = _flash_case(cuda_device, 1, 1152, 1152, 16, 2, 128,
+                          getattr(torch, dtype))
+    full = ops.flash_attention(q, k, v)
+    suffix = ops.flash_attention(q[:, P:].contiguous(), k, v, q_offset=P)
+    torch.cuda.synchronize()
+    assert torch.equal(suffix, full[:, P:])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_row_without_keys_is_zero(cuda_device):
+    q, k, v = _flash_case(cuda_device, 2, 8, 8, 4, 2, 64, torch.bfloat16)
+    kv_len = torch.tensor([0, 8], dtype=torch.int32, device=cuda_device)
+    out = ops.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert not out[0].any() and bool(torch.isfinite(out[1].float()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_refuses_bad_inputs(cuda_device):
+    q, k, v = _flash_case(cuda_device, 1, 16, 16, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="k on cpu"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="k is torch.float32"):
+        ops.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="head dim 48"):
+        ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+    flat = torch.empty(k.numel() + 8, dtype=k.dtype, device=cuda_device)
+    odd = flat[1:1 + k.numel()].view(k.shape)        # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, odd, v)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, kv_len=torch.tensor(
+            [16], dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="do not group"):
+        ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_pages,len_a,len_b", [(2, 17, 9),
+                                                      (62, 30, 41)])
+def test_cuda_suffix_prefill_equals_full_prefill_bitwise(cuda_device,
+                                                         prefix_pages,
+                                                         len_a, len_b):
+    """On the card, LM prefill of only the suffix over cached prefix K/V
+    reproduces the full prefill's logits and pool pages bit for bit (the
+    flash kernel's suffix rows and prefill's fixed row blocks); the second
+    case spans two row blocks with the suffix inside one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import LM
+    from repro_torch.models.transformer import PageCtx
+    ptok, mpps = 8, 96
+    # The smoke config at head dim 32, the kernel's smallest (bf16 pools).
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), d_model=128,
+                              d_ff=256)
+    lm = LM(cfg, device=cuda_device).init_weights(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(prefix_pages)
+    P = prefix_pages * ptok
+    prefix = rng.integers(0, cfg.vocab_size, P).astype(np.int32)
+    prompt_a, prompt_b = (np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)]) for n in (len_a, len_b))
+
+    def ctx(total):
+        tables = np.full((1, 1, mpps), -1, np.int32)
+        ntok = np.zeros((1, 1, mpps), np.int32)
+        for i in range(-(-total // ptok)):
+            tables[0, 0, i] = i
+            ntok[0, 0, i] = min(ptok, total - i * ptok)
+        t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+        return PageCtx(tables=t(tables), ntok=t(ntok),
+                       wpage=t(np.asarray([[(total - 1) // ptok]], np.int32)),
+                       wslot=t(np.asarray([(total - 1) % ptok], np.int32)),
+                       frame_pages=4)
+
+    def pools():
+        (shape, dtype), _ = lm.pool_shapes(mpps, ptok)
+        return tuple(torch.zeros(shape, dtype=dtype, device=cuda_device)
+                     for _ in range(2))
+
+    def prefill(prompt, pl, start=0, prefix_kv=None):
+        T = len(prompt)
+        toks = torch.zeros((1, -(-T // ptok) * ptok - start),
+                           dtype=torch.int32)
+        toks[0, :T - start] = torch.from_numpy(prompt[start:])
+        logits, _ = lm.prefill(
+            {"tokens": toks.to(cuda_device)}, pl, ctx(T + 1),
+            last_pos=torch.tensor([T - 1 - start], device=cuda_device),
+            prefix_kv=prefix_kv, prefix_len=start)
+        return logits
+
+    pools_a = pools()
+    prefill(prompt_a, pools_a)
+    L = pools_a[0].shape[0]
+    pk, pv = (p[:, :prefix_pages].reshape(L, 1, P, *p.shape[3:])
+              for p in pools_a)
+    pools_ref = pools()
+    before = ops.launch_counts()["flash_attention"]
+    logits_ref = prefill(prompt_b, pools_ref)
+    warm = pools()
+    for w, a in zip(warm, pools_a):
+        w[:, :prefix_pages] = a[:, :prefix_pages]
+    logits_warm = prefill(prompt_b, warm, P, (pk, pv))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2 * L
+    assert torch.equal(logits_warm, logits_ref)
+    n = -(-len(prompt_b) // ptok)
+    for ref_pool, got in zip(pools_ref, warm):
+        assert torch.equal(got[:, :n], ref_pool[:, :n])

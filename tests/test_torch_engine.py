@@ -2,10 +2,11 @@
 
 Both engines serve the f32 smoke config on the same weights (the
 reference's ``LM.init`` bridged into the port) over the workloads of three
-tests/test_serving.py scenarios.  Greedy tokens must be identical and the
-modeled counters equal: both packages make the same allocation, fault and
-compaction decisions with the same copies of the core managers and link
-model.  The port runs its kernels' plain versions here (CPU tensors).
+tests/test_serving.py scenarios, each with its default prefix cache on
+(these prompts share no page, so admissions miss and completions park).
+Greedy tokens must be identical and the modeled counters equal: both
+packages make the same allocation, fault and compaction decisions with the
+same copies of the core managers and link model.  The port runs its kernels' plain versions here (CPU tensors).
 """
 
 import dataclasses
@@ -94,14 +95,12 @@ def _run(package, scenario, manager, weights, *, with_preempt=True):
         cfg = dataclasses.replace(j_smoke("qwen2.5-3b"), dtype="float32")
         eng = JEngine(cfg, geometry=JGeo(**GEO_KW), manager_kind=manager,
                       params=jax.tree.map(jax.numpy.asarray, params_j),
-                      fault_mode="sync", prefix_cache=False,
-                      **ENGINE_KW[scenario])
+                      fault_mode="sync", **ENGINE_KW[scenario])
         R = JRequest
     else:
         cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), dtype="float32")
         eng = TEngine(cfg, geometry=TGeo(**GEO_KW), manager_kind=manager,
-                      params=state_dict, fault_mode="sync",
-                      prefix_cache=False, device="cpu",
+                      params=state_dict, fault_mode="sync", device="cpu",
                       **ENGINE_KW[scenario])
         R = TRequest
     reqs = _requests(R, scenario, cfg.vocab_size)
@@ -233,7 +232,6 @@ def test_chip_smoke_transparency_batches_match():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(prefix_cache=True), "prefix cache"),
     (dict(translation="radix"), "translation"),
     (dict(host=object()), "cluster"),
     (dict(prefix_index=object()), "cluster"),

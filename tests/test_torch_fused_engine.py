@@ -4,7 +4,7 @@ Fused decode reads this step's staged pages in the attention kernel
 instead of waiting for them (on the CPU: the kernel's plain version).  The
 helpers, weights and workloads are tests/test_torch_async_engine.py's:
 f32 smoke config on bridged weights, 2x oversubscribed, a fixed modeled
-decode window, the reference with ``prefix_cache=False``.
+decode window, both engines with their default prefix cache on.
 """
 
 import dataclasses

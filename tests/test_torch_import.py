@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 26, out.stdout
+    assert n_modules >= 27, out.stdout
     assert out.stdout.strip().endswith("BAD []"), out.stdout
 
 
@@ -46,8 +46,11 @@ sys.modules["jax"] = None
 from repro_torch.serving.dma import AsyncDMAEngine, Prefetcher, StagingBuffer
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.kernels.ops import KERNELS, fused_paged_attention_kernel
-assert "paged_attention.fused" in KERNELS
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.serving.host_tier import PrefixIndex, PrefixPage
+assert "paged_attention.fused" in KERNELS and "flash_attention" in KERNELS
 assert ServingEngine.__init__.__kwdefaults__["fault_mode"] == "async"
+assert ServingEngine.__init__.__kwdefaults__["prefix_cache"] is True
 print("BAD", sorted(m for m in sys.modules
                     if m == "repro" or m.startswith("repro.")
                     or (m.startswith("jax") and sys.modules[m] is not None)))
@@ -55,7 +58,8 @@ print("BAD", sorted(m for m in sys.modules
 
 
 def test_async_pipeline_and_fused_kernel_import_without_jax():
-    """The modules this slice adds or extends, imported by name."""
+    """The modules the slices add or extend (async and fused fault-in,
+    the prefix cache, the flash-attention kernel), imported by name."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _NAMED], env=env,
                          capture_output=True, text=True, timeout=300)
