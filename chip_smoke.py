@@ -13,7 +13,9 @@ Phases (each synchronised; any failure exits non-zero):
    pages staged, and bit for bit against the page kernel where it reads
    the same bytes; gather / scatter / compact exactly; prefill flash
    attention on a full 1152-token prompt and on its suffix from position
-   576, whose rows must equal the full call's bit for bit), and their
+   576, whose rows must equal the full call's bit for bit; the SSD scan at
+   zamba2-1.2b's and mamba2-1.3b's prefill shapes and with a carried
+   initial state over 192-row chunks), and their
    times (CUDA-graph replay for kernels and library calls, CUDA events for
    the plain versions) beside their bound: bytes at 3.35 TB/s or bf16
    operations at 989 TFLOP/s, whichever is larger;
@@ -41,6 +43,16 @@ Phases (each synchronised; any failure exits non-zero):
    cache must hit at least four times and cut prefill tokens by exactly
    the reused tokens, and each run's launches must account for every
    prefill layer (full or suffix) as above;
+4c. hybrid main path: zamba2-1.2b at its published width (38 Mamba-2
+   layers, one shared attention block invoked 6 times, bf16, random
+   weights from a seed), same pool geometry and stream, sync, async and
+   fused.  Tokens identical across the modes; at least one swap and one
+   fault; launches account for 38 SSD scans and 6 flash attentions per
+   admission, 6 paged (or fused) attentions per decode step, and every
+   gather and landing;
+4d. ssm path: mamba2-1.3b at its published width (48 layers, d_state 128,
+   no KV pool), the stream's first four requests, sync and async: tokens
+   identical, 48 SSD scans per admission, no attention or page launch;
 5. agreement on a small input: a narrow model served on the card (kernels)
    and on the CPU (plain versions), in fused mode, emits the same greedy
    tokens;
@@ -50,8 +62,8 @@ Phases (each synchronised; any failure exits non-zero):
    pool bit for bit.
 
 Ends with a JSON line of per-kernel numbers (launches summed over the
-three main-path runs of phase 4) and, last, the ok line.  No phase is cut
-in depth.
+main-path runs of phases 4, 4c and 4d) and, last, the ok line.  No phase
+is cut in depth.
 """
 
 from __future__ import annotations
@@ -71,6 +83,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen2.5-3b"
+HYBRID_ARCH, SSM_ARCH = "zamba2-1.2b", "mamba2-1.3b"
+SSM_REQUESTS = 4        # phase 4d serves the stream's first four requests
 MAX_BATCH, MAX_SEQ, OVERSUB = 4, 2048, 2.0
 ARRIVE_STEP = 10        # the two priority-1 requests arrive here
 PROBE_STEP = 3          # dual-granularity attention over the engine's pool
@@ -81,9 +95,11 @@ PREFIX_TOKENS, PREFIX_NEW = 512, 16      # phase 4b: system prompt, max_new
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
+SSD_TOL = dict(rtol=3e-2, atol=3e-2)    # bf16 inputs (tests/test_kernels.py)
 ML_TOL = dict(rtol=1e-5, atol=1e-5)     # f32 accumulators, other sum order
 
 MODES = ("sync", "async", "fused")
+SSM_MODES = ("sync", "async")
 REPLACES = {
     "paged_attention.page": "src/repro/kernels/paged_attention.py:106",
     "paged_attention.frame": "src/repro/kernels/paged_attention.py:106",
@@ -92,6 +108,7 @@ REPLACES = {
     "page_scatter": "src/repro/kernels/page_compact.py:128",
     "page_compact": "src/repro/kernels/page_compact.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:73",
 }
 SOURCES = {
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
@@ -101,6 +118,7 @@ SOURCES = {
     "page_scatter": "src/repro_torch/csrc/page_copy.cu",
     "page_compact": "src/repro_torch/csrc/page_copy.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 
 
@@ -681,6 +699,82 @@ def phase_kernels(cfg, results):
     torch.cuda.synchronize()
 
 
+def ssd_bound(B, T, nh, hd, N, Q, with_h0):
+    """Bytes (x, B, C in bf16, dt and A in f32 read once; y and the final
+    state in f32 written once; h0 read once) and operations (C B^T and
+    the scores times dt x over each chunk's causal pairs, the carried
+    term and the state update) of one SSD-scan call."""
+    nbytes = (2 * B * T * nh * (hd + 2 * N) + 4 * B * T * nh + 4 * nh
+              + 4 * B * T * nh * hd + 4 * B * nh * hd * N * (1 + with_h0))
+    pairs = Q * (Q + 1) // 2 * (T // Q)
+    flops = B * nh * (2 * pairs * (N + hd) + 4 * T * N * hd)
+    return bound_ms(nbytes, flops)
+
+
+def phase_ssd_kernel(results):
+    """The SSD scan against its plain version at the prefill shapes of the
+    recurrent families' main paths: (a) zamba2-1.2b, (b) mamba2-1.3b, both
+    for the 1100-token prompt (1152 tokens at 64-token pages, padded to
+    five 256-row chunks); (c) an initial state carried in over 192-row
+    chunks.  (a) is timed, with its plain version, beside its bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.mamba2 import dims
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    name = "ssd_scan"
+    hyb, ssm = get_config(HYBRID_ARCH), get_config(SSM_ARCH)
+
+    def case(cfg, T, Q, with_h0):
+        _d_in, nh, _ = dims(cfg)
+        hd, N = cfg.ssm.head_dim, cfg.ssm.d_state
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x = randn(1, T, nh, hd).to(torch.bfloat16)
+        dt = torch.rand((1, T, nh), generator=gen, device=dev) * 0.19 + 0.01
+        A = -torch.linspace(1.0, 16.0, nh, device=dev)
+        Bm, Cm = (randn(1, T, nh, N).to(torch.bfloat16) for _ in range(2))
+        h0 = randn(1, nh, hd, N) if with_h0 else None
+        return (x, dt, A, Bm, Cm), dict(chunk=Q, h0=h0), (1, T, nh, hd, N, Q,
+                                                          with_h0)
+
+    T = -(-FLASH_T // 256) * 256            # 1280: five 256-row chunks
+    cases = {"a": case(hyb, T, 256, False), "b": case(ssm, T, 256, False),
+             "c": case(hyb, 1152, 192, True)}
+    errs, times = {}, {}
+    for key, (args, kw, shape) in cases.items():
+        y, h = ops.ssd_scan(*args, **kw)
+        y_r, h_r = ref.ssd_scan_ref(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_r, **SSD_TOL)
+        torch.testing.assert_close(h, h_r, **SSD_TOL)
+        require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                f"{name} ({key}): non-finite")
+        errs[key] = max(float((y - y_r).abs().max()),
+                        float((h - h_r).abs().max()))
+        times[key] = graph_ms(lambda: ops.ssd_scan(*args, **kw))
+    args, kw, shape = cases["a"]
+    b_ms, b_by = ssd_bound(*shape)
+    results[name] = dict(
+        max_abs_err=max(errs.values()), ms=times["a"],
+        plain_ms=eager_ms(lambda: ref.ssd_scan_ref(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B=1 T={T} nh=64 hd=64 N=64 Q=256 bf16")
+    r = results[name]
+    other = " | ".join(
+        f"({key}) {cases[key][2]}: kernel_ms {times[key]:.4f} bound_ms "
+        f"{ssd_bound(*cases[key][2])[0]:.5f} max_abs_err {errs[key]:.3g}"
+        for key in ("b", "c"))
+    print(f"[kernel] {name}: (a) zamba2 prefill: max_abs_err "
+          f"{errs['a']:.3g} | kernel_ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+          f"({r['bound_by']}) library_ms none (no single PyTorch call "
+          f"computes an SSD scan) | {r['shape']} | {other} (B, T, nh, hd, "
+          f"N, Q, h0)")
+
+
 def serve_mode(cfg, mode, params=None, device=None):
     """One main-path run: the stream served in ``mode`` with the step
     hook, launch counters reset just before and read just after.
@@ -740,21 +834,36 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
             f"({s.prefix_misses} misses, {s.prefix_parked_pages} parked)")
     if eng.device.type != "cuda":
         return
-    path = [k for k in counts if k != "paged_attention.fused"
-            or mode == "fused"]
+    path = [k for k in counts if k != "ssd_scan" and (
+        k != "paged_attention.fused" or mode == "fused")]
     require(all(counts[k] > 0 for k in path),
             f"{mode}: a kernel of the path never launched: {counts}")
     check_launches(cfg, mode, s, counts, probes=1)
 
 
+def path_layers(cfg):
+    """(attention layers, Mamba-2 layers) that one prefill or decode step
+    of ``cfg`` runs: the dense stack's layers, the hybrid's shared-block
+    invocations and Mamba-2 layers, or the ssm stack's layers."""
+    from repro_torch.models.hybrid import n_invocations
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "hybrid":
+        return n_invocations(cfg), cfg.n_layers
+    return cfg.n_layers, 0
+
+
 def check_launches(cfg, label, s, counts, probes=0):
-    """Every prefill layer (full or suffix) ran the flash kernel, every
-    decode layer a paged kernel (the fused one on steps that read staged
-    pages; ``probes``: extra page-kernel calls of the dual probe), every
-    landing the scatter and every eviction or park the gather, each for
-    the K and V pools."""
-    L = cfg.n_layers
-    require(counts["flash_attention"] == L * (s.admit_colds + s.admit_hits)
+    """Every prefill attention layer (full or suffix) ran the flash kernel
+    and every prefill Mamba-2 layer the SSD scan, every decode attention
+    layer a paged kernel (the fused one on steps that read staged pages;
+    ``probes``: extra page-kernel calls of the dual probe), every landing
+    the scatter and every eviction or park the gather, each for the K and
+    V pools."""
+    L, L_ssd = path_layers(cfg)
+    admissions = s.admit_colds + s.admit_hits
+    require(counts["flash_attention"] == L * admissions
+            and counts["ssd_scan"] == L_ssd * admissions
             and counts["paged_attention.page"]
             == L * (s.decode_steps - s.fused_steps) + probes
             and counts["paged_attention.fused"] == L * s.fused_steps
@@ -874,6 +983,110 @@ def check_prefix_run(cfg, label, eng, reqs, counts):
                      and counts["page_gather"] > 0),
             f"{label}: a kernel of the path never launched: {counts}")
     check_launches(cfg, label, s, counts)
+
+
+def serve_recurrent(cfg, mode, n_requests=8, params=None, device=None):
+    """One phase-4c/4d run: the first ``n_requests`` of the main path's
+    stream served by ``cfg`` (hybrid or ssm) in ``mode`` with phase 4's
+    pool, launch counters reset just before and read just after.  Returns
+    (engine, stream, launch counts, wall seconds)."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
+                        max_seq=MAX_SEQ, manager_kind="mosaic",
+                        oversubscription=OVERSUB, fault_mode=mode, seed=0,
+                        params=params, device=device)
+    stream = make_stream(cfg.vocab_size)[:n_requests]
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    drive(eng, stream)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, stream, ops.launch_counts(), wall
+
+
+def check_recurrent_run(cfg, label, eng, stream, counts):
+    """What every phase-4c/4d run must show, on the card or (counts all 0)
+    rehearsed on the CPU."""
+    s = eng.stats
+    require(all(r.done for _, r in stream), f"{label}: not every request "
+            f"completed")
+    for _, r in stream:
+        require(len(r.out) == r.max_new
+                and all(0 <= tok < cfg.vocab_size for tok in r.out),
+                f"{label}: request {r.rid}: bad output {r.out[:8]}...")
+    require(not eng.states, f"{label}: recurrent state of finished "
+            f"requests was kept: {sorted(eng.states)}")
+    if cfg.family == "hybrid":
+        require(s.swaps_out >= 1 and s.faults >= 1,
+                f"{label}: paging not exercised: swaps {s.swaps_out} "
+                f"faults {s.faults}")
+        require(s.h2d_bytes == s.faults * eng.page_bytes,
+                f"{label}: {s.h2d_bytes} B copied to the card for "
+                f"{s.faults} faulted pages of {eng.page_bytes} B")
+    else:
+        require(eng.pools is None and s.h2d_bytes == s.d2h_bytes == 0,
+                f"{label}: the ssm family moved KV bytes")
+    if eng.device.type != "cuda":
+        return
+    path = ["ssd_scan"] + (["flash_attention", "paged_attention.page",
+                            "page_gather", "page_scatter"]
+                           if cfg.family == "hybrid" else [])
+    require(all(counts[k] > 0 for k in path),
+            f"{label}: a kernel of the path never launched: {counts}")
+    check_launches(cfg, label, s, counts)
+
+
+def phase_recurrent(arch, modes, n_requests):
+    """Phases 4c (hybrid) and 4d (ssm): ``arch`` at its published width
+    served in each of ``modes`` on the same weights; returns the launch
+    counts summed over the runs."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    tag = "hybrid" if cfg.family == "hybrid" else "ssm"
+    params = None
+    tokens, total = {}, {}
+    for mode in modes:
+        eng, stream, counts, wall = serve_recurrent(cfg, mode, n_requests,
+                                                    params)
+        if params is None:
+            pool = ("no KV pool" if eng.pools is None else
+                    f"pool {eng.cache.pages_per_shard} pages x "
+                    f"{eng.page_bytes} B")
+            print(f"[{tag}] built full-width {cfg.name} ({cfg.n_layers} "
+                  f"Mamba-2 layers, d_model {cfg.d_model}, d_state "
+                  f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+                  f"{sum(p.numel() for p in eng.lm.parameters()) / 1e9:.3f}"
+                  f" G parameters); {pool}")
+            params = dict(eng.lm.state_dict())
+        label = f"{tag}:{mode}"
+        check_recurrent_run(cfg, label, eng, stream, counts)
+        tokens[mode] = {r.rid: list(r.out) for _, r in stream}
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        s = eng.stats
+        print(f"[{label}] {s.summary()}")
+        print(f"[{label}] measured: wall {wall:.2f}s | decode "
+              f"{s.decode_tokens} tok in {s.decode_steps} steps: "
+              f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step | prefill "
+              f"{s.prefill_tokens} tok in {s.admit_colds} admissions: "
+              f"{s.prefill_s / s.prefill_tokens * 1e3:.4f} ms per prompt "
+              f"token | PCIe out {s.d2h_bytes} B in {s.d2h_s:.4f}s, in "
+              f"{s.h2d_bytes} B in {s.h2d_s:.4f}s | {s.fused_steps} fused "
+              f"steps")
+        print(f"[{label}] launches: {json.dumps(counts)}")
+        del eng
+        torch.cuda.empty_cache()
+    diff = [m for m in modes if tokens[m] != tokens[modes[0]]]
+    require(not diff, f"{tag}: tokens differ from {modes[0]} in {diff}")
+    print(f"[{tag}] {' == '.join(modes)} on every greedy token")
+    return total
 
 
 def row_probe(cfg):
@@ -1029,9 +1242,14 @@ def main() -> int:
     phase_build()
     results = {}
     phase_kernels(cfg, results)
+    phase_ssd_kernel(results)
     counts, params = phase_main_path(cfg)
     torch.cuda.empty_cache()
     phase_prefix(cfg, params)
+    for arch, modes, n in ((HYBRID_ARCH, MODES, 8),
+                           (SSM_ARCH, SSM_MODES, SSM_REQUESTS)):
+        for k, n_launch in phase_recurrent(arch, modes, n).items():
+            counts[k] = counts.get(k, 0) + n_launch
     phase_small_agreement(cfg)
     phase_transparency(cfg, params)
     line = [dict(name=name, route="cuda", source=SOURCES[name],

@@ -14,6 +14,8 @@ from repro_torch.configs.base import ModelConfig, PoolGeometry
 
 ARCHS: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 

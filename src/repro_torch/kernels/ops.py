@@ -23,10 +23,11 @@ from repro_torch.kernels.paged_attention import (
     fused_paged_attention_kernel,
     paged_attention_kernel,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 KERNELS = ("paged_attention.page", "paged_attention.frame",
            "paged_attention.fused", "page_gather", "page_scatter",
-           "page_compact", "flash_attention")
+           "page_compact", "flash_attention", "ssd_scan")
 
 
 def paged_attention_dual(q, pool_k, pool_v, frame_tables, frame_ntok,
@@ -59,6 +60,7 @@ def launch_counts() -> Dict[str, int]:
         "page_scatter": page_scatter.launches,
         "page_compact": page_compact.launches,
         "flash_attention": flash_attention.launches,
+        "ssd_scan": ssd_scan.launches,
     }
 
 
@@ -70,10 +72,11 @@ def reset_launch_counts() -> None:
     page_scatter.launches = 0
     page_compact.launches = 0
     flash_attention.launches = 0
+    ssd_scan.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
-           "page_compact", "flash_attention", "launch_counts",
+           "page_compact", "flash_attention", "ssd_scan", "launch_counts",
            "reset_launch_counts"]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import attention
+from repro_torch.models.layers import NEG_INF, attention
 from repro_torch.models.paged import combine_partials, paged_attention_local
 
 
@@ -83,3 +83,47 @@ def page_compact_ref(pool, src, dst):
     moved = pool[:, src[keep].long()]
     pool[:, dst[keep].long()] = moved
     return pool
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
+    """Mamba-2 SSD chunked scan: the reference's ``ssd_chunked`` oracle.
+
+    x [B, T, nh, hd]; dt [B, T, nh] f32 (post-softplus); A [nh] f32
+    (negative); Bm / Cm [B, T, nh, N]; h0 [B, nh, hd, N] f32 or None; T a
+    multiple of ``chunk``.  Per chunk: the intra-chunk term (scores C B^T
+    masked *before* exp of the cumulative-decay segments), the chunk-final
+    states, and the inter-chunk recurrence as a loop over chunks.  Returns
+    (y [B, T, nh, hd] f32, h_final [B, nh, hd, N] f32).
+    """
+    Bsz, T, nh, hd = x.shape
+    N = Bm.shape[-1]
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    nc = T // chunk
+
+    def r(t):
+        return t.reshape(Bsz, nc, chunk, *t.shape[2:])
+
+    xc, dtc, Bc, Cc = r(x), r(dt.float()), r(Bm).float(), r(Cm).float()
+    xdt = xc.float() * dtc[..., None]                 # dt-weighted input
+    cum = torch.cumsum(dtc * A.float(), dim=2)        # [B, nc, Q, nh]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [B,nc,Q,Q,nh]
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    # Mask before exp: exp of a masked (i < j) positive segment overflows.
+    ldec = torch.exp(torch.where(causal, seg, NEG_INF))
+    scores = torch.einsum("bclhn,bcshn->bclsh", Cc, Bc) * ldec
+    y_diag = torch.einsum("bclsh,bcshp->bclhp", scores, xdt)
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)     # [B, nc, Q, nh]
+    states = torch.einsum("bcshn,bcsh,bcshp->bchpn", Bc, decay_states, xdt)
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # [B, nc, nh]
+    h = (torch.zeros((Bsz, nh, hd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                    # [B,nc,nh,hd,N]
+    y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", Cc, h_prev,
+                         torch.exp(cum))
+    return (y_diag + y_off).reshape(Bsz, T, nh, hd), h

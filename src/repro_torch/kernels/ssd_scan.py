@@ -1,0 +1,112 @@
+"""Mamba-2 SSD chunked scan: wrapper of ``csrc/ssd_scan.cu``.
+
+Replaces the reference's Pallas ``ssd_scan`` (``repro/kernels/ssd_scan.py``),
+with its interface: x [B, T, nh, hd], dt [B, T, nh] (post-softplus), A [nh]
+(negative), B / C head-expanded [B, T, nh, N], an optional initial state
+h0 [B, nh, hd, N]; returns y [B, T, nh, hd] and the final state
+[B, nh, hd, N], both float32.  Every Mamba-2 layer of a prefill (the ssm and
+hybrid families) runs it once.
+
+For CPU tensors the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.ssd_scan_ref`); for CUDA tensors it launches
+the kernel or raises.  ``ssd_scan.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+DIMS = (16, 32, 64, 128)   # head dims and state sizes the kernel takes
+MAX_CHUNK = 256
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
+    """x / Bm / Cm in one dtype (bf16 or f32); dt [B, T, nh] and A [nh]
+    f32; h0 f32 or None; T a multiple of ``chunk``.  Returns
+    (y [B, T, nh, hd] f32, h_final [B, nh, hd, N] f32)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD-scan path for device {x.device}")
+    _check_inputs(x, dt, A, Bm, Cm, chunk, h0)
+    Bsz, T, nh, hd = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty((Bsz, T, nh, hd), dtype=torch.float32, device=x.device)
+    h_out = torch.empty((Bsz, nh, hd, N), dtype=torch.float32,
+                        device=x.device)
+    if Bsz == 0 or nh == 0:
+        return y, h_out
+    lib = _lib()
+    err = lib.ssd_scan_fwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), Bsz, T, nh, hd, N, int(chunk),
+        int(x.dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "ssd_scan_fwd")
+    ssd_scan.launches += 1
+    return y, h_out
+
+
+ssd_scan.launches = 0
+
+
+def _check_inputs(x, dt, A, Bm, Cm, chunk, h0) -> None:
+    """Raise on what the kernel does not take (device, dtype, shape,
+    contiguity, alignment)."""
+    if x.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
+        raise ValueError(f"x {tuple(x.shape)} must be [B, T, nh, hd] and "
+                         f"Bm / Cm {tuple(Bm.shape)} / {tuple(Cm.shape)} one "
+                         f"[B, T, nh, N] shape")
+    Bsz, T, nh, hd = x.shape
+    N = Bm.shape[-1]
+    if Bm.shape[:3] != x.shape[:3]:
+        raise ValueError(f"Bm {tuple(Bm.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if dt.shape != (Bsz, T, nh) or A.shape != (nh,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} must "
+                         f"be [{Bsz}, {T}, {nh}] / [{nh}]")
+    if hd not in DIMS or N not in DIMS:
+        raise ValueError(f"head dim {hd} / state size {N} unsupported: "
+                         f"{DIMS}")
+    if not 1 <= chunk <= MAX_CHUNK or T % chunk:
+        raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK} and "
+                         f"divide T={T}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype {x.dtype} unsupported (bfloat16 or "
+                         f"float32)")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != x.dtype:
+            raise ValueError(f"{name} is {t.dtype}, x {x.dtype}")
+    tensors = [("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)]
+    if h0 is not None:
+        if h0.shape != (Bsz, nh, hd, N):
+            raise ValueError(f"h0 {tuple(h0.shape)} must be "
+                             f"[{Bsz}, {nh}, {hd}, {N}]")
+        tensors.append(("h0", h0))
+    for name, t in (("dt", dt), ("A", A), ("h0", h0)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("ssd_scan")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                 P]
+    lib.ssd_scan_fwd.restype = I
+    return lib

@@ -9,6 +9,10 @@ comes with a later slice.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --requests 8 --max-new 8 --device cpu
+
+``--arch`` takes every id of the port's registry: the dense qwen2.5-3b, the
+hybrid zamba2-1.2b (Mamba-2 layers plus a shared, paged attention block)
+and the attention-free mamba2-1.3b (recurrent state, no KV pool).
 """
 
 from __future__ import annotations

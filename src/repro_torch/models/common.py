@@ -12,6 +12,14 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch import nn
+
+
+def empty_param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised, frozen weight (filled by ``init_`` or
+    ``load_state_dict``)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 def dense_init_(t: torch.Tensor, in_axis: int,

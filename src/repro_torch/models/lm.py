@@ -1,20 +1,32 @@
 """Language-model facade: weights, pool shapes, prefill and decode.
 
-Counterpart of the reference's ``models/lm.py`` for the dense family.  The
-reference casts its fp32 parameter tree to ``cfg.dtype`` on every call; the
-port stores every weight once in ``cfg.dtype``.  Parameter names follow the
-reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``, ...), so
-:func:`repro_torch.bridge.params_from_jax` maps one onto the other.
+Counterpart of the reference's ``models/lm.py`` for the dense, ssm
+(Mamba-2) and hybrid (Zamba2) families:
+
+  dense   -> transformer stack, paged KV pools [L, NP, ...]
+  ssm     -> Mamba-2 stack: recurrent state, no KV pool
+  hybrid  -> Mamba-2 backbone + a shared attention block whose KV is
+             paged with one pool slice per invocation [G, NP, ...]
+
+The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
+the port stores every weight once in ``cfg.dtype``.  Parameter names follow
+the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
+``decoder.mamba.w_in``, ...), so :func:`repro_torch.bridge.params_from_jax`
+maps one onto the other.  ``prefill`` and ``decode_step`` return and take
+the reference's non-pool decode state (``{"ssm", "conv"}`` for the
+recurrent families, ``{}`` for dense).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as hy
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.common import embed_init_
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (
@@ -24,19 +36,20 @@ from repro_torch.models.transformer import (
     decoder_stack_prefill,
 )
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
 
 class LM(nn.Module):
-    """Dense decoder LM.  Weights are allocated uninitialised on ``device``;
-    fill them with :meth:`init_weights` or ``load_state_dict``."""
+    """Dense, ssm or hybrid LM.  Weights are allocated uninitialised on
+    ``device``; fill them with :meth:`init_weights` or ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu"):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None \
+        if cfg.family not in FAMILIES or cfg.moe is not None \
                 or cfg.mla is not None:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the non-dense "
-                f"families (moe, mla, ssm, hybrid, encdec, vlm) come in a "
-                f"later slice")
+                f"family {cfg.family!r} is not ported yet: the moe, mla, "
+                f"encdec and vlm families come in a later slice")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -50,7 +63,13 @@ class LM(nn.Module):
             self.unembed = nn.Parameter(
                 torch.empty((d, V), dtype=dtype, device=device),
                 requires_grad=False)
-        self.decoder = DecoderParams(cfg, cfg.n_layers, dtype, device)
+        if cfg.family == "ssm":
+            self.decoder = m2.SSMStackParams(cfg, cfg.n_layers, dtype,
+                                             device)
+        elif cfg.family == "hybrid":
+            self.decoder = hy.HybridParams(cfg, dtype, device)
+        else:
+            self.decoder = DecoderParams(cfg, cfg.n_layers, dtype, device)
 
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Draw every weight from ``generator`` with the reference's
@@ -65,16 +84,38 @@ class LM(nn.Module):
     # ------------------------------------------------------------- pools
 
     def kv_layers(self) -> int:
+        """Pool slices: one per layer (dense), one per shared-block
+        invocation (hybrid), none (ssm)."""
+        if self.cfg.family == "ssm":
+            return 0
+        if self.cfg.family == "hybrid":
+            return hy.n_invocations(self.cfg)
         return self.cfg.n_layers
 
     def pool_shapes(self, num_pages: int, page_tokens: int,
                     dtype=torch.bfloat16
-                    ) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
-        """[(k_pool shape, dtype), (v_pool shape, dtype)]."""
+                    ) -> Optional[List[Tuple[Tuple[int, ...], torch.dtype]]]:
+        """[(k_pool shape, dtype), (v_pool shape, dtype)], or None for the
+        attention-free ssm family."""
         cfg = self.cfg
-        shape = (self.kv_layers(), num_pages, page_tokens, cfg.n_kv_heads,
+        L = self.kv_layers()
+        if L == 0:
+            return None
+        shape = (L, num_pages, page_tokens, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return [(shape, dtype), (shape, dtype)]
+
+    def init_state_shapes(self, batch: int
+                          ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Non-pool decode state as {name: (shape, dtype)}: the recurrent
+        families' ``ssm`` [L, B, nh, hd, N] (f32) and ``conv``
+        [L, B, d_conv-1, conv_dim] (``cfg.dtype``); empty for dense."""
+        cfg = self.cfg
+        if cfg.family not in ("ssm", "hybrid"):
+            return {}
+        s_shape, c_shape = m2.state_shapes(cfg, cfg.n_layers, batch)
+        return {"ssm": (s_shape, torch.float32),
+                "conv": (c_shape, getattr(torch, cfg.dtype))}
 
     # ------------------------------------------------------------- heads
 
@@ -96,7 +137,10 @@ class LM(nn.Module):
 
         ``batch["tokens"]`` [B, T] (right-padded to a page multiple);
         ``last_pos`` [B]: index of the last valid token per sequence
-        (defaults to T-1).  Returns (logits at last_pos [B, V], pools).
+        (defaults to T-1).  Returns (logits at last_pos [B, V], pools,
+        state): ``state`` is the recurrent families' ``{"ssm", "conv"}``
+        after all T tokens (page padding included, as the reference),
+        ``{}`` for dense.
 
         Suffix-only prefill (prefix-cache reuse): with ``prefix_kv=(k [L, B,
         P, Hkv, dh], v [...])`` and ``prefix_len=P`` (a page multiple),
@@ -110,9 +154,9 @@ class LM(nn.Module):
             if prefix_kv is None:
                 raise ValueError(f"prefix_len={prefix_len} without "
                                  f"prefix_kv")
-            # Dense only, as the reference: MoE capacity depends on the
-            # forward's token count, so a suffix pass would not be bitwise
-            # (the guard matters once the non-dense families are ported).
+            # Dense only, as the reference: recurrent state cannot start
+            # from cached KV, and MoE capacity depends on the forward's
+            # token count, so a suffix pass would not be bitwise.
             if self.cfg.family != "dense" or self.cfg.mla is not None:
                 raise NotImplementedError(
                     f"prefix-cache reuse unsupported for {self.cfg.family} "
@@ -120,27 +164,46 @@ class LM(nn.Module):
         x = self._embed(tokens)
         positions = (prefix_len + torch.arange(T, device=x.device))[
             None].expand(B, T)
-        x, pools = decoder_stack_prefill(self.cfg, self.decoder, x,
-                                         positions, pools, ctx,
-                                         prefix_kv=prefix_kv,
-                                         tok_offset=prefix_len)
+        state: Dict[str, torch.Tensor] = {}
+        if self.cfg.family == "ssm":
+            x, state["ssm"], state["conv"] = m2.ssm_stack_prefill(
+                self.cfg, self.decoder, x)
+        elif self.cfg.family == "hybrid":
+            x, pools, state["ssm"], state["conv"] = hy.hybrid_stack_prefill(
+                self.cfg, self.decoder, x, positions, pools, ctx)
+        else:
+            x, pools = decoder_stack_prefill(self.cfg, self.decoder, x,
+                                             positions, pools, ctx,
+                                             prefix_kv=prefix_kv,
+                                             tok_offset=prefix_len)
         if last_pos is None:
             x_last = x[:, -1:, :]
         else:
             x_last = x[torch.arange(B, device=x.device),
                        last_pos.long()][:, None, :]
-        return self._logits(x_last)[:, 0], pools
+        return self._logits(x_last)[:, 0], pools, state
 
     # ------------------------------------------------------------- decode
 
     @torch.no_grad()
-    def decode_step(self, tokens, pos, pools, ctx: PageCtx):
-        """tokens [B] int32, pos [B] current positions (0-based).
+    def decode_step(self, tokens, pos, pools, ctx: PageCtx,
+                    state: Optional[Dict[str, torch.Tensor]] = None):
+        """tokens [B] int32, pos [B] current positions (0-based); ``state``
+        the batch's stacked recurrent state (ssm/hybrid).
 
         Writes this step's K/V into the pools in place.  Returns
-        (logits [B, V], pools).
+        (logits [B, V], pools, state').
         """
+        state = dict(state or {})
         x = self._embed(tokens[:, None])
-        x, pools = decoder_stack_decode(self.cfg, self.decoder, x, pos,
-                                        pools, ctx)
-        return self._logits(x)[:, 0], pools
+        if self.cfg.family == "ssm":
+            x, state["ssm"], state["conv"] = m2.ssm_stack_decode(
+                self.cfg, self.decoder, x, state["ssm"], state["conv"])
+        elif self.cfg.family == "hybrid":
+            x, pools, state["ssm"], state["conv"] = hy.hybrid_stack_decode(
+                self.cfg, self.decoder, x, pos, pools, ctx, state["ssm"],
+                state["conv"])
+        else:
+            x, pools = decoder_stack_decode(self.cfg, self.decoder, x, pos,
+                                            pools, ctx)
+        return self._logits(x)[:, 0], pools, state

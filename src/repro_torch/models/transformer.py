@@ -35,7 +35,7 @@ from repro_torch.kernels.paged_attention import (
     paged_attention_kernel,
 )
 from repro_torch.models import paged
-from repro_torch.models.common import dense_init_
+from repro_torch.models.common import dense_init_, empty_param
 from repro_torch.models.layers import (
     apply_rope,
     gqa_qkv,
@@ -73,52 +73,54 @@ class PageCtx:
 # ------------------------------------------------------------------ params
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class AttnParams(nn.Module):
-    """Stacked attention weights: wq [L,d,H,dh], wk/wv [L,d,Hkv,dh],
-    wo [L,H,dh,d], and with ``qkv_bias`` bq [L,H,dh], bk/bv [L,Hkv,dh]."""
+    """Attention weights stacked over layers: wq [L,d,H,dh], wk/wv
+    [L,d,Hkv,dh], wo [L,H,dh,d], and with ``qkv_bias`` bq [L,H,dh], bk/bv
+    [L,Hkv,dh].  ``L=None`` drops the layer axis (the hybrid family's
+    shared block)."""
 
-    def __init__(self, cfg: ModelConfig, L: int, dtype, device):
+    def __init__(self, cfg: ModelConfig, L: Optional[int], dtype, device):
         super().__init__()
         if cfg.qk_norm:
             raise NotImplementedError(
                 "qk_norm configs are not ported yet (later slice)")
         d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         dh = cfg.resolved_head_dim
-        self.wq = _param((L, d, H, dh), dtype, device)
-        self.wk = _param((L, d, Hkv, dh), dtype, device)
-        self.wv = _param((L, d, Hkv, dh), dtype, device)
-        self.wo = _param((L, H, dh, d), dtype, device)
+        lead = () if L is None else (L,)
+        self.wq = empty_param((*lead, d, H, dh), dtype, device)
+        self.wk = empty_param((*lead, d, Hkv, dh), dtype, device)
+        self.wv = empty_param((*lead, d, Hkv, dh), dtype, device)
+        self.wo = empty_param((*lead, H, dh, d), dtype, device)
         if cfg.qkv_bias:
-            self.bq = _param((L, H, dh), dtype, device)
-            self.bk = _param((L, Hkv, dh), dtype, device)
-            self.bv = _param((L, Hkv, dh), dtype, device)
+            self.bq = empty_param((*lead, H, dh), dtype, device)
+            self.bk = empty_param((*lead, Hkv, dh), dtype, device)
+            self.bv = empty_param((*lead, Hkv, dh), dtype, device)
+        self._in_axis = len(lead)
 
     def init_(self, gen: torch.Generator) -> None:
         for name in ("wq", "wk", "wv", "wo"):
-            dense_init_(getattr(self, name), 1, gen)
+            dense_init_(getattr(self, name), self._in_axis, gen)
         for name in ("bq", "bk", "bv"):
             if hasattr(self, name):
                 getattr(self, name).data.zero_()
 
 
 class FFNParams(nn.Module):
-    """Stacked SwiGLU weights: w_gate/w_up [L,d,f], w_down [L,f,d]."""
+    """SwiGLU weights stacked over layers: w_gate/w_up [L,d,f], w_down
+    [L,f,d]; ``L=None`` drops the layer axis."""
 
-    def __init__(self, cfg: ModelConfig, L: int, dtype, device):
+    def __init__(self, cfg: ModelConfig, L: Optional[int], dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.w_gate = _param((L, d, f), dtype, device)
-        self.w_up = _param((L, d, f), dtype, device)
-        self.w_down = _param((L, f, d), dtype, device)
+        lead = () if L is None else (L,)
+        self.w_gate = empty_param((*lead, d, f), dtype, device)
+        self.w_up = empty_param((*lead, d, f), dtype, device)
+        self.w_down = empty_param((*lead, f, d), dtype, device)
+        self._in_axis = len(lead)
 
     def init_(self, gen: torch.Generator) -> None:
         for name in ("w_gate", "w_up", "w_down"):
-            dense_init_(getattr(self, name), 1, gen)
+            dense_init_(getattr(self, name), self._in_axis, gen)
 
 
 class DecoderParams(nn.Module):
@@ -126,8 +128,8 @@ class DecoderParams(nn.Module):
 
     def __init__(self, cfg: ModelConfig, L: int, dtype, device):
         super().__init__()
-        self.ln1 = _param((L, cfg.d_model), dtype, device)
-        self.ln2 = _param((L, cfg.d_model), dtype, device)
+        self.ln1 = empty_param((L, cfg.d_model), dtype, device)
+        self.ln2 = empty_param((L, cfg.d_model), dtype, device)
         self.attn = AttnParams(cfg, L, dtype, device)
         self.mlp = FFNParams(cfg, L, dtype, device)
 
@@ -216,6 +218,16 @@ def prefill_attention(q, k, v, prefix_kv=None):
     return flash_attention(q, torch.cat([pk.to(k.dtype), k], dim=1),
                            torch.cat([pv.to(v.dtype), v], dim=1),
                            q_offset=pk.shape[1])
+
+
+def attn_block_prefill(cfg: ModelConfig, p, x, positions):
+    """Full-sequence causal attention block (the reference's
+    ``attn_block_train`` without a cached prefix): x [B,T,d] -> (out
+    [B,T,d], k, v [B,T,Hkv,dh]); the attention runs the flash kernel."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    o = prefill_attention(q, k, v)
+    wo = p["wo"]
+    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]), k, v
 
 
 def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):

@@ -54,6 +54,14 @@ scatter's ``.to(device)`` are the real PCIe transfers, timed into
 link model and bookkeeping as the reference's, so both engines report them
 equal for the same schedule.
 
+Families: dense, ssm and hybrid (the LM's).  The recurrent families keep
+each request's decode state (``self.states``: ``{"ssm", "conv"}``) on the
+device, stacked along the batch axis for a decode step and split after
+it; it stays put across preemption, where only KV pages swap.  The ssm
+family has no pools: its pages are bookkeeping only (``page_bytes`` 0, no
+gather, scatter or compaction), and neither recurrent family uses the
+prefix cache.
+
 Not in this slice (raise ``NotImplementedError``): the translation meter,
 and the cluster tier's shared host store, prefix index, failure injection
 and spill promotion.  The pools and the pool writes of prefill, decode,
@@ -343,9 +351,12 @@ class ServingEngine:
         per_shard = ((per_shard + geometry.frame_pages - 1)
                      // geometry.frame_pages) * geometry.frame_pages
         probe = self.lm.pool_shapes(1, geometry.page_tokens)
-        # True KV bytes of one base page across all layers (k + v).
+        # True KV bytes of one base page across all layers (k + v); 0 for
+        # the attention-free ssm family (the managers then model the
+        # paper's nominal page size).
         self.page_bytes = sum(int(np.prod(shape[2:])) * shape[0]
-                              * dtype.itemsize for shape, dtype in probe)
+                              * dtype.itemsize for shape, dtype in probe) \
+            if probe else 0
         self.link = link or LinkModel()
         self.cache = ShardedKVCache(geometry, per_shard, n_shards,
                                     manager_kind, link=self.link,
@@ -353,8 +364,8 @@ class ServingEngine:
         self.host = HostPageStore()
         # Content-hash prefix cache.  Suffix-only prefill needs attention
         # over cached KV pages, which only the dense-transformer family
-        # replays bitwise (the reference's condition; the port's LM is
-        # dense-only so far).
+        # replays bitwise (the reference's condition: ssm and hybrid carry
+        # recurrent state that cached KV cannot restore).
         self.prefix_supported = (cfg.family == "dense" and cfg.mla is None
                                  and bool(self.page_bytes))
         self.prefix: Optional[PrefixIndex] = None
@@ -363,8 +374,14 @@ class ServingEngine:
                                       capacity_pages=prefix_capacity_pages)
         shapes = self.lm.pool_shapes(per_shard * n_shards,
                                      geometry.page_tokens)
-        self.pools = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
-                           for shape, dtype in shapes)
+        self.pools = (tuple(torch.zeros(shape, dtype=dtype,
+                                        device=self.device)
+                            for shape, dtype in shapes)
+                      if shapes else None)
+        # Per-request recurrent decode state (ssm / hybrid: {"ssm", "conv"}
+        # with a batch axis of 1), kept on the device across preemption:
+        # only KV pages swap.
+        self.states: Dict[int, Dict[str, torch.Tensor]] = {}
         self.queue: Deque[Request] = deque()
         self.preempted: Deque[Request] = deque()
         self._held: List[Request] = []
@@ -510,8 +527,9 @@ class ServingEngine:
         """Device→host gather of [(shard, vpn, ppn)] pool pages (an
         eviction or a park): one kernel launch per pool over all layers,
         then one copy to the host.
-        Returns per-page (k_page, v_page) CPU payloads."""
-        if not entries:
+        Returns per-page (k_page, v_page) CPU payloads (none without
+        pools)."""
+        if not entries or self.pools is None:
             return []
         pps = self.cache.pages_per_shard
         gidx = self._index([s * pps + ppn for s, _v, ppn in entries])
@@ -533,8 +551,9 @@ class ServingEngine:
         """Account a device→host gather on the DMA channels' "out" lanes
         (full duplex).  The host copy is synchronous in the model, so the
         engine never stalls on these jobs: they occupy the outbound
-        timeline and settle as hidden µs at the next drain."""
-        if not self.duplex or not entries:
+        timeline and settle as hidden µs at the next drain.  Without pools
+        (ssm) a gather moves nothing and no job is queued."""
+        if not self.duplex or not entries or self.pools is None:
             return
         by_shard: Dict[int, List[int]] = {}
         for i, (s, _vpn, _ppn) in enumerate(entries):
@@ -1090,10 +1109,11 @@ class ServingEngine:
             np.asarray(req.prompt[P:], np.int32))
         ctx = self._ctx_global(self.cache.pack_ctx(
             [req.rid], self.mpps, device=self.device))
-        logits, _ = self.lm.prefill(
+        logits, _, state = self.lm.prefill(
             {"tokens": tokens.to(self.device)}, self.pools, ctx,
             last_pos=self._index([T - 1 - P]), prefix_kv=(pk, pv),
             prefix_len=P)
+        self.states[req.rid] = state
         req.out.append(int(torch.argmax(logits[0])))
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_tokens += T - P      # compute actually done
@@ -1178,7 +1198,10 @@ class ServingEngine:
 
     def _prefill_full(self, req: Request):
         """Cold admission: full-prompt forward for an already-allocated
-        request."""
+        request.  The prompt is right-padded with token 0 to a page
+        multiple and the recurrent families' state is taken after the
+        padded prompt, as the reference does (its tokens therefore depend
+        on the page size for ssm and hybrid)."""
         ptok = self.geo.page_tokens
         T = len(req.prompt)
         Tpad = ((T + ptok - 1) // ptok) * ptok
@@ -1192,9 +1215,10 @@ class ServingEngine:
             [req.rid], self.mpps, device=self.device))
         tokens = torch.zeros((1, Tpad), dtype=torch.int32)
         tokens[0, :T] = torch.from_numpy(np.asarray(req.prompt, np.int32))
-        logits, _ = self.lm.prefill(
+        logits, _, state = self.lm.prefill(
             {"tokens": tokens.to(self.device)}, self.pools, ctx,
             last_pos=self._index([T - 1]))
+        self.states[req.rid] = state
         req.out.append(int(torch.argmax(logits[0])))
         self.stats.prefill_s += time.perf_counter() - t0
         # Tokens beyond T within the padded page are unused; the tracked
@@ -1292,7 +1316,9 @@ class ServingEngine:
         toks = self._index([r.out[-1] for r in runnable])
         pos = self._index([self.cache.seq_tokens[r.rid] - 1
                            for r in runnable])
-        logits, _ = self.lm.decode_step(toks, pos, self.pools, ctx)
+        state = self._stack_states(seqs)
+        logits, _, state = self.lm.decode_step(toks, pos, self.pools, ctx,
+                                               state)
         nxt = logits.argmax(dim=-1).cpu().tolist()
         dt = time.perf_counter() - t_dec
         self.stats.decode_s += dt
@@ -1305,6 +1331,7 @@ class ServingEngine:
             # Settle the consumed jobs (only tails past the window are
             # exposed) and scatter the staged pages before any eviction.
             self._settle_fused()
+        self._unstack_states(seqs, state)
         done_now = []
         for i, r in enumerate(runnable):
             r.out.append(int(nxt[i]))
@@ -1322,6 +1349,7 @@ class ServingEngine:
             self._park_prefix(r)
             self.active.remove(r)
             self.cache.free(r.rid)
+            self.states.pop(r.rid, None)
             self.host.drop_seq(r.rid)
             dropped = self.staging.invalidate_seq(r.rid)
             self.stats.prefetch_wasted += dropped
@@ -1340,7 +1368,7 @@ class ServingEngine:
         """Execute pending CAC copy plans on the device (one kernel launch
         per pool over all layers)."""
         ops = self.cache.drain_copy_ops()
-        if not ops:
+        if not ops or self.pools is None:
             return
         pps = self.cache.pages_per_shard
         src = self._index([s * pps + op.src_ppn for s, op in ops])
@@ -1349,6 +1377,24 @@ class ServingEngine:
         kops.page_compact(k, src, dst)
         kops.page_compact(v, src, dst)
         self.stats.compaction_copies += len(ops)
+
+    # ------------------------------------------------------------- states
+
+    def _stack_states(self, seqs: List[int]) -> Dict[str, torch.Tensor]:
+        """The decode batch's recurrent state: each request's
+        {"ssm", "conv"} concatenated along the batch axis (axis 1 of
+        [L, B, ...]); empty for dense."""
+        if not self.states:
+            return {}
+        keys = self.states[seqs[0]].keys()
+        return {k: torch.cat([self.states[s][k] for s in seqs], dim=1)
+                for k in keys}
+
+    def _unstack_states(self, seqs: List[int],
+                        stacked: Dict[str, torch.Tensor]) -> None:
+        for k, v in stacked.items():
+            for s, part in zip(seqs, torch.split(v, 1, dim=1)):
+                self.states[s][k] = part
 
     # ------------------------------------------------------------- run
 

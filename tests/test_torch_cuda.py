@@ -356,7 +356,7 @@ def test_cuda_suffix_prefill_equals_full_prefill_bitwise(cuda_device,
         toks = torch.zeros((1, -(-T // ptok) * ptok - start),
                            dtype=torch.int32)
         toks[0, :T - start] = torch.from_numpy(prompt[start:])
-        logits, _ = lm.prefill(
+        logits, _, _ = lm.prefill(
             {"tokens": toks.to(cuda_device)}, pl, ctx(T + 1),
             last_pos=torch.tensor([T - 1 - start], device=cuda_device),
             prefix_kv=prefix_kv, prefix_len=start)
@@ -380,3 +380,159 @@ def test_cuda_suffix_prefill_equals_full_prefill_bitwise(cuda_device,
     n = -(-len(prompt_b) // ptok)
     for ref_pool, got in zip(pools_ref, warm):
         assert torch.equal(got[:, :n], ref_pool[:, :n])
+
+
+# ------------------------------------------------------------------ SSD scan
+
+
+def _ssd_case(dev, B, T, nh, hd, N, dtype, with_h0, seed=41):
+    """Inputs drawn as tests/test_kernels.py draws them: dt in [0.01, 0.2],
+    A in [-2, -0.5]."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt_=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dt_)
+    x = t(rng.normal(size=(B, T, nh, hd)))
+    dt = t(rng.uniform(0.01, 0.2, size=(B, T, nh)), torch.float32)
+    A = -t(rng.uniform(0.5, 2.0, size=(nh,)), torch.float32)
+    Bm = t(rng.normal(size=(B, T, nh, N)))
+    Cm = t(rng.normal(size=(B, T, nh, N)))
+    h0 = (t(rng.normal(size=(B, nh, hd, N)), torch.float32)
+          if with_h0 else None)
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("Q", [48, 64, 192, 256])
+@pytest.mark.parametrize("N", [16, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_ssd_scan_matches_plain(cuda_device, hd, N, Q, with_h0, dtype):
+    """The kernel against its plain version on the same inputs, over two
+    chunks (the carried state crosses a chunk boundary) and two heads.
+    Tolerances of tests/test_kernels.py: 3e-2 for bf16 inputs, 2e-4 for
+    f32 (another summation order of f32 sums)."""
+    tdt = getattr(torch, dtype)
+    args = _ssd_case(cuda_device, 2, 2 * Q, 2, hd, N, tdt, with_h0)
+    x, dt, A, Bm, Cm, h0 = args
+    before = ops.launch_counts()["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q, h0=h0)
+    y_r, h_r = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=Q, h0=h0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y, y_r, **tol)
+    torch.testing.assert_close(h, h_r, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_single_chunk_and_smoke_dims(cuda_device):
+    """T = Q (one chunk, no carried term) and the smoke configs' head dim
+    and state size 16, f32 at 2e-4."""
+    for B, T, nh, hd, N, Q in ((1, 40, 3, 16, 16, 40), (3, 64, 4, 16, 16,
+                                                        32)):
+        x, dt, A, Bm, Cm, h0 = _ssd_case(cuda_device, B, T, nh, hd, N,
+                                         torch.float32, True)
+        y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q, h0=h0)
+        y_r, h_r = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=Q, h0=h0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_r, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h, h_r, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_wrapper_refuses_bad_inputs(cuda_device):
+    x, dt, A, Bm, Cm, h0 = _ssd_case(cuda_device, 1, 64, 2, 32, 16,
+                                     torch.bfloat16, True)
+    with pytest.raises(ValueError, match="Bm on cpu"):
+        ops.ssd_scan(x, dt, A, Bm.cpu(), Cm, chunk=32)
+    with pytest.raises(ValueError, match="Bm is torch.float32"):
+        ops.ssd_scan(x, dt, A, Bm.float(), Cm, chunk=32)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="head dim 24"):
+        ops.ssd_scan(x[..., :24].contiguous(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="chunk 48"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="chunk 512"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=512)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="h0"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32, h0=h0[:, :1].contiguous())
+    flat = torch.empty(Bm.numel() + 8, dtype=Bm.dtype, device=cuda_device)
+    odd = flat[1:1 + Bm.numel()].view(Bm.shape)       # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd_scan(x, dt, A, odd, Cm, chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-1.3b"])
+def test_cuda_recurrent_lm_matches_cpu_plain_path(cuda_device, arch):
+    """The LM of the ssm and hybrid families at smoke width on the card
+    (SSD-scan, flash and paged kernels) against the same weights on the
+    CPU (plain versions): prefill of a 45-token prompt padded to 48 (two
+    chunks of 32 and a padded third), then two decode steps; logits, the
+    ssm / conv state and the pools.  f32 throughout, pools included, at
+    1e-3: the kernels sum in another order than the plain versions
+    (2e-4 per SSD scan), amplified through the layers and the recurrence.
+    The hybrid's attention head dim is 32, the attention kernels' smallest
+    (the smoke config has 16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.kv_cache import ShardedKVCache
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    cpu = LM(cfg).init_weights(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    ptok, mpps, NP = 8, 12, 32
+    T = 45
+    rng = np.random.default_rng(7)
+    toks = np.zeros((1, 48), np.int32)
+    toks[0, :T] = rng.integers(0, cfg.vocab_size, T)
+    new = torch.from_numpy(rng.integers(0, cfg.vocab_size, 2).astype(
+        np.int32))
+    shapes = cpu.pool_shapes(NP, ptok, dtype=torch.float32)
+    runs = {}
+    before = ops.launch_counts()
+    for dev, lm in (("cpu", cpu), ("cuda", card)):
+        cache = ShardedKVCache(PoolGeometry(page_tokens=ptok,
+                                            frame_pages=4), NP, 1)
+        cache.allocate(0, T)
+        pl = None if shapes is None else tuple(
+            torch.zeros(s, dtype=d, device=dev) for s, d in shapes)
+        logits, pl, state = lm.prefill(
+            {"tokens": torch.from_numpy(toks).to(dev)}, pl,
+            cache.pack_ctx([0], mpps, device=dev),
+            last_pos=torch.tensor([T - 1], device=dev))
+        out = [logits]
+        for i in range(2):
+            cache.append(0)
+            logits, pl, state = lm.decode_step(
+                new[i:i + 1].to(dev), torch.tensor([T + i], device=dev), pl,
+                cache.pack_ctx([0], mpps, device=dev), state)
+            out.append(logits)
+        runs[dev] = (out, state, pl)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    n_attn = card.kv_layers()
+    assert after["ssd_scan"] - before["ssd_scan"] == cfg.n_layers
+    assert after["flash_attention"] - before["flash_attention"] == n_attn
+    assert (after["paged_attention.page"] - before["paged_attention.page"]
+            == 2 * n_attn)
+    tol = dict(rtol=1e-3, atol=1e-3)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    for k in ("ssm", "conv"):
+        torch.testing.assert_close(runs["cuda"][1][k].cpu(),
+                                   runs["cpu"][1][k], **tol)
+    if shapes is not None:
+        for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+            torch.testing.assert_close(a.cpu(), b, **tol)

@@ -235,12 +235,12 @@ def test_lm_decode_with_staged_pages_matches_reference():
     assert isinstance(jctx, JCtx) and isinstance(tctx_f, TCtx)
     lj, _, _ = jlm.decode_step(jparams, jnp.asarray(toks), jnp.asarray(pos),
                                pools_j, jctx)
-    lt, _ = tlm.decode_step(torch.from_numpy(toks), torch.from_numpy(pos),
-                            pools_t, tctx_f)
+    lt, _, _ = tlm.decode_step(torch.from_numpy(toks),
+                               torch.from_numpy(pos), pools_t, tctx_f)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
                                rtol=1e-4, atol=1e-4)
     # The staged bytes are the pool's true bytes: the port's all-resident
     # decode on the clean pools gives the same logits bitwise.
-    lt_clean, _ = tlm.decode_step(torch.from_numpy(toks),
+    lt_clean, _, _ = tlm.decode_step(torch.from_numpy(toks),
                                   torch.from_numpy(pos), clean_t, tctx)
     assert torch.equal(lt, lt_clean)

@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 27, out.stdout
+    assert n_modules >= 32, out.stdout
     assert out.stdout.strip().endswith("BAD []"), out.stdout
 
 
@@ -48,7 +48,14 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.kernels.ops import KERNELS, fused_paged_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.serving.host_tier import PrefixIndex, PrefixPage
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models.mamba2 import MambaParams, ssm_stack_prefill
+from repro_torch.models.hybrid import HybridParams, hybrid_stack_decode
+from repro_torch.configs import get_config
 assert "paged_attention.fused" in KERNELS and "flash_attention" in KERNELS
+assert "ssd_scan" in KERNELS
+assert get_config("zamba2-1.2b").family == "hybrid"
+assert get_config("mamba2-1.3b").family == "ssm"
 assert ServingEngine.__init__.__kwdefaults__["fault_mode"] == "async"
 assert ServingEngine.__init__.__kwdefaults__["prefix_cache"] is True
 print("BAD", sorted(m for m in sys.modules
@@ -59,7 +66,8 @@ print("BAD", sorted(m for m in sys.modules
 
 def test_async_pipeline_and_fused_kernel_import_without_jax():
     """The modules the slices add or extend (async and fused fault-in,
-    the prefix cache, the flash-attention kernel), imported by name."""
+    the prefix cache, the flash-attention kernel, the SSD-scan kernel, the
+    Mamba-2 and hybrid models and their configs), imported by name."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _NAMED], env=env,
                          capture_output=True, text=True, timeout=300)

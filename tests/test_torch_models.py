@@ -188,9 +188,9 @@ def test_lm_prefill_and_decode_match_reference(dtype):
         lj, pools_j, _ = jlm.prefill(
             jparams, {"tokens": _j(toks)}, pools_j, jc.pack_ctx([rid], mpps),
             last_pos=_j(np.array([T - 1], np.int32)))
-        lt, _ = tlm.prefill({"tokens": _t(toks)}, pools_t,
-                            tc.pack_ctx([rid], mpps),
-                            last_pos=_t(np.array([T - 1], np.int32)))
+        lt, _, _ = tlm.prefill({"tokens": _t(toks)}, pools_t,
+                               tc.pack_ctx([rid], mpps),
+                               last_pos=_t(np.array([T - 1], np.int32)))
         np.testing.assert_allclose(_np(lt), _np(lj), **tol)
         nxt.append(int(np.argmax(_np(lj)[0])))
     for _ in range(3):
@@ -201,8 +201,8 @@ def test_lm_prefill_and_decode_match_reference(dtype):
         toks = np.asarray(nxt, np.int32)
         lj, pools_j, _ = jlm.decode_step(jparams, _j(toks), _j(pos), pools_j,
                                          jc.pack_ctx([0, 1], mpps))
-        lt, _ = tlm.decode_step(_t(toks), _t(pos), pools_t,
-                                tc.pack_ctx([0, 1], mpps))
+        lt, _, _ = tlm.decode_step(_t(toks), _t(pos), pools_t,
+                                   tc.pack_ctx([0, 1], mpps))
         np.testing.assert_allclose(_np(lt), _np(lj), **tol)
         nxt = list(np.argmax(_np(lj), axis=-1))
     for pj, pt in zip(pools_j, pools_t):
@@ -210,7 +210,7 @@ def test_lm_prefill_and_decode_match_reference(dtype):
 
 
 def test_lm_refuses_unported_families():
-    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="ssm")
+    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="moe")
     with pytest.raises(NotImplementedError, match="later slice"):
         TLM(cfg)
 

@@ -164,9 +164,9 @@ def _t_full(lm, prompt, pools):
     T = len(prompt)
     toks = torch.zeros((1, -(-T // PTOK) * PTOK), dtype=torch.int32)
     toks[0, :T] = torch.from_numpy(prompt)
-    logits, _ = lm.prefill({"tokens": toks}, pools,
-                           _ctx(TCtx, torch.from_numpy, T + 1),
-                           last_pos=torch.tensor([T - 1]))
+    logits, _, _ = lm.prefill({"tokens": toks}, pools,
+                              _ctx(TCtx, torch.from_numpy, T + 1),
+                              last_pos=torch.tensor([T - 1]))
     return logits
 
 
@@ -174,10 +174,10 @@ def _t_suffix(lm, prompt, P, pools, pk, pv):
     T = len(prompt)
     toks = torch.zeros((1, -(-T // PTOK) * PTOK - P), dtype=torch.int32)
     toks[0, :T - P] = torch.from_numpy(prompt[P:])
-    logits, _ = lm.prefill({"tokens": toks}, pools,
-                           _ctx(TCtx, torch.from_numpy, T + 1),
-                           last_pos=torch.tensor([T - 1 - P]),
-                           prefix_kv=(pk, pv), prefix_len=P)
+    logits, _, _ = lm.prefill({"tokens": toks}, pools,
+                              _ctx(TCtx, torch.from_numpy, T + 1),
+                              last_pos=torch.tensor([T - 1 - P]),
+                              prefix_kv=(pk, pv), prefix_len=P)
     return logits
 
 
