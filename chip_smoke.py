@@ -18,7 +18,10 @@ Phases (each synchronised; any failure exits non-zero):
    initial state over 192-row chunks), and their
    times (CUDA-graph replay for kernels and library calls, CUDA events for
    the plain versions) beside their bound: bytes at 3.35 TB/s or bf16
-   operations at 989 TFLOP/s, whichever is larger;
+   operations at 989 TFLOP/s, whichever is larger.  Paged attention is
+   also timed at B = 1, and flash and paged attention at zamba2-1.2b's
+   shared-block shapes (H = n_kv = 32, dh = 64: one query head per KV
+   head); each [kernel] line names the split count or tile shape;
 4. main path: qwen2.5-3b at its published width, bf16, random weights from
    a seed, served by ``ServingEngine`` (mosaic, 2x oversubscribed) over a
    seeded stream with staggered priority arrivals, three times on the same
@@ -384,6 +387,7 @@ def phase_kernels(cfg, results):
     import torch
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     geo = PoolGeometry()
     ptok, fp = geo.page_tokens, geo.frame_pages
@@ -434,6 +438,13 @@ def phase_kernels(cfg, results):
                              and (o[-1] == 0).all()),
                         f"{name}: all-hole row must give m=-1e30, l=0, o=0")
             errs.append(float((on - on_r).abs().max()))
+            if B == 1:
+                # A lone decoding request, over all L layers' pools in turn.
+                b1_ms = graph_ms(cycling(functools.partial(
+                    ops.paged_attention_kernel, granularity=gran,
+                    frame_pages=fp, scale=scale),
+                    [(q, kall[i], vall[i], tb, nt) for i in range(L)]))
+                b1_tokens = int(nt.sum())
             if B == MAX_BATCH:
                 # Timed over all L layers' pools in turn, as decode reads
                 # them: 2 x 94 MB, beyond the 50 MB L2.
@@ -459,7 +470,11 @@ def phase_kernels(cfg, results):
               f"kernel_ms {timing['ms']:.4f} plain_ms "
               f"{timing['plain_ms']:.4f} bound_ms {timing['bound_ms']:.5f} "
               f"library_ms none (no single PyTorch call computes paged "
-              f"attention) | {timing['shape']}")
+              f"attention) | {timing['shape']} | splits "
+              f"{pa.split_count(n_blocks, tpb)} of {pa.SPLIT_TOKENS} "
+              f"positions, grid {pa.split_count(n_blocks, tpb)}x{n_kv}x"
+              f"{MAX_BATCH} + combine | B=1 ({b1_tokens} tokens): kernel_ms "
+              f"{b1_ms:.4f}")
 
     # Frames combined with pages == page-only over the same sequences.
     B = MAX_BATCH
@@ -543,7 +558,8 @@ def phase_kernels(cfg, results):
           f"== page kernel on the same bytes | kernel_ms {r['ms']:.4f} "
           f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
           f"library_ms none (no single PyTorch call computes it) | "
-          f"{r['shape']}")
+          f"{r['shape']} | splits {pa.split_count(mpps, ptok)} of "
+          f"{pa.SPLIT_TOKENS} positions + combine")
 
     # Prefill flash attention at the path's shapes: (a) a full FLASH_T-token
     # prompt, (b) its suffix from position FLASH_P over all FLASH_T keys (a
@@ -594,7 +610,8 @@ def phase_kernels(cfg, results):
           f"({r['bound_by']}) library_ms {r['library_ms']:.4f} "
           f"(scaled_dot_product_attention) | (b) suffix Tq={T - P} "
           f"q_offset={P}: kernel_ms {s_ms:.4f} bound_ms {sb_ms:.5f} | "
-          f"{r['shape']}")
+          f"{r['shape']} | {flash_tiles(H, n_kv, T)}")
+    phase_shared_block(gen)
 
     # Copies on the engine's stacked pools [L, NP, ptok, n_kv, dh].
     pool = randn(L, NP, ptok, n_kv, dh)
@@ -697,6 +714,91 @@ def phase_kernels(cfg, results):
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} library_ms "
               f"{r['library_ms']:.4f} | {r['shape']}")
     torch.cuda.synchronize()
+
+
+def flash_tiles(H, n_kv, T):
+    """The flash kernel's tiling for one T-token prompt (B = 1), for the
+    [kernel] lines."""
+    g = H // n_kv
+    bq = 64 // g
+    return (f"tiles 64 rows ({g} heads x {bq} positions) x 64 keys, "
+            f"mma.sync m16n8k16 bf16, grid {-(-T // bq)}x{n_kv}x1")
+
+
+def phase_shared_block(gen):
+    """Flash and paged attention at zamba2-1.2b's shared-block shapes
+    (H = n_kv = 32, dh = 64: g = 1), against their plain versions and
+    timed beside their bounds: flash on a FLASH_T-token prompt; paged
+    (page granularity) at B = MAX_BATCH over the main path's table width,
+    cycling over the 6 invocations' pool slices as a decode step does.
+    Printed only: the kernels JSON line keeps the serving shapes of
+    qwen2.5-3b."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device("cuda")
+    hyb = get_config(HYBRID_ARCH)
+    H, n_kv, dh = hyb.n_heads, hyb.n_kv_heads, hyb.resolved_head_dim
+    G = hyb.n_layers // hyb.hybrid.period    # shared-block invocations
+    geo = PoolGeometry()
+    ptok = geo.page_tokens
+    NP, mpps, B, T = 80, MAX_SEQ // ptok, MAX_BATCH, FLASH_T
+    scale = dh ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    q, k, v = randn(1, T, H, dh), randn(1, T, n_kv, dh), randn(1, T, n_kv, dh)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+    err = float((got.float() - want.float()).abs().max())
+    pairs = T * (T + 1) // 2
+    b_ms, b_by = bound_ms(2 * (2 * T * H + 2 * T * n_kv) * dh,
+                          4 * H * dh * pairs)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = graph_ms(lambda: ops.flash_attention(q, k, v))
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    print(f"[kernel] flash_attention (zamba2 shared block): max_abs_err "
+          f"{err:.3g} | kernel_ms {ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+          f"library_ms {lib_ms:.4f} (scaled_dot_product_attention) | B=1 "
+          f"H={H} n_kv={n_kv} dh={dh} T={T} causal | "
+          f"{flash_tiles(H, n_kv, T)}")
+
+    rng = np.random.default_rng(4)
+    pools = [(randn(NP, ptok, n_kv, dh), randn(NP, ptok, n_kv, dh))
+             for _ in range(G)]
+    qd = randn(B, H, dh)
+    tb, nt = (torch.from_numpy(a).to(dev)
+              for a in _tables(rng, B, mpps, NP, ptok))
+    o, m, l = ops.paged_attention_kernel(qd, *pools[0], tb, nt,
+                                         granularity="page", scale=scale)
+    o_r, m_r, l_r = ref.paged_attention_ref(qd, *pools[0], tb, nt,
+                                            scale=scale)
+    torch.cuda.synchronize()
+    on, on_r = o / l[..., None], o_r / l_r[..., None]
+    torch.testing.assert_close(on, on_r, **ATTN_TOL)
+    torch.testing.assert_close(m, m_r, **ML_TOL)
+    torch.testing.assert_close(l, l_r, **ML_TOL)
+    tokens = int(nt.sum())
+    b_ms, b_by = bound_ms(2 * tokens * n_kv * dh * 2 + qd.numel() * 2
+                          + 2 * tb.numel() * 4 + B * H * (dh + 2) * 4,
+                          4 * H * dh * tokens)
+    ms = graph_ms(cycling(functools.partial(
+        ops.paged_attention_kernel, granularity="page", scale=scale),
+        [(qd, pk, pv, tb, nt) for pk, pv in pools]))
+    ns = pa.split_count(mpps, ptok)
+    print(f"[kernel] paged_attention.page (zamba2 shared block): "
+          f"max_abs_err {float((on - on_r).abs().max()):.3g} | kernel_ms "
+          f"{ms:.4f} bound_ms {b_ms:.5f} ({b_by}) | B={B} H={H} n_kv={n_kv} "
+          f"dh={dh} blocks={mpps} tokens={tokens}, cycling {G} pool slices "
+          f"| splits {ns} of {pa.SPLIT_TOKENS} positions, grid "
+          f"{ns}x{n_kv}x{B} + combine")
 
 
 def ssd_bound(B, T, nh, hd, N, Q, with_h0):

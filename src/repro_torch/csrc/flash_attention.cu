@@ -12,30 +12,45 @@
 // What bounds it on the card: operations.  A causal call at the serving
 // shapes (Tq = Tk = 1152, 16 heads, head dim 128, bf16) reads ~11 MB and
 // does ~5.4 GFLOP, ~1600 flops per byte, far above the ~295 where an H100
-// turns compute-bound.  This first design is simple and runs the f32
-// arithmetic on CUDA cores (tensor cores with wgmma and TMA are later work):
-// one CTA of 256 threads per (tile of query positions, KV head, batch row)
-// holds all g = H / n_kv query heads of the group for 64 / g positions (64
-// rows; the GQA trick of the Pallas kernel: each K/V byte staged in shared
-// memory serves the whole group), walks key tiles of 64 in shared memory,
-// and keeps the online-softmax m, l and the f32 output accumulator in
-// registers.  Each thread owns a 4 x 4 block of a tile's scores and a
-// 4-row x dh/16-column block of the output.  Causal CTAs stop at their last
-// row's diagonal and are scheduled heaviest first.
+// turns compute-bound, so the bf16 arithmetic runs on the tensor cores.
+//
+// Both paths share the tiling: one CTA per (tile of query positions, KV
+// head, batch row) holds all g = H / n_kv query heads of the group for
+// 64 / g positions (64 rows; the GQA trick of the Pallas kernel: each K/V
+// byte staged in shared memory serves the whole group), walks key tiles of
+// 64, and keeps the online-softmax m, l and the f32 output accumulator in
+// registers.  Causal CTAs stop at their last row's diagonal and are
+// scheduled heaviest first.
+//
+// Tensor-core path (bf16, head dim 32, 64, 96 or 128): four warps of 16
+// rows each.  The Q tile is loaded once into mma fragments; K/V tiles
+// stream through a two-stage cp.async ring in bf16; S = Q K^T and O += P V
+// run as mma.sync.m16n8k16 (bf16 in, f32 accumulate), P rounded to bf16 in
+// registers straight from the S accumulator fragments, m and l kept per
+// row beside them.  wgmma (m64nNk16 from shared memory) is the next step.
+//
+// CUDA-core path (f32 inputs, which must match their plain version at 2e-5
+// and would not in TF32, and bf16 head dims the tensor-core path does not
+// take): 256 threads, each owning a 4 x 4 block of a tile's scores and a
+// 4-row x dh/16-column block of the output, f32 FMAs over f32 tiles.
 //
 // Bitwise contract (the prefix cache relies on it): a row's result does not
 // depend on Tq, q_offset's split between prefix and suffix, or which other
 // rows share its CTA.  Key tiles start at absolute key positions 0, 64, ...;
-// a row's arithmetic is one fixed instruction sequence; a tile past a row's
-// diagonal that its CTA still processes is an exact no-op for it (m starts
-// at -1e30, not -inf, as the Pallas kernel; masked probabilities are zeroed
-// explicitly, so alpha = exp(m - m) = 1 and P.V adds exact zeros).  So the
-// rows of a suffix call equal the same rows of the full call bit for bit.
+// a row's arithmetic is one fixed instruction sequence (on the tensor-core
+// path too: an mma's output row depends only on its own A row, and a thread
+// owns the same key columns of every row); a tile past a row's diagonal
+// that its CTA still processes is an exact no-op for it (m starts at -1e30,
+// not -inf, as the Pallas kernel; masked probabilities are exact zeros, so
+// alpha = exp(m - m) = 1 and P.V adds exact zeros).  No step depends on
+// another row (no tile-wide rescale shortcut).  So the rows of a suffix call
+// equal the same rows of the full call bit for bit.
 // A row with no valid key returns 0 (l = 0), as the Pallas kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -84,6 +99,8 @@ __device__ __forceinline__ float group_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// ------------------------------------------------------- CUDA-core path
 
 // NC2 = dh / 32: each thread owns output columns 32 * c + 2 * tx + {0, 1}.
 template <int NC2>
@@ -281,6 +298,299 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------ tensor-core path
+
+constexpr int kTcThreads = 128;    // 4 warps x 16 rows
+constexpr int kStages = 2;         // K/V ring depth
+
+// Q tile [kRows][dh + 8] and kStages x (K, V) tiles [kKeys][dh + 8] in bf16;
+// the 16-byte row pad keeps ldmatrix's eight row reads on distinct banks.
+size_t tc_smem_bytes(int dh) {
+  return (size_t)(kRows + 2 * kStages * kKeys) * (dh + 8)
+         * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; with ok false it reads nothing and zero-fills.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// Warp w owns rows 16 w .. 16 w + 15; in an m16n8 fragment lane holds rows
+// lane / 4 and lane / 4 + 8 (a = 0, 1) and columns 2 (lane % 4) + {0, 1} of
+// each 8-column tile.  scale_log2 = scale * log2(e): scores live in base 2.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o,
+                          const int* __restrict__ kv_len, int Tq, int Tk,
+                          int H, int n_kv, int q_offset, int causal,
+                          float scale_log2) {
+  constexpr int S = DH + 8;        // shared-memory row stride (elements)
+  constexpr int KS = DH / 16;      // k steps of Q K^T
+  constexpr int NT = DH / 8;       // 8-column tiles of the output
+  constexpr int CPR = DH / 8;      // 16-byte pieces per row
+  constexpr int ST = kKeys / 8;    // 8-key tiles of a score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kv_s = q_s + kRows * S;   // [kStages][K, V][kKeys][S]
+  const int g = H / n_kv;
+  const int bq = kRows / g;
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int pos0 = qt * bq;
+  const int n_pos = min(bq, Tq - pos0);
+  const size_t q_row_stride = (size_t)H * DH;
+  const size_t kv_row_stride = (size_t)n_kv * DH;
+
+  // Row r is head kvh * g + r / bq at query index pos0 + r % bq; rows past
+  // the group or the call are zero.
+  for (int i = tid; i < kRows * CPR; i += kTcThreads) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const int j = r / bq, p = r % bq;
+    const bool ok = j < g && p < n_pos;
+    const __nv_bfloat16* src =
+        ok ? q + ((size_t)b * Tq + pos0 + p) * q_row_stride
+                 + (size_t)(kvh * g + j) * DH + c
+           : q;
+    cp_async16(q_s + r * S + c, src, ok);
+  }
+
+  const int kvl = kv_len != nullptr ? min(kv_len[b], Tk) : Tk;
+  int kend = kvl;                                     // keys [0, kend)
+  if (causal) kend = min(kend, q_offset + pos0 + n_pos);
+  const int n_tiles = kend > 0 ? (kend + kKeys - 1) / kKeys : 0;
+
+  // Keys past Tk are zero-filled (and masked); keys in [kvl, Tk) are read
+  // and masked.
+  auto load_tile = [&](int t, int stage) {
+    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * kKeys * S;
+    __nv_bfloat16* vs = ks + kKeys * S;
+    const int key0 = t * kKeys;
+    for (int i = tid; i < kKeys * CPR; i += kTcThreads) {
+      const int key = i / CPR;
+      const int c = (i % CPR) * 8;
+      const bool ok = key0 + key < Tk;
+      const size_t off =
+          ok ? ((size_t)b * Tk + key0 + key) * kv_row_stride
+                   + (size_t)kvh * DH + c
+             : 0;
+      cp_async16(ks + key * S + c, k + off, ok);
+      cp_async16(vs + key * S + c, v + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();                   // group 0: Q and the first tile
+
+  int rpos[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int r = warp * 16 + lane / 4 + 8 * a;
+    rvalid[a] = r / bq < g && r % bq < n_pos;
+    rpos[a] = q_offset + pos0 + r % bq;
+  }
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};             // this lane's columns only
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qf[KS][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_tile(t + 1, (t + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<1>();                // tile t (and Q) have landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], q_s + (warp * 16 + lane % 8 + ((lane / 8) & 1) * 8)
+                                  * S + kk * 16 + (lane / 16) * 8);
+    }
+    const __nv_bfloat16* ks = kv_s + (size_t)(t % kStages) * 2 * kKeys * S;
+    const __nv_bfloat16* vs = ks + kKeys * S;
+
+    // S = Q K^T over the head dim, 16 at a time.
+    float s[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < ST / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ks + (np * 16 + lane % 8 + (lane / 16) * 8) * S
+                        + kk * 16 + ((lane / 8) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // Online softmax per row.  A masked score becomes -inf, whose
+    // probability exp2(-inf - m) is an exact zero and which never wins the
+    // max (mx starts at -1e30).  A tile below every row's diagonal and
+    // inside kv_len masks no valid row, so it skips the tests (the rows of
+    // the CTA past the call compute garbage that is never stored).
+    const int key0 = t * kKeys;
+    const bool inside = key0 + kKeys <= kvl
+                        && (!causal || key0 + kKeys - 1 <= q_offset + pos0);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + n * 8 + 2 * (lane % 4) + e;
+          const bool ok = inside || (rvalid[a] && key < kvl
+                                     && (!causal || key <= rpos[a]));
+          const float x = ok ? s[n][2 * a + e] * scale_log2 : -INFINITY;
+          s[n][2 * a + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[a], mx);
+      const float alpha = exp2f(m[a] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[n][2 * a + e] - m_new);
+          s[n][2 * a + e] = p;
+          psum += p;
+        }
+      l[a] = l[a] * alpha + psum;
+      m[a] = m_new;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][2 * a] *= alpha;
+        acc[n][2 * a + 1] *= alpha;
+      }
+    }
+
+    // O += P V: the S fragments of key tiles 2 kk and 2 kk + 1 are the A
+    // fragment of keys 16 kk .. 16 kk + 15.
+#pragma unroll
+    for (int kk = 0; kk < ST / 2; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, vs + (kk * 16 + lane % 8 + ((lane / 8) & 1) * 8)
+                                   * S + np * 16 + (lane / 16) * 8);
+        mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
+        mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                   // stage t % kStages is consumed
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float lsum = l[a] + __shfl_xor_sync(0xffffffffu, l[a], 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    if (!rvalid[a]) continue;
+    const int r = warp * 16 + lane / 4 + 8 * a;
+    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * q_row_stride
+                       + (size_t)(kvh * g + r / bq) * DH;
+    const float den = fmaxf(lsum, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(o + off + n * 8 + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[n][2 * a] / den,
+                                acc[n][2 * a + 1] / den);
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      const int* kv_len, int B, int Tq, int Tk, int H,
+                      int n_kv, int q_offset, int causal, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(DH);
+  static bool smem_raised = false;     // see launch() below
+  if (smem > 48 * 1024 && !smem_raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_tc_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_raised = true;
+  }
+  const int bq = kRows / (H / n_kv);
+  const dim3 grid((Tq + bq - 1) / bq, n_kv, B);
+  flash_attention_tc_kernel<DH><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      kv_len, Tq, Tk, H, n_kv, q_offset, causal,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <int NC2>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* kv_len, int B, int Tq, int Tk, int H, int n_kv,
@@ -310,12 +620,25 @@ extern "C" {
 
 // q / o [B, Tq, H, dh], k / v [B, Tk, n_kv, dh], all bf16 (is_f32 = 0) or
 // all f32; kv_len int32 [B] or null; dh a multiple of 32 up to 256; H / n_kv
-// at most 64.  Returns the launch's cudaError_t (0 on success).
+// at most 64.  bf16 at dh 32, 64, 96 or 128 runs the tensor-core path, the
+// rest the CUDA-core path.  Returns the launch's cudaError_t (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int* kv_len, int B, int Tq, int Tk, int H,
                         int n_kv, int dh, int q_offset, int causal, int is_f32,
                         float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_f32) {
+    switch (dh) {
+#define TC(D)                                                                \
+  case D:                                                                    \
+    return (int)launch_tc<D>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,         \
+                             q_offset, causal, scale, s);
+      TC(32) TC(64) TC(96) TC(128)
+#undef TC
+      default:
+        break;
+    }
+  }
   switch (dh) {
 #define CASE(D)                                                              \
   case D:                                                                    \

@@ -17,14 +17,35 @@
 // What bounds it on the card: bytes.  Each step reads the K and V of every
 // valid token once (2 * tokens * dh * 2 bytes per KV head) and does ~4 * g
 // flops per element read, far below the ~295 flops/byte where an H100 turns
-// compute-bound.  This first design is simple: one CTA per (row, KV head)
-// walks the row's blocks in table order (the TPU's sequential "arbitrary"
-// grid axis becomes a loop inside the CTA), stages up to kTile valid tokens
-// of K and V in shared memory with 16-byte vector loads, and its warps share
-// the g query heads of the group, so each K/V byte is read from device
-// memory once for all g heads.  Holes and the invalid tail of a partial page
-// are never loaded.  It leaves most SMs idle when B * n_kv is small;
-// splitting the KV walk across CTAs and TMA bulk loads are later work.
+// compute-bound; the CUDA cores suffice.  What it needs is enough CTAs in
+// flight: decode has few rows (B * n_kv is 8 for qwen2.5-3b at B = 4), so
+// the KV walk is split (flash-decoding), in two launches:
+//
+// 1. partials, grid (split, n_kv, B): table token position p of a row is
+//    block p / tokens_per_block, token p % tokens_per_block, and split s
+//    walks the positions [s * kSpan, (s + 1) * kSpan), kSpan = 64.  Its
+//    256 threads map the span's positions to pool rows (holes and the
+//    invalid tail of a partial block map to none) and stage the valid
+//    rows' K and V in their own dtype with 16-byte cp.async (kChunk
+//    positions a step; chunks beyond the first would stream through a
+//    two-buffer ring; chunks without a valid token are skipped, so a span
+//    of holes loads nothing).  Warp w takes positions w, w + 8, ... of the
+//    span, its lanes split the head dim, and it keeps its own (m, l, o) for
+//    all g query heads, 4 heads per register pass, so each staged byte
+//    serves every head and g = 1 still uses the whole CTA.  The eight
+//    warps' partials are folded in warp order into the split's (o, m, l)
+//    in f32 scratch.  (Spans of 64 with one chunk, 8 warps and 4-head
+//    passes were the fastest of 7 variants timed on an H100; the CTA's
+//    serial work per warp sets its latency, and decode has few CTAs.)
+// 2. combine, one CTA per (row, head): the global max over the splits
+//    first, then l and o summed in split order.
+//
+// Every step's order is a function of the row's table token positions
+// alone, never of B, page ids, staging slots or other rows, and a split,
+// chunk or warp without valid tokens adds exact zeros (m = -1e30, l = 0,
+// o = 0; exp(-1e30 - M) = 0).  So a row's result is the same bits in any
+// batch, at any page ids, with any table width, and the fused variant
+// below is bitwise this kernel on the same bytes.
 //
 // Fused gather-attend (entry fused_paged_attention_fwd) replaces the TPU
 // kernel repro/kernels/paged_attention.py: fused_paged_attention_kernel (body
@@ -32,39 +53,36 @@
 // the template flag kFused: page blk of row b is read from the staging pool
 // at stage[slots[b, blk]] when that slot is >= 0 (a page that arrived from
 // the host this step and has not been scattered into the pool yet) and from
-// pool[tables[b, blk]] otherwise.  Only the base pointer of a block differs;
-// the instruction sequence that does the arithmetic is the same, so there is
-// one accumulator in canonical table order.  The TPU kernel instead keeps two
-// accumulators (ready and late pages) and combines them at the flush, which
-// is what its readiness_meta bookkeeping serves; with one accumulator the
-// result is bitwise the page kernel's when every slot is -1 or when the
-// staged bytes equal the pool's, which keeps decode tokens identical across
-// the engine's sync, async and fused modes on the card.  Bound by bytes like
-// the page kernel, and with its low occupancy (n_kv * B CTAs, 8 at B = 4 for
-// qwen2.5-3b); split-KV is later work.
+// pool[tables[b, blk]] otherwise.  Only the base pointer of a row of K/V
+// differs; the instruction sequence that does the arithmetic is the same,
+// so there is one accumulator in canonical table order.  The TPU kernel
+// instead keeps two accumulators (ready and late pages) and combines them
+// at the flush, which is what its readiness_meta bookkeeping serves; with
+// one accumulator the result is bitwise the page kernel's when every slot
+// is -1 or when the staged bytes equal the pool's, which keeps decode
+// tokens identical across the engine's sync, async and fused modes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 32;            // tokens staged in shared memory per step
+constexpr int kSpan = 64;            // table token positions per split
+constexpr int kChunk = 64;           // positions staged per step
+constexpr int kChunks = kSpan / kChunk;
+constexpr int kBufs = kChunks > 1 ? 2 : 1;  // K/V ring depth
+constexpr int kPerWarp = kChunk / kWarps;  // positions of a chunk per warp
 constexpr float kNegInf = -1e30f;    // the TPU kernel's mask value, not -inf
+static_assert(kSpan % kChunk == 0 && kChunks <= kThreads, "span layout");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -74,160 +92,405 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_bytes(int g, int dh) {
-  const size_t floats = 2 * (size_t)g * dh        // q, o accumulators
-                        + 2 * (size_t)g           // m, l
-                        + (size_t)kTile * (dh + 1)  // K tile (padded rows)
-                        + (size_t)kTile * dh        // V tile
-                        + (size_t)kWarps * kTile;   // per-warp probabilities
-  return floats * sizeof(float);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src));
 }
 
-// With kFused, stage_k / stage_v / slots name each block's staging slot
-// (-1: read the pool); without it they are unused.
-template <typename T, bool kFused>
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// K and V ring [kBufs][K, V][kChunk][dh] in the pools' dtype, then f32
+// q [g][dh] (pre-scaled), per-warp o [kWarps][g][dh], m and l [kWarps][g],
+// then the span's source rows and staged flags [kSpan] as ints.
+size_t partial_smem_bytes(int g, int dh, size_t elem) {
+  return 2 * kBufs * (size_t)kChunk * dh * elem
+         + ((size_t)g * dh + (size_t)kWarps * g * (dh + 2)) * sizeof(float)
+         + 2 * (size_t)kSpan * sizeof(int);
+}
+
+// NC = dh / 32: lane owns head dims lane + 32 c, c < NC.
+template <typename T, bool kFused, int NC>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v,
-                       const T* __restrict__ stage_k,
-                       const T* __restrict__ stage_v,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ slots,
-                       const int* __restrict__ ntok,
-                       float* __restrict__ o_out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int H, int n_kv, int dh,
-                       int nblk, int tokens_per_block, float scale) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
+                     const T* __restrict__ pool_k,
+                     const T* __restrict__ pool_v,
+                     const T* __restrict__ stage_k,
+                     const T* __restrict__ stage_v,
+                     const int* __restrict__ tables,
+                     const int* __restrict__ slots,
+                     const int* __restrict__ ntok,
+                     float* __restrict__ part_o, float* __restrict__ part_m,
+                     float* __restrict__ part_l, int H, int n_kv, int nblk,
+                     int tokens_per_block, float scale) {
+  constexpr int dh = NC * 32;
+  constexpr int HB = 4;                  // query heads per register pass
+  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
+  constexpr int VPR = dh / kVec;         // 16-byte copies per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int chunk_valid[kChunks];
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int g = H / n_kv;
   const int h0 = kvh * g;  // query heads h0 .. h0+g-1 share this KV head
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
 
-  float* q_s = smem;                     // [g][dh], pre-scaled
-  float* o_s = q_s + g * dh;             // [g][dh]
-  float* m_s = o_s + g * dh;             // [g]
-  float* l_s = m_s + g;                  // [g]
-  float* k_s = l_s + g;                  // [kTile][dh + 1]
-  float* v_s = k_s + kTile * (dh + 1);   // [kTile][dh]
-  float* p_w = v_s + kTile * dh + warp * kTile;  // this warp's [kTile]
+  T* kv_s = reinterpret_cast<T*>(smem_raw);     // [kBufs][2][kChunk][dh]
+  float* q_s = reinterpret_cast<float*>(kv_s + 2 * kBufs * kChunk * dh);
+  float* o_s = q_s + g * dh;                               // [kWarps][g][dh]
+  float* m_s = o_s + kWarps * g * dh;                      // [kWarps][g]
+  float* l_s = m_s + kWarps * g;                           // [kWarps][g]
+  int* row_s = reinterpret_cast<int*>(l_s + kWarps * g);   // [kSpan]
+  int* stg_s = row_s + kSpan;                              // [kSpan]
 
-  for (int i = threadIdx.x; i < g * dh; i += kThreads) {
-    q_s[i] = q[((size_t)b * H + h0) * dh + i] * scale;
-    o_s[i] = 0.f;
+  // Map the span's positions to pool (or stage) rows; -1: no valid token.
+  if (tid < kChunks) chunk_valid[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < kSpan; i += kThreads) {
+    const int p = split * kSpan + i;
+    int row = -1, staged = 0;
+    if (p < nblk * tokens_per_block) {
+      const int blk = p / tokens_per_block;
+      const int t = p - blk * tokens_per_block;
+      const int entry = tables[b * nblk + blk];
+      const int nt = min(ntok[b * nblk + blk], tokens_per_block);
+      if (entry >= 0 && t < nt) {
+        row = entry * tokens_per_block + t;
+        if constexpr (kFused) {
+          const int slot = slots[b * nblk + blk];
+          if (slot >= 0) {         // staged this step: read it where it landed
+            row = slot * tokens_per_block + t;
+            staged = 1;
+          }
+        }
+      }
+    }
+    row_s[i] = row;
+    stg_s[i] = staged;
+    if (row >= 0) chunk_valid[i / kChunk] = 1;
   }
-  for (int i = threadIdx.x; i < g; i += kThreads) {
+  __syncthreads();
+
+  const size_t out_rows = ((size_t)b * H + h0) * nsplit + split;  // head h0
+  int first = 0;
+  while (first < kChunks && !chunk_valid[first]) ++first;
+  if (first == kChunks) {          // only holes: nothing is loaded
+    for (int i = tid; i < g * dh; i += kThreads)
+      part_o[(out_rows + (size_t)(i / dh) * nsplit) * dh + i % dh] = 0.f;
+    for (int i = tid; i < g; i += kThreads) {
+      part_m[out_rows + (size_t)i * nsplit] = kNegInf;
+      part_l[out_rows + (size_t)i * nsplit] = 0.f;
+    }
+    return;
+  }
+
+  const size_t row_stride = (size_t)n_kv * dh;  // elements between tokens
+  auto load_chunk = [&](int c, int buf) {
+    T* ks = kv_s + (size_t)buf * 2 * kChunk * dh;
+    T* vs = ks + kChunk * dh;
+    for (int i = tid; i < kChunk * VPR; i += kThreads) {
+      const int j = i / VPR;
+      const int e = (i % VPR) * kVec;
+      const int row = row_s[c * kChunk + j];
+      if (row < 0) continue;       // holes and invalid tails: never loaded
+      const T* src_k = pool_k;
+      const T* src_v = pool_v;
+      if constexpr (kFused) {
+        if (stg_s[c * kChunk + j]) {
+          src_k = stage_k;
+          src_v = stage_v;
+        }
+      }
+      const size_t off = (size_t)row * row_stride + (size_t)kvh * dh + e;
+      cp_async16(ks + j * dh + e, src_k + off);
+      cp_async16(vs + j * dh + e, src_v + off);
+    }
+  };
+  auto next_valid = [&](int c) {
+    while (c < kChunks && !chunk_valid[c]) ++c;
+    return c;
+  };
+
+  load_chunk(first, 0);
+  cp_async_commit();
+  const size_t q0 = ((size_t)b * H + h0) * dh;
+  for (int i = tid; i < g * dh; i += kThreads)
+    q_s[i] = (q_is_f32 ? static_cast<const float*>(q)[q0 + i]
+                       : __bfloat162float(
+                             static_cast<const __nv_bfloat16*>(q)[q0 + i]))
+             * scale;
+  for (int i = tid; i < kWarps * g * dh; i += kThreads) o_s[i] = 0.f;
+  for (int i = tid; i < kWarps * g; i += kThreads) {
     m_s[i] = kNegInf;
     l_s[i] = 0.f;
   }
 
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
-  const int vec_per_row = dh / kVec;
-  const size_t row_stride = (size_t)n_kv * dh;  // elements between tokens
-
-  for (int blk = 0; blk < nblk; ++blk) {
-    const int entry = tables[b * nblk + blk];
-    int nt = ntok[b * nblk + blk];
-    if (entry < 0 || nt <= 0) continue;   // hole: never loaded
-    nt = min(nt, tokens_per_block);
-    const T* src_k = pool_k;
-    const T* src_v = pool_v;
-    size_t page = (size_t)entry;
-    if constexpr (kFused) {
-      const int slot = slots[b * nblk + blk];
-      if (slot >= 0) {           // staged this step: read it where it landed
-        src_k = stage_k;
-        src_v = stage_v;
-        page = (size_t)slot;
-      }
-    }
-    const size_t base =
-        page * tokens_per_block * row_stride + (size_t)kvh * dh;
-    for (int t0 = 0; t0 < nt; t0 += kTile) {
-      const int cnt = min(kTile, nt - t0);
-      __syncthreads();  // the previous tile is consumed; init is visible
-      for (int i = threadIdx.x; i < cnt * vec_per_row; i += kThreads) {
-        const int r = i / vec_per_row;
-        const int c = (i % vec_per_row) * kVec;
-        const size_t off = base + (size_t)(t0 + r) * row_stride + c;
-        const uint4 kr = *reinterpret_cast<const uint4*>(src_k + off);
-        const uint4 vr = *reinterpret_cast<const uint4*>(src_v + off);
-        const T* ke = reinterpret_cast<const T*>(&kr);
-        const T* ve = reinterpret_cast<const T*>(&vr);
+  int buf = 0;
+  for (int c = first; c < kChunks;) {
+    const int cn = next_valid(c + 1);
+    if (cn < kChunks) load_chunk(cn, (buf + 1) % kBufs);
+    cp_async_commit();
+    cp_async_wait<1>();            // chunk c has landed
+    __syncthreads();
+    const T* ks = kv_s + (size_t)buf * 2 * kChunk * dh;
+    const T* vs = ks + kChunk * dh;
+    bool valid[kPerWarp];
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          k_s[r * (dh + 1) + c + e] = to_float(ke[e]);
-          v_s[r * dh + c + e] = to_float(ve[e]);
+    for (int i = 0; i < kPerWarp; ++i)
+      valid[i] = row_s[c * kChunk + warp + kWarps * i] >= 0;
+    for (int hb = 0; hb < g; hb += HB) {
+      float qr[HB][NC];
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh)
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc)
+          qr[hh][cc] =
+              hb + hh < g ? q_s[(hb + hh) * dh + cc * 32 + lane] : 0.f;
+      // Scores of this warp's positions; -inf where there is no token.
+      float s[kPerWarp][HB];
+#pragma unroll
+      for (int i = 0; i < kPerWarp; ++i) {
+        if (valid[i]) {
+          const T* kr = ks + (warp + kWarps * i) * dh;
+          float kv[NC];
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc)
+            kv[cc] = to_float(kr[cc * 32 + lane]);
+#pragma unroll
+          for (int hh = 0; hh < HB; ++hh) {
+            if (hb + hh >= g) {    // past the group (g < HB): no work
+              s[i][hh] = -INFINITY;
+              continue;
+            }
+            float part = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc)
+              part = fmaf(qr[hh][cc], kv[cc], part);
+            s[i][hh] = warp_sum(part);
+          }
+        } else {
+#pragma unroll
+          for (int hh = 0; hh < HB; ++hh) s[i][hh] = -INFINITY;
         }
       }
-      __syncthreads();
-      for (int h = warp; h < g; h += kWarps) {
-        // Scores: one token per lane; padded K rows keep lanes on
-        // distinct shared-memory banks.
-        const float* qh = q_s + h * dh;
-        float smax = kNegInf;
-        for (int r = lane; r < cnt; r += 32) {
-          const float* kr = k_s + r * (dh + 1);
-          float s = 0.f;
-          for (int d = 0; d < dh; ++d) s = fmaf(qh[d], kr[d], s);
-          p_w[r] = s;
-          smax = fmaxf(smax, s);
-        }
-        smax = warp_max(smax);
-        const float m_old = m_s[h];
-        const float m_new = fmaxf(m_old, smax);
-        const float alpha = expf(m_old - m_new);   // 0 on the first block
+      // Online softmax per head over the warp's positions, in order.
+      float alpha[HB], acc[HB][NC];
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh) {
+        const int h = min(hb + hh, g - 1);  // heads past g: not kept
+        const int st = warp * g + h;
+        float mx = kNegInf;
+#pragma unroll
+        for (int i = 0; i < kPerWarp; ++i) mx = fmaxf(mx, s[i][hh]);
+        const float m_old = m_s[st];
+        const float m_new = fmaxf(m_old, mx);
+        alpha[hh] = expf(m_old - m_new);
         float psum = 0.f;
-        for (int r = lane; r < cnt; r += 32) {
-          const float p = expf(p_w[r] - m_new);
-          p_w[r] = p;
-          psum += p;
+#pragma unroll
+        for (int i = 0; i < kPerWarp; ++i) {
+          s[i][hh] = expf(s[i][hh] - m_new);   // exp(-inf) = 0 exactly
+          psum += s[i][hh];
         }
-        psum = warp_sum(psum);
+        const float l_new = l_s[st] * alpha[hh] + psum;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc)
+          acc[hh][cc] = o_s[st * dh + cc * 32 + lane] * alpha[hh];
         __syncwarp();
-        // o update: each lane owns the head dims lane, lane+32, ...
-        for (int d = lane; d < dh; d += 32) {
-          float acc = o_s[h * dh + d] * alpha;
-          for (int r = 0; r < cnt; ++r) acc = fmaf(p_w[r], v_s[r * dh + d], acc);
-          o_s[h * dh + d] = acc;
+        if (lane == 0 && hb + hh < g) {
+          m_s[st] = m_new;
+          l_s[st] = l_new;
         }
-        if (lane == 0) {
-          m_s[h] = m_new;
-          l_s[h] = l_s[h] * alpha + psum;
+      }
+#pragma unroll
+      for (int i = 0; i < kPerWarp; ++i) {
+        if (!valid[i]) continue;
+        const T* vr = vs + (warp + kWarps * i) * dh;
+        float vv[NC];
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) vv[cc] = to_float(vr[cc * 32 + lane]);
+#pragma unroll
+        for (int hh = 0; hh < HB; ++hh) {
+          if (hb + hh >= g) continue;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc)
+            acc[hh][cc] = fmaf(s[i][hh], vv[cc], acc[hh][cc]);
         }
-        __syncwarp();
+      }
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh) {
+        if (hb + hh >= g) continue;
+        const int st = warp * g + hb + hh;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc)
+          o_s[st * dh + cc * 32 + lane] = acc[hh][cc];
       }
     }
+    __syncthreads();               // buffer buf is consumed
+    c = cn;
+    buf = (buf + 1) % kBufs;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < g * dh; i += kThreads)
-    o_out[((size_t)b * H + h0) * dh + i] = o_s[i];
-  for (int i = threadIdx.x; i < g; i += kThreads) {
-    m_out[(size_t)b * H + h0 + i] = m_s[i];
-    l_out[(size_t)b * H + h0 + i] = l_s[i];
+  cp_async_wait<0>();
+
+  // Fold the warps' partials in warp order.
+  for (int i = tid; i < g * dh; i += kThreads) {
+    const int h = i / dh;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * g + h]);
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      acc = fmaf(o_s[(w * g) * dh + i], expf(m_s[w * g + h] - mx), acc);
+    part_o[(out_rows + (size_t)h * nsplit) * dh + i % dh] = acc;
+  }
+  for (int h = tid; h < g; h += kThreads) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * g + h]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      sum = fmaf(l_s[w * g + h], expf(m_s[w * g + h] - mx), sum);
+    part_m[out_rows + (size_t)h * nsplit] = mx;
+    part_l[out_rows + (size_t)h * nsplit] = sum;
   }
 }
 
+// One CTA of dh threads per (row, head): the max over the splits, each
+// split's weight exp(m_s - max) once, then l and o summed in split order.
+// A row of holes (or nsplit = 0) gives m = -1e30, l = 0, o = 0.
+__global__ void paged_combine_kernel(const float* __restrict__ part_o,
+                                     const float* __restrict__ part_m,
+                                     const float* __restrict__ part_l,
+                                     float* __restrict__ o,
+                                     float* __restrict__ m,
+                                     float* __restrict__ l, int nsplit,
+                                     int dh) {
+  extern __shared__ float w_s[];       // [nsplit] weights, [nsplit] l
+  float* l_s = w_s + nsplit;
+  __shared__ float mx_s;
+  const size_t bh = blockIdx.x;
+  const float* pm = part_m + bh * nsplit;
+  if (threadIdx.x < 32) {              // the max is exact in any order
+    float mx = kNegInf;
+    for (int s = threadIdx.x; s < nsplit; s += 32) mx = fmaxf(mx, pm[s]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (threadIdx.x == 0) mx_s = mx;
+  }
+  __syncthreads();
+  const float mx = mx_s;
+  const float* pl = part_l + bh * nsplit;
+  for (int s = threadIdx.x; s < nsplit; s += blockDim.x) {
+    w_s[s] = expf(pm[s] - mx);
+    l_s[s] = pl[s];
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll 32   // up to 32 splits' loads in flight at once
+    for (int s = 0; s < nsplit; ++s)
+      acc = fmaf(part_o[(bh * nsplit + s) * dh + d], w_s[s], acc);
+    o[bh * dh + d] = acc;
+  }
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int s = 0; s < nsplit; ++s) sum = fmaf(l_s[s], w_s[s], sum);
+    m[bh] = mx;
+    l[bh] = sum;
+  }
+}
+
+int splits(int nblk, int tokens_per_block) {
+  return (int)(((long long)nblk * tokens_per_block + kSpan - 1) / kSpan);
+}
+
+template <typename T, bool kFused, int NC>
+cudaError_t launch_nc(const void* q, int q_is_f32, const void* pool_k,
+                      const void* pool_v,
+                      const void* stage_k, const void* stage_v,
+                      const int* tables, const int* slots, const int* ntok,
+                      float* scratch, int B, int H, int n_kv, int nblk,
+                      int tokens_per_block, float scale, int nsplit,
+                      cudaStream_t stream) {
+  const int g = H / n_kv;
+  const size_t smem = partial_smem_bytes(g, NC * 32, sizeof(T));
+  // Raised once per instantiation, to the card's opt-in maximum less the
+  // kernel's static shared memory, so that a later launch inside a
+  // CUDA-graph capture makes no attribute call.
+  static bool smem_raised = false;
+  if (smem > 48 * 1024 && !smem_raised) {
+    const auto kernel = paged_partial_kernel<T, kFused, NC>;
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - (int)attr.sharedSizeBytes);
+    if (err != cudaSuccess) return err;
+    smem_raised = true;
+  }
+  const size_t parts = (size_t)B * H * nsplit;
+  float* part_o = scratch;
+  float* part_m = part_o + parts * NC * 32;
+  float* part_l = part_m + parts;
+  const dim3 grid(nsplit, n_kv, B);
+  paged_partial_kernel<T, kFused, NC><<<grid, kThreads, smem, stream>>>(
+      q, q_is_f32, static_cast<const T*>(pool_k),
+      static_cast<const T*>(pool_v), static_cast<const T*>(stage_k),
+      static_cast<const T*>(stage_v), tables,
+      slots, ntok, part_o, part_m, part_l, H, n_kv, nblk, tokens_per_block,
+      scale);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kFused>
-cudaError_t launch(const float* q, const void* pool_k, const void* pool_v,
+cudaError_t launch(const void* q, int q_is_f32, const void* pool_k,
+                   const void* pool_v,
                    const void* stage_k, const void* stage_v, const int* tables,
                    const int* slots, const int* ntok, float* o, float* m,
-                   float* l, int B, int H, int n_kv, int dh, int nblk,
-                   int tokens_per_block, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / n_kv, dh);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, kFused>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   float* l, float* scratch, int B, int H, int n_kv, int dh,
+                   int nblk, int tokens_per_block, float scale,
+                   cudaStream_t stream) {
+  const int nsplit = splits(nblk, tokens_per_block);
+  if (nsplit > 0) {
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (dh) {
+#define CASE(D)                                                              \
+  case D:                                                                    \
+    err = launch_nc<T, kFused, D / 32>(                                      \
+        q, q_is_f32, pool_k, pool_v, stage_k, stage_v, tables, slots, ntok,  \
+        scratch, B, H, n_kv, nblk, tokens_per_block, scale, nsplit, stream); \
+    break;
+      CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
+      CASE(256)
+#undef CASE
+      default:
+        break;
+    }
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n_kv, B);
-  paged_attention_kernel<T, kFused><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      static_cast<const T*>(stage_k), static_cast<const T*>(stage_v), tables,
-      slots, ntok, o, m, l, H, n_kv, dh, nblk, tokens_per_block, scale);
+  const size_t parts = (size_t)B * H * nsplit;
+  paged_combine_kernel<<<B * H, dh, 2 * nsplit * sizeof(float), stream>>>(
+      scratch, scratch + parts * dh, scratch + parts * (dh + 1), o, m, l,
+      nsplit, dh);
   return cudaGetLastError();
 }
 
@@ -235,43 +498,52 @@ cudaError_t launch(const float* q, const void* pool_k, const void* pool_v,
 
 extern "C" {
 
-// q [B, H, dh] f32; pools [rows, n_kv, dh] bf16 (kv_is_f32 = 0) or f32;
-// tables / ntok int32 [B, nblk]; outputs o [B, H, dh], m / l [B, H] f32.
-// Returns the launch's cudaError_t (0 on success).
-int paged_attention_fwd(const float* q, const void* pool_k,
+// Table token positions each split of the first launch walks.
+int paged_attention_split_tokens() { return kSpan; }
+
+// q [B, H, dh] f32 (q_is_f32 = 1) or bf16; pools [rows, n_kv, dh] bf16
+// (kv_is_f32 = 0) or f32; tables / ntok int32 [B, nblk]; outputs
+// o [B, H, dh], m / l [B, H] f32; scratch f32 of B * H * nsplit * (dh + 2)
+// floats, nsplit = ceil(nblk * tokens_per_block /
+// paged_attention_split_tokens()).  Returns the first failing launch's
+// cudaError_t (0 on success).
+int paged_attention_fwd(const void* q, int q_is_f32, const void* pool_k,
                         const void* pool_v, const int* tables, const int* ntok,
-                        float* o, float* m, float* l, int B, int H, int n_kv,
-                        int dh, int nblk, int tokens_per_block, int kv_is_f32,
-                        float scale, void* stream) {
+                        float* o, float* m, float* l, float* scratch, int B,
+                        int H, int n_kv, int dh, int nblk,
+                        int tokens_per_block, int kv_is_f32, float scale,
+                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_is_f32)
-    return (int)launch<float, false>(q, pool_k, pool_v, nullptr, nullptr,
-                                     tables, nullptr, ntok, o, m, l, B, H,
-                                     n_kv, dh, nblk, tokens_per_block, scale,
-                                     s);
+    return (int)launch<float, false>(q, q_is_f32, pool_k, pool_v, nullptr,
+                                     nullptr, tables, nullptr, ntok, o, m, l,
+                                     scratch, B, H, n_kv, dh, nblk,
+                                     tokens_per_block, scale, s);
   return (int)launch<__nv_bfloat16, false>(
-      q, pool_k, pool_v, nullptr, nullptr, tables, nullptr, ntok, o, m, l, B,
-      H, n_kv, dh, nblk, tokens_per_block, scale, s);
+      q, q_is_f32, pool_k, pool_v, nullptr, nullptr, tables, nullptr, ntok, o,
+      m, l, scratch, B, H, n_kv, dh, nblk, tokens_per_block, scale, s);
 }
 
 // As paged_attention_fwd at page granularity, plus stage_k / stage_v
 // [NS * page_tokens, n_kv, dh] in the pools' dtype (null when NS = 0) and
 // slots int32 [B, nblk]: the staging slot of each block, -1 to read the pool.
-int fused_paged_attention_fwd(const float* q, const void* pool_k,
-                              const void* pool_v, const void* stage_k,
-                              const void* stage_v, const int* tables,
-                              const int* slots, const int* ntok, float* o,
-                              float* m, float* l, int B, int H, int n_kv,
-                              int dh, int nblk, int page_tokens, int kv_is_f32,
+int fused_paged_attention_fwd(const void* q, int q_is_f32,
+                              const void* pool_k, const void* pool_v,
+                              const void* stage_k, const void* stage_v,
+                              const int* tables, const int* slots,
+                              const int* ntok, float* o, float* m, float* l,
+                              float* scratch, int B, int H, int n_kv, int dh,
+                              int nblk, int page_tokens, int kv_is_f32,
                               float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_is_f32)
-    return (int)launch<float, true>(q, pool_k, pool_v, stage_k, stage_v,
-                                    tables, slots, ntok, o, m, l, B, H, n_kv,
-                                    dh, nblk, page_tokens, scale, s);
+    return (int)launch<float, true>(q, q_is_f32, pool_k, pool_v, stage_k,
+                                    stage_v, tables, slots, ntok, o, m, l,
+                                    scratch, B, H, n_kv, dh, nblk,
+                                    page_tokens, scale, s);
   return (int)launch<__nv_bfloat16, true>(
-      q, pool_k, pool_v, stage_k, stage_v, tables, slots, ntok, o, m, l, B, H,
-      n_kv, dh, nblk, page_tokens, scale, s);
+      q, q_is_f32, pool_k, pool_v, stage_k, stage_v, tables, slots, ntok, o,
+      m, l, scratch, B, H, n_kv, dh, nblk, page_tokens, scale, s);
 }
 
 const char* error_string(int err) {

@@ -7,7 +7,10 @@ of queries at absolute positions ``q_offset .. q_offset + Tq - 1`` over
 (``Tq == Tk``) and suffix-only prefill over a cached prefix (keys = the
 prefix's then the suffix's, ``q_offset`` = the prefix length) run it once
 per layer.  A row's result does not depend on how many rows the call holds,
-so a suffix call reproduces the full call's rows bit for bit.
+so a suffix call reproduces the full call's rows bit for bit.  bf16 inputs
+at head dims 32, 64, 96 and 128 run on the tensor cores (``mma.sync``, f32
+accumulate); f32 inputs and the other head dims run the CUDA-core path of
+the same source.
 
 For CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); for CUDA tensors it

@@ -13,12 +13,19 @@ flash-combines.
 KV, reading each page whose staging slot is >= 0 from the staging pool
 (the fused fault-in decode of ``ServingEngine(fault_mode="fused")``).
 
+On the card each call is two launches of one source: partials over fixed
+spans of ``SPLIT_TOKENS`` table token positions (split-KV), then their
+combine in split order; the scratch between them is allocated here.  The
+split depends only on a row's table token positions, so a row's result is
+the same bits in any batch and at any page ids.
+
 For CPU tensors the wrappers run the plain versions
 (:func:`repro_torch.kernels.ref.paged_attention_ref`,
 :func:`~repro_torch.kernels.ref.fused_paged_attention_ref`); for CUDA
 tensors they launch the kernel or raise.  ``paged_attention_kernel.
 page_launches`` / ``.frame_launches`` and ``fused_paged_attention_kernel.
-fused_launches`` count kernel launches.
+fused_launches`` count wrapper calls that launched (partials and combine
+together).
 """
 
 from __future__ import annotations
@@ -31,6 +38,26 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = tuple(range(32, 257, 32))
+SPLIT_TOKENS = 64       # table token positions per split (csrc kSpan)
+
+
+def split_count(n_blocks: int, tokens_per_block: int) -> int:
+    """Splits the partials launch walks for a table of ``n_blocks`` blocks."""
+    return -(-n_blocks * tokens_per_block // SPLIT_TOKENS)
+
+
+def _query(q):
+    """q as the kernels read it: contiguous bf16 or f32."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        q = q.float()
+    return q.contiguous()
+
+
+def _scratch(q, n_blocks: int, tokens_per_block: int):
+    """f32 scratch for the partials: (o, m, l) of every (row, head, split)."""
+    B, H, dh = q.shape
+    n = B * H * split_count(n_blocks, tokens_per_block) * (dh + 2)
+    return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
 def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
@@ -52,18 +79,20 @@ def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
     _check_inputs(q, pool_k, pool_v, tables, ntok, fp)
     B, H, dh = q.shape
     ptok, n_kv = pool_k.shape[1:3]
-    qf = q.float().contiguous()
+    qk = _query(q)
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if B == 0:
         return o, m, l
     lib = _lib()
+    scratch = _scratch(q, tables.shape[1], fp * ptok)
     err = lib.paged_attention_fwd(
-        qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        tables.data_ptr(), ntok.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, n_kv, dh, tables.shape[1], fp * ptok,
-        int(pool_k.dtype == torch.float32), float(scale),
+        qk.data_ptr(), int(qk.dtype == torch.float32), pool_k.data_ptr(),
+        pool_v.data_ptr(), tables.data_ptr(), ntok.data_ptr(), o.data_ptr(),
+        m.data_ptr(), l.data_ptr(), scratch.data_ptr(), B, H, n_kv, dh,
+        tables.shape[1], fp * ptok, int(pool_k.dtype == torch.float32),
+        float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "paged_attention_fwd")
     if granularity == "page":
@@ -160,20 +189,21 @@ def fused_paged_attention_kernel(q, pool_k, pool_v, stage_k, stage_v, tables,
                              f"pages")
     B, H, dh = q.shape
     ptok, n_kv = pool_k.shape[1:3]
-    qf = q.float().contiguous()
+    qk = _query(q)
     o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if B == 0:
         return o, m, l
     lib = _lib()
+    scratch = _scratch(q, tables.shape[1], ptok)
     err = lib.fused_paged_attention_fwd(
-        qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        stage_k.data_ptr() if NS else None,
+        qk.data_ptr(), int(qk.dtype == torch.float32), pool_k.data_ptr(),
+        pool_v.data_ptr(), stage_k.data_ptr() if NS else None,
         stage_v.data_ptr() if NS else None, tables.data_ptr(),
         slots.data_ptr(), ntok.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, n_kv, dh, tables.shape[1], ptok,
-        int(pool_k.dtype == torch.float32), float(scale),
+        l.data_ptr(), scratch.data_ptr(), B, H, n_kv, dh, tables.shape[1],
+        ptok, int(pool_k.dtype == torch.float32), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "fused_paged_attention_fwd")
     fused_paged_attention_kernel.fused_launches += 1
@@ -187,13 +217,18 @@ fused_paged_attention_kernel.fused_launches = 0
 def _lib() -> ctypes.CDLL:
     lib = build.library("paged_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I,
-                                        I, I, I, ctypes.c_float, P]
+    lib.paged_attention_fwd.argtypes = [P, I, P, P, P, P, P, P, P, P, I, I,
+                                        I, I, I, I, I, ctypes.c_float, P]
     lib.paged_attention_fwd.restype = I
-    lib.fused_paged_attention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
-                                              P, I, I, I, I, I, I, I,
+    lib.fused_paged_attention_fwd.argtypes = [P, I, P, P, P, P, P, P, P, P,
+                                              P, P, P, I, I, I, I, I, I, I,
                                               ctypes.c_float, P]
     lib.fused_paged_attention_fwd.restype = I
+    lib.paged_attention_split_tokens.restype = I
+    if lib.paged_attention_split_tokens() != SPLIT_TOKENS:
+        raise RuntimeError("csrc/paged_attention.cu splits at "
+                           f"{lib.paged_attention_split_tokens()} tokens, "
+                           f"the wrapper at {SPLIT_TOKENS}")
     return lib
 
 

@@ -91,6 +91,144 @@ def test_cuda_paged_attention_matches_plain(cuda_device, granularity, H,
     assert (m[-1] == -1e30).all() and (l[-1] == 0).all() and (o[-1] == 0).all()
 
 
+# Split-KV layouts: each row is a list of (block, valid tokens) over a table
+# of n_blocks blocks of tpb tokens; the kernels walk 128-position splits.
+def _split_rows(tpb, n_blocks):
+    half = tpb // 2
+    return [
+        [(i, tpb) for i in range(5)] + [(5, half + 5)],  # several splits,
+        # the last one partial
+        [(0, tpb), (1, tpb), (4, tpb), (5, tpb), (6, 5)],  # blocks 2, 3
+        # holes: whole splits of holes inside the row
+        [(0, 1)],                                      # one token
+        [(i, tpb) for i in range(n_blocks)],           # the full width
+        [(n_blocks // 2 + 1, 3)],                      # leading hole splits
+        [],                                            # only holes
+    ]
+
+
+def _split_case(dev, granularity, H, n_kv, dh, dtype, seed=5):
+    """Tables of _split_rows over a pool of 64-token pages (page and fused)
+    or 4-page frames of 64-token pages, 256 tokens a frame (frame: splits cut
+    inside frames).  Fused stages about half of the valid pages with the
+    pool's bytes and overwrites the pool copies."""
+    rng = np.random.default_rng(seed)
+    ptok, fp = 64, (4 if granularity == "frame" else 1)
+    tpb, n_blocks = ptok * fp, (8 if granularity == "frame" else 16)
+    n_entries = 2 * n_blocks
+    NP = n_entries * fp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pk, pv = (torch.randn((NP, ptok, n_kv, dh), generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    rows = _split_rows(tpb, n_blocks)
+    B = len(rows)
+    q = torch.randn((B, H, dh), generator=gen, device=dev).to(dtype)
+    tables = np.full((B, n_blocks), -1, np.int32)
+    ntok = np.zeros((B, n_blocks), np.int32)
+    for b, row in enumerate(rows):
+        ids = rng.permutation(n_entries)[:len(row)]
+        for (blk, n), e in zip(row, ids):
+            tables[b, blk], ntok[b, blk] = e, n
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    case = dict(q=q, pk=pk, pv=pv, tables=t(tables), ntok=t(ntok), fp=fp,
+                scale=dh ** -0.5)
+    if granularity == "fused":
+        late = (tables >= 0) & (rng.random(tables.shape) < 0.5)
+        ids = torch.from_numpy(tables[late]).long().to(dev)
+        sk, sv = pk[ids].contiguous(), pv[ids].contiguous()
+        pk[ids] = torch.randn(sk.shape, generator=gen, device=dev).to(dtype)
+        pv[ids] = torch.randn(sv.shape, generator=gen, device=dev).to(dtype)
+        slots = np.full(tables.shape, -1, np.int32)
+        slots[late] = np.arange(int(late.sum()), dtype=np.int32)
+        case.update(sk=sk, sv=sv, slots=t(slots))
+    return case
+
+
+def _run_split_case(c, granularity, *, plain=False):
+    if granularity == "fused":
+        fn = ref.fused_paged_attention_ref if plain else \
+            ops.fused_paged_attention_kernel
+        return fn(c["q"], c["pk"], c["pv"], c["sk"], c["sv"], c["tables"],
+                  c["slots"], c["ntok"], scale=c["scale"])
+    if plain:
+        return ref.paged_attention_ref(c["q"], c["pk"], c["pv"],
+                                       c["tables"], c["ntok"],
+                                       scale=c["scale"], frame_pages=c["fp"])
+    return ops.paged_attention_kernel(c["q"], c["pk"], c["pv"], c["tables"],
+                                      c["ntok"], granularity=granularity,
+                                      frame_pages=c["fp"], scale=c["scale"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv,dh", [
+    (4, 4, 64),       # g = 1 (zamba2's shared block)
+    (8, 4, 128),      # g = 2
+    (16, 2, 128),     # g = 8 (qwen2.5-3b)
+])
+@pytest.mark.parametrize("granularity", ["page", "frame", "fused"])
+def test_cuda_paged_attention_splits_match_plain(cuda_device, granularity,
+                                                 H, n_kv, dh, dtype):
+    """Rows over several splits with a partial last one, a split of holes
+    inside a row, rows of different lengths, trailing hole splits and a
+    row of holes, against the plain version (tolerances as above)."""
+    c = _split_case(cuda_device, granularity, H, n_kv, dh,
+                    getattr(torch, dtype))
+    key = "paged_attention." + granularity
+    before = ops.launch_counts()[key]
+    o, m, l = _run_split_case(c, granularity)
+    o_r, m_r, l_r = _run_split_case(c, granularity, plain=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[key] == before + 1
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(o[:-1] / l[:-1, :, None],
+                               o_r[:-1] / l_r[:-1, :, None], **tol)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_r, rtol=1e-5, atol=1e-5)
+    assert (m[-1] == -1e30).all() and (l[-1] == 0).all() and (o[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("granularity", ["page", "frame", "fused"])
+def test_cuda_paged_attention_row_is_bitwise_invariant(cuda_device,
+                                                       granularity, dtype):
+    """A row's (o, m, l) is the same bits alone as in a batch of 6, with its
+    bytes at other page ids, and with extra hole columns in the table."""
+    c = _split_case(cuda_device, granularity, 16, 2, 128,
+                    getattr(torch, dtype))
+    full = _run_split_case(c, granularity)
+    n_entries = c["tables"].shape[1] * 2
+    perm = torch.from_numpy(np.random.default_rng(9).permutation(
+        n_entries).astype(np.int32)).to(cuda_device)
+    fp = c["fp"]
+    moved = dict(c)
+    # Entry e moves to perm[e]: its pages (a frame's fp pages) go with it.
+    page_of = (perm.long()[:, None] * fp + torch.arange(
+        fp, device=cuda_device)).reshape(-1)
+    for name in ("pk", "pv"):
+        moved[name] = torch.empty_like(c[name])
+        moved[name][page_of] = c[name]
+    moved["tables"] = torch.where(c["tables"] >= 0,
+                                  perm[c["tables"].clamp(min=0).long()], -1)
+    wide = dict(c)
+    pad = lambda a, v: torch.nn.functional.pad(a, (0, 5), value=v)  # noqa
+    wide["tables"], wide["ntok"] = pad(c["tables"], -1), pad(c["ntok"], 0)
+    if granularity == "fused":
+        wide["slots"] = pad(c["slots"], -1)
+    for b in range(c["q"].shape[0]):
+        alone = dict(c)
+        for name in ("q", "tables", "ntok") + (("slots",) if granularity ==
+                                               "fused" else ()):
+            alone[name] = c[name][b:b + 1].contiguous()
+        for variant in (alone, moved, wide):
+            got = _run_split_case(variant, granularity)
+            rows = slice(0, 1) if variant is alone else slice(b, b + 1)
+            for x, y in zip(got, full):
+                assert torch.equal(x[rows], y[b:b + 1]), (b, variant.keys())
+
+
 @pytest.mark.cuda
 def test_cuda_paged_attention_refuses_unported_head_dims(cuda_device):
     pool = torch.zeros((4, 8, 2, 48), dtype=torch.bfloat16,
@@ -260,6 +398,32 @@ def test_cuda_flash_attention_matches_plain(cuda_device, H, n_kv, dh, dtype,
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
         dict(rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_kv", [(4, 4), (8, 4), (16, 2)])   # g 1, 2, 8
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
+    (200, 200, 0, False, True),     # full prefill, lengths off the tiles
+    (77, 300, 223, False, True),    # suffix prefill over a cached prefix
+    (130, 130, 0, True, False),     # non-causal, rows cut at kv_len
+    (50, 181, 131, True, True),     # suffix with kv_len
+])
+def test_cuda_flash_tensor_core_path_matches_plain(cuda_device, H, n_kv, dh,
+                                                   Tq, Tk, q_offset,
+                                                   with_len, causal):
+    """The bf16 tensor-core path at the head dims of zamba2's shared block
+    (64) and qwen2.5-3b (128), g in {1, 2, 8}, at the bf16 tolerance."""
+    q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, dh,
+                          torch.bfloat16, seed=33)
+    kv_len = (torch.tensor([Tk - 11, Tk], dtype=torch.int32,
+                           device=cuda_device) if with_len else None)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.cuda
