@@ -14,9 +14,9 @@ Phases (each synchronised; any failure exits non-zero):
    the same bytes; gather / scatter / compact exactly; prefill flash
    attention on a full 1152-token prompt and on its suffix from position
    576, whose rows must equal the full call's bit for bit; the SSD scan at
-   zamba2-1.2b's and mamba2-1.3b's prefill shapes and with a carried
-   initial state over 192-row chunks), and their
-   times (CUDA-graph replay for kernels and library calls, CUDA events for
+   zamba2-1.2b's prefill shape with its one B/C group, the main path's
+   call, and head-expanded, at mamba2-1.3b's, and with a carried initial
+   state over 192-row chunks), and their times (CUDA-graph replay for kernels and library calls, CUDA events for
    the plain versions) beside their bound: bytes at 3.35 TB/s or bf16
    operations at 989 TFLOP/s, whichever is larger.  Paged attention is
    also timed at B = 1, and flash and paged attention at zamba2-1.2b's
@@ -801,12 +801,13 @@ def phase_shared_block(gen):
           f"{ns}x{n_kv}x{B} + combine")
 
 
-def ssd_bound(B, T, nh, hd, N, Q, with_h0):
-    """Bytes (x, B, C in bf16, dt and A in f32 read once; y and the final
-    state in f32 written once; h0 read once) and operations (C B^T and
-    the scores times dt x over each chunk's causal pairs, the carried
-    term and the state update) of one SSD-scan call."""
-    nbytes = (2 * B * T * nh * (hd + 2 * N) + 4 * B * T * nh + 4 * nh
+def ssd_bound(B, T, nh, hd, N, Q, with_h0, G):
+    """Bytes (x in bf16 and B, C at their G groups in bf16, dt and A in f32
+    read once; y and the final state in f32 written once; h0 read once)
+    and operations (C B^T and the scores times dt x over each chunk's
+    causal pairs, the carried term and the state update) of one SSD-scan
+    call."""
+    nbytes = (2 * B * T * (nh * hd + 2 * G * N) + 4 * B * T * nh + 4 * nh
               + 4 * B * T * nh * hd + 4 * B * nh * hd * N * (1 + with_h0))
     pairs = Q * (Q + 1) // 2 * (T // Q)
     flops = B * nh * (2 * pairs * (N + hd) + 4 * T * N * hd)
@@ -815,36 +816,17 @@ def ssd_bound(B, T, nh, hd, N, Q, with_h0):
 
 def phase_ssd_kernel(results):
     """The SSD scan against its plain version at the prefill shapes of the
-    recurrent families' main paths: (a) zamba2-1.2b, (b) mamba2-1.3b, both
-    for the 1100-token prompt (1152 tokens at 64-token pages, padded to
-    five 256-row chunks); (c) an initial state carried in over 192-row
-    chunks.  (a) is timed, with its plain version, beside its bound."""
+    recurrent families' main paths (``repro_torch.launch.ssd_phases.cases``):
+    (a') zamba2-1.2b with its one B/C group, the main path's call, timed
+    with its plain version for the kernels line; (a) the same head-expanded
+    (G = 64, the first port's interface); (b) mamba2-1.3b (N = 128, one
+    group); (c) zamba2 with an initial state carried in over 192-row
+    chunks.  Each is timed beside its bound."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.models.mamba2 import dims
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    from repro_torch.launch.ssd_phases import cases as ssd_cases
     name = "ssd_scan"
-    hyb, ssm = get_config(HYBRID_ARCH), get_config(SSM_ARCH)
-
-    def case(cfg, T, Q, with_h0):
-        _d_in, nh, _ = dims(cfg)
-        hd, N = cfg.ssm.head_dim, cfg.ssm.d_state
-
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-        x = randn(1, T, nh, hd).to(torch.bfloat16)
-        dt = torch.rand((1, T, nh), generator=gen, device=dev) * 0.19 + 0.01
-        A = -torch.linspace(1.0, 16.0, nh, device=dev)
-        Bm, Cm = (randn(1, T, nh, N).to(torch.bfloat16) for _ in range(2))
-        h0 = randn(1, nh, hd, N) if with_h0 else None
-        return (x, dt, A, Bm, Cm), dict(chunk=Q, h0=h0), (1, T, nh, hd, N, Q,
-                                                          with_h0)
-
-    T = -(-FLASH_T // 256) * 256            # 1280: five 256-row chunks
-    cases = {"a": case(hyb, T, 256, False), "b": case(ssm, T, 256, False),
-             "c": case(hyb, 1152, 192, True)}
+    cases = ssd_cases(torch.device("cuda"))
     errs, times = {}, {}
     for key, (args, kw, shape) in cases.items():
         y, h = ops.ssd_scan(*args, **kw)
@@ -857,24 +839,26 @@ def phase_ssd_kernel(results):
         errs[key] = max(float((y - y_r).abs().max()),
                         float((h - h_r).abs().max()))
         times[key] = graph_ms(lambda: ops.ssd_scan(*args, **kw))
-    args, kw, shape = cases["a"]
+    args, kw, shape = cases["a'"]
     b_ms, b_by = ssd_bound(*shape)
     results[name] = dict(
-        max_abs_err=max(errs.values()), ms=times["a"],
+        max_abs_err=max(errs.values()), ms=times["a'"],
         plain_ms=eager_ms(lambda: ref.ssd_scan_ref(*args, **kw)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B=1 T={T} nh=64 hd=64 N=64 Q=256 bf16")
+        shape="B={} T={} nh={} hd={} N={} Q={} h0={} G={} bf16".format(
+            *shape))
     r = results[name]
-    other = " | ".join(
+    err_a = errs["a'"]
+    rest = " | ".join(
         f"({key}) {cases[key][2]}: kernel_ms {times[key]:.4f} bound_ms "
         f"{ssd_bound(*cases[key][2])[0]:.5f} max_abs_err {errs[key]:.3g}"
-        for key in ("b", "c"))
-    print(f"[kernel] {name}: (a) zamba2 prefill: max_abs_err "
-          f"{errs['a']:.3g} | kernel_ms {r['ms']:.4f} plain_ms "
+        for key in ("a", "b", "c"))
+    print(f"[kernel] {name}: (a') zamba2 prefill, grouped: max_abs_err "
+          f"{err_a:.3g} | kernel_ms {r['ms']:.4f} plain_ms "
           f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-          f"({r['bound_by']}) library_ms none (no single PyTorch call "
-          f"computes an SSD scan) | {r['shape']} | {other} (B, T, nh, hd, "
-          f"N, Q, h0)")
+          f"({r['bound_by']}) library_ms none (no "
+          f"single PyTorch call computes an SSD scan) | {r['shape']} | "
+          f"{rest} (B, T, nh, hd, N, Q, h0, G)")
 
 
 def serve_mode(cfg, mode, params=None, device=None):

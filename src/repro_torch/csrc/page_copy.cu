@@ -12,10 +12,21 @@
 //            a src is never also a dst (CAC plans), so entries are independent
 //
 // What bounds it on the card: bytes (each page is read once and written
-// once; no arithmetic).  One CTA per (entry, layer) copies its page with
-// 16-byte vector loads and stores, neighbouring threads on neighbouring
-// addresses.  Holes are skipped directly; the TPU kernels' rewrite of holes
-// into duplicate copies and their page-0 restore are not needed here.
+// once; no arithmetic).  A copy has no arithmetic to hide its DRAM latency
+// behind, so the design keeps loads in flight: one CTA per (entry,
+// layer), and each thread issues all its 16-byte loads of a batch (kBatch,
+// 8 per thread: a 32 KiB page over 256 threads) before any of its stores,
+// neighbouring threads on neighbouring addresses.  The store of a vector
+// needs its load's register, so a load-store loop would make one DRAM
+// round trip per vector.  With the batch a CTA has a whole 32 KiB page in
+// flight at once, so a call of few entries is one round trip too (a split
+// of each page over several CTAs, tried, made no difference: PERF.md).
+// In compact, source and destination lie in one pool and are not
+// __restrict__; the loads of an entry may still all go ahead of its stores
+// because a CAC plan never uses a page both as source and as destination,
+// so no entry's stores touch any entry's source.
+// Holes are skipped directly; the TPU kernels' rewrite of holes into
+// duplicate copies and their page-0 restore are not needed here.
 
 #include <cuda_runtime.h>
 
@@ -24,11 +35,28 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;    // loads in flight per thread
 
-__device__ __forceinline__ void copy_page(const uint4* __restrict__ src,
-                                          uint4* __restrict__ dst,
+// The page's nvec vectors: each thread loads up to kBatch vectors, then
+// stores them.  The loads are cache-streaming (ld.global.cs): a page is
+// read once; on the H100 the hint made compact measurably faster and left
+// gather and scatter where they were.
+__device__ __forceinline__ void copy_page(const uint4* src, uint4* dst,
                                           long long nvec) {
-  for (long long i = threadIdx.x; i < nvec; i += kThreads) dst[i] = src[i];
+  for (long long i0 = threadIdx.x; i0 < nvec;
+       i0 += (long long)kThreads * kBatch) {
+    uint4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < nvec) v[u] = __ldcs(src + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < nvec) dst[i] = v[u];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)

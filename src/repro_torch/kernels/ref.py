@@ -89,16 +89,25 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     """Mamba-2 SSD chunked scan: the reference's ``ssd_chunked`` oracle.
 
     x [B, T, nh, hd]; dt [B, T, nh] f32 (post-softplus); A [nh] f32
-    (negative); Bm / Cm [B, T, nh, N]; h0 [B, nh, hd, N] f32 or None; T a
-    multiple of ``chunk``.  Per chunk: the intra-chunk term (scores C B^T
-    masked *before* exp of the cumulative-decay segments), the chunk-final
-    states, and the inter-chunk recurrence as a loop over chunks.  Returns
+    (negative); Bm / Cm [B, T, G, N] with G dividing nh (head h reads group
+    h // (nh // G); G = nh is the head-expanded form); h0 [B, nh, hd, N]
+    f32 or None; T a multiple of ``chunk``.  The groups are repeated to
+    every head first, so a grouped call is bitwise its head-expanded call.
+    Per chunk: the intra-chunk term (scores C B^T masked *before* exp of
+    the cumulative-decay segments), the chunk-final states, and the
+    inter-chunk recurrence as a loop over chunks.  Returns
     (y [B, T, nh, hd] f32, h_final [B, nh, hd, N] f32).
     """
     Bsz, T, nh, hd = x.shape
     N = Bm.shape[-1]
+    G = Bm.shape[2]
+    if G < 1 or nh % G:
+        raise ValueError(f"{G} B/C groups do not divide {nh} heads")
     if T % chunk:
         raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    if G != nh:
+        Bm = torch.repeat_interleave(Bm, nh // G, dim=2)
+        Cm = torch.repeat_interleave(Cm, nh // G, dim=2)
     nc = T // chunk
 
     def r(t):

@@ -2,14 +2,19 @@
 
 Replaces the reference's Pallas ``ssd_scan`` (``repro/kernels/ssd_scan.py``),
 with its interface: x [B, T, nh, hd], dt [B, T, nh] (post-softplus), A [nh]
-(negative), B / C head-expanded [B, T, nh, N], an optional initial state
+(negative), B / C [B, T, G, N] with G dividing nh (head h reads group
+h // (nh // G); G = nh is the reference's head-expanded form, and the
+models pass their un-expanded groups), an optional initial state
 h0 [B, nh, hd, N]; returns y [B, T, nh, hd] and the final state
 [B, nh, hd, N], both float32.  Every Mamba-2 layer of a prefill (the ssm and
 hybrid families) runs it once.
 
 For CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`); for CUDA tensors it launches
-the kernel or raises.  ``ssd_scan.launches`` counts kernel launches.
+the kernel or raises.  A bf16 call is three launches (chunk states, state
+pass, chunk outputs; the last two start early as programmatic dependents,
+see the source's header); f32 is one.  ``ssd_scan.launches`` counts calls
+that launched.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ MAX_CHUNK = 256
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
-    """x / Bm / Cm in one dtype (bf16 or f32); dt [B, T, nh] and A [nh]
-    f32; h0 f32 or None; T a multiple of ``chunk``.  Returns
+    """x in bf16 or f32, Bm / Cm [B, T, G, N] in x's dtype; dt [B, T, nh]
+    and A [nh] f32; h0 f32 or None; T a multiple of ``chunk``.  Returns
     (y [B, T, nh, hd] f32, h_final [B, nh, hd, N] f32)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
@@ -35,19 +40,30 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
         raise ValueError(f"no SSD-scan path for device {x.device}")
     _check_inputs(x, dt, A, Bm, Cm, chunk, h0)
     Bsz, T, nh, hd = x.shape
-    N = Bm.shape[-1]
-    y = torch.empty((Bsz, T, nh, hd), dtype=torch.float32, device=x.device)
-    h_out = torch.empty((Bsz, nh, hd, N), dtype=torch.float32,
-                        device=x.device)
+    G, N = Bm.shape[2:]
+    dev = x.device
+    y = torch.empty((Bsz, T, nh, hd), dtype=torch.float32, device=dev)
+    h_out = torch.empty((Bsz, nh, hd, N), dtype=torch.float32, device=dev)
     if Bsz == 0 or nh == 0:
         return y, h_out
+    is_f32 = x.dtype == torch.float32
+    states = cum = hp = None
+    if not is_f32:
+        nc = T // chunk
+        states = torch.empty((Bsz, nc, nh, hd, N), dtype=torch.float32,
+                             device=dev)
+        cum = torch.empty((Bsz, nh, T), dtype=torch.float32, device=dev)
+        hp = torch.empty((2, Bsz, nc, nh, hd, N), dtype=torch.bfloat16,
+                         device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     lib = _lib()
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_out.data_ptr(), Bsz, T, nh, hd, N, int(chunk),
-        int(x.dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        Cm.data_ptr(), ptr(h0), y.data_ptr(), h_out.data_ptr(), ptr(states),
+        ptr(cum), ptr(hp), Bsz, T, nh, G, hd, N, int(chunk), int(is_f32),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "ssd_scan_fwd")
     ssd_scan.launches += 1
     return y, h_out
@@ -62,12 +78,14 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk, h0) -> None:
     if x.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
         raise ValueError(f"x {tuple(x.shape)} must be [B, T, nh, hd] and "
                          f"Bm / Cm {tuple(Bm.shape)} / {tuple(Cm.shape)} one "
-                         f"[B, T, nh, N] shape")
+                         f"[B, T, G, N] shape")
     Bsz, T, nh, hd = x.shape
-    N = Bm.shape[-1]
-    if Bm.shape[:3] != x.shape[:3]:
+    G, N = Bm.shape[2:]
+    if Bm.shape[:2] != x.shape[:2]:
         raise ValueError(f"Bm {tuple(Bm.shape)} does not match x "
                          f"{tuple(x.shape)}")
+    if G < 1 or nh % G:
+        raise ValueError(f"{G} B/C groups do not divide {nh} heads")
     if dt.shape != (Bsz, T, nh) or A.shape != (nh,):
         raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} must "
                          f"be [{Bsz}, {T}, {nh}] / [{nh}]")
@@ -104,9 +122,13 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk, h0) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.library("ssd_scan")
+    return bind(build.library("ssd_scan"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry's argument types on a built ``ssd_scan.cu``."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                 P]
+    lib.ssd_scan_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                 I, I, I, I, P]
     lib.ssd_scan_fwd.restype = I
     return lib

@@ -121,19 +121,14 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return z, xBC, dt
 
 
-def _head_expand(cfg: ModelConfig, Bc):
-    """[B,T,G,N] -> [B,T,nh,N] by repeating each group over its heads."""
-    _, nh, _ = dims(cfg)
-    return torch.repeat_interleave(Bc, nh // cfg.ssm.n_groups, dim=2)
-
-
-def ssd_chunked(xh, dt, A, Bh, Ch, chunk: int, h0=None):
+def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int, h0=None):
     """Chunked SSD scan through the port's kernel.
 
     xh [B,T,nh,hd]; dt [B,T,nh] (post-softplus); A [nh] (negative);
-    Bh/Ch [B,T,nh,N].  Returns (y [B,T,nh,hd] f32, h_final [B,nh,hd,N])."""
+    Bg/Cg [B,T,G,N], the un-expanded groups (head h reads group
+    h // (nh // G)).  Returns (y [B,T,nh,hd] f32, h_final [B,nh,hd,N])."""
     return ssd_scan(xh.contiguous(), dt.float().contiguous(), A.contiguous(),
-                    Bh.contiguous(), Ch.contiguous(), chunk=chunk, h0=h0)
+                    Bg.contiguous(), Cg.contiguous(), chunk=chunk, h0=h0)
 
 
 def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
@@ -160,16 +155,15 @@ def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     xh = xp.reshape(Bsz, T, nh, s.head_dim)
-    Bh, Ch = _head_expand(cfg, Bg), _head_expand(cfg, Cg)
     # Pad T to a chunk multiple; dt = 0 rows are inert (decay 1, no input).
     chunk = min(s.chunk, T)
     pad = (-T) % chunk
     if pad:
         xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
-        Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
-    y, h_last = ssd_chunked(xh, dt, A, Bh, Ch, chunk, h0=h0)
+        Bg = F.pad(Bg, (0, 0, 0, 0, 0, pad))
+        Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
+    y, h_last = ssd_chunked(xh, dt, A, Bg, Cg, chunk, h0=h0)
     if pad:
         y = y[:, :T]
         xh = xh[:, :T]

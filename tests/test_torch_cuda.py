@@ -9,10 +9,12 @@ imports JAX and the reference package).  Every test here is marked
 
 Tolerances: normalized attention (decode and prefill) 2e-2 for bf16 and
 2e-5 for f32 inputs, as tests/test_kernels.py (other summation order and
-rounding points); the f32 accumulators m and l 1e-5; copies exact.  The
-fused gather-attend kernel is also held bitwise to the page kernel where
-it reads the same bytes, and the flash kernel's suffix rows bitwise to
-its full rows.
+rounding points); the f32 accumulators m and l 1e-5; the SSD scan 3e-2
+for bf16 and 2e-4 for f32 inputs, as tests/test_kernels.py; copies exact.
+The fused gather-attend kernel is also held bitwise to the page kernel
+where it reads the same bytes, the flash kernel's suffix rows bitwise to
+its full rows, and the SSD scan bitwise to itself: grouped B / C against
+the head-expanded call, two calls, a batch row alone against the batch.
 """
 
 import dataclasses
@@ -258,6 +260,55 @@ def test_cuda_page_copies_match_plain(cuda_device):
     ops.page_compact(a, src, dst)
     ref.page_compact_ref(b, src, dst)
     assert torch.equal(a, b)
+
+
+def _copy_pool(dev, L, NP, page_shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((L, NP, *page_shape), generator=gen,
+                       device=dev).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_shape", [
+    (64, 2, 128),     # 32 KiB, qwen2.5-3b's page: one load batch
+    (2561, 8),        # 40976 B: 2561 vectors, a ragged second batch
+    (5, 3, 8),        # 240 B: 15 vectors, less than one thread each
+])
+def test_cuda_page_copies_few_and_many_entries_match_plain(cuda_device,
+                                                           page_shape):
+    """Few entries (3 over 4 layers) and more entries than SMs (200 over 2
+    layers), with holes: gather, scatter and compact equal their plain
+    versions exactly, and all-hole calls leave the pool as it was."""
+    rng = np.random.default_rng(5)
+    for L, n in ((4, 3), (2, 200)):
+        NP = 2 * n + 8
+        pool = _copy_pool(cuda_device, L, NP, page_shape, seed=n)
+        perm = rng.permutation(NP).astype(np.int32)
+        idx = perm[:n].copy()
+        idx[1] = -1
+        idx_t = torch.from_numpy(idx).to(cuda_device)
+        assert torch.equal(ops.page_gather(pool, idx_t),
+                           ref.page_gather_ref(pool, idx_t))
+        pages = _copy_pool(cuda_device, L, n, page_shape, seed=n + 1)
+        a, b = pool.clone(), pool.clone()
+        ops.page_scatter(a, idx_t, pages)
+        ref.page_scatter_ref(b, idx_t, pages)
+        assert torch.equal(a, b)
+        src, dst = perm[:n].copy(), perm[n:2 * n].copy()
+        src[0] = -1
+        dst[-1] = -1
+        src_t, dst_t = (torch.from_numpy(v).to(cuda_device)
+                        for v in (src, dst))
+        a, b = pool.clone(), pool.clone()
+        ops.page_compact(a, src_t, dst_t)
+        ref.page_compact_ref(b, src_t, dst_t)
+        assert torch.equal(a, b)
+        holes = torch.full((n,), -1, dtype=torch.int32, device=cuda_device)
+        a = pool.clone()
+        ops.page_scatter(a, holes, pages)
+        ops.page_compact(a, holes, holes)
+        torch.cuda.synchronize()
+        assert torch.equal(a, pool)
 
 
 def _fused_case(dev, H, n_kv, dh, dtype, frac, *, garbage=True, seed=21):
@@ -632,6 +683,96 @@ def test_cuda_ssd_scan_wrapper_refuses_bad_inputs(cuda_device):
     odd = flat[1:1 + Bm.numel()].view(Bm.shape)       # 2 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.ssd_scan(x, dt, A, odd, Cm, chunk=32)
+
+
+def _grouped(t, G):
+    """The first G heads' B or C as a contiguous [B, T, G, N] group tensor."""
+    return t[:, :, :G].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("Q", [48, 256])
+@pytest.mark.parametrize("hd,N", [(64, 64), (64, 128)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_cuda_ssd_scan_grouped_matches_plain(cuda_device, G, hd, N, Q,
+                                             with_h0, dtype):
+    """B / C as G un-expanded groups of 4 heads (head h reads group
+    h // (4 // G)), over two chunks: the kernel against its plain version
+    (tolerances as above), and bit for bit against its own call on the
+    groups repeated to every head."""
+    tdt = getattr(torch, dtype)
+    x, dt, A, Bm, Cm, h0 = _ssd_case(cuda_device, 2, 2 * Q, 4, hd, N, tdt,
+                                     with_h0)
+    Bg, Cg = _grouped(Bm, G), _grouped(Cm, G)
+    before = ops.launch_counts()["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, A, Bg, Cg, chunk=Q, h0=h0)
+    y_r, h_r = ref.ssd_scan_ref(x, dt, A, Bg, Cg, chunk=Q, h0=h0)
+    rep = 4 // G
+    y_e, h_e = ops.ssd_scan(x, dt, A, Bg.repeat_interleave(rep, dim=2),
+                            Cg.repeat_interleave(rep, dim=2), chunk=Q, h0=h0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 2
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y, y_r, **tol)
+    torch.testing.assert_close(h, h_r, **tol)
+    assert torch.equal(y, y_e) and torch.equal(h, h_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_ssd_scan_is_deterministic_and_row_independent(cuda_device,
+                                                            dtype):
+    """Two calls give the same bits; batch row 1 alone gives the bits it
+    gets inside a batch of 3."""
+    tdt = getattr(torch, dtype)
+    x, dt, A, Bm, Cm, h0 = _ssd_case(cuda_device, 3, 3 * 192, 4, 64, 64,
+                                     tdt, True)
+    Bg, Cg = _grouped(Bm, 1), _grouped(Cm, 1)
+    y, h = ops.ssd_scan(x, dt, A, Bg, Cg, chunk=192, h0=h0)
+    y2, h2 = ops.ssd_scan(x, dt, A, Bg, Cg, chunk=192, h0=h0)
+    one = [t[1:2].contiguous() for t in (x, dt)]
+    y1, h1 = ops.ssd_scan(*one, A, Bg[1:2].contiguous(),
+                          Cg[1:2].contiguous(), chunk=192,
+                          h0=h0[1:2].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert torch.equal(y1, y[1:2]) and torch.equal(h1, h[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("N", [64, 128])
+def test_cuda_ssd_scan_main_path_chunks_match_plain(cuda_device, N,
+                                                    with_h0):
+    """Five 256-row chunks (T = 1280, the main path's padded prefill) with
+    one group of bf16 B / C, as zamba2-1.2b (N = 64) and mamba2-1.3b
+    (N = 128) call it, at 8 heads of 64: the state passes four chunk
+    boundaries.  3e-2 as above."""
+    x, dt, A, Bm, Cm, h0 = _ssd_case(cuda_device, 1, 1280, 8, 64, N,
+                                     torch.bfloat16, with_h0)
+    Bg, Cg = _grouped(Bm, 1), _grouped(Cm, 1)
+    y, h = ops.ssd_scan(x, dt, A, Bg, Cg, chunk=256, h0=h0)
+    y_r, h_r = ref.ssd_scan_ref(x, dt, A, Bg, Cg, chunk=256, h0=h0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_r, rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(h, h_r, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_refuses_groups_that_do_not_divide(cuda_device):
+    x, dt, A, Bm, Cm, _ = _ssd_case(cuda_device, 1, 64, 4, 32, 16,
+                                    torch.bfloat16, False)
+    for G in (3, 8):
+        Bg = torch.zeros((1, 64, G, 16), dtype=torch.bfloat16,
+                         device=cuda_device)
+        with pytest.raises(ValueError, match="groups do not divide"):
+            ops.ssd_scan(x, dt, A, Bg, Bg, chunk=32)
+    with pytest.raises(ValueError, match=r"one \[B, T, G, N\] shape"):
+        ops.ssd_scan(x, dt, A, Bm, _grouped(Cm, 2), chunk=32)
 
 
 @pytest.mark.cuda

@@ -104,3 +104,56 @@ def test_chunking_does_not_change_the_scan():
     torch.testing.assert_close(torch.cat([y1, y2], 1), y96, rtol=2e-4,
                                atol=2e-4)
     torch.testing.assert_close(h2, h96, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_grouped_ref_is_bitwise_the_head_expanded_call(G, dtype, with_h0):
+    """B / C as [B, T, G, N] groups (head h reads group h // (nh // G), the
+    models' un-expanded form): the plain version equals, bit for bit, its
+    own result on the groups repeated to every head, and agrees with the
+    reference's ``ssd_chunked`` oracle and its Pallas ``ssd_scan``
+    (interpret mode) fed ``jnp.repeat``ed groups, at the tolerances
+    above."""
+    from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+    B, T, nh, hd, N, Q = 2, 96, 4, 16, 32, 48
+    x, dt, A, Bm, Cm, h0 = _inputs(B, T, nh, hd, N, with_h0,
+                                   getattr(jnp, dtype), seed=G)
+    Bg, Cg = (np.ascontiguousarray(a[:, :, :G]) for a in (Bm, Cm))
+    tdt = getattr(torch, dtype)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    tx, tdt_, tA = (torch.from_numpy(x).to(tdt), torch.from_numpy(dt),
+                    torch.from_numpy(A))
+    tBg, tCg = (torch.from_numpy(a).to(tdt) for a in (Bg, Cg))
+    y, h = tref.ssd_scan_ref(tx, tdt_, tA, tBg, tCg, chunk=Q, h0=th0)
+    rep = nh // G
+    y_e, h_e = tref.ssd_scan_ref(
+        tx, tdt_, tA, torch.repeat_interleave(tBg, rep, dim=2),
+        torch.repeat_interleave(tCg, rep, dim=2), chunk=Q, h0=th0)
+    assert torch.equal(y, y_e) and torch.equal(h, h_e)
+    jdt = getattr(jnp, dtype)
+    jargs = (jnp.asarray(x, jdt), jnp.asarray(dt), jnp.asarray(A),
+             jnp.repeat(jnp.asarray(Bg, jdt), rep, axis=2),
+             jnp.repeat(jnp.asarray(Cg, jdt), rep, axis=2))
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-4, atol=2e-4)
+    for y_j, h_j in (jax_ssd_chunked(*jargs, Q, h0=jh0),
+                     pallas_ssd_scan(*jargs, chunk=Q, h0=jh0)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_j, np.float32),
+                                   **tol)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_j, np.float32),
+                                   **tol)
+
+
+@pytest.mark.parametrize("G", [3, 8])
+def test_wrapper_refuses_groups_that_do_not_divide_the_heads(G):
+    """nh = 4 heads cannot read 3 or 8 B/C groups: the wrapper raises on
+    CPU tensors as the kernel's wrapper does on CUDA ones."""
+    x, dt, A, Bm, Cm, _ = _inputs(1, 32, 4, 16, 16, False, jnp.float32)
+    Bg = np.random.default_rng(1).normal(size=(1, 32, G, 16)).astype(
+        np.float32)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bg, Bg)]
+    with pytest.raises(ValueError, match="groups do not divide"):
+        ops.ssd_scan(*args, chunk=16)
