@@ -21,7 +21,14 @@ Phases (each synchronised; any failure exits non-zero):
    operations at 989 TFLOP/s, whichever is larger.  Paged attention is
    also timed at B = 1, and flash and paged attention at zamba2-1.2b's
    shared-block shapes (H = n_kv = 32, dh = 64: one query head per KV
-   head); each [kernel] line names the split count or tile shape;
+   head) and dbrx-132b's (H = 48 over n_kv = 8, dh = 128: six query heads
+   per KV head), with the page copies at their page sizes; each [kernel]
+   line names the split count or tile shape.  At
+   deepseek-v2-lite's MLA shapes (entries ``<kernel>.mla`` of the kernels
+   line): paged attention over latent pools (16 query heads on one KV
+   head, K 576 / V 512, page and frame, B = 4 and 1) and flash attention
+   at dh 192 / dh_v 128 (full prompt and its suffix, bitwise), and the
+   page copies on the latent pools;
 4. main path: qwen2.5-3b at its published width, bf16, random weights from
    a seed, served by ``ServingEngine`` (mosaic, 2x oversubscribed) over a
    seeded stream with staggered priority arrivals, three times on the same
@@ -62,11 +69,27 @@ Phases (each synchronised; any failure exits non-zero):
 6. application transparency: the stream without oversubscription under
    mosaic and gpu-mmu — same batches, identical tokens;
 7. paging round trip: a held preemption's host payloads come back into the
-   pool bit for bit.
+   pool bit for bit;
+4e. (after 7, once qwen2.5-3b's weights have left the card) deepseek-v2-lite
+   at its published width cut to 2 layers (the dense one and one MoE
+   layer) on the card against the same weights on the CPU (plain
+   versions, the card's expert choices replayed): logits and latent pools
+   of a prefill and two decode steps within 2e-2 of their scale; then at
+   its published width and depth (27 layers, MLA over latent pools,
+   one dense-FFN layer then 64 routed experts top-6 + 2 shared, bf16,
+   ~15.7 G parameters from a seed) through phase 4's stream and step hook
+   in sync and async: fused is refused (as the reference), tokens
+   identical, at least one swap, fault and CAC copy, 27 flash calls per
+   admission and 27 paged calls per decode step, no prefix cache;
+4f. dbrx-132b at its published widths, depth-cut to its first 8 of 40
+   layers (~52 GB of bf16; all 40 would not fit the card), the stream's
+   first four requests in sync: 8 flash calls per admission, 8 paged calls
+   per step, and the card's memory high-water mark.
 
 Ends with a JSON line of per-kernel numbers (launches summed over the
-main-path runs of phases 4, 4c and 4d) and, last, the ok line.  No phase
-is cut in depth.
+main-path runs of phases 4, 4c, 4d and 4f; the ``.mla`` entries count
+phase 4e's) and, last, the ok line.  Of the serving phases only 4f is cut in
+depth.
 """
 
 from __future__ import annotations
@@ -87,7 +110,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen2.5-3b"
 HYBRID_ARCH, SSM_ARCH = "zamba2-1.2b", "mamba2-1.3b"
+MLA_ARCH, MOE_ARCH = "deepseek-v2-lite-16b", "dbrx-132b"
 SSM_REQUESTS = 4        # phase 4d serves the stream's first four requests
+MOE_REQUESTS = 4        # and phase 4f too
+MOE_LAYERS = 8          # phase 4f: dbrx's first 8 of 40 layers (52 GB)
 MAX_BATCH, MAX_SEQ, OVERSUB = 4, 2048, 2.0
 ARRIVE_STEP = 10        # the two priority-1 requests arrive here
 PROBE_STEP = 3          # dual-granularity attention over the engine's pool
@@ -240,10 +266,11 @@ class MainPathEvents:
             device=eng.device)
         ctx = eng.cache.pack_ctx(seqs, eng.mpps, device=eng.device)
         gen = torch.Generator(device=eng.device).manual_seed(2)
-        q = torch.randn((len(seqs), cfg.n_heads, cfg.resolved_head_dim),
-                        generator=gen, device=eng.device).to(torch.bfloat16)
-        scale = cfg.resolved_head_dim ** -0.5
         k, v = eng.pools
+        # The query is as wide as the K pool (MLA: latent + rope).
+        q = torch.randn((len(seqs), cfg.n_heads, k.shape[-1]),
+                        generator=gen, device=eng.device).to(torch.bfloat16)
+        scale = k.shape[-1] ** -0.5
         dual = ops.paged_attention_dual(q, k[0], v[0], ft, fn, pt, pn,
                                         frame_pages=fp, scale=scale)
         plain = ref.paged_attention_full_ref(
@@ -340,14 +367,19 @@ def bound_ms(nbytes: float, flops: float = 0.0):
 # ---------------------------------------------------------------- phases
 
 
+SMI = "card not read"     # phase_env's nvidia-smi name, power limit
+
+
 def phase_env():
+    global SMI
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    SMI = smi.stdout.strip().splitlines()[0]
+    print(SMI)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,9 +417,11 @@ def _tables(rng, B, n_blocks, n_entries, tokens_per_block, *, holes=True):
 def phase_kernels(cfg, results):
     """Each kernel against its plain version at the serving shapes."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.hybrid import n_invocations
     dev = torch.device("cuda")
     geo = PoolGeometry()
     ptok, fp = geo.page_tokens, geo.frame_pages
@@ -611,22 +645,17 @@ def phase_kernels(cfg, results):
           f"(scaled_dot_product_attention) | (b) suffix Tq={T - P} "
           f"q_offset={P}: kernel_ms {s_ms:.4f} bound_ms {sb_ms:.5f} | "
           f"{r['shape']} | {flash_tiles(H, n_kv, T)}")
-    phase_shared_block(gen)
+    hyb = get_config(HYBRID_ARCH)
+    phase_attention_at(gen, hyb, n_invocations(hyb), "zamba2 shared block")
+    phase_attention_at(gen, get_config(MOE_ARCH), MOE_LAYERS, "dbrx")
 
     # Copies on the engine's stacked pools [L, NP, ptok, n_kv, dh].
     pool = randn(L, NP, ptok, n_kv, dh)
+    check_copies(pool, rng, randn, "qwen2.5-3b")
     n_pages = 13                  # a 768-token prompt + 64 new tokens
     perm = rng.permutation(NP)
-    idx = perm[:n_pages].astype(np.int32)
-    idx[3] = -1                                   # a hole
-    idx_t = t(idx)
-    got = ops.page_gather(pool, idx_t)
-    require(torch.equal(got, ref.page_gather_ref(pool, idx_t)),
-            "page_gather != plain")
-    require(torch.equal(ops.page_gather(pool, t(np.full(4, -1, np.int32))),
-                        pool[:, [0, 0, 0, 0]]), "page_gather all-hole")
     page_bytes = ptok * n_kv * dh * 2
-    n_valid = int((idx >= 0).sum())
+    n_valid = n_pages - 1         # every timed set has one hole
     # Timed calls cycle over disjoint page sets covering the whole pool
     # (94 MB, beyond the 50 MB L2), as evictions and faults find it cold.
     idx_sets = [perm[i * n_pages:(i + 1) * n_pages].astype(np.int32)
@@ -646,15 +675,7 @@ def phase_kernels(cfg, results):
                                  for i in idx_sets])),
         shape=f"L={L} n={n_pages} page={page_bytes}B")
 
-    pages_in = randn(L, n_pages, ptok, n_kv, dh)
     a, b_ = pool.clone(), pool.clone()
-    ops.page_scatter(a, idx_t, pages_in)
-    ref.page_scatter_ref(b_, idx_t, pages_in)
-    require(torch.equal(a, b_), "page_scatter != plain")
-    c = pool.clone()
-    ops.page_scatter(c, t(np.full(5, -1, np.int32)),
-                     pages_in[:, :5].contiguous())
-    require(torch.equal(c, pool), "page_scatter all-hole must be a no-op")
     page_sets = [randn(L, n_pages, ptok, n_kv, dh) for _ in idx_sets]
     keep_col = torch.arange(n_pages, device=dev) != 3
     b_ms, b_by = bound_ms(2 * L * n_valid * page_bytes)
@@ -673,20 +694,7 @@ def phase_kernels(cfg, results):
                             for i, pg in zip(idx_sets, page_sets)])),
         shape=f"L={L} n={n_pages} ({n_valid} valid) page={page_bytes}B")
 
-    n_copy = 4
-    src = perm[n_pages:n_pages + n_copy].astype(np.int32)
-    dst = perm[n_pages + n_copy:n_pages + 2 * n_copy].astype(np.int32)
-    src[1] = dst[2] = -1
-    src_t, dst_t = t(src), t(dst)
-    a, b_ = pool.clone(), pool.clone()
-    ops.page_compact(a, src_t, dst_t)
-    ref.page_compact_ref(b_, src_t, dst_t)
-    require(torch.equal(a, b_), "page_compact != plain")
-    c = pool.clone()
-    ops.page_compact(c, t(np.full(3, -1, np.int32)),
-                     t(np.full(3, -1, np.int32)))
-    require(torch.equal(c, pool), "page_compact all-hole must be a no-op")
-    n_ok = int(((src >= 0) & (dst >= 0)).sum())
+    n_copy, n_ok = 4, 2           # every timed plan has two holes
     pairs = []
     for i in range(NP // (2 * n_copy)):
         chunk = perm[i * 2 * n_copy:(i + 1) * 2 * n_copy].astype(np.int32)
@@ -725,37 +733,80 @@ def flash_tiles(H, n_kv, T):
             f"mma.sync m16n8k16 bf16, grid {-(-T // bq)}x{n_kv}x1")
 
 
-def phase_shared_block(gen):
-    """Flash and paged attention at zamba2-1.2b's shared-block shapes
-    (H = n_kv = 32, dh = 64: g = 1), against their plain versions and
-    timed beside their bounds: flash on a FLASH_T-token prompt; paged
-    (page granularity) at B = MAX_BATCH over the main path's table width,
-    cycling over the 6 invocations' pool slices as a decode step does.
-    Printed only: the kernels JSON line keeps the serving shapes of
-    qwen2.5-3b."""
+def check_copies(pool, rng, randn, label):
+    """page_gather, page_scatter and page_compact on the stacked pool
+    ``pool`` [L, NP, ...] against their plain versions, exactly: 13 pages
+    with a hole, 4 copies with a hole on each side, and all-hole calls,
+    which must copy nothing."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = pool.device
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    perm = rng.permutation(pool.shape[1])
+    idx = perm[:13].copy()
+    idx[3] = -1
+    require(torch.equal(ops.page_gather(pool, t(idx)),
+                        ref.page_gather_ref(pool, t(idx))),
+            f"page_gather != plain ({label})")
+    require(torch.equal(ops.page_gather(pool, t(np.full(4, -1))),
+                        pool[:, [0, 0, 0, 0]]), f"page_gather all-hole "
+            f"({label})")
+    pages = randn(pool.shape[0], 13, *pool.shape[2:])
+    a, b = pool.clone(), pool.clone()
+    ops.page_scatter(a, t(idx), pages)
+    ref.page_scatter_ref(b, t(idx), pages)
+    require(torch.equal(a, b), f"page_scatter != plain ({label})")
+    ops.page_scatter(a, t(np.full(5, -1)), pages[:, :5].contiguous())
+    require(torch.equal(a, b), f"page_scatter all-hole must be a no-op "
+            f"({label})")
+    src, dst = perm[13:17].copy(), perm[17:21].copy()
+    src[1] = dst[2] = -1
+    ops.page_compact(a, t(src), t(dst))
+    ref.page_compact_ref(b, t(src), t(dst))
+    require(torch.equal(a, b), f"page_compact != plain ({label})")
+    ops.page_compact(a, t(np.full(3, -1)), t(np.full(3, -1)))
+    require(torch.equal(a, b), f"page_compact all-hole must be a no-op "
+            f"({label})")
+    page = pool[0, 0].numel() * pool.element_size()
+    print(f"[kernel] page_gather / page_scatter / page_compact ({label}): "
+          f"exact | L={pool.shape[0]} page={page}B")
+
+
+def phase_attention_at(gen, cfg, n_slices, label):
+    """Flash and paged attention at ``cfg``'s attention shapes, against
+    their plain versions and timed beside their bounds: flash on a
+    FLASH_T-token prompt and its suffix from FLASH_P (rows bitwise the full
+    call's); paged (page granularity) at B = 1 and B = MAX_BATCH over the
+    main path's table width, timed cycling over ``n_slices`` pool slices
+    (zamba2's 6 shared-block invocations, dbrx's 8 layers) as a decode
+    step does; then the page copies on those slices.  Printed only: the
+    kernels JSON line keeps the serving shapes of qwen2.5-3b."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
-    hyb = get_config(HYBRID_ARCH)
-    H, n_kv, dh = hyb.n_heads, hyb.n_kv_heads, hyb.resolved_head_dim
-    G = hyb.n_layers // hyb.hybrid.period    # shared-block invocations
+    H, n_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     geo = PoolGeometry()
     ptok = geo.page_tokens
-    NP, mpps, B, T = 80, MAX_SEQ // ptok, MAX_BATCH, FLASH_T
+    NP, mpps, T, P = 80, MAX_SEQ // ptok, FLASH_T, FLASH_P
     scale = dh ** -0.5
 
     def randn(*shape):
         return torch.randn(shape, generator=gen,
                            device=dev).to(torch.bfloat16)
     q, k, v = randn(1, T, H, dh), randn(1, T, n_kv, dh), randn(1, T, n_kv, dh)
+    qs = q[:, P:].contiguous()
     got = ops.flash_attention(q, k, v)
+    suffix = ops.flash_attention(qs, k, v, q_offset=P)
     want = ref.flash_attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+    require(torch.equal(suffix, got[:, P:]), f"flash_attention ({label}): "
+            f"suffix rows are not the full call's bit for bit")
     err = float((got.float() - want.float()).abs().max())
     pairs = T * (T + 1) // 2
     b_ms, b_by = bound_ms(2 * (2 * T * H + 2 * T * n_kv) * dh,
@@ -763,42 +814,199 @@ def phase_shared_block(gen):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms = graph_ms(lambda: ops.flash_attention(q, k, v))
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    print(f"[kernel] flash_attention (zamba2 shared block): max_abs_err "
-          f"{err:.3g} | kernel_ms {ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
-          f"library_ms {lib_ms:.4f} (scaled_dot_product_attention) | B=1 "
-          f"H={H} n_kv={n_kv} dh={dh} T={T} causal | "
-          f"{flash_tiles(H, n_kv, T)}")
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    print(f"[kernel] flash_attention ({label}): max_abs_err {err:.3g}, "
+          f"suffix rows bitwise == full | kernel_ms {ms:.4f} bound_ms "
+          f"{b_ms:.5f} ({b_by}) library_ms {lib_ms:.4f} "
+          f"(scaled_dot_product_attention) | B=1 H={H} n_kv={n_kv} dh={dh} "
+          f"T={T} causal | {flash_tiles(H, n_kv, T)}")
 
     rng = np.random.default_rng(4)
-    pools = [(randn(NP, ptok, n_kv, dh), randn(NP, ptok, n_kv, dh))
-             for _ in range(G)]
-    qd = randn(B, H, dh)
-    tb, nt = (torch.from_numpy(a).to(dev)
-              for a in _tables(rng, B, mpps, NP, ptok))
-    o, m, l = ops.paged_attention_kernel(qd, *pools[0], tb, nt,
-                                         granularity="page", scale=scale)
-    o_r, m_r, l_r = ref.paged_attention_ref(qd, *pools[0], tb, nt,
-                                            scale=scale)
-    torch.cuda.synchronize()
-    on, on_r = o / l[..., None], o_r / l_r[..., None]
-    torch.testing.assert_close(on, on_r, **ATTN_TOL)
-    torch.testing.assert_close(m, m_r, **ML_TOL)
-    torch.testing.assert_close(l, l_r, **ML_TOL)
+    kall, vall = (randn(n_slices, NP, ptok, n_kv, dh) for _ in range(2))
+    errs = []
+    for B in (1, MAX_BATCH):
+        qd = randn(B, H, dh)
+        tb, nt = (torch.from_numpy(a).to(dev)
+                  for a in _tables(rng, B, mpps, NP, ptok))
+        o, m, l = ops.paged_attention_kernel(qd, kall[0], vall[0], tb, nt,
+                                             granularity="page", scale=scale)
+        o_r, m_r, l_r = ref.paged_attention_ref(qd, kall[0], vall[0], tb, nt,
+                                                scale=scale)
+        torch.cuda.synchronize()
+        on, on_r = o / l[..., None], o_r / l_r[..., None]
+        torch.testing.assert_close(on, on_r, **ATTN_TOL)
+        torch.testing.assert_close(m, m_r, **ML_TOL)
+        torch.testing.assert_close(l, l_r, **ML_TOL)
+        errs.append(float((on - on_r).abs().max()))
     tokens = int(nt.sum())
     b_ms, b_by = bound_ms(2 * tokens * n_kv * dh * 2 + qd.numel() * 2
                           + 2 * tb.numel() * 4 + B * H * (dh + 2) * 4,
                           4 * H * dh * tokens)
     ms = graph_ms(cycling(functools.partial(
         ops.paged_attention_kernel, granularity="page", scale=scale),
-        [(qd, pk, pv, tb, nt) for pk, pv in pools]))
+        [(qd, kall[i], vall[i], tb, nt) for i in range(n_slices)]))
     ns = pa.split_count(mpps, ptok)
-    print(f"[kernel] paged_attention.page (zamba2 shared block): "
-          f"max_abs_err {float((on - on_r).abs().max()):.3g} | kernel_ms "
-          f"{ms:.4f} bound_ms {b_ms:.5f} ({b_by}) | B={B} H={H} n_kv={n_kv} "
-          f"dh={dh} blocks={mpps} tokens={tokens}, cycling {G} pool slices "
-          f"| splits {ns} of {pa.SPLIT_TOKENS} positions, grid "
+    print(f"[kernel] paged_attention.page ({label}): max_abs_err "
+          f"{max(errs):.3g} (B = 1 and {B}) | kernel_ms {ms:.4f} bound_ms "
+          f"{b_ms:.5f} ({b_by}) | B={B} H={H} n_kv={n_kv} dh={dh} "
+          f"blocks={mpps} tokens={tokens}, cycling {n_slices} pool slices | "
+          f"splits {ns} of {pa.SPLIT_TOKENS} positions, grid "
           f"{ns}x{n_kv}x{B} + combine")
+    check_copies(kall, rng, randn, label)
+
+
+def phase_mla_kernels(results):
+    """Paged and flash attention at deepseek-v2-lite's MLA shapes, against
+    their plain versions and timed beside their bounds.  Paged (absorbed
+    decode): 16 query heads on one latent KV head, K 576 / V 512, bf16,
+    64-token pages, 32 pages (2 frames) per row, holes and partial pages,
+    at B = MAX_BATCH and B = 1, cycling over the 27 layers' pools as a
+    decode step reads them (300 MB, beyond the 50 MB L2).  Flash (expanded
+    prefill): H = n_kv = 16, dh 192 / dh_v 128, a FLASH_T-token causal
+    prompt, and its suffix from FLASH_P, whose rows must equal the full
+    call's bit for bit.  Each becomes its own entry of the kernels line
+    (``<kernel>.mla``), launches counted in phase 4e.  Then the page copies
+    on the stacked latent pools (K pages of 73,728 B, V of 65,536 B)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device("cuda")
+    mcfg = get_config(MLA_ARCH)
+    m = mcfg.mla
+    H, L = mcfg.n_heads, mcfg.n_layers
+    dk, dv = m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    scale = dq ** -0.5
+    geo = PoolGeometry()
+    ptok, fp = geo.page_tokens, geo.frame_pages
+    NP, mpps = 80, MAX_SEQ // ptok
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    kall, vall = randn(L, NP, ptok, 1, dk), randn(L, NP, ptok, 1, dv)
+    pools = [(kall[i], vall[i]) for i in range(L)]
+    for gran, n_blocks, n_entries, tpb in (
+            ("page", mpps, NP, ptok), ("frame", mpps // fp, NP // fp,
+                                       fp * ptok)):
+        name = f"paged_attention.{gran}.mla"
+        fpk = fp if gran == "frame" else 1
+        errs, times = [], {}
+        for B in (1, MAX_BATCH):
+            q = randn(B, H, dk)
+            tb, nt = _tables(rng, B, n_blocks, n_entries, tpb)
+            if B == MAX_BATCH:
+                tb[-1], nt[-1] = -1, 0          # a row made only of holes
+            tb, nt = t(tb), t(nt)
+            o, m_, l = ops.paged_attention_kernel(
+                q, *pools[0], tb, nt, granularity=gran, frame_pages=fp,
+                scale=scale)
+            o_r, m_r, l_r = ref.paged_attention_ref(
+                q, *pools[0], tb, nt, scale=scale, frame_pages=fpk)
+            torch.cuda.synchronize()
+            on = o / torch.clamp(l[..., None], min=1e-30)
+            on_r = o_r / torch.clamp(l_r[..., None], min=1e-30)
+            torch.testing.assert_close(on, on_r, **ATTN_TOL)
+            torch.testing.assert_close(m_, m_r, **ML_TOL)
+            torch.testing.assert_close(l, l_r, **ML_TOL)
+            require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
+            if B == MAX_BATCH:
+                require(bool((m_[-1] == -1e30).all() and (l[-1] == 0).all()
+                             and (o[-1] == 0).all()),
+                        f"{name}: all-hole row must give m=-1e30, l=0, o=0")
+            errs.append(float((on - on_r).abs().max()))
+            layers = [(q, pk, pv, tb, nt) for pk, pv in pools]
+            kw = dict(scale=scale)
+            tokens = int(nt.sum())
+            times[B] = (graph_ms(cycling(functools.partial(
+                ops.paged_attention_kernel, granularity=gran,
+                frame_pages=fp, **kw), layers)), tokens)
+            if B == MAX_BATCH:
+                nbytes = (tokens * (dk + dv) * 2 + q.numel() * 2
+                          + 2 * tb.numel() * 4 + B * H * (dv + 2) * 4)
+                b_ms, b_by = bound_ms(nbytes, 2 * H * (dk + dv) * tokens)
+                results[name] = dict(
+                    ms=times[B][0],
+                    plain_ms=eager_ms(cycling(functools.partial(
+                        ref.paged_attention_ref, frame_pages=fpk, **kw),
+                        layers)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=f"B={B} H={H} n_kv=1 dh={dk} dh_v={dv} "
+                          f"blocks={n_blocks} tokens={tokens}")
+        r = results[name]
+        r["max_abs_err"] = max(errs)
+        ns = pa.split_count(n_blocks, tpb)
+        print(f"[kernel] {name}: max_abs_err {max(errs):.3g} | kernel_ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms none (no "
+              f"single PyTorch call computes paged attention) | "
+              f"{r['shape']} | splits {ns} of {pa.SPLIT_TOKENS} positions, "
+              f"grid {ns}x1x{MAX_BATCH} (16 heads a CTA, mma.sync) + "
+              f"combine | B=1 ({times[1][1]} tokens): kernel_ms "
+              f"{times[1][0]:.4f}")
+
+    name = "flash_attention.mla"
+    T, P = FLASH_T, FLASH_P
+    q, k, v = randn(1, T, H, dq), randn(1, T, H, dq), randn(1, T, H, 128)
+    qs = q[:, P:].contiguous()
+    kw = dict(scale=scale)
+    full = ops.flash_attention(q, k, v, **kw)
+    suffix = ops.flash_attention(qs, k, v, q_offset=P, **kw)
+    plain_full = ref.flash_attention_ref(q, k, v, causal=True, **kw)
+    plain_suffix = ref.flash_attention_ref(qs, k, v, causal=True,
+                                           q_offset=P, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want in ((full, plain_full), (suffix, plain_suffix)):
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+        require(bool(torch.isfinite(got.float()).all()), f"{name}: "
+                f"non-finite")
+        errs.append(float((got.float() - want.float()).abs().max()))
+    require(torch.equal(suffix, full[:, P:]), f"{name}: suffix rows are not "
+            f"the full call's bit for bit")
+    dvh = v.shape[-1]
+    pairs = T * (T + 1) // 2
+    b_ms, b_by = bound_ms(2 * T * H * (2 * dq + 2 * dvh),
+                          2 * H * (dq + dvh) * pairs)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale)
+    try:                  # a yardstick only: the port never calls it
+        sdpa()
+        torch.cuda.synchronize()
+        lib_ms, lib_note = -1.0, "scaled_dot_product_attention"
+    except RuntimeError as exc:
+        lib_ms, lib_note = None, f"none (SDPA refused: {str(exc)[:80]})"
+    if lib_ms is not None:
+        lib_ms = graph_ms(sdpa)
+    results[name] = dict(
+        max_abs_err=max(errs),
+        ms=graph_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+        plain_ms=eager_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"B=1 H={H} n_kv={H} dh={dq} dh_v={dvh} T={T} causal")
+    r = results[name]
+    s_ms = graph_ms(lambda: ops.flash_attention(qs, k, v, q_offset=P, **kw))
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g}, suffix "
+          f"rows bitwise == full | (a) full: kernel_ms {r['ms']:.4f} "
+          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+          f"({r['bound_by']}) library_ms {lib} ({lib_note}) | (b) suffix "
+          f"Tq={T - P} q_offset={P}: kernel_ms {s_ms:.4f} | {r['shape']} | "
+          f"{flash_tiles(H, H, T)}")
+    check_copies(kall, rng, randn, "deepseek latent K")
+    check_copies(vall, rng, randn, "deepseek latent V")
 
 
 def ssd_bound(B, T, nh, hd, N, Q, with_h0, G):
@@ -915,9 +1123,7 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
         require(s.fused_steps > 0
                 and s.fused_ready_pages + s.fused_drained_pages > 0,
                 "fused: no decode step read a staged page")
-    require(s.prefix_misses == len(stream) and s.prefix_parked_pages > 0,
-            f"{mode}: the prefix cache did not miss and park as expected "
-            f"({s.prefix_misses} misses, {s.prefix_parked_pages} parked)")
+    check_prefix_state(cfg, mode, eng, stream)
     if eng.device.type != "cuda":
         return
     path = [k for k in counts if k != "ssd_scan" and (
@@ -925,6 +1131,24 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
     require(all(counts[k] > 0 for k in path),
             f"{mode}: a kernel of the path never launched: {counts}")
     check_launches(cfg, mode, s, counts, probes=1)
+
+
+def check_prefix_state(cfg, label, eng, stream):
+    """The dense family's prefix cache misses (the stream shares no
+    prefix) and parks every completion; the moe family has none (as the
+    reference: MoE capacity and MLA latents do not replay bitwise)."""
+    s = eng.stats
+    if cfg.family == "dense":
+        require(s.prefix_misses == len(stream) and s.prefix_parked_pages > 0,
+                f"{label}: the prefix cache did not miss and park as "
+                f"expected ({s.prefix_misses} misses, "
+                f"{s.prefix_parked_pages} parked)")
+    else:
+        require(eng.prefix is None and not eng.prefix_supported
+                and s.prefix_hits == s.prefix_parked_pages == 0,
+                f"{label}: the {cfg.family} family must not use the prefix "
+                f"cache ({s.prefix_hits} hits, {s.prefix_parked_pages} "
+                f"parked)")
 
 
 def path_layers(cfg):
@@ -962,29 +1186,31 @@ def check_launches(cfg, label, s, counts, probes=0):
             f"evictions, {s.prefix_parked_pages} pages parked)")
 
 
-def phase_main_path(cfg):
-    """Full-width serving runs in the three fault modes; returns (launch
-    counts summed over the runs, the weights)."""
+def phase_main_path(cfg, modes=MODES, tag="engine"):
+    """Full-width serving runs in each fault mode of ``modes`` on the same
+    weights; returns (launch counts summed over the runs, the weights)."""
     import torch
     params = None
     tokens, total = {}, {}
-    for mode in MODES:
+    for mode in modes:
         t0 = time.perf_counter()
         eng, stream, events, counts, wall = serve_mode(cfg, mode, params)
         if params is None:
-            print(f"[engine] built full-width {cfg.name} ({cfg.n_layers} "
+            n_par = sum(p.numel() for p in eng.lm.parameters())
+            print(f"[{tag}] built full-width {cfg.name} ({cfg.n_layers} "
                   f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-                  f"{cfg.dtype}); pool {eng.cache.pages_per_shard} pages x "
-                  f"{eng.page_bytes} B")
+                  f"{cfg.dtype}, {n_par / 1e9:.3f} G parameters); pool "
+                  f"{eng.cache.pages_per_shard} pages x {eng.page_bytes} B")
             params = dict(eng.lm.state_dict())
         check_mode_run(cfg, mode, eng, stream, events, counts)
         tokens[mode] = {r.rid: list(r.out) for _, r in stream}
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         s = eng.stats
-        print(f"[engine:{mode}] {s.summary()}")
-        print(f"[engine:{mode}] measured: wall {wall:.2f}s (with build "
-              f"{time.perf_counter() - t0:.2f}s) | decode {s.decode_tokens} "
+        print(f"[{tag}:{mode}] {s.summary()}")
+        print(f"[{tag}:{mode}] measured ({SMI}): wall {wall:.2f}s (with "
+              f"build {time.perf_counter() - t0:.2f}s) | decode "
+              f"{s.decode_tokens} "
               f"tok in {s.decode_steps} steps: "
               f"{s.decode_tokens / s.decode_s:.1f} tok/s, "
               f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step | prefill "
@@ -994,7 +1220,7 @@ def phase_main_path(cfg):
               f"in {s.h2d_s:.4f}s | {s.fused_steps} fused steps | dual "
               f"probe {events.probe_frames} frames, max_abs_err "
               f"{events.probe_err:.3g}")
-        print(f"[engine:{mode}] modeled (link model, clock = measured "
+        print(f"[{tag}:{mode}] modeled (link model, clock = measured "
               f"decode): faults {s.faults} in {s.fault_dmas} DMAs, "
               f"transfer {s.transfer_us:.1f}us, hidden "
               f"{s.fault_hidden_us:.1f}us, exposed {s.fault_exposed_us:.1f}"
@@ -1003,13 +1229,142 @@ def phase_main_path(cfg):
               f"park) {s.evict_pages} pages {s.evict_us:.1f}us, fused ready/"
               f"drained {s.fused_ready_pages}/{s.fused_drained_pages}, "
               f"tail {s.fused_tail_us:.1f}us")
-        print(f"[engine:{mode}] launches: {json.dumps(counts)}")
+        print(f"[{tag}:{mode}] launches: {json.dumps(counts)}")
         del eng
         torch.cuda.empty_cache()
-    diff = [m for m in MODES if tokens[m] != tokens["sync"]]
-    require(not diff, f"tokens differ from sync in {diff}")
-    print(f"[engine] sync == async == fused on every greedy token")
+    diff = [m for m in modes if tokens[m] != tokens["sync"]]
+    require(not diff, f"{tag}: tokens differ from sync in {diff}")
+    print(f"[{tag}] {' == '.join(modes)} on every greedy token")
     return total, params
+
+
+def lm_agreement(cfg, dev, ref_dev="cpu"):
+    """``cfg``'s LM on ``dev`` (the kernels, on the card) against the same
+    weights on ``ref_dev`` (the plain versions, on the CPU): prefill of a
+    100-token prompt padded to two 64-token pages, then two decode steps.
+    The reference run takes ``dev``'s expert choices (``moe.top_k``
+    replays them): a router near-tie that the two devices break apart
+    would move that token's output far beyond any rounding, so the choices
+    are counted instead and at least 90 % of the tokens must get the same
+    experts from both.  Logits and both pools (MLA: the latent pools) must
+    agree to 2e-2 of their scale, as the bf16 MoE block's card test.
+    Returns (share of tokens with the same experts, tokens routed, the
+    largest error relative to its scale)."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.kv_cache import ShardedKVCache
+    lm = LM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    ref_lm = LM(cfg, device=ref_dev)
+    ref_lm.load_state_dict({k: v.to(ref_dev)
+                            for k, v in lm.state_dict().items()})
+    geo = PoolGeometry()
+    NP, mpps, T = 2 * geo.frame_pages, 4, 100
+    rng = np.random.default_rng(9)
+    toks = np.zeros((1, 2 * geo.page_tokens), np.int32)
+    toks[0, :T] = rng.integers(0, cfg.vocab_size, T)
+    new = rng.integers(0, cfg.vocab_size, 2).astype(np.int32)
+    choices, same = [], []
+    top_k = moe.top_k
+
+    def record(probs, k):
+        vals, idx = top_k(probs, k)
+        choices.append(idx)
+        return vals, idx
+
+    def replay(probs, k):
+        idx = choices[len(same)].to(probs.device)
+        own = top_k(probs, k)[1]
+        same.append((own.sort(-1).values == idx.sort(-1).values)
+                    .all(-1).reshape(-1))
+        return torch.gather(probs, -1, idx), idx
+    runs = []
+    for d, model, hook in ((dev, lm, record), (ref_dev, ref_lm, replay)):
+        cache = ShardedKVCache(geo, NP, 1)
+        cache.allocate(0, T)
+        pools = tuple(torch.zeros(sh, dtype=dt, device=d) for sh, dt in
+                      model.pool_shapes(NP, geo.page_tokens,
+                                        dtype=getattr(torch, cfg.dtype)))
+        moe.top_k = hook
+        try:
+            logits, pools, _ = model.prefill(
+                {"tokens": torch.from_numpy(toks).to(d)}, pools,
+                cache.pack_ctx([0], mpps, device=d),
+                last_pos=torch.tensor([T - 1], device=d))
+            out = [logits]
+            for i in range(2):
+                cache.append(0)
+                logits, pools, _ = model.decode_step(
+                    torch.from_numpy(new[i:i + 1]).to(d),
+                    torch.tensor([T + i], device=d), pools,
+                    cache.pack_ctx([0], mpps, device=d))
+                out.append(logits)
+        finally:
+            moe.top_k = top_k
+        runs.append((out, pools))
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    agree = float(torch.cat(same).float().mean()) if same else 1.0
+    require(agree >= 0.9, f"agreement: the two devices route only "
+            f"{agree:.1%} of the tokens to the same experts")
+    errs = []
+    for what, got, want in (
+            [(f"logits {i}", a, b)
+             for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0]))]
+            + [(f"pool {i}", a, b)
+               for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1]))]):
+        got, want = got.to(ref_dev).float(), want.float()
+        require(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+                f"agreement: {what}: non-finite or shape {got.shape}")
+        err, scale = (float((got - want).abs().max()),
+                      float(want.abs().max()))
+        require(err <= 2e-2 * scale, f"agreement: {what}: max_abs_err "
+                f"{err:.3g} beyond 2e-2 of its scale {scale:.3g}")
+        errs.append(err / scale)
+    print(f"[agreement] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) on {dev} vs the plain versions on "
+          f"{ref_dev}: prefill + 2 decode steps, logits and pools within "
+          f"{max(errs):.3g} of their scale; same experts for {agree:.1%} "
+          f"of {sum(len(x) for x in same)} routed tokens")
+    return agree, sum(len(x) for x in same), max(errs)
+
+
+def phase_mla_serving():
+    """Phase 4e: deepseek-v2-lite at full width cut to 2 layers, on the
+    card against the CPU (``lm_agreement``); then at its published width
+    and depth (MLA over latent pools, 64-expert MoE after one dense-FFN
+    layer) through phase 4's stream and step hook, in sync and async;
+    fused is refused, as in the reference.  Returns the summed launch
+    counts of the serving runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(MLA_ARCH)
+    # The whole model at full width, cut to its dense layer and one MoE
+    # layer, on the card against the CPU's plain versions.
+    cut = dataclasses.replace(cfg, n_layers=2)
+    ops.reset_launch_counts()
+    lm_agreement(cut, "cuda")
+    n = ops.launch_counts()
+    require(n["flash_attention"] == 2 and n["paged_attention.page"] == 4,
+            f"agreement: launches {n}, not 2 flash (prefill) and 4 paged "
+            f"(two decode steps)")
+    torch.cuda.empty_cache()
+    try:
+        ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
+                      max_seq=MAX_SEQ, fault_mode="fused")
+    except ValueError as exc:
+        print(f"[mla] fault_mode='fused' refused: {exc}")
+    else:
+        raise SmokeFailure("mla: fault_mode='fused' was not refused")
+    total, params = phase_main_path(cfg, SSM_MODES, tag="mla")
+    del params
+    torch.cuda.empty_cache()
+    return total
 
 
 def serve_prefix(cfg, mode, prefix_cache, params=None, device=None):
@@ -1071,11 +1426,11 @@ def check_prefix_run(cfg, label, eng, reqs, counts):
     check_launches(cfg, label, s, counts)
 
 
-def serve_recurrent(cfg, mode, n_requests=8, params=None, device=None):
-    """One phase-4c/4d run: the first ``n_requests`` of the main path's
-    stream served by ``cfg`` (hybrid or ssm) in ``mode`` with phase 4's
-    pool, launch counters reset just before and read just after.  Returns
-    (engine, stream, launch counts, wall seconds)."""
+def serve_stream(cfg, mode, n_requests=8, params=None, device=None):
+    """One phase-4c/4d/4f run: the first ``n_requests`` of the main path's
+    stream served by ``cfg`` (hybrid, ssm or moe) in ``mode`` with phase
+    4's pool and no step hook, launch counters reset just before and read
+    just after.  Returns (engine, stream, launch counts, wall seconds)."""
     import torch
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.kernels import ops
@@ -1096,9 +1451,9 @@ def serve_recurrent(cfg, mode, n_requests=8, params=None, device=None):
     return eng, stream, ops.launch_counts(), wall
 
 
-def check_recurrent_run(cfg, label, eng, stream, counts):
-    """What every phase-4c/4d run must show, on the card or (counts all 0)
-    rehearsed on the CPU."""
+def check_stream_run(cfg, label, eng, stream, counts):
+    """What every phase-4c/4d/4f run must show, on the card or (counts
+    all 0) rehearsed on the CPU."""
     s = eng.stats
     require(all(r.done for _, r in stream), f"{label}: not every request "
             f"completed")
@@ -1108,64 +1463,82 @@ def check_recurrent_run(cfg, label, eng, stream, counts):
                 f"{label}: request {r.rid}: bad output {r.out[:8]}...")
     require(not eng.states, f"{label}: recurrent state of finished "
             f"requests was kept: {sorted(eng.states)}")
+    check_prefix_state(cfg, label, eng, stream)
+    if cfg.family == "ssm":
+        require(eng.pools is None and s.h2d_bytes == s.d2h_bytes == 0,
+                f"{label}: the ssm family moved KV bytes")
+    else:
+        require(s.h2d_bytes == s.faults * eng.page_bytes,
+                f"{label}: {s.h2d_bytes} B copied to the card for "
+                f"{s.faults} faulted pages of {eng.page_bytes} B")
     if cfg.family == "hybrid":
         require(s.swaps_out >= 1 and s.faults >= 1,
                 f"{label}: paging not exercised: swaps {s.swaps_out} "
                 f"faults {s.faults}")
-        require(s.h2d_bytes == s.faults * eng.page_bytes,
-                f"{label}: {s.h2d_bytes} B copied to the card for "
-                f"{s.faults} faulted pages of {eng.page_bytes} B")
-    else:
-        require(eng.pools is None and s.h2d_bytes == s.d2h_bytes == 0,
-                f"{label}: the ssm family moved KV bytes")
     if eng.device.type != "cuda":
         return
-    path = ["ssd_scan"] + (["flash_attention", "paged_attention.page",
-                            "page_gather", "page_scatter"]
-                           if cfg.family == "hybrid" else [])
+    path = {"ssm": ["ssd_scan"],
+            "hybrid": ["ssd_scan", "flash_attention", "paged_attention.page",
+                       "page_gather", "page_scatter"],
+            "moe": ["flash_attention", "paged_attention.page"]}[cfg.family]
     require(all(counts[k] > 0 for k in path),
             f"{label}: a kernel of the path never launched: {counts}")
     check_launches(cfg, label, s, counts)
 
 
-def phase_recurrent(arch, modes, n_requests):
-    """Phases 4c (hybrid) and 4d (ssm): ``arch`` at its published width
-    served in each of ``modes`` on the same weights; returns the launch
-    counts summed over the runs."""
-    import torch
+def describe(cfg, n_par):
+    """The [<tag>] built line's model: published widths, depth (and its
+    cut), parameters."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    tag = "hybrid" if cfg.family == "hybrid" else "ssm"
+    full = get_config(cfg.name).n_layers
+    depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full else
+             f"depth-cut to {cfg.n_layers} of {full} layers")
+    if cfg.family == "moe":
+        mo = cfg.moe
+        body = (f"{mo.n_experts} experts top-{mo.top_k} of {mo.d_expert}"
+                f"{f' + {mo.n_shared} shared' if mo.n_shared else ''}")
+    else:
+        body = f"Mamba-2, d_state {cfg.ssm.d_state}"
+    return (f"{cfg.name} at its published widths ({depth}, d_model "
+            f"{cfg.d_model}, {body}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+            f"{n_par / 1e9:.3f} G parameters)")
+
+
+def phase_stream(cfg, modes, n_requests):
+    """Phases 4c (hybrid), 4d (ssm) and 4f (moe): ``cfg`` served in each of
+    ``modes`` on the same weights, with the card's memory high-water mark
+    of each run; returns the launch counts summed over the runs."""
+    import torch
+    tag = cfg.family
     params = None
     tokens, total = {}, {}
     for mode in modes:
-        eng, stream, counts, wall = serve_recurrent(cfg, mode, n_requests,
-                                                    params)
+        torch.cuda.reset_peak_memory_stats()
+        eng, stream, counts, wall = serve_stream(cfg, mode, n_requests,
+                                                 params)
         if params is None:
             pool = ("no KV pool" if eng.pools is None else
                     f"pool {eng.cache.pages_per_shard} pages x "
                     f"{eng.page_bytes} B")
-            print(f"[{tag}] built full-width {cfg.name} ({cfg.n_layers} "
-                  f"Mamba-2 layers, d_model {cfg.d_model}, d_state "
-                  f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-                  f"{sum(p.numel() for p in eng.lm.parameters()) / 1e9:.3f}"
-                  f" G parameters); {pool}")
+            n_par = sum(p.numel() for p in eng.lm.parameters())
+            print(f"[{tag}] built {describe(cfg, n_par)}; {pool}")
             params = dict(eng.lm.state_dict())
         label = f"{tag}:{mode}"
-        check_recurrent_run(cfg, label, eng, stream, counts)
+        check_stream_run(cfg, label, eng, stream, counts)
         tokens[mode] = {r.rid: list(r.out) for _, r in stream}
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         s = eng.stats
         print(f"[{label}] {s.summary()}")
-        print(f"[{label}] measured: wall {wall:.2f}s | decode "
+        print(f"[{label}] measured ({SMI}): wall {wall:.2f}s | decode "
               f"{s.decode_tokens} tok in {s.decode_steps} steps: "
               f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step | prefill "
               f"{s.prefill_tokens} tok in {s.admit_colds} admissions: "
               f"{s.prefill_s / s.prefill_tokens * 1e3:.4f} ms per prompt "
               f"token | PCIe out {s.d2h_bytes} B in {s.d2h_s:.4f}s, in "
               f"{s.h2d_bytes} B in {s.h2d_s:.4f}s | {s.fused_steps} fused "
-              f"steps")
+              f"steps | card memory high-water mark "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         print(f"[{label}] launches: {json.dumps(counts)}")
         del eng
         torch.cuda.empty_cache()
@@ -1328,18 +1701,29 @@ def main() -> int:
     phase_build()
     results = {}
     phase_kernels(cfg, results)
+    phase_mla_kernels(results)
     phase_ssd_kernel(results)
     counts, params = phase_main_path(cfg)
     torch.cuda.empty_cache()
     phase_prefix(cfg, params)
     for arch, modes, n in ((HYBRID_ARCH, MODES, 8),
                            (SSM_ARCH, SSM_MODES, SSM_REQUESTS)):
-        for k, n_launch in phase_recurrent(arch, modes, n).items():
+        for k, n_launch in phase_stream(get_config(arch), modes, n).items():
             counts[k] = counts.get(k, 0) + n_launch
     phase_small_agreement(cfg)
     phase_transparency(cfg, params)
-    line = [dict(name=name, route="cuda", source=SOURCES[name],
-                 replaces=REPLACES[name], launches=counts[name],
+    del params                  # qwen2.5-3b's weights leave the card
+    torch.cuda.empty_cache()
+    mla_counts = phase_mla_serving()
+    dbrx = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    for k, n_launch in phase_stream(dbrx, ("sync",), MOE_REQUESTS).items():
+        counts[k] = counts.get(k, 0) + n_launch
+    for k, n_launch in mla_counts.items():
+        counts[f"{k}.mla"] = n_launch
+    line = [dict(name=name, route="cuda",
+                 source=SOURCES[name.removesuffix(".mla")],
+                 replaces=REPLACES[name.removesuffix(".mla")],
+                 launches=counts[name],
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"])

@@ -16,6 +16,8 @@ ARCHS: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 

@@ -1,4 +1,6 @@
 // Causal or non-causal GQA flash attention for prefill, full or suffix-only.
+// Keys are dh wide and values dh_v wide (dh_v = dh for GQA; MLA's expanded
+// prefill has dh 192 = nope 128 + rope 64 and dh_v 128).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py: flash_attention
 // (body _flash_kernel).  Computes, for every query row (batch b, position i,
@@ -22,8 +24,8 @@
 // registers.  Causal CTAs stop at their last row's diagonal and are
 // scheduled heaviest first.
 //
-// Tensor-core path (bf16, head dim 32, 64, 96 or 128): four warps of 16
-// rows each.  The Q tile is loaded once into mma fragments; K/V tiles
+// Tensor-core path (bf16, head dim 32, 64, 96 or 128, and MLA's dh 192 with
+// dh_v 128): four warps of 16 rows each.  The Q tile is loaded once into mma fragments; K/V tiles
 // stream through a two-stage cp.async ring in bf16; S = Q K^T and O += P V
 // run as mma.sync.m16n8k16 (bf16 in, f32 accumulate), P rounded to bf16 in
 // registers straight from the S accumulator fragments, m and l kept per
@@ -32,7 +34,7 @@
 // CUDA-core path (f32 inputs, which must match their plain version at 2e-5
 // and would not in TF32, and bf16 head dims the tensor-core path does not
 // take): 256 threads, each owning a 4 x 4 block of a tile's scores and a
-// 4-row x dh/16-column block of the output, f32 FMAs over f32 tiles.
+// 4-row x dh_v/16-column block of the output, f32 FMAs over f32 tiles.
 //
 // Bitwise contract (the prefix cache relies on it): a row's result does not
 // depend on Tq, q_offset's split between prefix and suffix, or which other
@@ -60,9 +62,10 @@ constexpr int kKeys = 64;          // keys per shared-memory tile
 constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value, not -inf
 
-size_t smem_bytes(int dh) {
-  // q^T [dh][kRows], k^T [dh][kKeys], v [kKeys][dh], p [kKeys][kRows] in f32.
-  return ((size_t)2 * dh * kRows + (size_t)kKeys * dh
+size_t smem_bytes(int dh, int dh_v) {
+  // q^T [dh][kRows], k^T [dh][kKeys], v [kKeys][dh_v], p [kKeys][kRows] in
+  // f32.
+  return ((size_t)2 * dh * kRows + (size_t)kKeys * dh_v
           + (size_t)kKeys * kRows) * sizeof(float);
 }
 
@@ -102,20 +105,22 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // ------------------------------------------------------- CUDA-core path
 
-// NC2 = dh / 32: each thread owns output columns 32 * c + 2 * tx + {0, 1}.
-template <int NC2>
+// Keys DH wide, values DV wide; NC2 = DV / 32: each thread owns output
+// columns 32 * c + 2 * tx + {0, 1}.
+template <int DH, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        const void* __restrict__ v, void* __restrict__ o,
                        const int* __restrict__ kv_len, int Tq, int Tk, int H,
                        int n_kv, int q_offset, int causal, int is_f32,
                        float scale) {
-  constexpr int dh = NC2 * 32;
+  constexpr int dh = DH;
+  constexpr int NC2 = DV / 32;
   extern __shared__ float smem[];
   float* q_s = smem;                  // [dh][kRows], pre-scaled
   float* k_s = q_s + dh * kRows;      // [dh][kKeys]
-  float* v_s = k_s + dh * kKeys;      // [kKeys][dh]
-  float* p_s = v_s + kKeys * dh;      // [kKeys][kRows]
+  float* v_s = k_s + dh * kKeys;      // [kKeys][DV]
+  float* p_s = v_s + kKeys * DV;      // [kKeys][kRows]
   const bool f32 = is_f32 != 0;
   const int g = H / n_kv;
   const int bq = kRows / g;           // query positions per CTA
@@ -131,7 +136,9 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
   // Row r of the CTA is head kvh * g + r / bq at query index pos0 + r % bq.
   const size_t q_row_stride = (size_t)H * dh;     // between positions
+  const size_t o_row_stride = (size_t)H * DV;
   const size_t kv_row_stride = (size_t)n_kv * dh;
+  const size_t v_row_stride = (size_t)n_kv * DV;
   const int vec = f32 ? 4 : 8;
   float buf[8];
   for (int i = tid; i < kRows * (dh / vec); i += kThreads) {
@@ -189,16 +196,16 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
       }
       for (int e = 0; e < vec; ++e) k_s[(c + e) * kKeys + key] = buf[e];
     }
-    for (int i = tid; i < kKeys * (dh / vec); i += kThreads) {
-      const int key = i / (dh / vec);
-      const int c = (i % (dh / vec)) * vec;
+    for (int i = tid; i < kKeys * (DV / vec); i += kThreads) {
+      const int key = i / (DV / vec);
+      const int c = (i % (DV / vec)) * vec;
       if (key0 + key < Tk) {
-        load16(v, ((size_t)b * Tk + key0 + key) * kv_row_stride
-                      + (size_t)kvh * dh + c, f32, buf);
+        load16(v, ((size_t)b * Tk + key0 + key) * v_row_stride
+                      + (size_t)kvh * DV + c, f32, buf);
       } else {
         for (int e = 0; e < vec; ++e) buf[e] = 0.f;
       }
-      float4* dst = reinterpret_cast<float4*>(v_s + key * dh + c);
+      float4* dst = reinterpret_cast<float4*>(v_s + key * DV + c);
       dst[0] = make_float4(buf[0], buf[1], buf[2], buf[3]);
       if (vec == 8) dst[1] = make_float4(buf[4], buf[5], buf[6], buf[7]);
     }
@@ -261,7 +268,7 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int kk = 0; kk < kKeys; ++kk) {
       const float4 pa = p4[kk * (kRows / 4) + ty];
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float2* vrow = reinterpret_cast<const float2*>(v_s + kk * dh);
+      const float2* vrow = reinterpret_cast<const float2*>(v_s + kk * DV);
 #pragma unroll
       for (int c = 0; c < NC2; ++c) {
         const float2 vv = vrow[c * 16 + tx];
@@ -278,8 +285,8 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int a = 0; a < 4; ++a) {
     if (!rvalid[a]) continue;
     const int r = ty * 4 + a;
-    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * q_row_stride
-                       + (size_t)(kvh * g + r / bq) * dh;
+    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * o_row_stride
+                       + (size_t)(kvh * g + r / bq) * DV;
     const float den = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC2; ++c) {
@@ -303,11 +310,12 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
 constexpr int kTcThreads = 128;    // 4 warps x 16 rows
 constexpr int kStages = 2;         // K/V ring depth
 
-// Q tile [kRows][dh + 8] and kStages x (K, V) tiles [kKeys][dh + 8] in bf16;
-// the 16-byte row pad keeps ldmatrix's eight row reads on distinct banks.
-size_t tc_smem_bytes(int dh) {
-  return (size_t)(kRows + 2 * kStages * kKeys) * (dh + 8)
-         * sizeof(__nv_bfloat16);
+// Q tile [kRows][dh + 8] and kStages x (K [kKeys][dh + 8], V [kKeys][dh_v
+// + 8]) tiles in bf16; the 16-byte row pad keeps ldmatrix's eight row reads
+// on distinct banks.
+size_t tc_smem_bytes(int dh, int dh_v) {
+  return ((size_t)(kRows + kStages * kKeys) * (dh + 8)
+          + (size_t)kStages * kKeys * (dh_v + 8)) * sizeof(__nv_bfloat16);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -363,7 +371,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Warp w owns rows 16 w .. 16 w + 15; in an m16n8 fragment lane holds rows
 // lane / 4 and lane / 4 + 8 (a = 0, 1) and columns 2 (lane % 4) + {0, 1} of
 // each 8-column tile.  scale_log2 = scale * log2(e): scores live in base 2.
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -372,14 +380,18 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const int* __restrict__ kv_len, int Tq, int Tk,
                           int H, int n_kv, int q_offset, int causal,
                           float scale_log2) {
-  constexpr int S = DH + 8;        // shared-memory row stride (elements)
+  constexpr int S = DH + 8;        // Q / K shared-memory row stride
+  constexpr int SV = DV + 8;       // V shared-memory row stride
   constexpr int KS = DH / 16;      // k steps of Q K^T
-  constexpr int NT = DH / 8;       // 8-column tiles of the output
-  constexpr int CPR = DH / 8;      // 16-byte pieces per row
+  constexpr int NT = DV / 8;       // 8-column tiles of the output
+  constexpr int CPR = DH / 8;      // 16-byte pieces per Q / K row
+  constexpr int CPRV = DV / 8;     // 16-byte pieces per V row
   constexpr int ST = kKeys / 8;    // 8-key tiles of a score tile
+  constexpr int STAGE = kKeys * (S + SV);  // elements of one (K, V) stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* kv_s = q_s + kRows * S;   // [kStages][K, V][kKeys][S]
+  // [kStages][K [kKeys][S], V [kKeys][SV]]
+  __nv_bfloat16* kv_s = q_s + kRows * S;
   const int g = H / n_kv;
   const int bq = kRows / g;
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
@@ -391,7 +403,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int pos0 = qt * bq;
   const int n_pos = min(bq, Tq - pos0);
   const size_t q_row_stride = (size_t)H * DH;
+  const size_t o_row_stride = (size_t)H * DV;
   const size_t kv_row_stride = (size_t)n_kv * DH;
+  const size_t v_row_stride = (size_t)n_kv * DV;
 
   // Row r is head kvh * g + r / bq at query index pos0 + r % bq; rows past
   // the group or the call are zero.
@@ -415,7 +429,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // Keys past Tk are zero-filled (and masked); keys in [kvl, Tk) are read
   // and masked.
   auto load_tile = [&](int t, int stage) {
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * kKeys * S;
+    __nv_bfloat16* ks = kv_s + (size_t)stage * STAGE;
     __nv_bfloat16* vs = ks + kKeys * S;
     const int key0 = t * kKeys;
     for (int i = tid; i < kKeys * CPR; i += kTcThreads) {
@@ -427,7 +441,19 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    + (size_t)kvh * DH + c
              : 0;
       cp_async16(ks + key * S + c, k + off, ok);
-      cp_async16(vs + key * S + c, v + off, ok);
+      if constexpr (DV == DH) cp_async16(vs + key * SV + c, v + off, ok);
+    }
+    if constexpr (DV != DH) {
+      for (int i = tid; i < kKeys * CPRV; i += kTcThreads) {
+        const int key = i / CPRV;
+        const int c = (i % CPRV) * 8;
+        const bool ok = key0 + key < Tk;
+        const size_t off =
+            ok ? ((size_t)b * Tk + key0 + key) * v_row_stride
+                     + (size_t)kvh * DV + c
+               : 0;
+        cp_async16(vs + key * SV + c, v + off, ok);
+      }
     }
   };
   if (n_tiles > 0) load_tile(0, 0);
@@ -461,7 +487,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         ldsm_x4(qf[kk], q_s + (warp * 16 + lane % 8 + ((lane / 8) & 1) * 8)
                                   * S + kk * 16 + (lane / 16) * 8);
     }
-    const __nv_bfloat16* ks = kv_s + (size_t)(t % kStages) * 2 * kKeys * S;
+    const __nv_bfloat16* ks = kv_s + (size_t)(t % kStages) * STAGE;
     const __nv_bfloat16* vs = ks + kKeys * S;
 
     // S = Q K^T over the head dim, 16 at a time.
@@ -539,7 +565,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bf[4];
         ldsm_x4_trans(bf, vs + (kk * 16 + lane % 8 + ((lane / 8) & 1) * 8)
-                                   * S + np * 16 + (lane / 16) * 8);
+                                   * SV + np * 16 + (lane / 16) * 8);
         mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
         mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
       }
@@ -554,8 +580,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     if (!rvalid[a]) continue;
     const int r = warp * 16 + lane / 4 + 8 * a;
-    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * q_row_stride
-                       + (size_t)(kvh * g + r / bq) * DH;
+    const size_t off = ((size_t)b * Tq + pos0 + r % bq) * o_row_stride
+                       + (size_t)(kvh * g + r / bq) * DV;
     const float den = fmaxf(lsum, 1e-30f);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -566,23 +592,23 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const int* kv_len, int B, int Tq, int Tk, int H,
                       int n_kv, int q_offset, int causal, float scale,
                       cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(DH);
+  const size_t smem = tc_smem_bytes(DH, DV);
   static bool smem_raised = false;     // see launch() below
   if (smem > 48 * 1024 && !smem_raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<DH>,
+        flash_attention_tc_kernel<DH, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     smem_raised = true;
   }
   const int bq = kRows / (H / n_kv);
   const dim3 grid((Tq + bq - 1) / bq, n_kv, B);
-  flash_attention_tc_kernel<DH><<<grid, kTcThreads, smem, stream>>>(
+  flash_attention_tc_kernel<DH, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -591,25 +617,25 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int NC2>
+template <int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* kv_len, int B, int Tq, int Tk, int H, int n_kv,
                    int q_offset, int causal, int is_f32, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(NC2 * 32);
+  const size_t smem = smem_bytes(DH, DV);
   // Raised once per instantiation, at its first launch, so that a later
   // launch inside a CUDA-graph capture makes no attribute call.
   static bool smem_raised = false;
   if (smem > 48 * 1024 && !smem_raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<NC2>,
+        flash_attention_kernel<DH, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     smem_raised = true;
   }
   const int bq = kRows / (H / n_kv);
   const dim3 grid((Tq + bq - 1) / bq, n_kv, B);
-  flash_attention_kernel<NC2><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<DH, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, kv_len, Tq, Tk, H, n_kv, q_offset, causal, is_f32, scale);
   return cudaGetLastError();
 }
@@ -618,34 +644,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q / o [B, Tq, H, dh], k / v [B, Tk, n_kv, dh], all bf16 (is_f32 = 0) or
-// all f32; kv_len int32 [B] or null; dh a multiple of 32 up to 256; H / n_kv
-// at most 64.  bf16 at dh 32, 64, 96 or 128 runs the tensor-core path, the
-// rest the CUDA-core path.  Returns the launch's cudaError_t (0 on success).
+// q [B, Tq, H, dh], k [B, Tk, n_kv, dh], v [B, Tk, n_kv, dh_v], o [B, Tq,
+// H, dh_v], all bf16 (is_f32 = 0) or all f32; kv_len int32 [B] or null;
+// dh_v = dh a multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA);
+// H / n_kv at most 64.  bf16 at dh = dh_v 32, 64, 96 or 128 and at dh 192 /
+// dh_v 128 runs the tensor-core path, the rest the CUDA-core path.  Returns
+// the launch's cudaError_t (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const int* kv_len, int B, int Tq, int Tk, int H,
-                        int n_kv, int dh, int q_offset, int causal, int is_f32,
-                        float scale, void* stream) {
+                        int n_kv, int dh, int dh_v, int q_offset, int causal,
+                        int is_f32, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int key = dh * 1024 + dh_v;
   if (!is_f32) {
-    switch (dh) {
-#define TC(D)                                                                \
-  case D:                                                                    \
-    return (int)launch_tc<D>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,         \
-                             q_offset, causal, scale, s);
-      TC(32) TC(64) TC(96) TC(128)
+    switch (key) {
+#define TC(D, DV)                                                            \
+  case D * 1024 + DV:                                                        \
+    return (int)launch_tc<D, DV>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,     \
+                                 q_offset, causal, scale, s);
+      TC(32, 32) TC(64, 64) TC(96, 96) TC(128, 128) TC(192, 128)
 #undef TC
       default:
         break;
     }
   }
-  switch (dh) {
-#define CASE(D)                                                              \
-  case D:                                                                    \
-    return (int)launch<D / 32>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,       \
-                               q_offset, causal, is_f32, scale, s);
-    CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
-    CASE(256)
+  switch (key) {
+#define CASE(D, DV)                                                          \
+  case D * 1024 + DV:                                                        \
+    return (int)launch<D, DV>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,        \
+                              q_offset, causal, is_f32, scale, s);
+    CASE(32, 32) CASE(64, 64) CASE(96, 96) CASE(128, 128) CASE(160, 160)
+    CASE(192, 192) CASE(224, 224) CASE(256, 256) CASE(192, 128)
 #undef CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -47,6 +47,23 @@
 // batch, at any page ids, with any table width, and the fused variant
 // below is bitwise this kernel on the same bytes.
 //
+// MLA's absorbed decode (K 576 = latent 512 + rope 64 wide, V the 512-wide
+// latent, one KV head for 16 query heads) takes a partials kernel of its
+// own, paged_mla_partial_kernel, at the same spans and into the same
+// scratch, so the combine launch and the split contract are unchanged.  Its
+// 16 heads share every K/V byte and make one 16-row tile: S = Q K^T and
+// O = P V run as mma.sync.m16n8k16 (bf16 in, f32 accumulate; M = the 16
+// heads), the whole span's K (74 KB) and V (67 KB) are staged at once in
+// shared memory (the dynamic shared-memory attribute is raised before the
+// first launch), K in one cp.async group and V in the next so that the
+// scores overlap V's arrival, and the 512 output columns are split over
+// the eight warps (64 each, 32 f32 accumulators a lane).  Per span the
+// scores are complete before the softmax, so m and l are exact f32 over
+// the span (l from the f32 probabilities) and only P enters the P V
+// product rounded to bf16, as in the flash kernel's tensor-core path.  It
+// is still bound by bytes: 2 x 16 x 1088 flops per token over its 2,176
+// bytes, far below the ridge.
+//
 // Fused gather-attend (entry fused_paged_attention_fwd) replaces the TPU
 // kernel repro/kernels/paged_attention.py: fused_paged_attention_kernel (body
 // _fused_kernel).  It is the page-granularity kernel above with one change,
@@ -367,6 +384,277 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
   }
 }
 
+// ------------------------------------------------------------ MLA path
+
+constexpr int kMlaHeads = 16;          // query heads per CTA: one mma tile
+constexpr int kMlaWarps = 8;
+static_assert(kSpan % 32 == 0, "MLA spans hold whole warps of positions");
+
+// Q [16][DK + 8], K [kSpan][DK + 8], V [kSpan][DV + 8] and P [16][kSpan + 8]
+// in bf16 (16-byte row pads keep ldmatrix's row reads on distinct banks),
+// then scores [16][kSpan], m and l [16] in f32 and the span's source rows
+// [kSpan] as ints.
+size_t mla_smem_bytes(int dk, int dv) {
+  return ((size_t)(kMlaHeads + kSpan) * (dk + 8) + (size_t)kSpan * (dv + 8)
+          + (size_t)kMlaHeads * (kSpan + 8)) * sizeof(__nv_bfloat16)
+         + ((size_t)kMlaHeads * kSpan + 2 * kMlaHeads) * sizeof(float)
+         + (size_t)kSpan * sizeof(int);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; with ok false it reads nothing and zero-fills.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (split, n_kv * ceil(g / 16), B): CTA (s, kvh * tiles + t, b) owns
+// query heads kvh * g + 16 t .. + 15 (rows past the group are zero and not
+// stored) over span s of row b.  In an m16n8 fragment a lane holds rows
+// lane / 4 and lane / 4 + 8 and columns 2 (lane % 4) + {0, 1}.
+template <int DK, int DV>
+__global__ void __launch_bounds__(kMlaWarps * 32)
+paged_mla_partial_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ pool_k,
+                         const __nv_bfloat16* __restrict__ pool_v,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ ntok,
+                         float* __restrict__ part_o,
+                         float* __restrict__ part_m,
+                         float* __restrict__ part_l, int H, int n_kv,
+                         int nblk, int tokens_per_block, float scale) {
+  constexpr int SK = DK + 8;           // Q / K row stride (elements)
+  constexpr int SV = DV + 8;           // V row stride
+  constexpr int SP = kSpan + 8;        // P row stride
+  constexpr int COLS = DV / kMlaWarps; // output columns per warp
+  static_assert(DK % 32 == 0 && COLS % 16 == 0, "MLA tile layout");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kMlaHeads * SK;
+  __nv_bfloat16* v_s = k_s + kSpan * SK;
+  __nv_bfloat16* p_s = v_s + kSpan * SV;
+  float* s_s = reinterpret_cast<float*>(p_s + kMlaHeads * SP);
+  float* m_s = s_s + kMlaHeads * kSpan;
+  float* l_s = m_s + kMlaHeads;
+  int* row_s = reinterpret_cast<int*>(l_s + kMlaHeads);
+  __shared__ int any_valid;
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int g = H / n_kv;
+  const int tiles = (g + kMlaHeads - 1) / kMlaHeads;
+  const int kvh = blockIdx.y / tiles;
+  const int r0 = (blockIdx.y % tiles) * kMlaHeads;  // first row in the group
+  const int rows = min(kMlaHeads, g - r0);
+  const int h0 = kvh * g + r0;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (tid == 0) any_valid = 0;
+  __syncthreads();
+  for (int i = tid; i < kSpan; i += kMlaWarps * 32) {
+    const int p = split * kSpan + i;
+    int row = -1;
+    if (p < nblk * tokens_per_block) {
+      const int blk = p / tokens_per_block;
+      const int t = p - blk * tokens_per_block;
+      const int entry = tables[b * nblk + blk];
+      if (entry >= 0 && t < min(ntok[b * nblk + blk], tokens_per_block))
+        row = entry * tokens_per_block + t;
+    }
+    row_s[i] = row;
+    if (row >= 0) any_valid = 1;
+  }
+  __syncthreads();
+
+  const size_t out_rows = ((size_t)b * H + h0) * nsplit + split;  // head h0
+  if (!any_valid) {                    // only holes: nothing is loaded
+    for (int i = tid; i < rows * DV; i += kMlaWarps * 32)
+      part_o[(out_rows + (size_t)(i / DV) * nsplit) * DV + i % DV] = 0.f;
+    for (int i = tid; i < rows; i += kMlaWarps * 32) {
+      part_m[out_rows + (size_t)i * nsplit] = kNegInf;
+      part_l[out_rows + (size_t)i * nsplit] = 0.f;
+    }
+    return;
+  }
+
+  // Group 0: Q and K; group 1: V.  Positions without a token, and rows past
+  // the group, are zero-filled (masked scores, zero P V terms).
+  const size_t kstride = (size_t)n_kv * DK;
+  const size_t vstride = (size_t)n_kv * DV;
+  for (int i = tid; i < kMlaHeads * (DK / 8); i += kMlaWarps * 32) {
+    const int r = i / (DK / 8);
+    const int c = (i % (DK / 8)) * 8;
+    const bool ok = r < rows;
+    cp_async16_zfill(q_s + r * SK + c,
+                     q + (ok ? ((size_t)b * H + h0 + r) * DK + c : 0), ok);
+  }
+  for (int i = tid; i < kSpan * (DK / 8); i += kMlaWarps * 32) {
+    const int j = i / (DK / 8);
+    const int c = (i % (DK / 8)) * 8;
+    const int row = row_s[j];
+    cp_async16_zfill(k_s + j * SK + c,
+                     pool_k + (row >= 0 ? row * kstride + kvh * DK + c : 0),
+                     row >= 0);
+  }
+  cp_async_commit();
+  for (int i = tid; i < kSpan * (DV / 8); i += kMlaWarps * 32) {
+    const int j = i / (DV / 8);
+    const int c = (i % (DV / 8)) * 8;
+    const int row = row_s[j];
+    cp_async16_zfill(v_s + j * SV + c,
+                     pool_v + (row >= 0 ? row * vstride + kvh * DV + c : 0),
+                     row >= 0);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();                  // Q and K have landed
+  __syncthreads();
+
+  // Scores: warp w takes the 8-key tiles w, w + 8, ...; two k steps of 16
+  // per ldmatrix of K.
+  const int qrow = lane % 8 + ((lane / 8) & 1) * 8;
+  for (int nt = warp; nt < kSpan / 8; nt += kMlaWarps) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kk = 0; kk < DK / 16; kk += 2) {
+      uint32_t a0[4], a1[4], bk[4];
+      ldsm_x4(a0, q_s + qrow * SK + kk * 16 + (lane / 16) * 8);
+      ldsm_x4(a1, q_s + qrow * SK + (kk + 1) * 16 + (lane / 16) * 8);
+      ldsm_x4(bk, k_s + (nt * 8 + lane % 8) * SK + kk * 16 + (lane / 8) * 8);
+      mma_bf16(acc, a0, bk[0], bk[1]);
+      mma_bf16(acc, a1, bk[2], bk[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = lane / 4 + 8 * (e / 2);
+      const int j = nt * 8 + 2 * (lane % 4) + e % 2;
+      s_s[r * kSpan + j] = row_s[j] >= 0 ? acc[e] * scale : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // Softmax over the span, per head: warp w takes rows 2 w and 2 w + 1.
+#pragma unroll
+  for (int rr = 0; rr < kMlaHeads / kMlaWarps; ++rr) {
+    const int r = warp * (kMlaHeads / kMlaWarps) + rr;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = lane; j < kSpan; j += 32) mx = fmaxf(mx, s_s[r * kSpan + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float psum = 0.f;
+#pragma unroll
+    for (int j = lane; j < kSpan; j += 32) {
+      const float pr = expf(s_s[r * kSpan + j] - mx);  // exp(-inf) = 0
+      p_s[r * SP + j] = __float2bfloat16(pr);
+      psum += pr;
+    }
+    psum = warp_sum(psum);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = psum;
+    }
+  }
+  cp_async_wait<0>();                  // V has landed
+  __syncthreads();
+
+  // O = P V over this warp's COLS columns.
+  float acc[COLS / 8][4];
+#pragma unroll
+  for (int n = 0; n < COLS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int c0 = warp * COLS;
+#pragma unroll
+  for (int ks = 0; ks < kSpan / 16; ++ks) {
+    uint32_t pa[4];
+    ldsm_x4(pa, p_s + qrow * SP + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < COLS / 16; ++np) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, v_s + (ks * 16 + qrow) * SV + c0 + np * 16
+                            + (lane / 16) * 8);
+      mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
+      mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int r = lane / 4 + 8 * a;
+    if (r >= rows) continue;
+    float* dst = part_o + (out_rows + (size_t)r * nsplit) * DV + c0
+                 + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < COLS / 8; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8) =
+          make_float2(acc[n][2 * a], acc[n][2 * a + 1]);
+  }
+  for (int r = tid; r < rows; r += kMlaWarps * 32) {
+    part_m[out_rows + (size_t)r * nsplit] = m_s[r];
+    part_l[out_rows + (size_t)r * nsplit] = l_s[r];
+  }
+}
+
+template <int DK, int DV>
+cudaError_t launch_mla(const void* q, const void* pool_k, const void* pool_v,
+                       const int* tables, const int* ntok, float* scratch,
+                       int B, int H, int n_kv, int nblk,
+                       int tokens_per_block, float scale, int nsplit,
+                       cudaStream_t stream) {
+  const size_t smem = mla_smem_bytes(DK, DV);
+  static bool smem_raised = false;     // see launch_nc()
+  if (!smem_raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_mla_partial_kernel<DK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_raised = true;
+  }
+  const size_t parts = (size_t)B * H * nsplit;
+  const int g = H / n_kv;
+  const dim3 grid(nsplit, n_kv * ((g + kMlaHeads - 1) / kMlaHeads), B);
+  paged_mla_partial_kernel<DK, DV><<<grid, kMlaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(pool_k),
+      static_cast<const __nv_bfloat16*>(pool_v), tables, ntok, scratch,
+      scratch + parts * DV, scratch + parts * (DV + 1), H, n_kv, nblk,
+      tokens_per_block, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ combine
+
 // One CTA of dh threads per (row, head): the max over the splits, each
 // split's weight exp(m_s - max) once, then l and o summed in split order.
 // A row of holes (or nsplit = 0) gives m = -1e30, l = 0, o = 0.
@@ -411,6 +699,16 @@ __global__ void paged_combine_kernel(const float* __restrict__ part_o,
     m[bh] = mx;
     l[bh] = sum;
   }
+}
+
+// The second launch: partials [B * H * nsplit] x (o [dh], m, l) -> o, m, l.
+cudaError_t combine(float* o, float* m, float* l, const float* scratch,
+                    int B, int H, int dh, int nsplit, cudaStream_t stream) {
+  const size_t parts = (size_t)B * H * nsplit;
+  paged_combine_kernel<<<B * H, dh, 2 * nsplit * sizeof(float), stream>>>(
+      scratch, scratch + parts * dh, scratch + parts * (dh + 1), o, m, l,
+      nsplit, dh);
+  return cudaGetLastError();
 }
 
 int splits(int nblk, int tokens_per_block) {
@@ -487,11 +785,7 @@ cudaError_t launch(const void* q, int q_is_f32, const void* pool_k,
     }
     if (err != cudaSuccess) return err;
   }
-  const size_t parts = (size_t)B * H * nsplit;
-  paged_combine_kernel<<<B * H, dh, 2 * nsplit * sizeof(float), stream>>>(
-      scratch, scratch + parts * dh, scratch + parts * (dh + 1), o, m, l,
-      nsplit, dh);
-  return cudaGetLastError();
+  return combine(o, m, l, scratch, B, H, dh, nsplit, stream);
 }
 
 }  // namespace
@@ -501,19 +795,32 @@ extern "C" {
 // Table token positions each split of the first launch walks.
 int paged_attention_split_tokens() { return kSpan; }
 
-// q [B, H, dh] f32 (q_is_f32 = 1) or bf16; pools [rows, n_kv, dh] bf16
-// (kv_is_f32 = 0) or f32; tables / ntok int32 [B, nblk]; outputs
-// o [B, H, dh], m / l [B, H] f32; scratch f32 of B * H * nsplit * (dh + 2)
-// floats, nsplit = ceil(nblk * tokens_per_block /
-// paged_attention_split_tokens()).  Returns the first failing launch's
-// cudaError_t (0 on success).
+// q [B, H, dh] f32 (q_is_f32 = 1) or bf16; pools [rows, n_kv, dh] and
+// [rows, n_kv, dh_v] bf16 (kv_is_f32 = 0) or f32; tables / ntok int32
+// [B, nblk]; outputs o [B, H, dh_v], m / l [B, H] f32; scratch f32 of
+// B * H * nsplit * (dh_v + 2) floats, nsplit = ceil(nblk * tokens_per_block
+// / paged_attention_split_tokens()).  dh_v = dh (a multiple of 32 up to
+// 256), or MLA's dh 576 / dh_v 512 with bf16 q and pools.  Returns the
+// first failing launch's cudaError_t (0 on success).
 int paged_attention_fwd(const void* q, int q_is_f32, const void* pool_k,
                         const void* pool_v, const int* tables, const int* ntok,
                         float* o, float* m, float* l, float* scratch, int B,
-                        int H, int n_kv, int dh, int nblk,
+                        int H, int n_kv, int dh, int dh_v, int nblk,
                         int tokens_per_block, int kv_is_f32, float scale,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh != dh_v) {
+    if (dh != 576 || dh_v != 512 || q_is_f32 || kv_is_f32)
+      return (int)cudaErrorInvalidValue;
+    const int nsplit = splits(nblk, tokens_per_block);
+    if (nsplit > 0) {
+      const cudaError_t err = launch_mla<576, 512>(
+          q, pool_k, pool_v, tables, ntok, scratch, B, H, n_kv, nblk,
+          tokens_per_block, scale, nsplit, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)combine(o, m, l, scratch, B, H, dh_v, nsplit, s);
+  }
   if (kv_is_f32)
     return (int)launch<float, false>(q, q_is_f32, pool_k, pool_v, nullptr,
                                      nullptr, tables, nullptr, ntok, o, m, l,

@@ -7,8 +7,10 @@ of queries at absolute positions ``q_offset .. q_offset + Tq - 1`` over
 (``Tq == Tk``) and suffix-only prefill over a cached prefix (keys = the
 prefix's then the suffix's, ``q_offset`` = the prefix length) run it once
 per layer.  A row's result does not depend on how many rows the call holds,
-so a suffix call reproduces the full call's rows bit for bit.  bf16 inputs
-at head dims 32, 64, 96 and 128 run on the tensor cores (``mma.sync``, f32
+so a suffix call reproduces the full call's rows bit for bit.  Values may
+be narrower than keys: MLA's expanded prefill has key width 192 and value
+width 128 (:data:`HEAD_DIMS`).  bf16 inputs at head dims 32, 64, 96 and
+128 and at MLA's 192 / 128 run on the tensor cores (``mma.sync``, f32
 accumulate); f32 inputs and the other head dims run the CUDA-core path of
 the same source.
 
@@ -27,14 +29,17 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = tuple(range(32, 257, 32))
+# (key width, value width) pairs the kernel takes: equal widths in multiples
+# of 32 up to 256, and MLA's expanded prefill (nope 128 + rope 64, v 128).
+HEAD_DIMS = tuple((d, d) for d in range(32, 257, 32)) + ((192, 128),)
 MAX_GROUP = 64          # query heads per KV head the kernel's CTA can hold
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len=None, scale=None):
-    """q [B, Tq, H, dh]; k/v [B, Tk, n_kv, dh] in q's dtype (bf16 or f32);
-    kv_len int32 [B] or None.  Returns [B, Tq, H, dh] in q's dtype."""
+    """q [B, Tq, H, dh]; k [B, Tk, n_kv, dh], v [B, Tk, n_kv, dh_v] in q's
+    dtype (bf16 or f32); kv_len int32 [B] or None.  Returns [B, Tq, H,
+    dh_v] in q's dtype."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_len=kv_len,
@@ -44,15 +49,16 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     _check_inputs(q, k, v, kv_len, q_offset)
     B, Tq, H, dh = q.shape
     Tk, n_kv = k.shape[1:3]
+    dh_v = v.shape[-1]
     scale = dh ** -0.5 if scale is None else scale
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Tq, H, dh_v))
     if B == 0 or Tq == 0:
         return o
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(), B, Tq, Tk, H, n_kv,
-        dh, int(q_offset), int(bool(causal)), int(q.dtype == torch.float32),
+        dh, dh_v, int(q_offset), int(bool(causal)), int(q.dtype == torch.float32),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
@@ -65,19 +71,19 @@ flash_attention.launches = 0
 def _check_inputs(q, k, v, kv_len, q_offset) -> None:
     """Raise on what the kernel does not take (device, dtype, shape,
     contiguity, alignment)."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q {tuple(q.shape)} must be [B, Tq, H, dh] and "
-                         f"k / v {tuple(k.shape)} / {tuple(v.shape)} one "
-                         f"[B, Tk, n_kv, dh] shape")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, Tq, H, dh], k "
+                         f"{tuple(k.shape)} [B, Tk, n_kv, dh] and v "
+                         f"{tuple(v.shape)} [B, Tk, n_kv, dh_v]")
     B, Tq, H, dh = q.shape
     Bk, Tk, n_kv, dh_k = k.shape
     if Bk != B or dh_k != dh:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
-                         f"{tuple(q.shape)} (a value head dim != key head "
-                         f"dim is not ported)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} unsupported: multiples of 32 up "
-                         f"to 256")
+                         f"{tuple(q.shape)}")
+    if (dh, v.shape[-1]) not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} (value {v.shape[-1]}) unsupported: "
+                         f"equal multiples of 32 up to 256, or 192 / 128")
     if H % n_kv or H // n_kv > MAX_GROUP:
         raise ValueError(f"{H} query heads do not group over {n_kv} KV "
                          f"heads in groups of at most {MAX_GROUP}")
@@ -109,6 +115,6 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                        I, ctypes.c_float, P]
+                                        I, I, ctypes.c_float, P]
     lib.flash_attention_fwd.restype = I
     return lib

@@ -37,7 +37,7 @@ def paged_attention_dual(q, pool_k, pool_v, frame_tables, frame_ntok,
 
     Coalesced frames go down the frame path, splintered pages down the page
     path, and the partials are flash-combined.  Returns normalized
-    [B, H, dh] float32.
+    [B, H, dh_v] float32.
     """
     parts = [
         paged_attention_kernel(q, pool_k, pool_v, frame_tables, frame_ntok,

@@ -13,6 +13,12 @@ flash-combines.
 KV, reading each page whose staging slot is >= 0 from the staging pool
 (the fused fault-in decode of ``ServingEngine(fault_mode="fused")``).
 
+Values may be narrower than keys: MLA's absorbed decode reads a K pool of
+latent + rope = 576 and a V pool of the 512-wide latent, with all 16 query
+heads on its one KV head; that shape runs a tensor-core partials kernel of
+its own (bf16 only), with the same spans, scratch and combine.  The fused
+kernel takes equal widths only.
+
 On the card each call is two launches of one source: partials over fixed
 spans of ``SPLIT_TOKENS`` table token positions (split-KV), then their
 combine in split order; the scratch between them is allocated here.  The
@@ -37,7 +43,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = tuple(range(32, 257, 32))
+HEAD_DIMS = tuple(range(32, 257, 32))   # key = value widths, any dtype
+MLA_DIMS = (576, 512)   # (key, value) widths of MLA's latent pools, bf16
 SPLIT_TOKENS = 64       # table token positions per split (csrc kSpan)
 
 
@@ -53,19 +60,20 @@ def _query(q):
     return q.contiguous()
 
 
-def _scratch(q, n_blocks: int, tokens_per_block: int):
+def _scratch(q, n_blocks: int, tokens_per_block: int, dh_v: int):
     """f32 scratch for the partials: (o, m, l) of every (row, head, split)."""
-    B, H, dh = q.shape
-    n = B * H * split_count(n_blocks, tokens_per_block) * (dh + 2)
+    B, H, _dh = q.shape
+    n = B * H * split_count(n_blocks, tokens_per_block) * (dh_v + 2)
     return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
 def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
                            granularity: str, frame_pages: int = 16,
                            scale: float = 1.0):
-    """q [B, H, dh]; pool_k/v [NP, ptok, n_kv, dh] (bf16 or f32);
-    tables/ntok int32 [B, n_blocks] (page or frame ids, -1 holes; valid
-    tokens per block).  Returns (o [B,H,dh] f32, m [B,H] f32, l [B,H] f32).
+    """q [B, H, dh]; pool_k [NP, ptok, n_kv, dh], pool_v [NP, ptok, n_kv,
+    dh_v] (bf16 or f32; MLA's dh 576 / dh_v 512 bf16 only); tables/ntok
+    int32 [B, n_blocks] (page or frame ids, -1 holes; valid tokens per
+    block).  Returns (o [B,H,dh_v] f32, m [B,H] f32, l [B,H] f32).
     """
     if granularity not in ("page", "frame"):
         raise ValueError(f"granularity must be 'page' or 'frame', "
@@ -79,18 +87,19 @@ def paged_attention_kernel(q, pool_k, pool_v, tables, ntok, *,
     _check_inputs(q, pool_k, pool_v, tables, ntok, fp)
     B, H, dh = q.shape
     ptok, n_kv = pool_k.shape[1:3]
+    dh_v = pool_v.shape[-1]
     qk = _query(q)
-    o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, H, dh_v), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if B == 0:
         return o, m, l
     lib = _lib()
-    scratch = _scratch(q, tables.shape[1], fp * ptok)
+    scratch = _scratch(q, tables.shape[1], fp * ptok, dh_v)
     err = lib.paged_attention_fwd(
         qk.data_ptr(), int(qk.dtype == torch.float32), pool_k.data_ptr(),
         pool_v.data_ptr(), tables.data_ptr(), ntok.data_ptr(), o.data_ptr(),
-        m.data_ptr(), l.data_ptr(), scratch.data_ptr(), B, H, n_kv, dh,
+        m.data_ptr(), l.data_ptr(), scratch.data_ptr(), B, H, n_kv, dh, dh_v,
         tables.shape[1], fp * ptok, int(pool_k.dtype == torch.float32),
         float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -106,18 +115,28 @@ paged_attention_kernel.page_launches = 0
 paged_attention_kernel.frame_launches = 0
 
 
-def _check_inputs(q, pool_k, pool_v, tables, ntok, fp: int) -> None:
+def _check_inputs(q, pool_k, pool_v, tables, ntok, fp: int, *,
+                  fused: bool = False) -> None:
     """Raise on what the kernels do not take (device, dtype, shape,
     contiguity, alignment)."""
     B, H, dh = q.shape
     NP, _ptok, n_kv, dh_k = pool_k.shape
-    if pool_v.shape != pool_k.shape or dh_k != dh:
+    dh_v = pool_v.shape[-1]
+    if pool_v.shape[:3] != pool_k.shape[:3] or dh_k != dh:
         raise ValueError(f"pools {tuple(pool_k.shape)} / "
-                         f"{tuple(pool_v.shape)} do not match q {tuple(q.shape)}"
-                         f" (a value head dim != key head dim is not ported)")
-    if dh not in HEAD_DIMS:
+                         f"{tuple(pool_v.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if (dh, dh_v) == MLA_DIMS and not fused:
+        if q.dtype != torch.bfloat16 or pool_k.dtype != torch.bfloat16:
+            raise ValueError(f"the {dh} / {dh_v} (MLA) path takes bf16 q "
+                             f"and pools, got {q.dtype} / {pool_k.dtype}")
+    elif dh_v != dh:
+        raise ValueError(f"value head dim {dh_v} != key head dim {dh}: only "
+                         f"{MLA_DIMS[0]} / {MLA_DIMS[1]} (MLA, page and "
+                         f"frame) is ported")
+    elif dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} unsupported: multiples of 32 up "
-                         f"to 256")
+                         f"to 256, or {MLA_DIMS[0]} / {MLA_DIMS[1]}")
     if H % n_kv:
         raise ValueError(f"{H} query heads do not group over {n_kv} KV heads")
     if NP % fp:
@@ -159,7 +178,7 @@ def fused_paged_attention_kernel(q, pool_k, pool_v, stage_k, stage_v, tables,
                                              scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged-attention path for device {q.device}")
-    _check_inputs(q, pool_k, pool_v, tables, ntok, 1)
+    _check_inputs(q, pool_k, pool_v, tables, ntok, 1, fused=True)
     NS = stage_k.shape[0]
     if stage_v.shape != stage_k.shape \
             or tuple(stage_k.shape[1:]) != tuple(pool_k.shape[1:]):
@@ -196,7 +215,7 @@ def fused_paged_attention_kernel(q, pool_k, pool_v, stage_k, stage_v, tables,
     if B == 0:
         return o, m, l
     lib = _lib()
-    scratch = _scratch(q, tables.shape[1], ptok)
+    scratch = _scratch(q, tables.shape[1], ptok, dh)
     err = lib.fused_paged_attention_fwd(
         qk.data_ptr(), int(qk.dtype == torch.float32), pool_k.data_ptr(),
         pool_v.data_ptr(), stage_k.data_ptr() if NS else None,
@@ -218,7 +237,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("paged_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_fwd.argtypes = [P, I, P, P, P, P, P, P, P, P, I, I,
-                                        I, I, I, I, I, ctypes.c_float, P]
+                                        I, I, I, I, I, I, ctypes.c_float, P]
     lib.paged_attention_fwd.restype = I
     lib.fused_paged_attention_fwd.argtypes = [P, I, P, P, P, P, P, P, P, P,
                                               P, P, P, I, I, I, I, I, I, I,

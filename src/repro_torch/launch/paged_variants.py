@@ -86,8 +86,8 @@ def build_variants(names):
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_fwd.argtypes = [P, I, P, P, P, P, P, P, P, P, I,
-                                            I, I, I, I, I, I, ctypes.c_float,
-                                            P]
+                                            I, I, I, I, I, I, I,
+                                            ctypes.c_float, P]
         lib.paged_attention_fwd.restype = I
         libs[name] = lib
     return libs

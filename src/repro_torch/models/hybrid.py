@@ -33,14 +33,13 @@ from repro_torch.models.mamba2 import (
     mamba_block_decode,
     mamba_block_train,
 )
+from repro_torch.models.page_ops import PageCtx, prefill_write_op
 from repro_torch.models.transformer import (
     AttnParams,
     FFNParams,
-    PageCtx,
     attn_block_decode,
     attn_block_prefill,
     ffn_block,
-    prefill_write_op,
 )
 
 

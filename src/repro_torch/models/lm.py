@@ -1,9 +1,13 @@
 """Language-model facade: weights, pool shapes, prefill and decode.
 
-Counterpart of the reference's ``models/lm.py`` for the dense, ssm
+Counterpart of the reference's ``models/lm.py`` for the dense, moe, ssm
 (Mamba-2) and hybrid (Zamba2) families:
 
   dense   -> transformer stack, paged KV pools [L, NP, ...]
+  moe     -> transformer stack with routed-expert FFNs after
+             ``moe.first_dense`` dense-FFN layers (``decoder_prefix``); with
+             ``cfg.mla`` its attention is MLA and the pools hold latents
+             (K [L, NP, ptok, 1, kv_lora + rope], V [..., kv_lora])
   ssm     -> Mamba-2 stack: recurrent state, no KV pool
   hybrid  -> Mamba-2 backbone + a shared attention block whose KV is
              paged with one pool slice per invocation [G, NP, ...]
@@ -11,14 +15,16 @@ Counterpart of the reference's ``models/lm.py`` for the dense, ssm
 The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
 the port stores every weight once in ``cfg.dtype``.  Parameter names follow
 the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
-``decoder.mamba.w_in``, ...), so :func:`repro_torch.bridge.params_from_jax`
-maps one onto the other.  ``prefill`` and ``decode_step`` return and take
-the reference's non-pool decode state (``{"ssm", "conv"}`` for the
-recurrent families, ``{}`` for dense).
+``decoder_prefix.mlp.w_up``, ``decoder.moe.router``, ``decoder.mamba.w_in``,
+...), so :func:`repro_torch.bridge.params_from_jax` maps one onto the other.
+``prefill`` and ``decode_step`` return and take the reference's non-pool
+decode state (``{"ssm", "conv"}`` for the recurrent families, ``{}`` for
+the transformer families).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -29,27 +35,35 @@ from repro_torch.models import hybrid as hy
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.common import embed_init_
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.page_ops import PageCtx
 from repro_torch.models.transformer import (
     DecoderParams,
-    PageCtx,
     decoder_stack_decode,
     decoder_stack_prefill,
 )
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _dense_view(cfg: ModelConfig) -> ModelConfig:
+    """The config of a MoE model's leading dense-FFN layers."""
+    return dataclasses.replace(cfg, moe=None)
+
+
+def _first_dense(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense if cfg.moe is not None else 0
 
 
 class LM(nn.Module):
-    """Dense, ssm or hybrid LM.  Weights are allocated uninitialised on
+    """Dense, moe, ssm or hybrid LM.  Weights are allocated uninitialised on
     ``device``; fill them with :meth:`init_weights` or ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu"):
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.moe is not None \
-                or cfg.mla is not None:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the moe, mla, "
-                f"encdec and vlm families come in a later slice")
+                f"family {cfg.family!r} is not ported yet: the encdec and "
+                f"vlm families come in a later slice")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -69,7 +83,12 @@ class LM(nn.Module):
         elif cfg.family == "hybrid":
             self.decoder = hy.HybridParams(cfg, dtype, device)
         else:
-            self.decoder = DecoderParams(cfg, cfg.n_layers, dtype, device)
+            fd = _first_dense(cfg)
+            if fd:
+                self.decoder_prefix = DecoderParams(_dense_view(cfg), fd,
+                                                    dtype, device)
+            self.decoder = DecoderParams(cfg, cfg.n_layers - fd, dtype,
+                                         device)
 
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Draw every weight from ``generator`` with the reference's
@@ -78,6 +97,8 @@ class LM(nn.Module):
         self.final_norm.data.fill_(1.0)
         if not self.cfg.tie_embeddings:
             embed_init_(self.unembed, generator)
+        if hasattr(self, "decoder_prefix"):
+            self.decoder_prefix.init_(generator)
         self.decoder.init_(generator)
         return self
 
@@ -96,11 +117,17 @@ class LM(nn.Module):
                     dtype=torch.bfloat16
                     ) -> Optional[List[Tuple[Tuple[int, ...], torch.dtype]]]:
         """[(k_pool shape, dtype), (v_pool shape, dtype)], or None for the
-        attention-free ssm family."""
+        attention-free ssm family; MLA pools hold the latent payloads."""
         cfg = self.cfg
         L = self.kv_layers()
         if L == 0:
             return None
+        if cfg.mla is not None:
+            m = cfg.mla
+            k = (L, num_pages, page_tokens, 1,
+                 m.kv_lora_rank + m.qk_rope_head_dim)
+            v = (L, num_pages, page_tokens, 1, m.kv_lora_rank)
+            return [(k, dtype), (v, dtype)]
         shape = (L, num_pages, page_tokens, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return [(shape, dtype), (shape, dtype)]
@@ -172,10 +199,8 @@ class LM(nn.Module):
             x, pools, state["ssm"], state["conv"] = hy.hybrid_stack_prefill(
                 self.cfg, self.decoder, x, positions, pools, ctx)
         else:
-            x, pools = decoder_stack_prefill(self.cfg, self.decoder, x,
-                                             positions, pools, ctx,
-                                             prefix_kv=prefix_kv,
-                                             tok_offset=prefix_len)
+            x = self._stacks(decoder_stack_prefill, x, positions, pools, ctx,
+                             prefix_kv=prefix_kv, tok_offset=prefix_len)
         if last_pos is None:
             x_last = x[:, -1:, :]
         else:
@@ -204,6 +229,21 @@ class LM(nn.Module):
                 self.cfg, self.decoder, x, pos, pools, ctx, state["ssm"],
                 state["conv"])
         else:
-            x, pools = decoder_stack_decode(self.cfg, self.decoder, x, pos,
-                                            pools, ctx)
+            x = self._stacks(decoder_stack_decode, x, pos, pools, ctx)
         return self._logits(x)[:, 0], pools, state
+
+    def _stacks(self, stack, x, pos, pools, ctx: PageCtx, **kw):
+        """Run ``stack`` (prefill or decode) over the dense-FFN prefix layers
+        (``decoder_prefix``, pool slices [:fd]) and then the decoder
+        (slices [fd:]); the pools are written in place."""
+        fd = _first_dense(self.cfg)
+        if not fd:
+            return stack(self.cfg, self.decoder, x, pos, pools, ctx, **kw)[0]
+        kp, vp = pools
+        for cfg, params, sl in ((_dense_view(self.cfg), self.decoder_prefix,
+                                 slice(None, fd)),
+                                (self.cfg, self.decoder, slice(fd, None))):
+            lctx = ctx if ctx.stage_k is None else dataclasses.replace(
+                ctx, stage_k=ctx.stage_k[sl], stage_v=ctx.stage_v[sl])
+            x = stack(cfg, params, x, pos, (kp[sl], vp[sl]), lctx, **kw)[0]
+        return x

@@ -1,0 +1,147 @@
+"""Mixture-of-Experts: top-k router + capacity-based scatter dispatch.
+
+Counterpart of the single-device path of the reference's ``models/moe.py``
+(``moe_block`` without a mesh: ``_moe_routed`` over every expert plus
+``_moe_shared``).  Used by deepseek-v2-lite (64 routed top-6 + 2 shared,
+first layer dense) and dbrx (16 routed top-4).
+
+Per sequence (GShard-style): each token's top-k experts come from an f32
+softmax over the router logits, ties broken toward the lower expert index
+(as ``jax.lax.top_k``); its position in an expert's buffer is the running
+count of that expert's selections over the sequence, and positions at or
+past the capacity C = ceil(S · top_k / E · capacity_factor) are dropped.
+``S`` is the whole forward's length: a prompt the engine right-pads to a
+page multiple with token 0 spends capacity on the pad tokens, as in the
+reference.  The experts run as batched matrix products over the experts;
+no TPU kernel exists for them.
+
+The expert-parallel shard_map paths (training EP and serving 2-D EP) are
+multi-device and not ported here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init_, empty_param
+
+
+class MoEParams(nn.Module):
+    """Routed (and shared) expert weights stacked over layers, in the
+    reference's shapes: router [L, d, E], w_gate / w_up [L, E, d, fe],
+    w_down [L, E, fe, d]; with ``n_shared`` also ws_gate / ws_up
+    [L, d, n_shared · fe] and ws_down [L, n_shared · fe, d]."""
+
+    def __init__(self, cfg: ModelConfig, L: int, dtype, device):
+        super().__init__()
+        mo = cfg.moe
+        d, fe, E = cfg.d_model, mo.d_expert, mo.n_experts
+        self.router = empty_param((L, d, E), dtype, device)
+        self.w_gate = empty_param((L, E, d, fe), dtype, device)
+        self.w_up = empty_param((L, E, d, fe), dtype, device)
+        self.w_down = empty_param((L, E, fe, d), dtype, device)
+        if mo.n_shared:
+            fs = mo.n_shared * fe
+            self.ws_gate = empty_param((L, d, fs), dtype, device)
+            self.ws_up = empty_param((L, d, fs), dtype, device)
+            self.ws_down = empty_param((L, fs, d), dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """The reference's ``init_moe_params`` distributions (fan-in over
+        d for the router, gates and ups, over fe for the downs), drawn one
+        layer at a time so that the f32 draw of a full-width expert stack
+        never sits on the card whole."""
+        for name, p in self.named_parameters():
+            in_axis = 1 if name in ("w_gate", "w_up", "w_down") else 0
+            for l in range(p.shape[0]):
+                dense_init_(p[l], in_axis, gen)
+
+
+def capacity(S: int, E: int, top_k: int, cf: float) -> int:
+    return max(1, math.ceil(S * top_k / E * cf))
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, descending,
+    equal values in index order (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+    """Router and capacity assignment of x [G, S, d].
+
+    Returns (probs [G,S,E] f32, gates [G,S,K] f32 renormalised, sel
+    [G,S,K] expert ids, pos [G,S,K] position in the expert's buffer, keep
+    [G,S,K] pos < C, C)."""
+    mo = cfg.moe
+    G, S, _d = x.shape
+    E, K = mo.n_experts, mo.top_k
+    C = capacity(S, E, K, mo.capacity_factor)
+    logits = (x @ router).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, sel = top_k(probs, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    onehot = F.one_hot(sel, E).sum(2)                       # [G, S, E]
+    cum = torch.cumsum(onehot, dim=1)                       # inclusive
+    pos = torch.gather(cum, 2, sel) - 1                     # [G, S, K]
+    return probs, gates, sel, pos, pos < C, C
+
+
+def _moe_routed(cfg: ModelConfig, p, x):
+    """Routed experts over x [G, S, d]: (y [G, S, d], me [E], fe [E])."""
+    mo = cfg.moe
+    G, S, d = x.shape
+    E, K = mo.n_experts, mo.top_k
+    probs, gates, sel, pos, keep, C = route(cfg, p["router"], x)
+    me = probs.mean(dim=(0, 1))
+    fe = torch.bincount(sel.reshape(-1), minlength=E).float() / sel.numel()
+
+    # Dispatch into [G, E, C + 1, d]: slot C of each expert collects the
+    # dropped entries and is cut off before the experts run.  Kept slots
+    # are unique, so each receives exactly its token's row.
+    pos_k = torch.where(keep, pos, C)
+    g_idx = torch.arange(G, device=x.device)[:, None, None]
+    slot = ((g_idx * E + sel) * (C + 1) + pos_k).reshape(-1)
+    rows = (x[:, :, None, :] * keep[..., None].to(x.dtype)).reshape(-1, d)
+    xs = x.new_zeros((G * E * (C + 1), d)).index_copy_(0, slot, rows)
+    xs = xs.view(G, E, C + 1, d)[:, :, :C]
+
+    # Expert SwiGLU, one batched product per weight over the experts.
+    xe = xs.transpose(0, 1).reshape(E, G * C, d)
+    h = torch.bmm(xe, p["w_gate"])
+    u = torch.bmm(xe, p["w_up"])
+    h = F.silu(h.float()).to(x.dtype) * u
+    ys = torch.bmm(h, p["w_down"]).view(E, G, C, d).transpose(0, 1)
+
+    # Gather back; dropped entries read the zero slot C.
+    ys = torch.cat([ys, ys.new_zeros((G, E, 1, d))], dim=2)
+    out_k = ys.reshape(-1, d).index_select(0, slot).view(G, S, K, d)
+    w = (gates * keep).to(x.dtype)
+    y = torch.einsum("gskd,gsk->gsd", out_k, w)
+    return y, me, fe
+
+
+def _moe_shared(p, x):
+    """Always-on shared experts (one SwiGLU over n_shared · fe)."""
+    g = x @ p["ws_gate"]
+    u = x @ p["ws_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["ws_down"]
+
+
+def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss)."""
+    mo = cfg.moe
+    y, me, fe = _moe_routed(cfg, p, x)
+    if mo.n_shared:
+        y = y + _moe_shared(p, x)
+    return y, mo.n_experts * torch.sum(me * fe)
+

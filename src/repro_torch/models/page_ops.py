@@ -1,0 +1,79 @@
+"""Paged-pool operations of one attention layer, over the step's page tables.
+
+:class:`PageCtx` carries the device-side addressing of one engine step;
+:func:`paged_attn_op` writes a decode token's K/V into the pools and runs
+the paged decode-attention kernel (or the fused gather-attend kernel when
+the step carries staged pages); :func:`prefill_write_op` scatters a
+prefill's K/V into the pools.  GQA layers (:mod:`repro_torch.models.
+transformer`, :mod:`repro_torch.models.hybrid`) and MLA layers
+(:mod:`repro_torch.models.mla`, over the latent pools) share them.  The
+plain writers live in :mod:`repro_torch.models.paged`, which the kernels'
+plain versions import, so these ops sit a module above it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import (
+    fused_paged_attention_kernel,
+    paged_attention_kernel,
+)
+from repro_torch.models import paged
+
+
+@dataclasses.dataclass
+class PageCtx:
+    """Device-side paged-KV addressing for one engine step.
+
+    tables/ntok: [B, S, mpps]; wpage: [B, S]; wslot: [B] (int32 tensors).
+
+    Fused fault-in decode adds ``slots`` [B, S, mpps] (staging slot of each
+    page, -1 = read the pool) and the step's staged pages ``stage_k`` /
+    ``stage_v``, layer-stacked [L, NS, ptok, n_kv, dh]; each layer's
+    attention reads its own slice.
+    """
+
+    tables: torch.Tensor
+    ntok: torch.Tensor
+    wpage: torch.Tensor
+    wslot: torch.Tensor
+    frame_pages: int = 16       # frame striping granularity (prefill scatter)
+    slots: Optional[torch.Tensor] = None
+    stage_k: Optional[torch.Tensor] = None
+    stage_v: Optional[torch.Tensor] = None
+
+
+def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):
+    """Decode pool write + paged attention (pools updated in place).
+
+    q [B,H,dh]; k_new [B,n_kv,dh], v_new [B,n_kv,dh_v]; pools [NP, ptok,
+    n_kv, dh] and [NP, ptok, n_kv, dh_v] (MLA: the latent pools, dh_v <
+    dh).  Returns o [B,H,dh_v] in q's dtype.
+    """
+    B = q.shape[0]
+    tables = ctx.tables.reshape(B, -1)
+    ntok = ctx.ntok.reshape(B, -1)
+    # One shard column holds the write page; the rest are -1.
+    wpage = ctx.wpage.reshape(B, -1).amax(dim=1)
+    paged.write_kv(k_pool, v_pool, k_new, v_new, wpage, ctx.wslot)
+    if ctx.slots is not None:
+        o, m, l = fused_paged_attention_kernel(
+            q, k_pool, v_pool, ctx.stage_k, ctx.stage_v, tables,
+            ctx.slots.reshape(B, -1), ntok, scale=scale)
+    else:
+        o, m, l = paged_attention_kernel(q, k_pool, v_pool, tables, ntok,
+                                         granularity="page", scale=scale)
+    return paged.combine_partials(o, m, l).to(q.dtype)
+
+
+def prefill_write_op(k_seq, v_seq, k_pool, v_pool, ctx: PageCtx,
+                     tok_offset: int = 0):
+    """Scatter prefilled K/V [B,T,n_kv,dh] into the paged pool, in place."""
+    tables = ctx.tables.reshape(ctx.tables.shape[0], -1)
+    return paged.write_prefill_kv(k_pool, v_pool, k_seq, v_seq, tables,
+                                  frame_pages=ctx.frame_pages,
+                                  tok_offset=tok_offset)

@@ -1,16 +1,21 @@
-"""Dense decoder-only transformer stack (mesh-free).
+"""Decoder-only transformer stack (mesh-free): dense, MoE and MLA layers.
 
-Counterpart of the dense, ``mesh is None`` paths of the reference's
+Counterpart of the ``mesh is None`` paths of the reference's
 ``models/transformer.py``.  Weights stay stacked over a leading layer axis in
 the reference's shapes (``wq [L, d, H, dh]``, ``wo [L, H, dh, d]``, ...); the
 reference's ``lax.scan`` over layers is a Python loop over layer slices.
+A layer's attention is GQA or, with ``cfg.mla``, Multi-head Latent
+Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
+``cfg.moe``, the routed experts of :mod:`repro_torch.models.moe`.
 
   * prefill: full-sequence causal attention through the flash-attention
     kernel (plain version on CPU tensors), plus an en-masse scatter of each
-    layer's K/V into its pool slice; suffix-only prefill prepends a cached
-    prefix's K/V to the keys and writes only the suffix pages.  The
-    row-wise work runs on fixed-shape row blocks (:data:`PREFILL_ROWS`), so
-    a suffix row gets the full prefill's bits;
+    layer's K/V (MLA: its latent payloads) into its pool slice.  Dense
+    layers run their row-wise work on fixed-shape row blocks
+    (:data:`PREFILL_ROWS`), so a suffix row gets the full prefill's bits,
+    and suffix-only prefill prepends a cached prefix's K/V to the keys and
+    writes only the suffix pages; MoE and MLA stacks have no prefix cache
+    (as the reference) and run each layer over the whole prompt;
   * decode: one token per sequence, written into the paged pool and
     attended through the paged decode-attention kernel (plain version on
     CPU tensors), or, when the step carries staged pages
@@ -30,11 +35,6 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import (
-    fused_paged_attention_kernel,
-    paged_attention_kernel,
-)
-from repro_torch.models import paged
 from repro_torch.models.common import dense_init_, empty_param
 from repro_torch.models.layers import (
     apply_rope,
@@ -43,31 +43,17 @@ from repro_torch.models.layers import (
     rope_angles,
     swiglu,
 )
-
-
-# ------------------------------------------------------------------ page ctx
-
-
-@dataclasses.dataclass
-class PageCtx:
-    """Device-side paged-KV addressing for one engine step.
-
-    tables/ntok: [B, S, mpps]; wpage: [B, S]; wslot: [B] (int32 tensors).
-
-    Fused fault-in decode adds ``slots`` [B, S, mpps] (staging slot of each
-    page, -1 = read the pool) and the step's staged pages ``stage_k`` /
-    ``stage_v``, layer-stacked [L, NS, ptok, n_kv, dh]; each layer's
-    attention reads its own slice.
-    """
-
-    tables: torch.Tensor
-    ntok: torch.Tensor
-    wpage: torch.Tensor
-    wslot: torch.Tensor
-    frame_pages: int = 16       # frame striping granularity (prefill scatter)
-    slots: Optional[torch.Tensor] = None
-    stage_k: Optional[torch.Tensor] = None
-    stage_v: Optional[torch.Tensor] = None
+from repro_torch.models.mla import (
+    MLAParams,
+    mla_block_decode,
+    mla_block_prefill,
+)
+from repro_torch.models.moe import MoEParams, moe_block
+from repro_torch.models.page_ops import (
+    PageCtx,
+    paged_attn_op,
+    prefill_write_op,
+)
 
 
 # ------------------------------------------------------------------ params
@@ -124,27 +110,36 @@ class FFNParams(nn.Module):
 
 
 class DecoderParams(nn.Module):
-    """Stacked decoder-layer weights (the reference's ``init_decoder_params``)."""
+    """Stacked decoder-layer weights (the reference's ``init_decoder_params``):
+    ``attn`` holds MLA weights when ``cfg.mla`` is set, and the FFN is
+    ``moe`` when ``cfg.moe`` is set, else ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, L: int, dtype, device):
         super().__init__()
         self.ln1 = empty_param((L, cfg.d_model), dtype, device)
         self.ln2 = empty_param((L, cfg.d_model), dtype, device)
-        self.attn = AttnParams(cfg, L, dtype, device)
-        self.mlp = FFNParams(cfg, L, dtype, device)
+        if cfg.mla is not None:
+            self.attn = MLAParams(cfg, L, dtype, device)
+        else:
+            self.attn = AttnParams(cfg, L, dtype, device)
+        self.ffn_name = "mlp" if cfg.moe is None else "moe"
+        self.add_module(self.ffn_name,
+                        FFNParams(cfg, L, dtype, device) if cfg.moe is None
+                        else MoEParams(cfg, L, dtype, device))
 
     def init_(self, gen: torch.Generator) -> None:
         self.ln1.data.fill_(1.0)
         self.ln2.data.fill_(1.0)
         self.attn.init_(gen)
-        self.mlp.init_(gen)
+        getattr(self, self.ffn_name).init_(gen)
 
     def layer(self, l: int) -> Dict[str, object]:
         """Layer ``l``'s weight slices as the reference's per-layer tree."""
+        ffn = getattr(self, self.ffn_name)
         return {
             "ln1": self.ln1[l], "ln2": self.ln2[l],
             "attn": {n: p[l] for n, p in self.attn.named_parameters()},
-            "mlp": {n: p[l] for n, p in self.mlp.named_parameters()},
+            self.ffn_name: {n: p[l] for n, p in ffn.named_parameters()},
         }
 
     @property
@@ -230,37 +225,6 @@ def attn_block_prefill(cfg: ModelConfig, p, x, positions):
     return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]), k, v
 
 
-def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):
-    """Decode pool write + paged attention (pools updated in place).
-
-    q [B,H,dh]; k_new/v_new [B,n_kv,dh]; pools [NP, ptok, n_kv, dh].
-    Returns o [B,H,dh] in q's dtype.
-    """
-    B = q.shape[0]
-    tables = ctx.tables.reshape(B, -1)
-    ntok = ctx.ntok.reshape(B, -1)
-    # One shard column holds the write page; the rest are -1.
-    wpage = ctx.wpage.reshape(B, -1).amax(dim=1)
-    paged.write_kv(k_pool, v_pool, k_new, v_new, wpage, ctx.wslot)
-    if ctx.slots is not None:
-        o, m, l = fused_paged_attention_kernel(
-            q, k_pool, v_pool, ctx.stage_k, ctx.stage_v, tables,
-            ctx.slots.reshape(B, -1), ntok, scale=scale)
-    else:
-        o, m, l = paged_attention_kernel(q, k_pool, v_pool, tables, ntok,
-                                         granularity="page", scale=scale)
-    return paged.combine_partials(o, m, l).to(q.dtype)
-
-
-def prefill_write_op(k_seq, v_seq, k_pool, v_pool, ctx: PageCtx,
-                     tok_offset: int = 0):
-    """Scatter prefilled K/V [B,T,n_kv,dh] into the paged pool, in place."""
-    tables = ctx.tables.reshape(ctx.tables.shape[0], -1)
-    return paged.write_prefill_kv(k_pool, v_pool, k_seq, v_seq, tables,
-                                  frame_pages=ctx.frame_pages,
-                                  tok_offset=tok_offset)
-
-
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
                       ctx: PageCtx):
     """x [B,1,d], pos [B] -> [B,1,d]; writes this token's K/V in place."""
@@ -277,6 +241,13 @@ def ffn_block(cfg: ModelConfig, p, x):
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def layer_ffn(cfg: ModelConfig, lp, x):
+    """The layer's FFN on normed rows: routed experts or SwiGLU."""
+    if cfg.moe is not None:
+        return moe_block(cfg, lp["moe"], x)[0]
+    return ffn_block(cfg, lp["mlp"], x)
+
+
 # ------------------------------------------------------------------ stack
 
 
@@ -288,6 +259,8 @@ def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
     ``prefix_kv``: layer-stacked cached-prefix K/V ([L, B, P, Hkv, dh]
     pair) for suffix-only prefill; each layer attends over its slice, and
     ``tok_offset`` (= P) keeps the cached pages out of the pool write."""
+    if cfg.moe is not None or cfg.mla is not None:
+        return _stack_prefill_whole(cfg, params, x, positions, pools, ctx)
     k_pools, v_pools = pools
     for l in range(params.n_layers):
         lp = params.layer(l)
@@ -302,6 +275,26 @@ def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
     return x, pools
 
 
+def _stack_prefill_whole(cfg: ModelConfig, params: DecoderParams, x,
+                         positions, pools, ctx: PageCtx):
+    """The MoE / MLA prefill: each layer over the whole prompt (MoE
+    capacity is a function of the forward's length, so no row blocks and
+    no prefix cache, as the reference)."""
+    k_pools, v_pools = pools
+    for l in range(params.n_layers):
+        lp = params.layer(l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            a, lat = mla_block_prefill(cfg, lp["attn"], h, positions)
+            k, v = lat["k"], lat["v"]
+        else:
+            a, k, v = attn_block_prefill(cfg, lp["attn"], h, positions)
+        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx)
+        x = x + a
+        x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, pools
+
+
 def decoder_stack_decode(cfg: ModelConfig, params: DecoderParams, x, pos,
                          pools, ctx: PageCtx):
     k_pools, v_pools = pools
@@ -311,8 +304,8 @@ def decoder_stack_decode(cfg: ModelConfig, params: DecoderParams, x, pos,
         # Staged pages arrive layer-stacked; each layer reads its slice.
         lctx = ctx if ctx.stage_k is None else dataclasses.replace(
             ctx, stage_k=ctx.stage_k[l], stage_v=ctx.stage_v[l])
-        x = x + attn_block_decode(cfg, lp["attn"], h, pos, k_pools[l],
-                                  v_pools[l], lctx)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_block(cfg, lp["mlp"], h)
+        block = mla_block_decode if cfg.mla is not None else \
+            attn_block_decode
+        x = x + block(cfg, lp["attn"], h, pos, k_pools[l], v_pools[l], lctx)
+        x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
     return x, pools

@@ -54,13 +54,16 @@ scatter's ``.to(device)`` are the real PCIe transfers, timed into
 link model and bookkeeping as the reference's, so both engines report them
 equal for the same schedule.
 
-Families: dense, ssm and hybrid (the LM's).  The recurrent families keep
-each request's decode state (``self.states``: ``{"ssm", "conv"}``) on the
-device, stacked along the batch axis for a decode step and split after
+Families: dense, moe, ssm and hybrid (the LM's).  The recurrent families
+keep each request's decode state (``self.states``: ``{"ssm", "conv"}``) on
+the device, stacked along the batch axis for a decode step and split after
 it; it stays put across preemption, where only KV pages swap.  The ssm
 family has no pools: its pages are bookkeeping only (``page_bytes`` 0, no
 gather, scatter or compaction), and neither recurrent family uses the
-prefix cache.
+prefix cache.  Nor does the moe family, as in the reference (MoE capacity
+depends on the forward's length, MLA caches latents); with MLA its pages
+hold K and V latent payloads of different widths, and ``"fused"`` is
+refused.
 
 Not in this slice (raise ``NotImplementedError``): the translation meter,
 and the cluster tier's shared host store, prefix index, failure injection
@@ -83,7 +86,7 @@ from repro_torch.core.cocoa import OutOfMemory
 from repro_torch.core.demand_paging import LinkModel
 from repro_torch.kernels import ops as kops
 from repro_torch.models.lm import LM
-from repro_torch.models.transformer import PageCtx
+from repro_torch.models.page_ops import PageCtx
 from repro_torch.serving.dma import (AsyncDMAEngine, DMAJob, Key, Prefetcher,
                                      StagingBuffer)
 from repro_torch.serving.host_tier import HostPageStore, PrefixIndex

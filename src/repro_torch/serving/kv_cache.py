@@ -30,7 +30,7 @@ from repro_torch.configs.base import PoolGeometry
 from repro_torch.core import make_manager
 from repro_torch.core.compaction import CopyOp
 from repro_torch.core.pagepool import PoolConfig
-from repro_torch.models.transformer import PageCtx
+from repro_torch.models.page_ops import PageCtx
 
 
 class ShardedKVCache:

@@ -57,6 +57,7 @@ def cuda_device():
     (4, 4, 32),       # MHA, smallest head dim
     (32, 2, 64),      # 16 query heads per KV head: 4 per warp
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
+    (48, 8, 128),     # dbrx-132b: 6 query heads per KV head
 ])
 @pytest.mark.parametrize("granularity", ["page", "frame"])
 def test_cuda_paged_attention_matches_plain(cuda_device, granularity, H,
@@ -109,19 +110,20 @@ def _split_rows(tpb, n_blocks):
     ]
 
 
-def _split_case(dev, granularity, H, n_kv, dh, dtype, seed=5):
+def _split_case(dev, granularity, H, n_kv, dh, dtype, seed=5, dh_v=None):
     """Tables of _split_rows over a pool of 64-token pages (page and fused)
     or 4-page frames of 64-token pages, 256 tokens a frame (frame: splits cut
     inside frames).  Fused stages about half of the valid pages with the
-    pool's bytes and overwrites the pool copies."""
+    pool's bytes and overwrites the pool copies.  ``dh_v``: the V pool's
+    width (default dh)."""
     rng = np.random.default_rng(seed)
     ptok, fp = 64, (4 if granularity == "frame" else 1)
     tpb, n_blocks = ptok * fp, (8 if granularity == "frame" else 16)
     n_entries = 2 * n_blocks
     NP = n_entries * fp
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pk, pv = (torch.randn((NP, ptok, n_kv, dh), generator=gen,
-                          device=dev).to(dtype) for _ in range(2))
+    pk, pv = (torch.randn((NP, ptok, n_kv, w), generator=gen,
+                          device=dev).to(dtype) for w in (dh, dh_v or dh))
     rows = _split_rows(tpb, n_blocks)
     B = len(rows)
     q = torch.randn((B, H, dh), generator=gen, device=dev).to(dtype)
@@ -167,6 +169,7 @@ def _run_split_case(c, granularity, *, plain=False):
     (4, 4, 64),       # g = 1 (zamba2's shared block)
     (8, 4, 128),      # g = 2
     (16, 2, 128),     # g = 8 (qwen2.5-3b)
+    (48, 8, 128),     # g = 6 (dbrx-132b)
 ])
 @pytest.mark.parametrize("granularity", ["page", "frame", "fused"])
 def test_cuda_paged_attention_splits_match_plain(cuda_device, granularity,
@@ -200,6 +203,12 @@ def test_cuda_paged_attention_row_is_bitwise_invariant(cuda_device,
     bytes at other page ids, and with extra hole columns in the table."""
     c = _split_case(cuda_device, granularity, 16, 2, 128,
                     getattr(torch, dtype))
+    _check_rows_bitwise_invariant(cuda_device, c, granularity)
+
+
+def _check_rows_bitwise_invariant(cuda_device, c, granularity):
+    """Every row of case ``c`` alone, at permuted page ids and with five
+    extra hole columns gives the full call's bits."""
     full = _run_split_case(c, granularity)
     n_entries = c["tables"].shape[1] * 2
     perm = torch.from_numpy(np.random.default_rng(9).permutation(
@@ -424,6 +433,7 @@ def _flash_case(dev, B, Tq, Tk, H, n_kv, dh, dtype, seed=31):
     (32, 2, 64),      # 16 query heads per KV head
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
     (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
+    (48, 8, 128),     # dbrx-132b: 6 query heads per KV head
 ])
 @pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
     (200, 200, 0, False, True),     # full prefill, lengths off the tiles
@@ -452,7 +462,10 @@ def test_cuda_flash_attention_matches_plain(cuda_device, H, n_kv, dh, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,n_kv", [(4, 4), (8, 4), (16, 2)])   # g 1, 2, 8
+@pytest.mark.parametrize("H,n_kv", [
+    (4, 4), (8, 4), (16, 2),        # g 1, 2, 8
+    (48, 8),                        # g 6 (dbrx-132b)
+])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
     (200, 200, 0, False, True),     # full prefill, lengths off the tiles
@@ -464,7 +477,7 @@ def test_cuda_flash_tensor_core_path_matches_plain(cuda_device, H, n_kv, dh,
                                                    Tq, Tk, q_offset,
                                                    with_len, causal):
     """The bf16 tensor-core path at the head dims of zamba2's shared block
-    (64) and qwen2.5-3b (128), g in {1, 2, 8}, at the bf16 tolerance."""
+    (64) and qwen2.5-3b (128), g in {1, 2, 6, 8}, at the bf16 tolerance."""
     q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, dh,
                           torch.bfloat16, seed=33)
     kv_len = (torch.tensor([Tk - 11, Tk], dtype=torch.int32,
@@ -536,7 +549,7 @@ def test_cuda_suffix_prefill_equals_full_prefill_bitwise(cuda_device,
     case spans two row blocks with the suffix inside one."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.lm import LM
-    from repro_torch.models.transformer import PageCtx
+    from repro_torch.models.page_ops import PageCtx
     ptok, mpps = 8, 96
     # The smoke config at head dim 32, the kernel's smallest (bf16 pools).
     cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), d_model=128,
@@ -841,3 +854,301 @@ def test_cuda_recurrent_lm_matches_cpu_plain_path(cuda_device, arch):
     if shapes is not None:
         for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
             torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+# ------------------------------------------------------------------ MLA
+
+MLA_H, MLA_DK, MLA_DV = 16, 576, 512     # deepseek-v2-lite's latent pools
+
+
+def _mla_pools(dev, NP, ptok, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pk = torch.randn((NP, ptok, 1, MLA_DK), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    pv = torch.randn((NP, ptok, 1, MLA_DV), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    q = torch.randn((8, MLA_H, MLA_DK), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return q, pk, pv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("granularity", ["page", "frame"])
+def test_cuda_mla_paged_attention_matches_plain(cuda_device, granularity, B):
+    """MLA's absorbed decode shape (16 query heads on one latent KV head,
+    K 576 / V 512 wide, bf16) over 32 64-token pages per row (2 frames of
+    16 pages), with holes and a partial last block, and at B = 4 a row
+    made only of holes."""
+    rng = np.random.default_rng(21)
+    ptok, fp, NP = 64, 16, 80
+    q, pk, pv = _mla_pools(cuda_device, NP, ptok, seed=B)
+    q = q[:B].contiguous()
+    if granularity == "page":
+        tables, ntok = _block_tables(rng, B, 32, NP, ptok)
+    else:
+        tables, ntok = _block_tables(rng, B, 2, NP // fp, fp * ptok)
+    if B > 1:
+        tables[-1], ntok[-1] = -1, 0
+    tables, ntok = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, ntok))
+    scale = 192 ** -0.5
+    key = f"paged_attention.{granularity}"
+    before = ops.launch_counts()[key]
+    o, m, l = ops.paged_attention_kernel(q, pk, pv, tables, ntok,
+                                         granularity=granularity,
+                                         frame_pages=fp, scale=scale)
+    o_r, m_r, l_r = ref.paged_attention_ref(
+        q, pk, pv, tables, ntok, scale=scale,
+        frame_pages=fp if granularity == "frame" else 1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[key] == before + 1
+    assert o.shape == (B, MLA_H, MLA_DV)
+    live = slice(0, B - 1) if B > 1 else slice(0, 1)
+    torch.testing.assert_close(o[live] / l[live, :, None],
+                               o_r[live] / l_r[live, :, None], rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_r, rtol=1e-5, atol=1e-5)
+    if B > 1:
+        assert (m[-1] == -1e30).all() and (l[-1] == 0).all() \
+            and (o[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", ["page", "frame"])
+def test_cuda_mla_paged_attention_splits_match_plain(cuda_device,
+                                                     granularity):
+    """The split layouts of _split_rows at the MLA shape (several splits
+    with a partial last one, splits of holes, a row of holes)."""
+    c = _split_case(cuda_device, granularity, MLA_H, 1, MLA_DK,
+                    torch.bfloat16, dh_v=MLA_DV)
+    o, m, l = _run_split_case(c, granularity)
+    o_r, m_r, l_r = _run_split_case(c, granularity, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o[:-1] / l[:-1, :, None],
+                               o_r[:-1] / l_r[:-1, :, None], rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(m, m_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_r, rtol=1e-5, atol=1e-5)
+    assert (m[-1] == -1e30).all() and (l[-1] == 0).all() and (o[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", ["page", "frame"])
+def test_cuda_mla_paged_attention_row_is_bitwise_invariant(cuda_device,
+                                                           granularity):
+    """The split-KV contracts at the MLA shape: a row alone equals its row
+    in the batch, at other page ids and with extra hole columns; and a
+    batch of 3 rows gives each row's bits alone."""
+    c = _split_case(cuda_device, granularity, MLA_H, 1, MLA_DK,
+                    torch.bfloat16, dh_v=MLA_DV)
+    _check_rows_bitwise_invariant(cuda_device, c, granularity)
+    three = dict(c)
+    for name in ("q", "tables", "ntok"):
+        three[name] = c[name][:3].contiguous()
+    got = _run_split_case(three, granularity)
+    for b in range(3):
+        alone = dict(c)
+        for name in ("q", "tables", "ntok"):
+            alone[name] = c[name][b:b + 1].contiguous()
+        for x, y in zip(_run_split_case(alone, granularity), got):
+            assert torch.equal(x, y[b:b + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_mla_frames_plus_pages_equal_page_only(cuda_device):
+    """Dual granularity at the MLA shape: coalesced frames through the
+    frame kernel plus splintered pages through the page kernel, combined,
+    equal the page kernel over the same sequences (bf16 tolerance)."""
+    rng = np.random.default_rng(22)
+    ptok, fp, NP, B = 64, 16, 80, 4
+    q, pk, pv = _mla_pools(cuda_device, NP, ptok, seed=3)
+    q = q[:B].contiguous()
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    ft = np.stack([rng.permutation(NP // fp)[:2] for _ in range(B)]
+                  ).astype(np.int32)
+    ft[1, 1] = -1
+    fn = np.where(ft >= 0, fp * ptok, 0).astype(np.int32)
+    pages = np.full((B, 32), -1, np.int32)
+    pn = np.zeros((B, 32), np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, 9))
+        pages[b, :n] = rng.permutation(NP)[:n]
+        pn[b, :n] = ptok
+        pn[b, n - 1] = int(rng.integers(1, ptok + 1))
+    scale = 192 ** -0.5
+    dual = ops.paged_attention_dual(q, pk, pv, t(ft), t(fn), t(pages),
+                                    t(pn), frame_pages=fp, scale=scale)
+    ftp, fnp = ref.frames_to_pages(t(ft), t(fn), frame_pages=fp,
+                                   page_tokens=ptok)
+    o, m, l = ops.paged_attention_kernel(
+        q, pk, pv, torch.cat([ftp, t(pages)], 1).contiguous(),
+        torch.cat([fnp, t(pn)], 1).contiguous(), granularity="page",
+        scale=scale)
+    torch.cuda.synchronize()
+    assert dual.shape == (B, MLA_H, MLA_DV)
+    torch.testing.assert_close(dual, o / l[..., None], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_paged_wrappers_refuse_what_they_do_not_take(cuda_device):
+    """The fused kernel keeps equal widths; the MLA shape is bf16 only;
+    other value widths are refused."""
+    q, pk, pv = _mla_pools(cuda_device, 4, 8, seed=4)
+    tb = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    sl = torch.full((1, 2), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="value head dim 512"):
+        ops.fused_paged_attention_kernel(q[:1], pk, pv, pk[:0], pv[:0], tb,
+                                         sl, tb)
+    with pytest.raises(ValueError, match="takes bf16"):
+        ops.paged_attention_kernel(q[:1].float(), pk, pv, tb, tb,
+                                   granularity="page")
+    with pytest.raises(ValueError, match="value head dim 256"):
+        ops.paged_attention_kernel(q[:1], pk, pv[..., :256].contiguous(),
+                                   tb, tb, granularity="page")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv", [(16, 16), (8, 4)])
+@pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
+    (200, 200, 0, False, True),     # full prefill, lengths off the tiles
+    (77, 300, 223, False, True),    # suffix prefill over a cached prefix
+    (130, 130, 0, True, False),     # non-causal, rows cut at kv_len
+])
+def test_cuda_flash_mla_widths_match_plain(cuda_device, H, n_kv, dtype, Tq,
+                                           Tk, q_offset, with_len, causal):
+    """Keys 192 wide (nope 128 + rope 64), values 128 wide: MLA's expanded
+    prefill (H = n_kv = 16) and a grouped case; bf16 on the tensor cores,
+    f32 on the CUDA cores."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(34)
+    q = torch.randn((2, Tq, H, 192), generator=gen,
+                    device=cuda_device).to(tdt)
+    k = torch.randn((2, Tk, n_kv, 192), generator=gen,
+                    device=cuda_device).to(tdt)
+    v = torch.randn((2, Tk, n_kv, 128), generator=gen,
+                    device=cuda_device).to(tdt)
+    kv_len = (torch.tensor([Tk, Tk - 37], dtype=torch.int32,
+                           device=cuda_device) if with_len else None)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+              scale=192 ** -0.5)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (2, Tq, H, 128) and got.dtype == tdt
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_mla_suffix_rows_equal_full_rows_bitwise(cuda_device,
+                                                            dtype):
+    """At dh 192 / dh_v 128 a suffix call from position 576 gives the full
+    1152-token call's rows bit for bit."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    q = torch.randn((1, 1152, 16, 192), generator=gen,
+                    device=cuda_device).to(tdt)
+    k = torch.randn((1, 1152, 16, 192), generator=gen,
+                    device=cuda_device).to(tdt)
+    v = torch.randn((1, 1152, 16, 128), generator=gen,
+                    device=cuda_device).to(tdt)
+    full = ops.flash_attention(q, k, v, scale=192 ** -0.5)
+    suffix = ops.flash_attention(q[:, 576:].contiguous(), k, v, q_offset=576,
+                                 scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(suffix, full[:, 576:])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_block_bf16_matches_f32(cuda_device):
+    """deepseek-v2-lite's MoE layer at full width (d_model 2048, 64 experts
+    of 1408, top-6, 2 shared) over 256 tokens: the bf16 block on the card
+    against the same block in f32 on the f32 copies of the bf16 weights and
+    inputs.  The router's bf16 logits may reorder a near-tie, which sends
+    a token to another expert, so the routing must agree on at least 95 %
+    of the tokens and the outputs are compared on those at the bf16
+    tolerance (2e-2 relative to the output's scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    p16 = moe.MoEParams(cfg, 1, torch.bfloat16, cuda_device)
+    p16.init_(torch.Generator(device=cuda_device).manual_seed(0))
+    lp16 = {n: w[0] for n, w in p16.named_parameters()}
+    lp32 = {n: w.float() for n, w in lp16.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x16 = torch.randn((1, 256, cfg.d_model), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    y16, aux16 = moe.moe_block(cfg, lp16, x16)
+    y32, aux32 = moe.moe_block(cfg, lp32, x16.float())
+    r16 = moe.route(cfg, lp16["router"], x16)
+    r32 = moe.route(cfg, lp32["router"], x16.float())
+    torch.cuda.synchronize()
+    same = ((r16[2] == r32[2]) & (r16[4] == r32[4])).all(-1)[0]
+    assert float(same.float().mean()) >= 0.95
+    assert bool(torch.isfinite(y16.float()).all())
+    scale = float(y32.abs().max())
+    err = float((y16.float() - y32)[0, same].abs().max())
+    assert err <= 2e-2 * scale, (err, scale)
+    assert abs(float(aux16) - float(aux32)) < 0.05 * float(aux32)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_lm_matches_cpu_plain_path(cuda_device):
+    """dbrx's smoke config at head dim 32 (the attention kernels'
+    smallest) on the card (flash and paged kernels, cuBLAS experts)
+    against the same weights on the CPU (plain versions): prefill of a
+    45-token prompt padded to 48, then two decode steps; logits and pools,
+    f32 throughout, at 1e-3 as the recurrent families' check above (both
+    devices must also route every token to the same experts: a different
+    choice would move the logits far beyond it)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.kv_cache import ShardedKVCache
+    cfg = dataclasses.replace(get_smoke_config("dbrx-132b"),
+                              dtype="float32", d_model=128, n_heads=4)
+    cpu = LM(cfg).init_weights(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    ptok, mpps, NP, T = 8, 12, 32, 45
+    rng = np.random.default_rng(8)
+    toks = np.zeros((1, 48), np.int32)
+    toks[0, :T] = rng.integers(0, cfg.vocab_size, T)
+    new = torch.from_numpy(rng.integers(0, cfg.vocab_size, 2).astype(
+        np.int32))
+    shapes = cpu.pool_shapes(NP, ptok, dtype=torch.float32)
+    runs = {}
+    before = ops.launch_counts()
+    for dev, lm in (("cpu", cpu), ("cuda", card)):
+        cache = ShardedKVCache(PoolGeometry(page_tokens=ptok,
+                                            frame_pages=4), NP, 1)
+        cache.allocate(0, T)
+        pl = tuple(torch.zeros(s, dtype=d, device=dev) for s, d in shapes)
+        logits, pl, _ = lm.prefill(
+            {"tokens": torch.from_numpy(toks).to(dev)}, pl,
+            cache.pack_ctx([0], mpps, device=dev),
+            last_pos=torch.tensor([T - 1], device=dev))
+        out = [logits]
+        for i in range(2):
+            cache.append(0)
+            logits, pl, _ = lm.decode_step(
+                new[i:i + 1].to(dev), torch.tensor([T + i], device=dev), pl,
+                cache.pack_ctx([0], mpps, device=dev))
+            out.append(logits)
+        runs[dev] = (out, pl)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] \
+        == cfg.n_layers
+    assert (after["paged_attention.page"] - before["paged_attention.page"]
+            == 2 * cfg.n_layers)
+    tol = dict(rtol=1e-3, atol=1e-3)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, **tol)

@@ -36,7 +36,7 @@ from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import PoolGeometry as TGeo
 from repro_torch.kernels import ops, ref
 from repro_torch.models.lm import LM as TLM
-from repro_torch.models.transformer import PageCtx as TCtx
+from repro_torch.models.page_ops import PageCtx as TCtx
 from repro_torch.serving.kv_cache import ShardedKVCache as TCache
 
 TOL = dict(rtol=2e-5, atol=2e-5)

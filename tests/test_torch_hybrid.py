@@ -390,9 +390,9 @@ def test_chip_smoke_recurrent_phases_on_cpu():
         cfg = dataclasses.replace(t_smoke(arch), dtype="float32")
         tokens = {}
         for mode in modes:
-            eng, stream, counts, _wall = chip_smoke.serve_recurrent(
+            eng, stream, counts, _wall = chip_smoke.serve_stream(
                 cfg, mode, n, device="cpu")
-            chip_smoke.check_recurrent_run(cfg, mode, eng, stream, counts)
+            chip_smoke.check_stream_run(cfg, mode, eng, stream, counts)
             assert all(v == 0 for v in counts.values())
             tokens[mode] = [r.out for _, r in stream]
         assert all(tokens[m] == tokens[modes[0]] for m in modes)

@@ -51,11 +51,19 @@ from repro_torch.serving.host_tier import PrefixIndex, PrefixPage
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.mamba2 import MambaParams, ssm_stack_prefill
 from repro_torch.models.hybrid import HybridParams, hybrid_stack_decode
-from repro_torch.configs import get_config
+from repro_torch.models.moe import MoEParams, moe_block
+from repro_torch.models.mla import MLAParams, mla_block_decode
+from repro_torch.models.page_ops import PageCtx, paged_attn_op
+from repro_torch.kernels.paged_attention import MLA_DIMS
+from repro_torch.configs import get_config, list_archs
 assert "paged_attention.fused" in KERNELS and "flash_attention" in KERNELS
 assert "ssd_scan" in KERNELS
 assert get_config("zamba2-1.2b").family == "hybrid"
 assert get_config("mamba2-1.3b").family == "ssm"
+assert get_config("deepseek-v2-lite-16b").mla is not None
+assert get_config("dbrx-132b").moe.n_experts == 16
+assert {"deepseek-v2-lite-16b", "dbrx-132b"} <= set(list_archs())
+assert MLA_DIMS == (576, 512)
 assert ServingEngine.__init__.__kwdefaults__["fault_mode"] == "async"
 assert ServingEngine.__init__.__kwdefaults__["prefix_cache"] is True
 print("BAD", sorted(m for m in sys.modules
@@ -67,7 +75,8 @@ print("BAD", sorted(m for m in sys.modules
 def test_async_pipeline_and_fused_kernel_import_without_jax():
     """The modules the slices add or extend (async and fused fault-in,
     the prefix cache, the flash-attention kernel, the SSD-scan kernel, the
-    Mamba-2 and hybrid models and their configs), imported by name."""
+    Mamba-2 and hybrid models, the MoE and MLA models and their configs),
+    imported by name."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _NAMED], env=env,
                          capture_output=True, text=True, timeout=300)

@@ -210,7 +210,7 @@ def test_lm_prefill_and_decode_match_reference(dtype):
 
 
 def test_lm_refuses_unported_families():
-    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="moe")
+    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="encdec")
     with pytest.raises(NotImplementedError, match="later slice"):
         TLM(cfg)
 

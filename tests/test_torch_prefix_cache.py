@@ -40,7 +40,7 @@ from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import PoolGeometry as TGeo
 from repro_torch.models.lm import LM as TLM
 from repro_torch.models.transformer import PREFILL_ROWS
-from repro_torch.models.transformer import PageCtx as TCtx
+from repro_torch.models.page_ops import PageCtx as TCtx
 from repro_torch.serving.engine import EngineStats
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
