@@ -28,7 +28,20 @@ Phases (each synchronised; any failure exits non-zero):
    line): paged attention over latent pools (16 query heads on one KV
    head, K 576 / V 512, page and frame, B = 4 and 1) and flash attention
    at dh 192 / dh_v 128 (full prompt and its suffix, bitwise), and the
-   page copies on the latent pools;
+   page copies on the latent pools.  At the shapes of phases 4g-4i
+   (entries ``<kernel>.<tag>``): flash attention, each also timed beside
+   ``scaled_dot_product_attention`` and with queries at 3x unit scale so
+   that outputs are O(1), non-causal for seamless-m4t's encoder over 4096
+   frames (``.encoder``), its cross-attention of a 1152-row prompt over
+   them (``.cross_prefill``) and of one row per sequence at B = 4, cycling
+   its 24 layers' cross K/V (``.cross_decode``), causal for llava's 2880
+   image + 1152 prompt rows (``.vlm``) and phi3's 1152-token prompt at
+   head dim 96 (``.phi3``); paged attention at g = 4 / dh 128
+   (``.g4d128``, page and frame) and g = 1 / dh 96 (``.g1d96``), its o / l
+   at the f32 tolerance; fused gather-attend at llava's g = 4 / dh 128
+   (``.g4d128``) and seamless's g = 1 / dh 64 (``.g1d64``), each also bit
+   for bit the page kernel on the same bytes; the page copies at phi3's
+   393,216-byte page;
 4. main path: qwen2.5-3b at its published width, bf16, random weights from
    a seed, served by ``ServingEngine`` (mosaic, 2x oversubscribed) over a
    seeded stream with staggered priority arrivals, three times on the same
@@ -84,12 +97,39 @@ Phases (each synchronised; any failure exits non-zero):
 4f. dbrx-132b at its published widths, depth-cut to its first 8 of 40
    layers (~52 GB of bf16; all 40 would not fit the card), the stream's
    first four requests in sync: 8 flash calls per admission, 8 paged calls
-   per step, and the card's memory high-water mark.
+   per step, and the card's memory high-water mark;
+4g. llava-next-mistral-7b at its published width and depth (32 layers,
+   32 heads over 8 KV heads of 128, 2880 image tokens from the engine's
+   zero stub in front of each prompt, bf16, ~7.3 G parameters from a
+   seed) through phase 4's stream and step hook at max_seq 4096, in sync,
+   async and fused: tokens identical, at least one swap, fault and CAC
+   copy, request 0 holding its 2880 image tokens and its prompt, 32 flash
+   calls per admission (over 2880 + the padded prompt's rows) and 32
+   paged (or fused) per step, no prefix cache; then cut to 2 layers on
+   the card against the CPU (in float32) with random image embeddings;
+4h. seamless-m4t-large-v2 at its published width and depth (24 encoder +
+   24 decoder layers, 16 heads of 64, source_len 4096 zero frames from the
+   stub, vocab 256206, bf16) through the same stream and hook in sync,
+   async and fused: tokens identical, at least one swap and fault, 72
+   flash calls per admission (24 encoder, 24 self-, 24 cross-attention)
+   and per step 24 paged (or fused) and 24 cross-attention flash calls,
+   the encoder's and the cross-attention's as the wrapper counts them by
+   call site;
+   then cut to 2 + 2 layers on the card against the CPU with random
+   source frames (logits, pools and cross K/V);
+4i. llama3-8b, phi3-mini-3.8b and qwen3-8b at their published widths and
+   depths, one after another, the stream's first four requests in sync,
+   launches accounted for per layer; qwen3-8b (qk-norm) also cut to 2
+   layers on the card against the CPU.
 
-Ends with a JSON line of per-kernel numbers (launches summed over the
-main-path runs of phases 4, 4c, 4d and 4f; the ``.mla`` entries count
-phase 4e's) and, last, the ok line.  Of the serving phases only 4f is cut in
-depth.
+Ends with the script's total time, a JSON line of per-kernel numbers and,
+last, the ok line.  Launches of an entry: those of its kernel at the
+entry's shapes in the serving runs (``family_entries``): ``.mla`` from
+phase 4e, ``.vlm`` and ``.g4d128`` from 4g and 4i, ``.phi3`` and
+``.g1d96`` from phi3's run, ``.g1d64`` and the flash kernel's counts by
+call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
+4h; every other launch of phases 4, 4c, 4d and 4f-4i under its
+kernel's own entry.  Of the serving phases only 4f is cut in depth.
 """
 
 from __future__ import annotations
@@ -111,6 +151,10 @@ sys.path.insert(0, str(ROOT / "src"))
 ARCH = "qwen2.5-3b"
 HYBRID_ARCH, SSM_ARCH = "zamba2-1.2b", "mamba2-1.3b"
 MLA_ARCH, MOE_ARCH = "deepseek-v2-lite-16b", "dbrx-132b"
+VLM_ARCH, ENCDEC_ARCH = "llava-next-mistral-7b", "seamless-m4t-large-v2"
+DENSE_ARCHS = ("llama3-8b", "phi3-mini-3.8b", "qwen3-8b")   # phase 4i
+DENSE_REQUESTS = 4      # phase 4i serves the stream's first four requests
+VLM_MAX_SEQ = 4096      # 2880 image tokens + a 1100-token prompt + decode
 SSM_REQUESTS = 4        # phase 4d serves the stream's first four requests
 MOE_REQUESTS = 4        # and phase 4f too
 MOE_LAYERS = 8          # phase 4f: dbrx's first 8 of 40 layers (52 GB)
@@ -126,6 +170,12 @@ BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
 SSD_TOL = dict(rtol=3e-2, atol=3e-2)    # bf16 inputs (tests/test_kernels.py)
 ML_TOL = dict(rtol=1e-5, atol=1e-5)     # f32 accumulators, other sum order
+# Query scale of phase 3's flash checks at the new families' shapes.  At
+# unit scale the softmax over thousands of keys is near uniform and every
+# output is a mean of ~Tk values (about 0.03), under ATTN_TOL; at 3 the
+# scores are N(0, 9), a few keys carry each row, the outputs are O(1), and
+# a skipped or mis-masked key tile moves rows by far more than ATTN_TOL.
+PEAK_Q = 3.0
 
 MODES = ("sync", "async", "fused")
 SSM_MODES = ("sync", "async")
@@ -242,6 +292,7 @@ class MainPathEvents:
 
     def __init__(self, cfg):
         self.cfg = cfg
+        self.first_len = None     # request 0's pool tokens at step 1
         self.probe_frames = 0
         self.probe_err = float("nan")
         self.cac_checked = False
@@ -249,6 +300,8 @@ class MainPathEvents:
         self._tokens = 0
 
     def __call__(self, step, eng):
+        if step == 1:
+            self.first_len = eng.cache.seq_tokens.get(0)
         if step == PROBE_STEP:
             self._probe(eng)
         elif step == TRIM_STEP:
@@ -437,78 +490,11 @@ def phase_kernels(cfg, results):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     pool_k, pool_v = randn(NP, ptok, n_kv, dh), randn(NP, ptok, n_kv, dh)
-    kall, vall = randn(L, NP, ptok, n_kv, dh), randn(L, NP, ptok, n_kv, dh)
 
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    # Paged attention, both granularities, B in {1, 4, 8}.
-    for gran, n_blocks, n_entries, tpb in (
-            ("page", mpps, NP, ptok), ("frame", mpps // fp, NP // fp,
-                                       fp * ptok)):
-        name = f"paged_attention.{gran}"
-        errs = []
-        for B in (1, 4, 8):
-            q = randn(B, H, dh)
-            tb, nt = _tables(rng, B, n_blocks, n_entries, tpb)
-            if B == 8:
-                tb[-1], nt[-1] = -1, 0          # a row made only of holes
-            tb, nt = t(tb), t(nt)
-            o, m, l = ops.paged_attention_kernel(
-                q, pool_k, pool_v, tb, nt, granularity=gran,
-                frame_pages=fp, scale=scale)
-            o_r, m_r, l_r = ref.paged_attention_ref(
-                q, pool_k, pool_v, tb, nt, scale=scale,
-                frame_pages=fp if gran == "frame" else 1)
-            torch.cuda.synchronize()
-            on = o / torch.clamp(l[..., None], min=1e-30)
-            on_r = o_r / torch.clamp(l_r[..., None], min=1e-30)
-            torch.testing.assert_close(on, on_r, **ATTN_TOL)
-            torch.testing.assert_close(m, m_r, **ML_TOL)
-            torch.testing.assert_close(l, l_r, **ML_TOL)
-            require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
-            if B == 8:
-                require(bool((m[-1] == -1e30).all() and (l[-1] == 0).all()
-                             and (o[-1] == 0).all()),
-                        f"{name}: all-hole row must give m=-1e30, l=0, o=0")
-            errs.append(float((on - on_r).abs().max()))
-            if B == 1:
-                # A lone decoding request, over all L layers' pools in turn.
-                b1_ms = graph_ms(cycling(functools.partial(
-                    ops.paged_attention_kernel, granularity=gran,
-                    frame_pages=fp, scale=scale),
-                    [(q, kall[i], vall[i], tb, nt) for i in range(L)]))
-                b1_tokens = int(nt.sum())
-            if B == MAX_BATCH:
-                # Timed over all L layers' pools in turn, as decode reads
-                # them: 2 x 94 MB, beyond the 50 MB L2.
-                tokens = int(nt.sum())
-                nbytes = (2 * tokens * n_kv * dh * 2 + q.numel() * 2
-                          + 2 * tb.numel() * 4 + B * H * (dh + 2) * 4)
-                b_ms, b_by = bound_ms(nbytes, 4 * H * dh * tokens)
-                layers = [(q, kall[i], vall[i], tb, nt) for i in range(L)]
-                kw = dict(scale=scale)
-                timing = dict(
-                    ms=graph_ms(cycling(functools.partial(
-                        ops.paged_attention_kernel, granularity=gran,
-                        frame_pages=fp, **kw), layers)),
-                    plain_ms=eager_ms(cycling(functools.partial(
-                        ref.paged_attention_ref,
-                        frame_pages=fp if gran == "frame" else 1, **kw),
-                        layers)),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    shape=f"B={B} H={H} n_kv={n_kv} dh={dh} "
-                          f"blocks={n_blocks} tokens={tokens}")
-        results[name] = dict(max_abs_err=max(errs), **timing)
-        print(f"[kernel] {name}: max_abs_err {max(errs):.3g} | "
-              f"kernel_ms {timing['ms']:.4f} plain_ms "
-              f"{timing['plain_ms']:.4f} bound_ms {timing['bound_ms']:.5f} "
-              f"library_ms none (no single PyTorch call computes paged "
-              f"attention) | {timing['shape']} | splits "
-              f"{pa.split_count(n_blocks, tpb)} of {pa.SPLIT_TOKENS} "
-              f"positions, grid {pa.split_count(n_blocks, tpb)}x{n_kv}x"
-              f"{MAX_BATCH} + combine | B=1 ({b1_tokens} tokens): kernel_ms "
-              f"{b1_ms:.4f}")
+    paged_entries(results, H, n_kv, dh, L, "", rng, randn)
 
     # Frames combined with pages == page-only over the same sequences.
     B = MAX_BATCH
@@ -535,65 +521,7 @@ def phase_kernels(cfg, results):
     torch.testing.assert_close(dual, o / l[..., None], **ATTN_TOL)
     print("[kernel] frames+pages == page-only on the same sequences: ok")
 
-    # Fused gather-attend at the page kernel's shapes, about half of the
-    # valid pages staged.  The stage holds each staged page's bytes; the
-    # pool copies are overwritten, so reading the wrong source shows.
-    name = "paged_attention.fused"
-    q = randn(B, H, dh)
-    tb, nt = _tables(rng, B, mpps, NP, ptok)
-    late = (tb >= 0) & (rng.random(tb.shape) < 0.5)
-    n_staged = int(late.sum())
-    require(0 < n_staged < int((tb >= 0).sum()), "fused case stages no page")
-    slots = np.full(tb.shape, -1, np.int32)
-    slots[late] = np.arange(n_staged, dtype=np.int32)
-    ids = t(tb[late]).long()
-    tb, nt, sl = t(tb), t(nt), t(slots)
-    st_k, st_v = kall[:, ids].contiguous(), vall[:, ids].contiguous()
-    pk0, pv0 = kall[0].clone(), vall[0].clone()
-    pk0[ids], pv0[ids] = randn(n_staged, ptok, n_kv, dh), \
-        randn(n_staged, ptok, n_kv, dh)
-    args = (q, pk0, pv0, st_k[0], st_v[0], tb, sl, nt)
-    o, m, l = ops.fused_paged_attention_kernel(*args, scale=scale)
-    o_r, m_r, l_r = ref.fused_paged_attention_ref(*args, scale=scale)
-    torch.cuda.synchronize()
-    on, on_r = o / l[..., None], o_r / l_r[..., None]
-    torch.testing.assert_close(on, on_r, **ATTN_TOL)
-    torch.testing.assert_close(m, m_r, **ML_TOL)
-    torch.testing.assert_close(l, l_r, **ML_TOL)
-    require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
-    # Same bytes as the page kernel reads: bit for bit, staged or not.
-    base = ops.paged_attention_kernel(q, kall[0], vall[0], tb, nt,
-                                      granularity="page", scale=scale)
-    for sl_case in (sl, torch.full_like(sl, -1)):
-        got = ops.fused_paged_attention_kernel(
-            q, kall[0], vall[0], st_k[0], st_v[0], tb, sl_case, nt,
-            scale=scale)
-        require(all(torch.equal(a, b) for a, b in zip(got, base)),
-                f"{name}: not bitwise the page kernel on the same bytes")
-    tokens = int(nt.sum())
-    nbytes = (2 * tokens * n_kv * dh * 2 + q.numel() * 2
-              + 3 * tb.numel() * 4 + B * H * (dh + 2) * 4)
-    b_ms, b_by = bound_ms(nbytes, 4 * H * dh * tokens)
-    # Timed over all L layers' pools and stages in turn, as decode reads
-    # them: 2 x 94 MB of pools plus the stages, beyond the 50 MB L2.
-    layers = [(q, kall[i], vall[i], st_k[i], st_v[i], tb, sl, nt)
-              for i in range(L)]
-    results[name] = dict(
-        max_abs_err=float((on - on_r).abs().max()),
-        ms=graph_ms(cycling(functools.partial(
-            ops.fused_paged_attention_kernel, scale=scale), layers)),
-        plain_ms=eager_ms(cycling(functools.partial(
-            ref.fused_paged_attention_ref, scale=scale), layers)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B={B} H={H} n_kv={n_kv} dh={dh} blocks={mpps} "
-              f"tokens={tokens} staged={n_staged}/{int((tb >= 0).sum())}")
-    r = results[name]
-    print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g}, bitwise "
-          f"== page kernel on the same bytes | kernel_ms {r['ms']:.4f} "
-          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-          f"library_ms none (no single PyTorch call computes it) | "
-          f"{r['shape']} | splits {pa.split_count(mpps, ptok)} of "
-          f"{pa.SPLIT_TOKENS} positions + combine")
+    fused_entry(results, H, n_kv, dh, L, "", rng, randn)
 
     # Prefill flash attention at the path's shapes: (a) a full FLASH_T-token
     # prompt, (b) its suffix from position FLASH_P over all FLASH_T keys (a
@@ -722,6 +650,180 @@ def phase_kernels(cfg, results):
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} library_ms "
               f"{r['library_ms']:.4f} | {r['shape']}")
     torch.cuda.synchronize()
+
+
+def paged_entries(results, H, n_kv, dh, L, suffix, rng, randn,
+                  grans=("page", "frame")):
+    """Paged attention at ``grans`` granularities, B in {1, 4, 8}, over an
+    80-page pool with holes and partial last blocks (B = 8: a row made only
+    of holes), against its plain version (o / l, m and l: f32 accumulators
+    in another order, so at ML_TOL, far below the outputs' scale); timed at
+    B = MAX_BATCH and B = 1 cycling over ``L`` layers' pools as decode
+    reads them (beyond the 50 MB L2).  Stores ``paged_attention.<granularity><suffix>`` in ``results``
+    and prints a [kernel] line for each."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    geo = PoolGeometry()
+    ptok, fp = geo.page_tokens, geo.frame_pages
+    NP, mpps = 80, MAX_SEQ // ptok
+    scale = dh ** -0.5
+    kall, vall = randn(L, NP, ptok, n_kv, dh), randn(L, NP, ptok, n_kv, dh)
+    pool_k, pool_v = kall[0], vall[0]
+
+    def t(a):
+        return torch.from_numpy(a).to(kall.device)
+    for gran, n_blocks, n_entries, tpb in (
+            ("page", mpps, NP, ptok), ("frame", mpps // fp, NP // fp,
+                                       fp * ptok)):
+        if gran not in grans:
+            continue
+        name = f"paged_attention.{gran}{suffix}"
+        errs, o_scale = [], 0.0
+        for B in (1, 4, 8):
+            q = randn(B, H, dh)
+            tb, nt = _tables(rng, B, n_blocks, n_entries, tpb)
+            if B == 8:
+                tb[-1], nt[-1] = -1, 0          # a row made only of holes
+            tb, nt = t(tb), t(nt)
+            o, m, l = ops.paged_attention_kernel(
+                q, pool_k, pool_v, tb, nt, granularity=gran,
+                frame_pages=fp, scale=scale)
+            o_r, m_r, l_r = ref.paged_attention_ref(
+                q, pool_k, pool_v, tb, nt, scale=scale,
+                frame_pages=fp if gran == "frame" else 1)
+            torch.cuda.synchronize()
+            on = o / torch.clamp(l[..., None], min=1e-30)
+            on_r = o_r / torch.clamp(l_r[..., None], min=1e-30)
+            torch.testing.assert_close(on, on_r, **ML_TOL)
+            torch.testing.assert_close(m, m_r, **ML_TOL)
+            torch.testing.assert_close(l, l_r, **ML_TOL)
+            require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
+            if B == 8:
+                require(bool((m[-1] == -1e30).all() and (l[-1] == 0).all()
+                             and (o[-1] == 0).all()),
+                        f"{name}: all-hole row must give m=-1e30, l=0, o=0")
+            errs.append(float((on - on_r).abs().max()))
+            o_scale = max(o_scale, float(on_r.abs().max()))
+            if B == 1:
+                # A lone decoding request, over all L layers' pools in turn.
+                b1_ms = graph_ms(cycling(functools.partial(
+                    ops.paged_attention_kernel, granularity=gran,
+                    frame_pages=fp, scale=scale),
+                    [(q, kall[i], vall[i], tb, nt) for i in range(L)]))
+                b1_tokens = int(nt.sum())
+            if B == MAX_BATCH:
+                # Timed over all L layers' pools in turn, as decode reads
+                # them: 2 x 94 MB, beyond the 50 MB L2.
+                tokens = int(nt.sum())
+                nbytes = (2 * tokens * n_kv * dh * 2 + q.numel() * 2
+                          + 2 * tb.numel() * 4 + B * H * (dh + 2) * 4)
+                b_ms, b_by = bound_ms(nbytes, 4 * H * dh * tokens)
+                layers = [(q, kall[i], vall[i], tb, nt) for i in range(L)]
+                kw = dict(scale=scale)
+                timing = dict(
+                    ms=graph_ms(cycling(functools.partial(
+                        ops.paged_attention_kernel, granularity=gran,
+                        frame_pages=fp, **kw), layers)),
+                    plain_ms=eager_ms(cycling(functools.partial(
+                        ref.paged_attention_ref,
+                        frame_pages=fp if gran == "frame" else 1, **kw),
+                        layers)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=f"B={B} H={H} n_kv={n_kv} dh={dh} "
+                          f"blocks={n_blocks} tokens={tokens}")
+        results[name] = dict(max_abs_err=max(errs), **timing)
+        print(f"[kernel] {name}: max_abs_err {max(errs):.3g} (output scale "
+              f"{o_scale:.3g}) | kernel_ms {timing['ms']:.4f} plain_ms "
+              f"{timing['plain_ms']:.4f} bound_ms {timing['bound_ms']:.5f} "
+              f"library_ms none (no single PyTorch call computes paged "
+              f"attention) | {timing['shape']} | splits "
+              f"{pa.split_count(n_blocks, tpb)} of {pa.SPLIT_TOKENS} "
+              f"positions, grid {pa.split_count(n_blocks, tpb)}x{n_kv}x"
+              f"{MAX_BATCH} + combine | B=1 ({b1_tokens} tokens): kernel_ms "
+              f"{b1_ms:.4f}")
+
+
+def fused_entry(results, H, n_kv, dh, L, suffix, rng, randn,
+                max_seq=MAX_SEQ):
+    """Fused gather-attend at B = MAX_BATCH over an 80-page pool with
+    about half of the valid pages staged and page tables as wide as
+    ``max_seq``, against its plain version (o / l and m, l at the f32
+    tolerance) and bit for bit against the page kernel where it reads the
+    same bytes, staged or not; timed cycling over ``L`` layers' pools and
+    stages as decode reads them.  Stores ``paged_attention.fused<suffix>``
+    in ``results``."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    name = f"paged_attention.fused{suffix}"
+    NP, ptok, B = 80, PoolGeometry().page_tokens, MAX_BATCH
+    n_blocks = max_seq // ptok
+    scale = dh ** -0.5
+    kall, vall = randn(L, NP, ptok, n_kv, dh), randn(L, NP, ptok, n_kv, dh)
+
+    def t(a):
+        return torch.from_numpy(a).to(kall.device)
+    # The stage holds each staged page's bytes; the pool copies are
+    # overwritten, so reading the wrong source shows.
+    q = randn(B, H, dh)
+    tb, nt = _tables(rng, B, n_blocks, NP, ptok)
+    late = (tb >= 0) & (rng.random(tb.shape) < 0.5)
+    n_staged = int(late.sum())
+    require(0 < n_staged < int((tb >= 0).sum()), "fused case stages no page")
+    slots = np.full(tb.shape, -1, np.int32)
+    slots[late] = np.arange(n_staged, dtype=np.int32)
+    ids = t(tb[late]).long()
+    tb, nt, sl = t(tb), t(nt), t(slots)
+    st_k, st_v = kall[:, ids].contiguous(), vall[:, ids].contiguous()
+    pk0, pv0 = kall[0].clone(), vall[0].clone()
+    pk0[ids], pv0[ids] = randn(n_staged, ptok, n_kv, dh), \
+        randn(n_staged, ptok, n_kv, dh)
+    args = (q, pk0, pv0, st_k[0], st_v[0], tb, sl, nt)
+    o, m, l = ops.fused_paged_attention_kernel(*args, scale=scale)
+    o_r, m_r, l_r = ref.fused_paged_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    on, on_r = o / l[..., None], o_r / l_r[..., None]
+    torch.testing.assert_close(on, on_r, **ML_TOL)
+    torch.testing.assert_close(m, m_r, **ML_TOL)
+    torch.testing.assert_close(l, l_r, **ML_TOL)
+    require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
+    # Same bytes as the page kernel reads: bit for bit, staged or not.
+    base = ops.paged_attention_kernel(q, kall[0], vall[0], tb, nt,
+                                      granularity="page", scale=scale)
+    for sl_case in (sl, torch.full_like(sl, -1)):
+        got = ops.fused_paged_attention_kernel(
+            q, kall[0], vall[0], st_k[0], st_v[0], tb, sl_case, nt,
+            scale=scale)
+        require(all(torch.equal(a, b) for a, b in zip(got, base)),
+                f"{name}: not bitwise the page kernel on the same bytes")
+    tokens = int(nt.sum())
+    nbytes = (2 * tokens * n_kv * dh * 2 + q.numel() * 2
+              + 3 * tb.numel() * 4 + B * H * (dh + 2) * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * H * dh * tokens)
+    # Timed over all L layers' pools and stages in turn, as decode reads
+    # them, beyond the 50 MB L2.
+    layers = [(q, kall[i], vall[i], st_k[i], st_v[i], tb, sl, nt)
+              for i in range(L)]
+    results[name] = dict(
+        max_abs_err=float((on - on_r).abs().max()),
+        ms=graph_ms(cycling(functools.partial(
+            ops.fused_paged_attention_kernel, scale=scale), layers)),
+        plain_ms=eager_ms(cycling(functools.partial(
+            ref.fused_paged_attention_ref, scale=scale), layers)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B={B} H={H} n_kv={n_kv} dh={dh} blocks={n_blocks} "
+              f"tokens={tokens} staged={n_staged}/{int((tb >= 0).sum())}")
+    r = results[name]
+    print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3g} (output "
+          f"scale {float(on_r.abs().max()):.3g}), bitwise == page kernel on "
+          f"the same bytes | kernel_ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} library_ms none "
+          f"(no single PyTorch call computes it) | {r['shape']} | splits "
+          f"{pa.split_count(n_blocks, ptok)} of {pa.SPLIT_TOKENS} positions "
+          f"+ combine")
 
 
 def flash_tiles(H, n_kv, T):
@@ -1009,6 +1111,150 @@ def phase_mla_kernels(results):
     check_copies(vall, rng, randn, "deepseek latent V")
 
 
+def flash_entry(results, name, B, Tq, Tk, H, n_kv, dh, causal, randn,
+                n_sets=1, what=""):
+    """Flash attention at one shape of the path (q [B, Tq, H, dh] over k, v
+    [B, Tk, n_kv, dh], bf16; causal calls have Tq == Tk) against its plain
+    version, with queries drawn at PEAK_Q times the unit scale so that each
+    row's output is O(1) and ATTN_TOL judges it, timed beside its bound and
+    beside
+    ``scaled_dot_product_attention`` at the same shape (a yardstick: the
+    port never calls it).  ``n_sets`` > 1 cycles the timed calls over that
+    many K/V sets (decode's cross-attention reads every decoder layer's
+    cross K/V in turn, beyond the 50 MB L2).  Stores ``name`` in
+    ``results``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    q = randn(B, Tq, H, dh) * PEAK_Q
+    kvs = [(randn(B, Tk, n_kv, dh), randn(B, Tk, n_kv, dh))
+           for _ in range(n_sets)]
+    k, v = kvs[0]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    b_ms, b_by = bound_ms(2 * (2 * B * Tq * H * dh + 2 * B * Tk * n_kv * dh),
+                          4 * B * H * dh * pairs)
+    qt = q.transpose(1, 2).contiguous()
+    kvt = [tuple(x.transpose(1, 2).contiguous() for x in kv) for kv in kvs]
+    results[name] = dict(
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=graph_ms(cycling(functools.partial(ops.flash_attention,
+                                              causal=causal),
+                            [(q, *kv) for kv in kvs])),
+        plain_ms=eager_ms(cycling(functools.partial(
+            ref.flash_attention_ref, causal=causal),
+            [(q, *kv) for kv in kvs])),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(cycling(functools.partial(
+            F.scaled_dot_product_attention, is_causal=causal,
+            enable_gqa=True), [(qt, *kv) for kv in kvt])),
+        shape=f"B={B} Tq={Tq} Tk={Tk} H={H} n_kv={n_kv} dh={dh} "
+              f"{'causal' if causal else 'non-causal'}")
+    r = results[name]
+    g = H // n_kv
+    print(f"[kernel] {name} ({what}): max_abs_err {r['max_abs_err']:.3g} "
+          f"(output scale {float(want.float().abs().max()):.3g}) | "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms "
+          f"{r['library_ms']:.4f} (scaled_dot_product_attention) | "
+          f"{r['shape']} | tiles 64 rows ({g} heads x {64 // g} positions) x "
+          f"64 keys, grid {-(-Tq // (64 // g))}x{n_kv}x{B}"
+          f"{f', cycling {n_sets} K/V sets' if n_sets > 1 else ''}")
+
+
+def time_copies(pool, rng, label):
+    """page_gather, page_scatter and page_compact on the stacked pool
+    ``pool`` [L, NP, ...], timed cycling over disjoint page sets that cover
+    the pool (13 pages with a hole; 4 copies with a hole on each side)
+    beside their bounds; printed."""
+    import torch
+    from repro_torch.kernels import ops
+    L, NP = pool.shape[:2]
+    dev = pool.device
+    page = pool[0, 0].numel() * pool.element_size()
+    perm = rng.permutation(NP).astype(np.int32)
+    sets = [perm[i * 13:(i + 1) * 13].copy() for i in range(NP // 13)]
+    for s_ in sets:
+        s_[3] = -1
+    sets = [torch.from_numpy(s_).to(dev) for s_ in sets]
+    pages = pool[:, :13].clone()
+    plans = []
+    for i in range(NP // 8):
+        c = perm[i * 8:(i + 1) * 8].copy()
+        src, dst = c[:4].copy(), c[4:].copy()
+        src[1] = dst[2] = -1
+        plans.append(tuple(torch.from_numpy(a).to(dev) for a in (src, dst)))
+    a = pool.clone()
+    parts = []
+    for name, fn, args, n_valid in (
+            ("page_gather", ops.page_gather, [(pool, i) for i in sets], 12),
+            ("page_scatter", ops.page_scatter, [(a, i, pages) for i in sets],
+             12),
+            ("page_compact", ops.page_compact, [(a, s_, d_)
+                                                for s_, d_ in plans], 2)):
+        b_ms, _ = bound_ms(2 * L * n_valid * page)
+        parts.append(f"{name} kernel_ms {graph_ms(cycling(fn, args)):.4f} "
+                     f"bound_ms {b_ms:.5f}")
+    print(f"[kernel] page copies ({label}, L={L} page={page}B): "
+          f"{' | '.join(parts)} (bytes)")
+
+
+def phase_family_kernels(results):
+    """Phase 3 at the shapes of phases 4g-4i (see the module doc): flash
+    attention for seamless's encoder (e), its cross-attention at prefill
+    (x) and at decode (d), llava's prefill over the image and the prompt
+    (v) and phi3's prefill (p); paged attention at g = 4 / dh 128 (llama3,
+    qwen3, llava) and g = 1 / dh 96 (phi3); fused gather-attend at llava's
+    g = 4 / dh 128 and seamless's g = 1 / dh 64 (its two fused paths); the
+    page copies at phi3's 393,216-byte page.  Entries ``<kernel>.<tag>`` of
+    the kernels line."""
+    import torch
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    sm = get_config(ENCDEC_ARCH)
+    S, Ld = sm.encdec.source_len, sm.encdec.dec_layers
+    H, dh = sm.n_heads, sm.resolved_head_dim
+    flash_entry(results, "flash_attention.encoder", 1, S, S, H,
+                sm.n_kv_heads, dh, False, randn, what="seamless encoder")
+    flash_entry(results, "flash_attention.cross_prefill", 1, FLASH_T, S, H,
+                sm.n_kv_heads, dh, False, randn,
+                what="seamless cross-attention at prefill")
+    flash_entry(results, "flash_attention.cross_decode", MAX_BATCH, 1, S, H,
+                sm.n_kv_heads, dh, False, randn, n_sets=Ld,
+                what="seamless cross-attention at decode")
+    lv = get_config(VLM_ARCH)
+    T = lv.frontend_tokens + FLASH_T
+    flash_entry(results, "flash_attention.vlm", 1, T, T, lv.n_heads,
+                lv.n_kv_heads, lv.resolved_head_dim, True, randn,
+                what="llava prefill, image + prompt")
+    ph = get_config("phi3-mini-3.8b")
+    flash_entry(results, "flash_attention.phi3", 1, FLASH_T, FLASH_T,
+                ph.n_heads, ph.n_kv_heads, ph.resolved_head_dim, True, randn,
+                what="phi3 prefill")
+    paged_entries(results, lv.n_heads, lv.n_kv_heads, lv.resolved_head_dim,
+                  lv.n_layers, ".g4d128", rng, randn)
+    paged_entries(results, ph.n_heads, ph.n_kv_heads, ph.resolved_head_dim,
+                  ph.n_layers, ".g1d96", rng, randn, grans=("page",))
+    fused_entry(results, lv.n_heads, lv.n_kv_heads, lv.resolved_head_dim,
+                lv.n_layers, ".g4d128", rng, randn, max_seq=VLM_MAX_SEQ)
+    fused_entry(results, H, sm.n_kv_heads, dh, Ld, ".g1d64", rng, randn)
+    pool = randn(ph.n_layers, 80, 64, ph.n_kv_heads, ph.resolved_head_dim)
+    check_copies(pool, rng, randn, "phi3-mini-3.8b")
+    time_copies(pool, rng, "phi3-mini-3.8b")
+    del pool
+    torch.cuda.empty_cache()
+
+
 def ssd_bound(B, T, nh, hd, N, Q, with_h0, G):
     """Bytes (x in bf16 and B, C at their G groups in bf16, dt and A in f32
     read once; y and the final state in f32 written once; h0 read once)
@@ -1069,7 +1315,14 @@ def phase_ssd_kernel(results):
           f"{rest} (B, T, nh, hd, N, Q, h0, G)")
 
 
-def serve_mode(cfg, mode, params=None, device=None):
+def read_counts():
+    """Every kernel's launch count and the flash kernel's by call site
+    (``flash_attention.<site>``), as the wrappers counted them."""
+    from repro_torch.kernels import ops
+    return {**ops.launch_counts(), **ops.flash_site_counts()}
+
+
+def serve_mode(cfg, mode, params=None, device=None, max_seq=MAX_SEQ):
     """One main-path run: the stream served in ``mode`` with the step
     hook, launch counters reset just before and read just after.
     Returns (engine, stream, events, launch counts, wall seconds)."""
@@ -1078,7 +1331,7 @@ def serve_mode(cfg, mode, params=None, device=None):
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
-                        max_seq=MAX_SEQ, manager_kind="mosaic",
+                        max_seq=max_seq, manager_kind="mosaic",
                         oversubscription=OVERSUB, fault_mode=mode, seed=0,
                         params=params, device=device)
     stream = make_stream(cfg.vocab_size)
@@ -1091,7 +1344,7 @@ def serve_mode(cfg, mode, params=None, device=None):
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, stream, events, ops.launch_counts(), wall
+    return eng, stream, events, read_counts(), wall
 
 
 def check_mode_run(cfg, mode, eng, stream, events, counts):
@@ -1110,6 +1363,11 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
     require(events.cac_checked, f"{mode}: CAC coherence not checked")
     require(events.probe_frames >= 1, f"{mode}: no coalesced frame in the "
             f"probe")
+    n_prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    require(events.first_len == n_prefix + len(stream[0][1].prompt) + 1,
+            f"{mode}: request 0 holds {events.first_len} pool tokens after "
+            f"its first decode step, not its {n_prefix} frontend tokens + "
+            f"its prompt + 1")
     require(s.h2d_bytes == s.faults * eng.page_bytes,
             f"{mode}: {s.h2d_bytes} B copied to the card for {s.faults} "
             f"faulted pages of {eng.page_bytes} B")
@@ -1127,7 +1385,8 @@ def check_mode_run(cfg, mode, eng, stream, events, counts):
     if eng.device.type != "cuda":
         return
     path = [k for k in counts if k != "ssd_scan" and (
-        k != "paged_attention.fused" or mode == "fused")]
+        k != "paged_attention.fused" or mode == "fused") and (
+        cfg.family == "encdec" or not k.startswith("flash_attention."))]
     require(all(counts[k] > 0 for k in path),
             f"{mode}: a kernel of the path never launched: {counts}")
     check_launches(cfg, mode, s, counts, probes=1)
@@ -1151,32 +1410,57 @@ def check_prefix_state(cfg, label, eng, stream):
                 f"parked)")
 
 
-def path_layers(cfg):
-    """(attention layers, Mamba-2 layers) that one prefill or decode step
-    of ``cfg`` runs: the dense stack's layers, the hybrid's shared-block
-    invocations and Mamba-2 layers, or the ssm stack's layers."""
+def path_launches(cfg):
+    """Launches of one prefill and of one decode step of ``cfg``: (flash
+    attentions and SSD scans per prefill, paged (or fused) attentions and
+    flash attentions per decode step).  Dense, vlm and moe stacks: one
+    flash per layer at prefill, one paged per layer at decode; hybrid: its
+    shared-block invocations and its Mamba-2 layers; ssm: its layers'
+    scans; encdec: the encoder's layers plus the decoder's self- and
+    cross-attention at prefill, and per decode step the decoder's paged
+    self-attention and flash cross-attention."""
     from repro_torch.models.hybrid import n_invocations
     if cfg.family == "ssm":
-        return 0, cfg.n_layers
+        return 0, cfg.n_layers, 0, 0
     if cfg.family == "hybrid":
-        return n_invocations(cfg), cfg.n_layers
-    return cfg.n_layers, 0
+        return n_invocations(cfg), cfg.n_layers, n_invocations(cfg), 0
+    if cfg.family == "encdec":
+        e = cfg.encdec
+        return e.enc_layers + 2 * e.dec_layers, 0, e.dec_layers, e.dec_layers
+    return cfg.n_layers, 0, cfg.n_layers, 0
+
+
+def site_launches(cfg, admissions, steps):
+    """The flash kernel's launches by call site over ``admissions``
+    prefills and ``steps`` decode steps: encdec's encoder layers and its
+    cross-attention layers at prefill and at each decode step; none for
+    the other families."""
+    enc = dec = 0
+    if cfg.family == "encdec":
+        enc, dec = cfg.encdec.enc_layers, cfg.encdec.dec_layers
+    return {"flash_attention.encoder": enc * admissions,
+            "flash_attention.cross_prefill": dec * admissions,
+            "flash_attention.cross_decode": dec * steps}
 
 
 def check_launches(cfg, label, s, counts, probes=0):
-    """Every prefill attention layer (full or suffix) ran the flash kernel
-    and every prefill Mamba-2 layer the SSD scan, every decode attention
-    layer a paged kernel (the fused one on steps that read staged pages;
-    ``probes``: extra page-kernel calls of the dual probe), every landing
-    the scatter and every eviction or park the gather, each for the K and
-    V pools."""
-    L, L_ssd = path_layers(cfg)
+    """Every prefill attention (full or suffix) ran the flash kernel and
+    every prefill Mamba-2 layer the SSD scan, every decode self-attention a
+    paged kernel (the fused one on steps that read staged pages;
+    ``probes``: extra page-kernel calls of the dual probe) and every decode
+    cross-attention the flash kernel, every landing the scatter and every
+    eviction or park the gather, each for the K and V pools; the flash
+    launches of each encdec call site as ``site_launches``."""
+    f_pre, ssd_pre, p_step, f_step = path_launches(cfg)
     admissions = s.admit_colds + s.admit_hits
-    require(counts["flash_attention"] == L * admissions
-            and counts["ssd_scan"] == L_ssd * admissions
+    sites = site_launches(cfg, admissions, s.decode_steps)
+    require(all(counts[k] == n for k, n in sites.items())
+            and counts["flash_attention"]
+            == f_pre * admissions + f_step * s.decode_steps
+            and counts["ssd_scan"] == ssd_pre * admissions
             and counts["paged_attention.page"]
-            == L * (s.decode_steps - s.fused_steps) + probes
-            and counts["paged_attention.fused"] == L * s.fused_steps
+            == p_step * (s.decode_steps - s.fused_steps) + probes
+            and counts["paged_attention.fused"] == p_step * s.fused_steps
             and counts["page_scatter"] == 2 * s.landings
             and counts["page_gather"] == 2 * s.gathers,
             f"{label}: launches {counts} do not account for "
@@ -1186,7 +1470,7 @@ def check_launches(cfg, label, s, counts, probes=0):
             f"evictions, {s.prefix_parked_pages} pages parked)")
 
 
-def phase_main_path(cfg, modes=MODES, tag="engine"):
+def phase_main_path(cfg, modes=MODES, tag="engine", max_seq=MAX_SEQ):
     """Full-width serving runs in each fault mode of ``modes`` on the same
     weights; returns (launch counts summed over the runs, the weights)."""
     import torch
@@ -1194,13 +1478,13 @@ def phase_main_path(cfg, modes=MODES, tag="engine"):
     tokens, total = {}, {}
     for mode in modes:
         t0 = time.perf_counter()
-        eng, stream, events, counts, wall = serve_mode(cfg, mode, params)
+        eng, stream, events, counts, wall = serve_mode(cfg, mode, params,
+                                                       max_seq=max_seq)
         if params is None:
             n_par = sum(p.numel() for p in eng.lm.parameters())
-            print(f"[{tag}] built full-width {cfg.name} ({cfg.n_layers} "
-                  f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-                  f"{cfg.dtype}, {n_par / 1e9:.3f} G parameters); pool "
-                  f"{eng.cache.pages_per_shard} pages x {eng.page_bytes} B")
+            print(f"[{tag}] built {describe(cfg, n_par)}; max_seq "
+                  f"{max_seq}, pool {eng.cache.pages_per_shard} pages x "
+                  f"{eng.page_bytes} B")
             params = dict(eng.lm.state_dict())
         check_mode_run(cfg, mode, eng, stream, events, counts)
         tokens[mode] = {r.rid: list(r.out) for _, r in stream}
@@ -1238,15 +1522,20 @@ def phase_main_path(cfg, modes=MODES, tag="engine"):
     return total, params
 
 
-def lm_agreement(cfg, dev, ref_dev="cpu"):
+def lm_agreement(cfg, dev, ref_dev="cpu", ref_dtype=None):
     """``cfg``'s LM on ``dev`` (the kernels, on the card) against the same
-    weights on ``ref_dev`` (the plain versions, on the CPU): prefill of a
-    100-token prompt padded to two 64-token pages, then two decode steps.
-    The reference run takes ``dev``'s expert choices (``moe.top_k``
-    replays them): a router near-tie that the two devices break apart
-    would move that token's output far beyond any rounding, so the choices
-    are counted instead and at least 90 % of the tokens must get the same
-    experts from both.  Logits and both pools (MLA: the latent pools) must
+    weights on ``ref_dev`` (the plain versions, on the CPU; in
+    ``ref_dtype`` where given, so that a long prefill stays quick there):
+    prefill of a 100-token prompt padded to two 64-token pages, then two
+    decode steps.  vlm prefills random image embeddings (``patch_embeds``,
+    from a seed) in front of the prompt, encdec encodes random source
+    frames (``src_embeds``): the engine's zero stubs would leave the
+    cross-attention nothing to hold.  The reference run takes ``dev``'s
+    expert choices (``moe.top_k`` replays them): a router near-tie that
+    the two devices break apart would move that token's output far beyond
+    any rounding, so the choices are counted instead and at least 90 % of
+    the tokens must get the same experts from both.  Logits, both pools
+    (MLA: the latent pools) and the decode state (encdec: cross K/V) must
     agree to 2e-2 of their scale, as the bf16 MoE block's card test.
     Returns (share of tokens with the same experts, tokens routed, the
     largest error relative to its scale)."""
@@ -1257,15 +1546,27 @@ def lm_agreement(cfg, dev, ref_dev="cpu"):
     from repro_torch.serving.kv_cache import ShardedKVCache
     lm = LM(cfg, device=dev).init_weights(
         torch.Generator(device=dev).manual_seed(0))
-    ref_lm = LM(cfg, device=ref_dev)
+    ref_cfg = cfg if ref_dtype is None else dataclasses.replace(
+        cfg, dtype=ref_dtype)
+    ref_lm = LM(ref_cfg, device=ref_dev)
     ref_lm.load_state_dict({k: v.to(ref_dev)
                             for k, v in lm.state_dict().items()})
     geo = PoolGeometry()
-    NP, mpps, T = 2 * geo.frame_pages, 4, 100
+    ptok, fp, T = geo.page_tokens, geo.frame_pages, 100
+    n_prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    mpps = max(4, -(-(n_prefix + 2 * ptok) // ptok))
+    NP = max(2, -(-mpps // fp)) * fp
     rng = np.random.default_rng(9)
-    toks = np.zeros((1, 2 * geo.page_tokens), np.int32)
+    toks = np.zeros((1, 2 * ptok), np.int32)
     toks[0, :T] = rng.integers(0, cfg.vocab_size, T)
     new = rng.integers(0, cfg.vocab_size, 2).astype(np.int32)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (1, n_prefix, cfg.d_model), dtype=np.float32)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.standard_normal(
+            (1, cfg.encdec.source_len, cfg.d_model), dtype=np.float32)
     choices, same = [], []
     top_k = moe.top_k
 
@@ -1283,27 +1584,27 @@ def lm_agreement(cfg, dev, ref_dev="cpu"):
     runs = []
     for d, model, hook in ((dev, lm, record), (ref_dev, ref_lm, replay)):
         cache = ShardedKVCache(geo, NP, 1)
-        cache.allocate(0, T)
+        cache.allocate(0, n_prefix + T)
         pools = tuple(torch.zeros(sh, dtype=dt, device=d) for sh, dt in
-                      model.pool_shapes(NP, geo.page_tokens,
-                                        dtype=getattr(torch, cfg.dtype)))
+                      model.pool_shapes(NP, ptok, dtype=getattr(
+                          torch, model.cfg.dtype)))
         moe.top_k = hook
         try:
-            logits, pools, _ = model.prefill(
-                {"tokens": torch.from_numpy(toks).to(d)}, pools,
-                cache.pack_ctx([0], mpps, device=d),
+            logits, pools, state = model.prefill(
+                {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
+                pools, cache.pack_ctx([0], mpps, device=d),
                 last_pos=torch.tensor([T - 1], device=d))
             out = [logits]
             for i in range(2):
                 cache.append(0)
-                logits, pools, _ = model.decode_step(
+                logits, pools, state = model.decode_step(
                     torch.from_numpy(new[i:i + 1]).to(d),
-                    torch.tensor([T + i], device=d), pools,
-                    cache.pack_ctx([0], mpps, device=d))
+                    torch.tensor([n_prefix + T + i], device=d), pools,
+                    cache.pack_ctx([0], mpps, device=d), state)
                 out.append(logits)
         finally:
             moe.top_k = top_k
-        runs.append((out, pools))
+        runs.append((out, pools, [state[k] for k in sorted(state)]))
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
     agree = float(torch.cat(same).float().mean()) if same else 1.0
@@ -1314,7 +1615,9 @@ def lm_agreement(cfg, dev, ref_dev="cpu"):
             [(f"logits {i}", a, b)
              for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0]))]
             + [(f"pool {i}", a, b)
-               for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1]))]):
+               for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1]))]
+            + [(f"state {i}", a, b)
+               for i, (a, b) in enumerate(zip(runs[0][2], runs[1][2]))]):
         got, want = got.to(ref_dev).float(), want.float()
         require(bool(torch.isfinite(got).all()) and got.shape == want.shape,
                 f"agreement: {what}: non-finite or shape {got.shape}")
@@ -1323,12 +1626,34 @@ def lm_agreement(cfg, dev, ref_dev="cpu"):
         require(err <= 2e-2 * scale, f"agreement: {what}: max_abs_err "
                 f"{err:.3g} beyond 2e-2 of its scale {scale:.3g}")
         errs.append(err / scale)
-    print(f"[agreement] {cfg.name} ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}) on {dev} vs the plain versions on "
-          f"{ref_dev}: prefill + 2 decode steps, logits and pools within "
-          f"{max(errs):.3g} of their scale; same experts for {agree:.1%} "
-          f"of {sum(len(x) for x in same)} routed tokens")
+    layers = (f"{cfg.encdec.enc_layers} + {cfg.encdec.dec_layers} layers"
+              if cfg.family == "encdec" else f"{cfg.n_layers} layers")
+    print(f"[agreement] {cfg.name} ({layers}, d_model {cfg.d_model}, "
+          f"{cfg.dtype}) on {dev} vs the plain versions on {ref_dev} "
+          f"({ref_cfg.dtype}): prefill of {n_prefix} image + {T} prompt "
+          f"tokens, 2 decode steps: logits, pools"
+          f"{' and cross K/V' if runs[0][2] else ''} within {max(errs):.3g} "
+          f"of their scale; same experts for {agree:.1%} of "
+          f"{sum(len(x) for x in same)} routed tokens")
     return agree, sum(len(x) for x in same), max(errs)
+
+
+def check_agreement(cut, ref_dtype=None):
+    """``lm_agreement`` of ``cut`` on the card, with its launches: one
+    prefill and two decode steps of ``path_launches``."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    lm_agreement(cut, "cuda", ref_dtype=ref_dtype)
+    n = read_counts()
+    f_pre, _, p_step, f_step = path_launches(cut)
+    sites = site_launches(cut, 1, 2)
+    require(n["flash_attention"] == f_pre + 2 * f_step
+            and n["paged_attention.page"] == 2 * p_step
+            and all(n[k] == m for k, m in sites.items()),
+            f"agreement: launches {n}, not {f_pre} + 2 x {f_step} flash "
+            f"({sites} by site) and 2 x {p_step} paged")
+    torch.cuda.empty_cache()
 
 
 def phase_mla_serving():
@@ -1341,19 +1666,11 @@ def phase_mla_serving():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PoolGeometry
-    from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config(MLA_ARCH)
     # The whole model at full width, cut to its dense layer and one MoE
     # layer, on the card against the CPU's plain versions.
-    cut = dataclasses.replace(cfg, n_layers=2)
-    ops.reset_launch_counts()
-    lm_agreement(cut, "cuda")
-    n = ops.launch_counts()
-    require(n["flash_attention"] == 2 and n["paged_attention.page"] == 4,
-            f"agreement: launches {n}, not 2 flash (prefill) and 4 paged "
-            f"(two decode steps)")
-    torch.cuda.empty_cache()
+    check_agreement(dataclasses.replace(cfg, n_layers=2))
     try:
         ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
                       max_seq=MAX_SEQ, fault_mode="fused")
@@ -1392,7 +1709,7 @@ def serve_prefix(cfg, mode, prefix_cache, params=None, device=None):
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, waves[0] + waves[1], ops.launch_counts(), wall
+    return eng, waves[0] + waves[1], read_counts(), wall
 
 
 def check_prefix_run(cfg, label, eng, reqs, counts):
@@ -1448,7 +1765,7 @@ def serve_stream(cfg, mode, n_requests=8, params=None, device=None):
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, stream, ops.launch_counts(), wall
+    return eng, stream, read_counts(), wall
 
 
 def check_stream_run(cfg, label, eng, stream, counts):
@@ -1480,7 +1797,8 @@ def check_stream_run(cfg, label, eng, stream, counts):
     path = {"ssm": ["ssd_scan"],
             "hybrid": ["ssd_scan", "flash_attention", "paged_attention.page",
                        "page_gather", "page_scatter"],
-            "moe": ["flash_attention", "paged_attention.page"]}[cfg.family]
+            "moe": ["flash_attention", "paged_attention.page"],
+            "dense": ["flash_attention", "paged_attention.page"]}[cfg.family]
     require(all(counts[k] > 0 for k in path),
             f"{label}: a kernel of the path never launched: {counts}")
     check_launches(cfg, label, s, counts)
@@ -1497,19 +1815,31 @@ def describe(cfg, n_par):
         mo = cfg.moe
         body = (f"{mo.n_experts} experts top-{mo.top_k} of {mo.d_expert}"
                 f"{f' + {mo.n_shared} shared' if mo.n_shared else ''}")
-    else:
+    elif cfg.family in ("ssm", "hybrid"):
         body = f"Mamba-2, d_state {cfg.ssm.d_state}"
+    else:
+        body = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+                f"{', qk-norm' if cfg.qk_norm else ''}")
+        if cfg.family == "vlm":
+            body += f", {cfg.frontend_tokens} image tokens"
+        if cfg.family == "encdec":
+            e = cfg.encdec
+            depth = (f"{e.enc_layers} encoder + {e.dec_layers} decoder "
+                     f"layers")
+            body += f", source_len {e.source_len}"
     return (f"{cfg.name} at its published widths ({depth}, d_model "
             f"{cfg.d_model}, {body}, vocab {cfg.vocab_size}, {cfg.dtype}, "
             f"{n_par / 1e9:.3f} G parameters)")
 
 
-def phase_stream(cfg, modes, n_requests):
-    """Phases 4c (hybrid), 4d (ssm) and 4f (moe): ``cfg`` served in each of
-    ``modes`` on the same weights, with the card's memory high-water mark
-    of each run; returns the launch counts summed over the runs."""
+def phase_stream(cfg, modes, n_requests, tag=None):
+    """Phases 4c (hybrid), 4d (ssm), 4f (moe) and 4i (dense): ``cfg``
+    served in each of ``modes`` on the same weights, with the card's
+    memory high-water mark of each run; returns the launch counts summed
+    over the runs."""
     import torch
-    tag = cfg.family
+    tag = tag or cfg.family
     params = None
     tokens, total = {}, {}
     for mode in modes:
@@ -1690,7 +2020,104 @@ def phase_transparency(cfg, params):
           f"back, bit-identical")
 
 
+def phase_vlm():
+    """Phase 4g: llava-next-mistral-7b at its published width and depth
+    through phase 4's stream and step hook at max_seq VLM_MAX_SEQ, in
+    sync, async and fused; then cut to 2 layers on the card against the
+    CPU with random image embeddings.  Returns the summed launch counts of
+    the serving runs."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    total, params = phase_main_path(cfg, MODES, tag="vlm",
+                                       max_seq=VLM_MAX_SEQ)
+    del params                  # llava's weights leave the card
+    torch.cuda.empty_cache()
+    check_agreement(dataclasses.replace(cfg, n_layers=2), "float32")
+    return total
+
+
+def phase_encdec():
+    """Phase 4h: seamless-m4t-large-v2 at its published width and depth
+    through phase 4's stream and step hook, in sync, async and fused; then
+    cut to 2 + 2 layers on the card against the CPU with random source
+    frames.  Returns the summed launch counts of the serving runs."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    total, params = phase_main_path(cfg, MODES, tag="encdec")
+    del params
+    torch.cuda.empty_cache()
+    check_agreement(dataclasses.replace(cfg, encdec=dataclasses.replace(
+        cfg.encdec, enc_layers=2, dec_layers=2)), "float32")
+    return total
+
+
+def phase_dense_archs():
+    """Phase 4i: llama3-8b, phi3-mini-3.8b and qwen3-8b at their published
+    widths and depths, one after another, the stream's first
+    DENSE_REQUESTS requests in sync; qwen3-8b (qk-norm) also cut to 2
+    layers on the card against the CPU.  Returns {arch: launch counts}."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        out[arch] = phase_stream(cfg, ("sync",), DENSE_REQUESTS,
+                                 tag=f"dense:{arch}")
+        torch.cuda.empty_cache()
+        if cfg.qk_norm:
+            check_agreement(dataclasses.replace(cfg, n_layers=2), "float32")
+    return out
+
+
+def family_entries(vlm, encdec, dense):
+    """Launch counts of the kernels line's entries from phases 4g-4i, each
+    at the shapes its entry times: llava's prefill flash
+    (``flash_attention.vlm``), the g = 4 / dh 128 paged calls of llava,
+    llama3 and qwen3 and llava's fused calls (``.g4d128``), phi3's flash
+    and paged calls (``.phi3``, ``.g1d96``), seamless's fused calls
+    (``.g1d64``) and its flash calls by site (``flash_attention.encoder``,
+    ``.cross_prefill``, ``.cross_decode``, as the wrapper counted them).
+    Every other launch of those phases counts under its kernel's own
+    entry."""
+    sites = ("flash_attention.encoder", "flash_attention.cross_prefill",
+             "flash_attention.cross_decode")
+    tagged = {
+        "flash_attention.vlm": vlm.pop("flash_attention"),
+        "paged_attention.page.g4d128": vlm.pop("paged_attention.page"),
+        "paged_attention.frame.g4d128": vlm.pop("paged_attention.frame"),
+        "paged_attention.fused.g4d128": vlm.pop("paged_attention.fused"),
+        "flash_attention.phi3": dense["phi3-mini-3.8b"].pop(
+            "flash_attention"),
+        "paged_attention.page.g1d96": dense["phi3-mini-3.8b"].pop(
+            "paged_attention.page"),
+        "paged_attention.fused.g1d64": encdec.pop("paged_attention.fused"),
+    }
+    for k in sites:
+        tagged[k] = encdec.pop(k)
+        encdec["flash_attention"] -= tagged[k]
+    for arch in ("llama3-8b", "qwen3-8b"):
+        tagged["paged_attention.page.g4d128"] += dense[arch].pop(
+            "paged_attention.page")
+    rest = {}
+    for c in [vlm, encdec, *dense.values()]:
+        for k, n in c.items():
+            if k not in sites:
+                rest[k] = rest.get(k, 0) + n
+    return tagged, rest
+
+
+def entry_kernel(name):
+    """The kernel of a kernels-line entry: ``paged_attention.page.g4d128``
+    -> ``paged_attention.page``, ``flash_attention.encoder`` ->
+    ``flash_attention``."""
+    return max((k for k in REPLACES if name == k or name.startswith(k + ".")),
+               key=len)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1703,6 +2130,7 @@ def main() -> int:
     phase_kernels(cfg, results)
     phase_mla_kernels(results)
     phase_ssd_kernel(results)
+    phase_family_kernels(results)
     counts, params = phase_main_path(cfg)
     torch.cuda.empty_cache()
     phase_prefix(cfg, params)
@@ -1720,14 +2148,24 @@ def main() -> int:
         counts[k] = counts.get(k, 0) + n_launch
     for k, n_launch in mla_counts.items():
         counts[f"{k}.mla"] = n_launch
+    tagged, rest = family_entries(phase_vlm(), phase_encdec(),
+                                  phase_dense_archs())
+    counts.update(tagged)
+    for k, n_launch in rest.items():
+        counts[k] = counts.get(k, 0) + n_launch
     line = [dict(name=name, route="cuda",
-                 source=SOURCES[name.removesuffix(".mla")],
-                 replaces=REPLACES[name.removesuffix(".mla")],
+                 source=SOURCES[entry_kernel(name)],
+                 replaces=REPLACES[entry_kernel(name)],
                  launches=counts[name],
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"])
             for name, r in results.items()]
+    require(all(e["launches"] > 0 for e in line),
+            f"an entry's kernel never launched on its path: "
+            f"{[e['name'] for e in line if not e['launches']]}")
+    print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f}s "
+          f"({SMI})")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@
 // over the keys j < kv_len[b] (all Tk keys without kv_len) and, when causal,
 // j <= q_offset + i.  Suffix prefill passes the cached prefix's keys in
 // front of the in-flight ones (Tk = P + Tq, q_offset = P); full prefill has
-// Tq = Tk and q_offset = 0.  Lengths need not be multiples of any tile.
+// Tq = Tk and q_offset = 0.  Non-causal calls (an encoder, cross-attention
+// over an encoder memory, Tq = 1 at decode) take any Tq and Tk.  Lengths
+// need not be multiples of any tile.
 //
 // What bounds it on the card: operations.  A causal call at the serving
 // shapes (Tq = Tk = 1152, 16 heads, head dim 128, bf16) reads ~11 MB and

@@ -3,10 +3,12 @@
 Replaces the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py``).  Causal or non-causal GQA attention
 of queries at absolute positions ``q_offset .. q_offset + Tq - 1`` over
-``Tk >= Tq`` keys, optionally cut at ``kv_len`` per row: full prefill
-(``Tq == Tk``) and suffix-only prefill over a cached prefix (keys = the
-prefix's then the suffix's, ``q_offset`` = the prefix length) run it once
-per layer.  A row's result does not depend on how many rows the call holds,
+``Tk`` keys, optionally cut at ``kv_len`` per row: full prefill (``Tq ==
+Tk``) and suffix-only prefill over a cached prefix (keys = the prefix's
+then the suffix's, ``q_offset`` = the prefix length) run it once per layer,
+causal; the encoder (``Tq == Tk``) and cross-attention (the decoder's rows
+over the encoder memory: any ``Tq`` and ``Tk``, ``Tq = 1`` at decode) run
+it non-causal.  A row's result does not depend on how many rows the call holds,
 so a suffix call reproduces the full call's rows bit for bit.  Values may
 be narrower than keys: MLA's expanded prefill has key width 192 and value
 width 128 (:data:`HEAD_DIMS`).  bf16 inputs at head dims 32, 64, 96 and
@@ -17,7 +19,9 @@ the same source.
 For CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); for CUDA tensors it
 launches the kernel or raises.  ``flash_attention.launches`` counts kernel
-launches.
+launches; a call that names its ``site`` (:data:`SITES`: the encoder and
+the cross-attention at prefill and at decode) also adds its launch to
+``flash_attention.site_launches[site]``.
 """
 
 from __future__ import annotations
@@ -33,13 +37,16 @@ from repro_torch.kernels import build, ref
 # of 32 up to 256, and MLA's expanded prefill (nope 128 + rope 64, v 128).
 HEAD_DIMS = tuple((d, d) for d in range(32, 257, 32)) + ((192, 128),)
 MAX_GROUP = 64          # query heads per KV head the kernel's CTA can hold
+SITES = ("encoder", "cross_prefill", "cross_decode")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                    kv_len=None, scale=None):
+                    kv_len=None, scale=None, site=None):
     """q [B, Tq, H, dh]; k [B, Tk, n_kv, dh], v [B, Tk, n_kv, dh_v] in q's
-    dtype (bf16 or f32); kv_len int32 [B] or None.  Returns [B, Tq, H,
-    dh_v] in q's dtype."""
+    dtype (bf16 or f32); kv_len int32 [B] or None; ``site`` one of
+    :data:`SITES` or None.  Returns [B, Tq, H, dh_v] in q's dtype."""
+    if site is not None and site not in SITES:
+        raise ValueError(f"unknown flash-attention site {site!r}")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_len=kv_len,
@@ -62,10 +69,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
+    if site is not None:
+        flash_attention.site_launches[site] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.site_launches = dict.fromkeys(SITES, 0)
 
 
 def _check_inputs(q, k, v, kv_len, q_offset) -> None:

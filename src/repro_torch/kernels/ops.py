@@ -3,7 +3,8 @@
 Counterpart of the reference's ``kernels/ops.py``.  The reference picks its
 path with ``use_pallas``; here the tensors' device picks it: CPU tensors run
 each kernel's plain version, CUDA tensors launch the hand-written kernel
-(or raise).  :func:`launch_counts` reads every kernel's launch counter.
+(or raise).  :func:`launch_counts` reads every kernel's launch counter,
+:func:`flash_site_counts` the flash kernel's by call site.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def launch_counts() -> Dict[str, int]:
     }
 
 
+def flash_site_counts() -> Dict[str, int]:
+    """Flash-attention launches by call site (``flash_attention.<site>``),
+    since the last :func:`reset_launch_counts`; each is also in
+    ``launch_counts()["flash_attention"]``."""
+    return {f"flash_attention.{k}": n
+            for k, n in flash_attention.site_launches.items()}
+
+
 def reset_launch_counts() -> None:
     paged_attention_kernel.page_launches = 0
     paged_attention_kernel.frame_launches = 0
@@ -72,6 +81,8 @@ def reset_launch_counts() -> None:
     page_scatter.launches = 0
     page_compact.launches = 0
     flash_attention.launches = 0
+    flash_attention.site_launches = dict.fromkeys(
+        flash_attention.site_launches, 0)
     ssd_scan.launches = 0
 
 
@@ -79,4 +90,4 @@ __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
            "page_compact", "flash_attention", "ssd_scan", "launch_counts",
-           "reset_launch_counts"]
+           "flash_site_counts", "reset_launch_counts"]

@@ -10,9 +10,14 @@ comes with a later slice.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --requests 8 --max-new 8 --device cpu
 
-``--arch`` takes every id of the port's registry: the dense qwen2.5-3b, the
-hybrid zamba2-1.2b (Mamba-2 layers plus a shared, paged attention block)
-and the attention-free mamba2-1.3b (recurrent state, no KV pool).
+``--arch`` takes every id of the port's registry, the reference's ten: the
+dense qwen2.5-3b, qwen3-8b (qk-norm), llama3-8b and phi3-mini-3.8b; the
+vlm llava-next-mistral-7b (zero image embeddings in front of each prompt,
+as the reference's stub); the encdec seamless-m4t-large-v2 (an encoder
+over zero source frames, cross K/V kept per request); the moe
+deepseek-v2-lite-16b (MLA) and dbrx-132b; the hybrid zamba2-1.2b (Mamba-2
+layers plus a shared, paged attention block) and the attention-free
+mamba2-1.3b (recurrent state, no KV pool).
 """
 
 from __future__ import annotations

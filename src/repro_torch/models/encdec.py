@@ -1,0 +1,140 @@
+"""Encoder–decoder stack (seamless-m4t-large-v2 backbone).
+
+Counterpart of the reference's ``models/encdec.py`` for serving.  The
+encoder is a bidirectional transformer over the frontend's frame
+embeddings; the decoder runs causal self-attention, whose K/V is paged in
+the pools like the dense stack's, then cross-attention to the encoder
+memory, then SwiGLU.  Cross K/V are computed once per layer at prefill and
+kept densely as decode state (``cross_k`` / ``cross_v`` [L, B, S, n_kv,
+dh]), as the reference does.
+
+Every attention runs the flash-attention kernel (plain version on CPU
+tensors): the encoder's non-causal over S frames, the decoder's causal
+self-attention at prefill, and the cross-attention non-causal with the
+decoder rows as queries over the S memory rows, at prefill and at decode
+(one query row a sequence).  Decode's self-attention is the paged kernel,
+or the fused gather-attend kernel when the step carries staged pages; each
+layer reads its own slice of the layer-stacked stage.  The reference's
+encdec decode hands every layer the whole stack
+(``repro/models/encdec.py:150-151``) and so fails once a fused step stages
+pages; the port slices per layer, as its dense and hybrid stacks do.
+
+Parameter names follow the reference's tree (``encoder.attn.wq``,
+``decoder.ln_cross``, ``decoder.cross.wk``, ``enc_norm``, ...): the
+encoder is a dense :class:`~repro_torch.models.transformer.DecoderParams`
+stack, and :class:`CrossDecoderParams` adds ``ln_cross`` and ``cross`` to
+one.  The flash calls name their site (``encoder``, ``cross_prefill``,
+``cross_decode``), so the launch counters tell them apart.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import empty_param
+from repro_torch.models.layers import head_proj, out_proj, rms_norm
+from repro_torch.models.page_ops import PageCtx, prefill_write_op
+from repro_torch.models.transformer import (
+    AttnParams,
+    DecoderParams,
+    attn_block_decode,
+    attn_block_prefill,
+    ffn_block,
+)
+
+
+class CrossDecoderParams(DecoderParams):
+    """The dense decoder stack (ln1, attn, ln2, mlp) over ``dec_layers``
+    with each layer's cross-attention: ``ln_cross`` [Ld, d] and ``cross``
+    (the attention weights' shapes)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        L = cfg.encdec.dec_layers
+        super().__init__(cfg, L, dtype, device)
+        self.ln_cross = empty_param((L, cfg.d_model), dtype, device)
+        self.cross = AttnParams(cfg, L, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        super().init_(gen)
+        self.ln_cross.data.fill_(1.0)
+        self.cross.init_(gen)
+
+    def layer(self, l: int) -> Dict[str, object]:
+        out = super().layer(l)
+        out["ln_cross"] = self.ln_cross[l]
+        out["cross"] = {n: p[l] for n, p in self.cross.named_parameters()}
+        return out
+
+
+def encoder_apply(cfg: ModelConfig, params: DecoderParams, enc_norm, src):
+    """src [B, S, d] frame embeddings (projected) -> memory [B, S, d]."""
+    B, S, _ = src.shape
+    positions = torch.arange(S, device=src.device)[None].expand(B, S)
+    x = src
+    for l in range(params.n_layers):
+        lp = params.layer(l)
+        x = x + attn_block_prefill(cfg, lp["attn"],
+                                   rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   positions, causal=False,
+                                   site="encoder")[0]
+        x = x + ffn_block(cfg, lp["mlp"],
+                          rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return rms_norm(x, enc_norm, cfg.norm_eps)
+
+
+def cross_kv(cp, memory):
+    """One layer's cross K/V from the encoder memory: [B, S, n_kv, dh]
+    each (no bias, no RoPE, as the reference)."""
+    return head_proj(memory, cp["wk"]), head_proj(memory, cp["wv"])
+
+
+def cross_attend(cp, h, ck, cv, site="cross_prefill"):
+    """h [B, T, d] queries against one layer's cross K/V, non-causal."""
+    return out_proj(flash_attention(head_proj(h, cp["wq"]), ck, cv,
+                                    causal=False, site=site), cp["wo"])
+
+
+def _cross_ffn(cfg: ModelConfig, lp, x, ck, cv, site):
+    """The layer's cross-attention and FFN, each with its residual."""
+    x = x + cross_attend(lp["cross"], rms_norm(x, lp["ln_cross"],
+                                               cfg.norm_eps), ck, cv, site)
+    return x + ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def decoder_stack_prefill(cfg: ModelConfig, params: CrossDecoderParams, x,
+                          positions, memory, pools, ctx: PageCtx):
+    """Writes each layer's self-attention K/V into its pool slice in place.
+    Returns (x, pools, (cross_k, cross_v) [L, B, S, n_kv, dh])."""
+    k_pools, v_pools = pools
+    cks, cvs = [], []
+    for l in range(params.n_layers):
+        lp = params.layer(l)
+        a, k, v = attn_block_prefill(cfg, lp["attn"],
+                                     rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                     positions)
+        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx)
+        ck, cv = cross_kv(lp["cross"], memory)
+        x = _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill")
+        cks.append(ck)
+        cvs.append(cv)
+    return x, pools, (torch.stack(cks), torch.stack(cvs))
+
+
+def decoder_stack_decode(cfg: ModelConfig, params: CrossDecoderParams, x,
+                         pos, pools, ctx: PageCtx, cross):
+    """x [B, 1, d]; ``cross`` = (cross_k, cross_v) [L, B, S, n_kv, dh].
+    Writes this token's K/V into the pools in place."""
+    k_pools, v_pools = pools
+    cks, cvs = cross
+    for l in range(params.n_layers):
+        lp = params.layer(l)
+        # Staged pages arrive layer-stacked; each layer reads its slice.
+        x = x + attn_block_decode(cfg, lp["attn"],
+                                  rms_norm(x, lp["ln1"], cfg.norm_eps), pos,
+                                  k_pools[l], v_pools[l], ctx.stage_at(l))
+        x = _cross_ffn(cfg, lp, x, cks[l], cvs[l], "cross_decode")
+    return x, pools

@@ -19,7 +19,6 @@ pages; the port slices per invocation, as its dense stack does per layer.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Tuple
 
 import torch
@@ -177,10 +176,8 @@ def hybrid_stack_decode(cfg: ModelConfig, params: HybridParams, x, pos,
             x = mamba(x, lp, ln)
         h = rms_norm(x, sp["ln1"], cfg.norm_eps)
         # Staged pages arrive invocation-stacked; each reads its slice.
-        gctx = ctx if ctx.stage_k is None else dataclasses.replace(
-            ctx, stage_k=ctx.stage_k[g], stage_v=ctx.stage_v[g])
         x = x + attn_block_decode(cfg, sp["attn"], h, pos, k_pools[g],
-                                  v_pools[g], gctx)
+                                  v_pools[g], ctx.stage_at(g))
         x = x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
                                                    cfg.norm_eps))
     for lp, ln in tail:

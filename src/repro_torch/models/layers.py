@@ -124,14 +124,20 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
+def head_proj(x, w):
+    """x [B,T,d] @ w [d, heads, dh] -> [B,T,heads,dh]."""
+    B, T, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, T, w.shape[1], w.shape[2])
+
+
+def out_proj(o, wo):
+    """o [B,T,H,dh] @ wo [H, dh, d] -> [B,T,d]."""
+    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
 def gqa_qkv(x, wq, wk, wv, bq=None, bk=None, bv=None):
     """x [B,T,d]; w* [d, heads, dh] -> q [B,T,H,dh], k/v [B,T,Hkv,dh]."""
-    B, T, d = x.shape
-
-    def proj(w):
-        return (x @ w.reshape(d, -1)).view(B, T, w.shape[1], w.shape[2])
-
-    q, k, v = proj(wq), proj(wk), proj(wv)
+    q, k, v = head_proj(x, wq), head_proj(x, wk), head_proj(x, wv)
     if bq is not None:
         q = q + bq
         k = k + bk

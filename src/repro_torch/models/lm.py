@@ -1,9 +1,10 @@
 """Language-model facade: weights, pool shapes, prefill and decode.
 
-Counterpart of the reference's ``models/lm.py`` for the dense, moe, ssm
-(Mamba-2) and hybrid (Zamba2) families:
+Counterpart of the reference's ``models/lm.py`` for all six families:
 
   dense   -> transformer stack, paged KV pools [L, NP, ...]
+  vlm     -> the dense stack over the projected patch embeddings
+             (``frontend_proj``) followed by the prompt's tokens
   moe     -> transformer stack with routed-expert FFNs after
              ``moe.first_dense`` dense-FFN layers (``decoder_prefix``); with
              ``cfg.mla`` its attention is MLA and the pools hold latents
@@ -11,6 +12,9 @@ Counterpart of the reference's ``models/lm.py`` for the dense, moe, ssm
   ssm     -> Mamba-2 stack: recurrent state, no KV pool
   hybrid  -> Mamba-2 backbone + a shared attention block whose KV is
              paged with one pool slice per invocation [G, NP, ...]
+  encdec  -> an encoder over the projected source frames; a decoder with
+             paged self-attention [Ld, NP, ...] and cross-attention to the
+             encoder memory, whose K/V is dense decode state
 
 The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
 the port stores every weight once in ``cfg.dtype``.  Parameter names follow
@@ -18,8 +22,8 @@ the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
 ``decoder_prefix.mlp.w_up``, ``decoder.moe.router``, ``decoder.mamba.w_in``,
 ...), so :func:`repro_torch.bridge.params_from_jax` maps one onto the other.
 ``prefill`` and ``decode_step`` return and take the reference's non-pool
-decode state (``{"ssm", "conv"}`` for the recurrent families, ``{}`` for
-the transformer families).
+decode state (``{"ssm", "conv"}`` for the recurrent families, ``{"cross_k",
+"cross_v"}`` for encdec, ``{}`` for the other transformer families).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.common import embed_init_
@@ -42,7 +47,7 @@ from repro_torch.models.transformer import (
     decoder_stack_prefill,
 )
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def _dense_view(cfg: ModelConfig) -> ModelConfig:
@@ -55,15 +60,14 @@ def _first_dense(cfg: ModelConfig) -> int:
 
 
 class LM(nn.Module):
-    """Dense, moe, ssm or hybrid LM.  Weights are allocated uninitialised on
-    ``device``; fill them with :meth:`init_weights` or ``load_state_dict``."""
+    """An LM of any family of :data:`FAMILIES`.  Weights are allocated
+    uninitialised on ``device``; fill them with :meth:`init_weights` or
+    ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu"):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the encdec and "
-                f"vlm families come in a later slice")
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -77,7 +81,18 @@ class LM(nn.Module):
             self.unembed = nn.Parameter(
                 torch.empty((d, V), dtype=dtype, device=device),
                 requires_grad=False)
-        if cfg.family == "ssm":
+        if cfg.family in ("vlm", "encdec"):
+            self.frontend_proj = nn.Parameter(
+                torch.empty((d, d), dtype=dtype, device=device),
+                requires_grad=False)
+        if cfg.family == "encdec":
+            self.encoder = DecoderParams(cfg, cfg.encdec.enc_layers, dtype,
+                                         device)
+            self.decoder = ed.CrossDecoderParams(cfg, dtype, device)
+            self.enc_norm = nn.Parameter(
+                torch.empty((d,), dtype=dtype, device=device),
+                requires_grad=False)
+        elif cfg.family == "ssm":
             self.decoder = m2.SSMStackParams(cfg, cfg.n_layers, dtype,
                                              device)
         elif cfg.family == "hybrid":
@@ -97,6 +112,11 @@ class LM(nn.Module):
         self.final_norm.data.fill_(1.0)
         if not self.cfg.tie_embeddings:
             embed_init_(self.unembed, generator)
+        if hasattr(self, "frontend_proj"):
+            embed_init_(self.frontend_proj, generator)
+        if hasattr(self, "encoder"):
+            self.encoder.init_(generator)
+            self.enc_norm.data.fill_(1.0)
         if hasattr(self, "decoder_prefix"):
             self.decoder_prefix.init_(generator)
         self.decoder.init_(generator)
@@ -106,11 +126,13 @@ class LM(nn.Module):
 
     def kv_layers(self) -> int:
         """Pool slices: one per layer (dense), one per shared-block
-        invocation (hybrid), none (ssm)."""
+        invocation (hybrid), one per decoder layer (encdec), none (ssm)."""
         if self.cfg.family == "ssm":
             return 0
         if self.cfg.family == "hybrid":
             return hy.n_invocations(self.cfg)
+        if self.cfg.family == "encdec":
+            return self.cfg.encdec.dec_layers
         return self.cfg.n_layers
 
     def pool_shapes(self, num_pages: int, page_tokens: int,
@@ -132,22 +154,34 @@ class LM(nn.Module):
                  cfg.resolved_head_dim)
         return [(shape, dtype), (shape, dtype)]
 
-    def init_state_shapes(self, batch: int
+    def init_state_shapes(self, batch: int, src_len: int = 0
                           ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """Non-pool decode state as {name: (shape, dtype)}: the recurrent
         families' ``ssm`` [L, B, nh, hd, N] (f32) and ``conv``
-        [L, B, d_conv-1, conv_dim] (``cfg.dtype``); empty for dense."""
+        [L, B, d_conv-1, conv_dim], encdec's ``cross_k`` / ``cross_v``
+        [Ld, B, src_len, n_kv, dh] (``cfg.dtype``); empty for the other
+        families."""
         cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.family == "encdec":
+            shape = (cfg.encdec.dec_layers, batch, src_len, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"cross_k": (shape, dtype), "cross_v": (shape, dtype)}
         if cfg.family not in ("ssm", "hybrid"):
             return {}
         s_shape, c_shape = m2.state_shapes(cfg, cfg.n_layers, batch)
-        return {"ssm": (s_shape, torch.float32),
-                "conv": (c_shape, getattr(torch, cfg.dtype))}
+        return {"ssm": (s_shape, torch.float32), "conv": (c_shape, dtype)}
 
     # ------------------------------------------------------------- heads
 
     def _embed(self, tokens):
         return self.embed[tokens.long()]
+
+    def _frontend(self, embeds, like):
+        """Frontend embeddings [B, P, d] projected into the model:
+        ``embeds @ frontend_proj`` in ``like``'s dtype."""
+        return embeds.to(device=like.device, dtype=like.dtype) \
+            @ self.frontend_proj
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -164,10 +198,14 @@ class LM(nn.Module):
 
         ``batch["tokens"]`` [B, T] (right-padded to a page multiple);
         ``last_pos`` [B]: index of the last valid token per sequence
-        (defaults to T-1).  Returns (logits at last_pos [B, V], pools,
+        (defaults to T-1).  vlm also takes ``batch["patch_embeds"]`` [B, P,
+        d], projected and run in front of the tokens (positions 0 .. P + T
+        - 1, the pools hold P + T tokens, ``last_pos`` stays an index into
+        the tokens); encdec takes ``batch["src_embeds"]`` [B, S, d], the
+        encoder's input.  Returns (logits at last_pos [B, V], pools,
         state): ``state`` is the recurrent families' ``{"ssm", "conv"}``
         after all T tokens (page padding included, as the reference),
-        ``{}`` for dense.
+        encdec's ``{"cross_k", "cross_v"}``, ``{}`` for the others.
 
         Suffix-only prefill (prefix-cache reuse): with ``prefix_kv=(k [L, B,
         P, Hkv, dh], v [...])`` and ``prefix_len=P`` (a page multiple),
@@ -189,10 +227,21 @@ class LM(nn.Module):
                     f"prefix-cache reuse unsupported for {self.cfg.family} "
                     f"/ mla")
         x = self._embed(tokens)
-        positions = (prefix_len + torch.arange(T, device=x.device))[
-            None].expand(B, T)
+        if self.cfg.family == "vlm":
+            x = torch.cat([self._frontend(batch["patch_embeds"], x), x],
+                          dim=1)
+        n_prefix, Tx = x.shape[1] - T, x.shape[1]
+        positions = (prefix_len + torch.arange(Tx, device=x.device))[
+            None].expand(B, Tx)
         state: Dict[str, torch.Tensor] = {}
-        if self.cfg.family == "ssm":
+        if self.cfg.family == "encdec":
+            memory = ed.encoder_apply(
+                self.cfg, self.encoder, self.enc_norm,
+                self._frontend(batch["src_embeds"], x))
+            x, pools, (state["cross_k"], state["cross_v"]) = \
+                ed.decoder_stack_prefill(self.cfg, self.decoder, x,
+                                         positions, memory, pools, ctx)
+        elif self.cfg.family == "ssm":
             x, state["ssm"], state["conv"] = m2.ssm_stack_prefill(
                 self.cfg, self.decoder, x)
         elif self.cfg.family == "hybrid":
@@ -205,7 +254,7 @@ class LM(nn.Module):
             x_last = x[:, -1:, :]
         else:
             x_last = x[torch.arange(B, device=x.device),
-                       last_pos.long()][:, None, :]
+                       n_prefix + last_pos.long()][:, None, :]
         return self._logits(x_last)[:, 0], pools, state
 
     # ------------------------------------------------------------- decode
@@ -213,15 +262,20 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, pos, pools, ctx: PageCtx,
                     state: Optional[Dict[str, torch.Tensor]] = None):
-        """tokens [B] int32, pos [B] current positions (0-based); ``state``
-        the batch's stacked recurrent state (ssm/hybrid).
+        """tokens [B] int32, pos [B] current positions (0-based; vlm's count
+        the patch positions); ``state`` the batch's stacked decode state
+        (ssm/hybrid: recurrent; encdec: cross K/V).
 
         Writes this step's K/V into the pools in place.  Returns
         (logits [B, V], pools, state').
         """
         state = dict(state or {})
         x = self._embed(tokens[:, None])
-        if self.cfg.family == "ssm":
+        if self.cfg.family == "encdec":
+            x, pools = ed.decoder_stack_decode(
+                self.cfg, self.decoder, x, pos, pools, ctx,
+                (state["cross_k"], state["cross_v"]))
+        elif self.cfg.family == "ssm":
             x, state["ssm"], state["conv"] = m2.ssm_stack_decode(
                 self.cfg, self.decoder, x, state["ssm"], state["conv"])
         elif self.cfg.family == "hybrid":
@@ -243,7 +297,6 @@ class LM(nn.Module):
         for cfg, params, sl in ((_dense_view(self.cfg), self.decoder_prefix,
                                  slice(None, fd)),
                                 (self.cfg, self.decoder, slice(fd, None))):
-            lctx = ctx if ctx.stage_k is None else dataclasses.replace(
-                ctx, stage_k=ctx.stage_k[sl], stage_v=ctx.stage_v[sl])
-            x = stack(cfg, params, x, pos, (kp[sl], vp[sl]), lctx, **kw)[0]
+            x = stack(cfg, params, x, pos, (kp[sl], vp[sl]),
+                      ctx.stage_at(sl), **kw)[0]
         return x

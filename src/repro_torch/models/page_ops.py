@@ -46,6 +46,14 @@ class PageCtx:
     stage_k: Optional[torch.Tensor] = None
     stage_v: Optional[torch.Tensor] = None
 
+    def stage_at(self, i) -> "PageCtx":
+        """This context with the staged pages of layer ``i`` (an index or
+        a slice of the stack); itself when the step stages nothing."""
+        if self.stage_k is None:
+            return self
+        return dataclasses.replace(self, stage_k=self.stage_k[i],
+                                   stage_v=self.stage_v[i])
+
 
 def paged_attn_op(q, k_new, v_new, k_pool, v_pool, ctx: PageCtx, *, scale):
     """Decode pool write + paged attention (pools updated in place).

@@ -26,7 +26,6 @@ Pools are updated in place.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Dict, Optional
 
@@ -39,6 +38,7 @@ from repro_torch.models.common import dense_init_, empty_param
 from repro_torch.models.layers import (
     apply_rope,
     gqa_qkv,
+    out_proj,
     rms_norm,
     rope_angles,
     swiglu,
@@ -61,15 +61,13 @@ from repro_torch.models.page_ops import (
 
 class AttnParams(nn.Module):
     """Attention weights stacked over layers: wq [L,d,H,dh], wk/wv
-    [L,d,Hkv,dh], wo [L,H,dh,d], and with ``qkv_bias`` bq [L,H,dh], bk/bv
-    [L,Hkv,dh].  ``L=None`` drops the layer axis (the hybrid family's
+    [L,d,Hkv,dh], wo [L,H,dh,d], with ``qkv_bias`` bq [L,H,dh], bk/bv
+    [L,Hkv,dh], and with ``qk_norm`` the per-head RMSNorm weights q_norm /
+    k_norm [L,dh].  ``L=None`` drops the layer axis (the hybrid family's
     shared block)."""
 
     def __init__(self, cfg: ModelConfig, L: Optional[int], dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError(
-                "qk_norm configs are not ported yet (later slice)")
         d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         dh = cfg.resolved_head_dim
         lead = () if L is None else (L,)
@@ -81,6 +79,9 @@ class AttnParams(nn.Module):
             self.bq = empty_param((*lead, H, dh), dtype, device)
             self.bk = empty_param((*lead, Hkv, dh), dtype, device)
             self.bv = empty_param((*lead, Hkv, dh), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = empty_param((*lead, dh), dtype, device)
+            self.k_norm = empty_param((*lead, dh), dtype, device)
         self._in_axis = len(lead)
 
     def init_(self, gen: torch.Generator) -> None:
@@ -89,6 +90,9 @@ class AttnParams(nn.Module):
         for name in ("bq", "bk", "bv"):
             if hasattr(self, name):
                 getattr(self, name).data.zero_()
+        for name in ("q_norm", "k_norm"):
+            if hasattr(self, name):
+                getattr(self, name).data.fill_(1.0)
 
 
 class FFNParams(nn.Module):
@@ -151,9 +155,13 @@ class DecoderParams(nn.Module):
 
 
 def _project_qkv(cfg: ModelConfig, p, x, positions):
-    """x [B,T,d] -> roped q [B,T,H,dh], k/v [B,T,Hkv,dh]."""
+    """x [B,T,d] -> roped q [B,T,H,dh], k/v [B,T,Hkv,dh]; with
+    ``qk_norm`` each head of q and k is RMS-normed before RoPE."""
     q, k, v = gqa_qkv(x, p["wq"], p["wk"], p["wv"],
                       p.get("bq"), p.get("bk"), p.get("bv"))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_angles(positions, q.shape[-1], cfg.rope_theta)
     q = apply_rope(q, cos[..., :, None, :], sin[..., :, None, :])
     k = apply_rope(k, cos[..., :, None, :], sin[..., :, None, :])
@@ -196,33 +204,34 @@ def _attn_in(cfg: ModelConfig, lp, x, positions):
 def _attn_out_ffn(cfg: ModelConfig, lp, x, o):
     """Rows of the residual stream and of the attention output -> the
     layer's output rows (output projection, residual, norm, SwiGLU)."""
-    wo = lp["attn"]["wo"]
-    x = x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    x = x + out_proj(o, lp["attn"]["wo"])
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + ffn_block(cfg, lp["mlp"], h)
 
 
-def prefill_attention(q, k, v, prefix_kv=None):
-    """Causal attention of q [B,T,H,dh] over k/v [B,T,Hkv,dh].
-    ``prefix_kv=(pk, pv)`` ([B, P, Hkv, dh], already roped: cached pool
-    bytes) prepends P cached-context keys the in-flight queries, at
-    positions P.., attend to (suffix-only prefill)."""
+def prefill_attention(q, k, v, prefix_kv=None, causal=True, site=None):
+    """Causal (or, for an encoder, non-causal) attention of q [B,T,H,dh]
+    over k/v [B,T,Hkv,dh].  ``prefix_kv=(pk, pv)`` ([B, P, Hkv, dh],
+    already roped: cached pool bytes) prepends P cached-context keys the
+    in-flight queries, at positions P.., attend to (suffix-only prefill).
+    ``site``: the flash call's site counter, if any."""
     if prefix_kv is None:
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, causal=causal, site=site)
     pk, pv = prefix_kv
     return flash_attention(q, torch.cat([pk.to(k.dtype), k], dim=1),
                            torch.cat([pv.to(v.dtype), v], dim=1),
                            q_offset=pk.shape[1])
 
 
-def attn_block_prefill(cfg: ModelConfig, p, x, positions):
-    """Full-sequence causal attention block (the reference's
-    ``attn_block_train`` without a cached prefix): x [B,T,d] -> (out
-    [B,T,d], k, v [B,T,Hkv,dh]); the attention runs the flash kernel."""
+def attn_block_prefill(cfg: ModelConfig, p, x, positions, causal=True,
+                       site=None):
+    """Full-sequence attention block (the reference's ``attn_block_train``
+    without a cached prefix; ``causal=False`` for an encoder): x [B,T,d]
+    -> (out [B,T,d], k, v [B,T,Hkv,dh]); the attention runs the flash
+    kernel."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    o = prefill_attention(q, k, v)
-    wo = p["wo"]
-    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]), k, v
+    o = prefill_attention(q, k, v, causal=causal, site=site)
+    return out_proj(o, p["wo"]), k, v
 
 
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
@@ -301,11 +310,10 @@ def decoder_stack_decode(cfg: ModelConfig, params: DecoderParams, x, pos,
     for l in range(params.n_layers):
         lp = params.layer(l)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        # Staged pages arrive layer-stacked; each layer reads its slice.
-        lctx = ctx if ctx.stage_k is None else dataclasses.replace(
-            ctx, stage_k=ctx.stage_k[l], stage_v=ctx.stage_v[l])
         block = mla_block_decode if cfg.mla is not None else \
             attn_block_decode
-        x = x + block(cfg, lp["attn"], h, pos, k_pools[l], v_pools[l], lctx)
+        # Staged pages arrive layer-stacked; each layer reads its slice.
+        x = x + block(cfg, lp["attn"], h, pos, k_pools[l], v_pools[l],
+                      ctx.stage_at(l))
         x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
     return x, pools

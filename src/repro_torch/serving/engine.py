@@ -54,16 +54,20 @@ scatter's ``.to(device)`` are the real PCIe transfers, timed into
 link model and bookkeeping as the reference's, so both engines report them
 equal for the same schedule.
 
-Families: dense, moe, ssm and hybrid (the LM's).  The recurrent families
-keep each request's decode state (``self.states``: ``{"ssm", "conv"}``) on
-the device, stacked along the batch axis for a decode step and split after
-it; it stays put across preemption, where only KV pages swap.  The ssm
-family has no pools: its pages are bookkeeping only (``page_bytes`` 0, no
-gather, scatter or compaction), and neither recurrent family uses the
-prefix cache.  Nor does the moe family, as in the reference (MoE capacity
-depends on the forward's length, MLA caches latents); with MLA its pages
-hold K and V latent payloads of different widths, and ``"fused"`` is
-refused.
+Families: all six of the LM's.  The recurrent families keep each request's
+decode state (``self.states``: ``{"ssm", "conv"}``), and encdec its cross
+K/V (``{"cross_k", "cross_v"}``, ~0.40 GB a request at seamless-m4t's
+width), on the device, stacked along the batch axis for a decode step and
+split after it; it stays put across preemption, where only KV pages swap.
+A vlm request holds its ``frontend_tokens`` image positions in front of
+the prompt in the pool.  The frontends are stubs, as in the reference:
+prefill feeds zero patch embeddings (vlm) and zero source frames
+(encdec).  The ssm family has no pools: its pages are bookkeeping only
+(``page_bytes`` 0, no gather, scatter or compaction).  Only the dense
+family uses the prefix cache, as in the reference: the cached pages hold
+no recurrent state, image prefix or cross K/V, and MoE capacity depends on
+the forward's length.  With MLA the pages hold K and V latent payloads of
+different widths, and ``"fused"`` is refused.
 
 Not in this slice (raise ``NotImplementedError``): the translation meter,
 and the cluster tier's shared host store, prefix index, failure injection
@@ -368,7 +372,8 @@ class ServingEngine:
         # Content-hash prefix cache.  Suffix-only prefill needs attention
         # over cached KV pages, which only the dense-transformer family
         # replays bitwise (the reference's condition: ssm and hybrid carry
-        # recurrent state that cached KV cannot restore).
+        # recurrent state that cached KV cannot restore, vlm an image
+        # prefix and encdec cross K/V that the pages do not hold).
         self.prefix_supported = (cfg.family == "dense" and cfg.mla is None
                                  and bool(self.page_bytes))
         self.prefix: Optional[PrefixIndex] = None
@@ -381,9 +386,9 @@ class ServingEngine:
                                         device=self.device)
                             for shape, dtype in shapes)
                       if shapes else None)
-        # Per-request recurrent decode state (ssm / hybrid: {"ssm", "conv"}
-        # with a batch axis of 1), kept on the device across preemption:
-        # only KV pages swap.
+        # Per-request decode state (ssm / hybrid: {"ssm", "conv"}; encdec:
+        # {"cross_k", "cross_v"}; each with a batch axis of 1), kept on the
+        # device across preemption: only KV pages swap.
         self.states: Dict[int, Dict[str, torch.Tensor]] = {}
         self.queue: Deque[Request] = deque()
         self.preempted: Deque[Request] = deque()
@@ -652,7 +657,11 @@ class ServingEngine:
         return True
 
     def _admit_one(self, req: Request) -> bool:
-        if not self._alloc_with_preemption(req, len(req.prompt),
+        # vlm requests hold the image's frontend tokens in front of the
+        # prompt in the pool.
+        n_prefix = (self.cfg.frontend_tokens
+                    if self.cfg.family == "vlm" else 0)
+        if not self._alloc_with_preemption(req, n_prefix + len(req.prompt),
                                            below_priority=req.priority):
             return False
         self._prefill(req)
@@ -1218,9 +1227,20 @@ class ServingEngine:
             [req.rid], self.mpps, device=self.device))
         tokens = torch.zeros((1, Tpad), dtype=torch.int32)
         tokens[0, :T] = torch.from_numpy(np.asarray(req.prompt, np.int32))
-        logits, _, state = self.lm.prefill(
-            {"tokens": tokens.to(self.device)}, self.pools, ctx,
-            last_pos=self._index([T - 1]))
+        batch = {"tokens": tokens.to(self.device)}
+        # The frontends are stubs, as in the reference: zero image patches
+        # (vlm) and zero source frames (encdec).
+        dtype = getattr(torch, self.cfg.dtype)
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (1, self.cfg.frontend_tokens, self.cfg.d_model), dtype=dtype,
+                device=self.device)
+        if self.cfg.family == "encdec":
+            batch["src_embeds"] = torch.zeros(
+                (1, self.cfg.encdec.source_len, self.cfg.d_model),
+                dtype=dtype, device=self.device)
+        logits, _, state = self.lm.prefill(batch, self.pools, ctx,
+                                           last_pos=self._index([T - 1]))
         self.states[req.rid] = state
         req.out.append(int(torch.argmax(logits[0])))
         self.stats.prefill_s += time.perf_counter() - t0
@@ -1384,9 +1404,9 @@ class ServingEngine:
     # ------------------------------------------------------------- states
 
     def _stack_states(self, seqs: List[int]) -> Dict[str, torch.Tensor]:
-        """The decode batch's recurrent state: each request's
-        {"ssm", "conv"} concatenated along the batch axis (axis 1 of
-        [L, B, ...]); empty for dense."""
+        """The decode batch's state: each request's {"ssm", "conv"} or
+        {"cross_k", "cross_v"} concatenated along the batch axis (axis 1
+        of [L, B, ...]); empty for the other families."""
         if not self.states:
             return {}
         keys = self.states[seqs[0]].keys()

@@ -58,6 +58,8 @@ def cuda_device():
     (32, 2, 64),      # 16 query heads per KV head: 4 per warp
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
     (48, 8, 128),     # dbrx-132b: 6 query heads per KV head
+    (32, 8, 128),     # llama3-8b, qwen3-8b, llava-next: g = 4
+    (32, 32, 96),     # phi3-mini-3.8b: g = 1 at head dim 96
 ])
 @pytest.mark.parametrize("granularity", ["page", "frame"])
 def test_cuda_paged_attention_matches_plain(cuda_device, granularity, H,
@@ -170,6 +172,8 @@ def _run_split_case(c, granularity, *, plain=False):
     (8, 4, 128),      # g = 2
     (16, 2, 128),     # g = 8 (qwen2.5-3b)
     (48, 8, 128),     # g = 6 (dbrx-132b)
+    (32, 8, 128),     # g = 4 (llama3-8b, qwen3-8b, llava-next)
+    (32, 32, 96),     # g = 1 at head dim 96 (phi3-mini-3.8b)
 ])
 @pytest.mark.parametrize("granularity", ["page", "frame", "fused"])
 def test_cuda_paged_attention_splits_match_plain(cuda_device, granularity,
@@ -280,6 +284,7 @@ def _copy_pool(dev, L, NP, page_shape, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("page_shape", [
     (64, 2, 128),     # 32 KiB, qwen2.5-3b's page: one load batch
+    (64, 32, 96),     # 393,216 B, phi3-mini-3.8b's page
     (2561, 8),        # 40976 B: 2561 vectors, a ragged second batch
     (5, 3, 8),        # 240 B: 15 vectors, less than one thread each
 ])
@@ -434,6 +439,7 @@ def _flash_case(dev, B, Tq, Tk, H, n_kv, dh, dtype, seed=31):
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
     (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
     (48, 8, 128),     # dbrx-132b: 6 query heads per KV head
+    (32, 32, 96),     # phi3-mini-3.8b: g = 1 at head dim 96
 ])
 @pytest.mark.parametrize("Tq,Tk,q_offset,with_len,causal", [
     (200, 200, 0, False, True),     # full prefill, lengths off the tiles
@@ -488,6 +494,34 @@ def test_cuda_flash_tensor_core_path_matches_plain(cuda_device, H, n_kv, dh,
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv,dh", [
+    (16, 16, 64),     # seamless-m4t-large-v2
+    (32, 8, 128),     # g = 4
+])
+@pytest.mark.parametrize("B,Tq,Tk", [
+    (1, 300, 300),    # encoder: every row over every key
+    (2, 150, 517),    # cross-attention at prefill: Tq < Tk
+    (4, 1, 4096),     # cross-attention at decode: one row a sequence
+    (2, 200, 64),     # Tq > Tk: a long prompt over a short memory
+])
+def test_cuda_flash_non_causal_cross_shapes_match_plain(cuda_device, dtype,
+                                                        H, n_kv, dh, B, Tq,
+                                                        Tk):
+    """The non-causal shapes of the encoder and of cross-attention,
+    queries and keys of independent lengths, against the plain version."""
+    q, k, v = _flash_case(cuda_device, B, Tq, Tk, H, n_kv, dh,
+                          getattr(torch, dtype), seed=35)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and bool(torch.isfinite(got.float()).all())
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -1152,3 +1186,50 @@ def test_cuda_moe_lm_matches_cpu_plain_path(cuda_device):
         torch.testing.assert_close(a.cpu(), b, **tol)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_lm_counts_flash_by_site(cuda_device):
+    """seamless's smoke config at head dim 32 (the kernels' smallest) on
+    the card: one prefill and one decode
+    step launch the flash kernel once per encoder layer, twice per decoder
+    layer at prefill (self- and cross-attention) and once per decoder
+    layer at decode, and the wrapper counts the encoder's and the
+    cross-attention's launches by call site."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.kv_cache import ShardedKVCache
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                              dtype="bfloat16", d_model=128)
+    e = cfg.encdec
+    lm = LM(cfg, device=cuda_device).init_weights(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    ptok, mpps, NP, T = 8, 12, 32, 16
+    cache = ShardedKVCache(PoolGeometry(page_tokens=ptok, frame_pages=4),
+                           NP, 1)
+    cache.allocate(0, T)
+    pl = tuple(torch.zeros(s, dtype=d, device=cuda_device)
+               for s, d in lm.pool_shapes(NP, ptok))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, T),
+                                     generator=gen).int().to(cuda_device),
+             "src_embeds": torch.randn((1, e.source_len, cfg.d_model),
+                                       generator=gen).to(cuda_device,
+                                                         torch.bfloat16)}
+    ops.reset_launch_counts()
+    _, pl, state = lm.prefill(batch, pl, cache.pack_ctx([0], mpps,
+                                                        device=cuda_device),
+                              last_pos=torch.tensor([T - 1],
+                                                    device=cuda_device))
+    cache.append(0)
+    lm.decode_step(batch["tokens"][:, -1], torch.tensor([T],
+                                                        device=cuda_device),
+                   pl, cache.pack_ctx([0], mpps, device=cuda_device), state)
+    torch.cuda.synchronize()
+    assert ops.flash_site_counts() == {
+        "flash_attention.encoder": e.enc_layers,
+        "flash_attention.cross_prefill": e.dec_layers,
+        "flash_attention.cross_decode": e.dec_layers}
+    assert ops.launch_counts()["flash_attention"] \
+        == e.enc_layers + 3 * e.dec_layers

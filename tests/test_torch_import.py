@@ -55,6 +55,8 @@ from repro_torch.models.moe import MoEParams, moe_block
 from repro_torch.models.mla import MLAParams, mla_block_decode
 from repro_torch.models.page_ops import PageCtx, paged_attn_op
 from repro_torch.kernels.paged_attention import MLA_DIMS
+from repro_torch.models.encdec import CrossDecoderParams, encoder_apply
+from repro_torch.models.lm import FAMILIES, LM
 from repro_torch.configs import get_config, list_archs
 assert "paged_attention.fused" in KERNELS and "flash_attention" in KERNELS
 assert "ssd_scan" in KERNELS
@@ -64,6 +66,11 @@ assert get_config("deepseek-v2-lite-16b").mla is not None
 assert get_config("dbrx-132b").moe.n_experts == 16
 assert {"deepseek-v2-lite-16b", "dbrx-132b"} <= set(list_archs())
 assert MLA_DIMS == (576, 512)
+assert len(list_archs()) == 10 and set(FAMILIES) == {
+    get_config(a).family for a in list_archs()}
+assert get_config("seamless-m4t-large-v2").encdec.source_len == 4096
+assert get_config("llava-next-mistral-7b").frontend_tokens == 2880
+assert get_config("qwen3-8b").qk_norm
 assert ServingEngine.__init__.__kwdefaults__["fault_mode"] == "async"
 assert ServingEngine.__init__.__kwdefaults__["prefix_cache"] is True
 print("BAD", sorted(m for m in sys.modules
@@ -75,8 +82,8 @@ print("BAD", sorted(m for m in sys.modules
 def test_async_pipeline_and_fused_kernel_import_without_jax():
     """The modules the slices add or extend (async and fused fault-in,
     the prefix cache, the flash-attention kernel, the SSD-scan kernel, the
-    Mamba-2 and hybrid models, the MoE and MLA models and their configs),
-    imported by name."""
+    Mamba-2 and hybrid models, the MoE and MLA models, the encoder-decoder
+    model, and their configs: all ten architectures), imported by name."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _NAMED], env=env,
                          capture_output=True, text=True, timeout=300)

@@ -210,8 +210,13 @@ def test_lm_prefill_and_decode_match_reference(dtype):
 
 
 def test_lm_refuses_unported_families():
-    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The LM builds every family of the reference's registry and refuses
+    a family no package has."""
+    from repro_torch.configs import list_archs
+    from repro_torch.models.lm import FAMILIES
+    assert {t_smoke(a).family for a in list_archs()} == set(FAMILIES)
+    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="rwkv")
+    with pytest.raises(ValueError, match="unknown family 'rwkv'"):
         TLM(cfg)
 
 

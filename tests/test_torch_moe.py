@@ -27,6 +27,7 @@ from repro.configs.base import PoolGeometry as JGeo
 from repro.models import moe as jmoe
 from repro.serving.kv_cache import ShardedKVCache as JCache
 from repro_torch.configs import get_smoke_config as t_smoke
+from repro_torch.configs import list_archs
 from repro_torch.configs.base import PoolGeometry as TGeo
 from repro_torch.models import moe as tmoe
 from repro_torch.models.lm import LM as TLM
@@ -36,6 +37,7 @@ from test_torch_parity_helpers import (
     GEO_KW,
     bridged,
     check_engine_matches_reference,
+    frontend_batch,
 )
 
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -234,20 +236,24 @@ def _smoke_lm(arch):
     return TLM(cfg).init_weights(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-1.2b", "mamba2-1.3b",
-                                  "deepseek-v2-lite-16b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", list_archs())
 def test_prefill_decode_matches_full_forward(arch):
-    """tests/test_smoke_archs.py's check over the port's five archs:
+    """tests/test_smoke_archs.py's check over all ten archs of the port:
     prefill T tokens, then decode two, gives the logits of one prefill
     over all T + 2 tokens at its last real position.  Pool writes take
     whole pages, so T is a page multiple and the full prefill is
     right-padded to one (the smoke MoE configs' capacity factor 4 drops
-    no token at either length)."""
+    no token at either length).  vlm runs the same random patch
+    embeddings in front of both (its pool holds them, and decode positions
+    count them); encdec encodes the same random source frames in both."""
     lm = _smoke_lm(arch)
     cfg = lm.cfg
     rng = np.random.default_rng(3)
     T, B = 24, 2
     toks = rng.integers(0, cfg.vocab_size, (B, T + 2)).astype(np.int32)
+    frontend = {k: torch.from_numpy(v) for k, v in
+                frontend_batch(cfg, toks).items() if k != "tokens"}
+    n_prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
 
     def pools():
         shapes = lm.pool_shapes(NP, PTOK, dtype=torch.float32)
@@ -255,22 +261,24 @@ def test_prefill_decode_matches_full_forward(arch):
                                                  for s, _ in shapes)
     cache = TCache(TGeo(**GEO_KW), NP, 1)
     for b in range(B):
-        cache.allocate(b, T)
-    _, pl, state = lm.prefill({"tokens": torch.from_numpy(toks[:, :T])},
-                              pools(), cache.pack_ctx([0, 1], MPPS))
+        cache.allocate(b, n_prefix + T)
+    _, pl, state = lm.prefill(
+        {"tokens": torch.from_numpy(toks[:, :T]), **frontend}, pools(),
+        cache.pack_ctx([0, 1], MPPS))
     for i in range(2):
         for b in range(B):
             cache.append(b)
         logits, pl, state = lm.decode_step(
-            torch.from_numpy(toks[:, T + i]), torch.full((B,), T + i), pl,
+            torch.from_numpy(toks[:, T + i]),
+            torch.full((B,), n_prefix + T + i), pl,
             cache.pack_ctx([0, 1], MPPS), state)
     full_cache = TCache(TGeo(**GEO_KW), NP, 1)
     for b in range(B):
-        full_cache.allocate(b, T + 2)
+        full_cache.allocate(b, n_prefix + T + 2)
     padded = np.zeros((B, T + PTOK), np.int32)
     padded[:, :T + 2] = toks
     full, _, _ = lm.prefill(
-        {"tokens": torch.from_numpy(padded)}, pools(),
+        {"tokens": torch.from_numpy(padded), **frontend}, pools(),
         full_cache.pack_ctx([0, 1], MPPS), last_pos=torch.full((B,), T + 1))
     torch.testing.assert_close(logits, full, **F32)
 
