@@ -83,7 +83,44 @@ Phases (each synchronised; any failure exits non-zero):
    mosaic and gpu-mmu — same batches, identical tokens;
 7. paging round trip: a held preemption's host payloads come back into the
    pool bit for bit;
-4e. (after 7, once qwen2.5-3b's weights have left the card) deepseek-v2-lite
+8. the cluster tier at full width (after 7, once phase 4's copy of
+   qwen2.5-3b's weights has left the card): ``ServingCluster`` of two
+   ``ServingEngine`` replicas sharing one LM (weights drawn anew from seed
+   0: the same weights, one copy on the card, which the memory
+   high-water mark must show), phase 4's pool per engine, async fault-in,
+   a shared host tier bounded at ``CLUSTER_FRAMES`` frames over a spill
+   directory, the shared prefix index, work-stealing migration,
+   pre-staging, the radix translation meter and ``decode_window_us`` set
+   (the router's costs, and so the schedule, come from the modeled
+   clock).  Traffic: phase 4b's waves (the first pinned to engine 0, the
+   second routed), then phase 4's stream pinned to engine 0, whose
+   priority arrivals make it preempt while engine 1 has room.
+   8a: served twice; the two runs give identical tokens, router
+   decisions, frame-table, tier, spill and translation counters; both
+   engines dispatched; at least one migration with a whole-frame owner
+   flip and every migrated request's pages in the destination pool bit
+   for bit the payloads the source gathered; one admission (one flash
+   launch per layer) per request: a migration re-prefills nothing;
+   engine 1 hits the prefix engine 0 parked, landed by page_scatter;
+   frames spilled and promoted back; ``check_invariants()`` after every
+   router step; lookups on both engines.  Router-step and engine-step ms
+   (host clock), promote time (host clock and modeled) and the memory
+   high-water mark are printed.
+   8b: a seeded ``FaultPlan``: engine 1 dies ``CRASH_AFTER`` router steps
+   into the stream, disk reads fail transiently (the tier retries), and
+   the first request frame written to disk is corrupted: every request
+   completes, the dead engine holds no host frame after the crash (its
+   preempted request re-leased whole to the survivor) while the prefix
+   frames survive, at least one retry, one quarantine and one
+   lost-payload restart, invariants after every step.
+   8c: phase 4's stream on one engine in sync without oversubscription,
+   the translation meter off, flat and radix, and radix under gpu-mmu:
+   the same batches and tokens, equal lookups for flat and radix, radix
+   walks <= flat walks; mosaic's and gpu-mmu's walks printed.
+   8d: 8a and 8b with the narrow f32 model of phase 5 on the card and on
+   the CPU: identical tokens, router decisions, tier counters and
+   injector log.
+4e. (after 8) deepseek-v2-lite
    at its published width cut to 2 layers (the dense one and one MoE
    layer) on the card against the same weights on the CPU (plain
    versions, the card's expert choices replayed): logits and latent pools
@@ -128,7 +165,7 @@ entry's shapes in the serving runs (``family_entries``): ``.mla`` from
 phase 4e, ``.vlm`` and ``.g4d128`` from 4g and 4i, ``.phi3`` and
 ``.g1d96`` from phi3's run, ``.g1d64`` and the flash kernel's counts by
 call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
-4h; every other launch of phases 4, 4c, 4d and 4f-4i under its
+4h; every other launch of phases 4, 4c, 4d, 4f-4i and 8a-8c under its
 kernel's own entry.  Of the serving phases only 4f is cut in depth.
 """
 
@@ -165,6 +202,12 @@ TRIM_STEP = 6           # partial deallocation of request 0's pages
 TRIM_VPNS = range(2, 14)
 FLASH_T, FLASH_P = 1152, 576   # phase 3: full prompt, cached prefix length
 PREFIX_TOKENS, PREFIX_NEW = 512, 16      # phase 4b: system prompt, max_new
+CLUSTER_ENGINES = 2     # phase 8: replicas sharing one LM on the card
+CLUSTER_FRAMES = 2      # host DRAM bound: 2 frames of 16 pages (~75 MB)
+CLUSTER_WINDOW_US = 50_000.0   # modeled decode window, about the step
+CLUSTER_RID = 100       # the stream's rids follow the waves' 0-5
+CRASH_AFTER = 12        # phase 8b: engine 1's crash, in steps into the stream
+READ_ERROR_RATE = 0.5   # phase 8b: transient disk-read errors per read
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
@@ -1942,14 +1985,20 @@ def phase_prefix(cfg, params):
           f"tokens")
 
 
+def narrow_config(cfg_full):
+    """Phases 5 and 8d: a narrow f32 model (2 layers, head dim 32, which
+    the card's kernels take)."""
+    return dataclasses.replace(cfg_full, n_layers=2, d_model=128, n_heads=4,
+                               n_kv_heads=2, d_ff=256, vocab_size=512,
+                               dtype="float32")
+
+
 def phase_small_agreement(cfg_full):
     """A narrow model (head_dim 32) on the card vs the same on the CPU."""
     import torch
     from repro_torch.configs.base import PoolGeometry
     from repro_torch.serving.engine import ServingEngine
-    cfg = dataclasses.replace(cfg_full, n_layers=2, d_model=128, n_heads=4,
-                              n_kv_heads=2, d_ff=256, vocab_size=512,
-                              dtype="float32")
+    cfg = narrow_config(cfg_full)
     outs = {}
     params = None
     for dev in ("cuda", "cpu"):
@@ -2018,6 +2067,514 @@ def phase_transparency(cfg, params):
                 f"round trip: page {vpn} of request {rid} differs")
     print(f"[roundtrip] request {rid}: {len(saved)} pages out to host and "
           f"back, bit-identical")
+
+
+# ---------------------------------------------------------------- cluster
+
+
+def cluster_requests(vocab: int):
+    """Phase 8's traffic: phase 4b's two shared-prefix waves (rids 0-5),
+    then phase 4's stream with its rids moved up by ``CLUSTER_RID`` (rids
+    are unique cluster-wide).  Returns (wave 1, wave 2, stream)."""
+    wave1, wave2 = make_prefix_waves(vocab)
+    stream = make_stream(vocab)
+    for _, r in stream:
+        r.rid += CLUSTER_RID
+    return wave1, wave2, stream
+
+
+def fault_injector(plan):
+    """A ``FaultInjector`` running ``plan``, plus one on-disk bit flip in
+    the first frame of engine 0's domain (a request frame) that the tier
+    writes: its id is known only once the run spills it.  The flipped byte
+    comes from the plan's seeded RNG, as for the plan's own
+    ``corrupt_frames``; ``tier`` is set once the cluster exists."""
+    from repro_torch.serving.faults import FaultInjector
+
+    class RequestFrameCorruption(FaultInjector):
+        tier = None
+
+        def corrupt_written(self, frame, blob):
+            if (not self.plan.corrupt_frames and self.tier is not None
+                    and self.tier.frames._frame_owner.get(frame) == 0):
+                self.plan = dataclasses.replace(self.plan,
+                                                corrupt_frames=(frame,))
+            return super().corrupt_written(frame, blob)
+
+    return RequestFrameCorruption(plan)
+
+
+class ClusterRun:
+    """Runs one ``ServingCluster`` through phase 8 (device-agnostic, also
+    run on the CPU).  Each router step is timed on the host clock and
+    followed by ``check_invariants()``.  Each work-stealing migration
+    snapshots the host payloads the source engine gathered; once the
+    request has decoded on the destination, its pages in the destination's
+    pool must hold those bytes (as phase 7's round trip).  Promotes from
+    the spill tier are timed on the host clock (disk read and checksum)."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        self.step_s = []
+        self.promote_s = 0.0
+        self.pending = []     # (rid, dst, payloads, tokens, outputs so far)
+        self.landed = []      # (rid, pages) whose landing was checked
+        self.stream_start = 0
+        self.after_crash = None   # the host tier's leases after a crash
+        self.built_bytes = 0      # card memory once the cluster is built
+        self.e1_parked_before_wave2 = 0
+        self.e1_hits_wave2 = 0
+        migrate = cluster.router._migrate
+        promote = cluster.tier._promote_frame
+
+        def _migrate(rid, src, dst):
+            migrate(rid, src, dst)
+            store = cluster.tier.store
+            req = next(r for r in dst.preempted if r.rid == rid)
+            self.pending = [p for p in self.pending if p[0] != rid]
+            self.pending.append((rid, dst, {k: store.peek(*k) for k in
+                                            cluster.tier.seq_pages(rid)},
+                                 dst._saved_tokens[rid], len(req.out)))
+
+        def _promote_frame(f):
+            t0 = time.perf_counter()
+            try:
+                return promote(f)
+            finally:
+                self.promote_s += time.perf_counter() - t0
+
+        cluster.router._migrate = _migrate
+        cluster.tier._promote_frame = _promote_frame
+
+    def busy(self) -> bool:
+        router = self.cluster.router
+        return bool(router.pending) or any(router._busy(e)
+                                           for e in self.cluster.engines)
+
+    def step(self) -> None:
+        from repro_torch.serving.cluster import PREFIX_DOMAIN
+        router, frames = self.cluster.router, self.cluster.tier.frames
+        crashes = router.stats.crashes
+        t0 = time.perf_counter()
+        self.cluster.step()
+        self.step_s.append(time.perf_counter() - t0)
+        self.cluster.check_invariants()
+        if router.stats.crashes > crashes:
+            dead = [e.engine_id for e in self.cluster.engines if not e.alive]
+            self.after_crash = {
+                "dead_engine_frames": sum(frames.frames_of(d) for d in dead),
+                "prefix_frames": frames.frames_of(PREFIX_DOMAIN),
+                "recovered_bundles": router.stats.recovered_bundles}
+        self._check_landings()
+
+    def drain(self, max_steps: int = 2000) -> None:
+        for _ in range(max_steps):
+            if not self.busy():
+                break
+            self.step()
+        require(not self.busy(), f"cluster not drained in {max_steps} steps")
+        self.cluster.run_until_drained()    # settles the DMA lanes only
+
+    def _check_landings(self) -> None:
+        import torch
+        for item in list(self.pending):
+            rid, dst, snap, tokens, n_out = item
+            if not dst.alive:
+                self.pending.remove(item)
+                continue
+            req = next((r for r in dst.active if r.rid == rid), None)
+            if req is None or len(req.out) <= n_out:
+                continue
+            ptok, pps = dst.geo.page_tokens, dst.cache.pages_per_shard
+            for (_o, s, vpn), (kp, vp) in snap.items():
+                ppn = s * pps + dst.cache.mgrs[s].tables[rid].ppn[vpn]
+                n = min(ptok, tokens - vpn * ptok)
+                require(torch.equal(dst.pools[0][:, ppn, :n].cpu(), kp[:, :n])
+                        and torch.equal(dst.pools[1][:, ppn, :n].cpu(),
+                                        vp[:, :n]),
+                        f"migration: page {vpn} of request {rid} landed on "
+                        f"engine {dst.engine_id} differs from the payload "
+                        f"the source gathered")
+            self.landed.append((rid, len(snap)))
+            self.pending.remove(item)
+
+
+def serve_cluster(cfg, device=None, plan=None, weights=None):
+    """One phase-8 run: ``CLUSTER_ENGINES`` replicas sharing one LM
+    (weights from seed 0), a shared host tier of ``CLUSTER_FRAMES`` frames
+    over a disk spill directory, the shared prefix index, migration,
+    pre-staging and the radix translation meter, async fault-in, phase 4's
+    pool per engine and ``decode_window_us`` = ``CLUSTER_WINDOW_US`` (the
+    router's costs come from the modeled clock).  Wave 1 is pinned to
+    engine 0; wave 2 is routed once wave 1 has drained; then the stream,
+    pinned to engine 0 (it preempts under the priority arrivals while
+    engine 1 has room, so engine 1 steals).  ``plan``: a ``FaultPlan``
+    run by :func:`fault_injector`.  ``weights``: a state dict loaded into
+    the replicas' one LM in place of the seed's.  Launch counters are
+    reset just before the traffic and read just after.  Returns (run,
+    requests, launch counts, wall seconds)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cluster import ServingCluster
+    inj = None if plan is None else fault_injector(plan)
+    spill_dir = tempfile.mkdtemp(prefix="chip-smoke-spill-")
+    try:
+        cluster = ServingCluster(
+            cfg, geometry=PoolGeometry(), n_engines=CLUSTER_ENGINES,
+            max_batch=MAX_BATCH, max_seq=MAX_SEQ, manager_kind="mosaic",
+            seed=0, share_host=True, share_prefix=True, migrate=True,
+            router_prestage=True, capacity_frames=CLUSTER_FRAMES,
+            spill_dir=spill_dir, fault_injector=inj,
+            oversubscription=OVERSUB, decode_window_us=CLUSTER_WINDOW_US,
+            translation="radix", device=device)
+        if inj is not None:
+            inj.tier = cluster.tier
+        if weights is not None:
+            cluster.engines[0].lm.load_state_dict(weights)
+        run = ClusterRun(cluster)
+        if cluster.engines[0].device.type == "cuda":
+            # Weights and pools are in place: what the card holds now, and
+            # the high-water mark of serving from here on.
+            torch.cuda.synchronize()
+            run.built_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        wave1, wave2, stream = cluster_requests(cfg.vocab_size)
+        e1 = cluster.engines[1]
+        if device is None or torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in wave1:
+            cluster.submit(r, engine=0)
+        run.drain()
+        run.e1_parked_before_wave2 = e1.stats.prefix_parked_pages
+        for r in wave2:
+            cluster.submit(r)
+        run.drain()
+        run.e1_hits_wave2 = e1.stats.prefix_hits
+        run.stream_start = cluster.router._step_no
+        pending = sorted(stream, key=lambda a: a[0])
+        step = 0
+        while pending or run.busy():
+            require(step < 2000, "cluster: the stream did not drain")
+            while pending and pending[0][0] <= step:
+                cluster.submit(pending.pop(0)[1], engine=0)
+            run.step()
+            step += 1
+        run.drain()
+        if device is None or torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        cluster.tier.spill_store.close()
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return run, wave1 + wave2 + [r for _, r in stream], counts, wall
+
+
+def cluster_signature(run, reqs):
+    """What two runs of one phase-8 configuration must reproduce: tokens
+    per request, the router's decisions, the frame table's, the tier's and
+    the spill store's counters, each engine's translation counters and
+    the injector's log."""
+    c = run.cluster
+    inj = c.fault_injector
+    return {
+        "tokens": {r.rid: list(r.out) for r in reqs},
+        "router": dataclasses.asdict(c.router.stats),
+        "frames": dict(c.tier.frames.stats),
+        "tier": dict(c.tier.stats),
+        "spill": dict(c.tier.spill_store.stats),
+        "translation": [(e.stats.translation_lookups,
+                         e.stats.translation_tlb_hits,
+                         e.stats.translation_walks,
+                         e.stats.translation_walk_cycles,
+                         e.stats.translation_queue_cycles,
+                         e.stats.translation_us) for e in c.engines],
+        "injector": None if inj is None else list(inj.log),
+    }
+
+
+def check_cluster_run(cfg, label, run, reqs, counts, faulted=False):
+    """What every phase-8 run must show, on the card or (counts all 0)
+    rehearsed on the CPU: 8a's gates, or 8b's with ``faulted``."""
+    c = run.cluster
+    r, tier, ts = c.router.stats, c.tier, c.tier.stats
+    t = c.stats().totals
+    for q in reqs:
+        require(q.done and len(q.out) == q.max_new
+                and all(0 <= tok < cfg.vocab_size for tok in q.out),
+                f"{label}: request {q.rid} did not complete its "
+                f"{q.max_new} tokens")
+    require(all(e.lm is c.engines[0].lm for e in c.engines),
+            f"{label}: the replicas do not share one LM")
+    require(all(r.dispatched.get(i, 0) > 0 for i in range(len(c.engines))),
+            f"{label}: not every engine was dispatched to: {r.dispatched}")
+    require(all(e.stats.translation_lookups > 0 for e in c.engines),
+            f"{label}: an engine's translation meter saw no lookup")
+    require(ts["spilled_frames"] >= 1 and (
+        faulted or ts["promoted_frames"] >= 1),
+            f"{label}: {ts['spilled_frames']} frames spilled, "
+            f"{ts['promoted_frames']} promoted back")
+    require(run.e1_parked_before_wave2 == 0 and run.e1_hits_wave2 >= 1
+            and c.engines[1].stats.landings >= 1,
+            f"{label}: engine 1 parked {run.e1_parked_before_wave2} pages "
+            f"before wave 2 and hit the shared index {run.e1_hits_wave2} "
+            f"times in it: no cross-engine prefix reuse")
+    admissions = t.admit_colds + t.admit_hits
+    if not faulted:
+        require(r.migrations >= 1 and r.migrated_pages > 0
+                and tier.frames.stats["whole_frame_moves"] >= 1,
+                f"{label}: {r.migrations} migrations ({r.migrated_pages} "
+                f"pages, {tier.frames.stats['whole_frame_moves']} "
+                f"whole-frame owner flips)")
+        require(run.landed and not run.pending,
+                f"{label}: migrated pages not checked on the destination: "
+                f"{[p[0] for p in run.pending]}")
+        require(admissions == len(reqs) and t.lost_restarts == 0,
+                f"{label}: {admissions} admissions for {len(reqs)} "
+                f"requests: a migration re-prefilled")
+    else:
+        dead = [e.engine_id for e in c.engines if not e.alive]
+        require(r.crashes == 1 and dead == [1]
+                and run.stream_start < c.fault_injector.plan.engine_crashes[
+                    0][0],
+                f"{label}: crashes {r.crashes}, dead engines {dead}")
+        after = run.after_crash
+        require(after is not None and after["dead_engine_frames"] == 0
+                and after["prefix_frames"] >= 1
+                and after["recovered_bundles"] >= 1
+                and tier.frames.frames_of(1) == 0,
+                f"{label}: after the crash {after}: the dead engine must "
+                f"hold no host frame (its preempted requests re-leased "
+                f"whole to the survivor, the rest reclaimed) while the "
+                f"prefix frames survive")
+        require(ts["disk_retries"] >= 1 and ts["frames_quarantined"] >= 1
+                and t.lost_restarts >= 1,
+                f"{label}: {ts['disk_retries']} retries, "
+                f"{ts['frames_quarantined']} quarantined frames, "
+                f"{t.lost_restarts} lost-payload restarts")
+    if counts.get("flash_attention", 0) == 0 and not counts.get(
+            "paged_attention.page"):
+        return                                  # rehearsed on the CPU
+    require(all(counts[k] > 0 for k in (
+        "flash_attention", "paged_attention.page", "page_gather",
+        "page_scatter")), f"{label}: a kernel of the path never launched: "
+            f"{counts}")
+    check_launches(cfg, label, t, counts)
+
+
+def print_cluster_run(label, run, wall):
+    import torch
+    c = run.cluster
+    for line in c.stats().summary().splitlines():
+        print(f"[{label}] {line}")
+    ms = np.asarray(run.step_s) * 1e3
+    engines = " | ".join(
+        f"engine {e.engine_id}: {e.stats.decode_steps} decode steps, "
+        f"{e.stats.wall_s / max(e.stats.decode_steps, 1) * 1e3:.2f} ms/step "
+        f"(decode {e.stats.decode_s / max(e.stats.decode_steps, 1) * 1e3:.2f})"
+        for e in c.engines)
+    mem = (f" | card memory high-water mark "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+           if c.engines[0].device.type == "cuda" else "")
+    print(f"[{label}] measured ({SMI}): wall {wall:.2f}s | {len(ms)} router "
+          f"steps: {ms.mean():.2f} ms mean, {ms.max():.2f} max (host clock) "
+          f"| {engines} | promotes {c.tier.stats['promoted_frames']}, "
+          f"quarantined {c.tier.stats['frames_quarantined']}: frame reads "
+          f"{run.promote_s * 1e3:.1f} ms (host clock), promote stall "
+          f"{c.tier.stats['promote_us']:.0f} us (modeled){mem}")
+    meters = [(e.stats.translation_lookups, e.stats.translation_walks)
+              for e in c.engines]
+    print(f"[{label}] migrations checked on the destination: "
+          f"{run.landed}; translation per engine (lookups, walks): {meters}")
+
+
+def check_one_copy(label, run, w_bytes):
+    """The replicas hold one copy of the weights: the card's memory once
+    the cluster is built, and its high-water mark while serving, stay
+    below what a second copy would take."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    require(run.built_bytes < 1.5 * w_bytes and peak < 2 * w_bytes,
+            f"{label}: card memory {run.built_bytes / 2**30:.2f} GiB once "
+            f"built, {peak / 2**30:.2f} GiB at most while serving: more "
+            f"than one weight copy of {w_bytes / 2**30:.2f} GiB")
+
+
+def free_cluster(run):
+    """Drop a run's cluster (``ClusterRun`` wraps its router and tier in
+    closures that refer back to it, so only the collector frees it) and
+    return its memory to the card."""
+    import gc
+    import torch
+    run.cluster = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def crash_plan(stream_start):
+    """Phase 8b's seeded plan: engine 1 dies ``CRASH_AFTER`` router steps
+    into the stream, and disk reads fail transiently at
+    ``READ_ERROR_RATE`` (the tier retries); ``fault_injector`` adds the
+    corrupted request frame."""
+    from repro_torch.serving.faults import FaultPlan
+    return FaultPlan(seed=0,
+                     engine_crashes=((stream_start + CRASH_AFTER, 1),),
+                     disk_read_error_rate=READ_ERROR_RATE)
+
+
+def phase_cluster(cfg):
+    """Phase 8a-8b at full width; returns the summed launch counts."""
+    import torch
+    total = {}
+    sigs = []
+    for i in range(2):
+        run, reqs, counts, wall = serve_cluster(cfg)
+        label = f"cluster:a{i + 1}"
+        if i == 0:
+            params = list(run.cluster.engines[0].lm.parameters())
+            n_par = sum(p.numel() for p in params)
+            w_bytes = sum(p.numel() * p.element_size() for p in params)
+            del params
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[cluster] built {describe(cfg, n_par)}; "
+                  f"{CLUSTER_ENGINES} engines on one LM "
+                  f"({w_bytes / 2**30:.2f} GiB of weights), each a pool of "
+                  f"{run.cluster.engines[0].cache.pages_per_shard} pages x "
+                  f"{run.cluster.engines[0].page_bytes} B; host tier "
+                  f"{CLUSTER_FRAMES} frames over a spill directory; card "
+                  f"memory {run.built_bytes / 2**30:.2f} GiB once built, "
+                  f"high-water mark {peak / 2**30:.2f} GiB while serving")
+        check_one_copy(label, run, w_bytes)
+        check_cluster_run(cfg, label, run, reqs, counts)
+        print_cluster_run(label, run, wall)
+        print(f"[{label}] launches: {json.dumps(counts)}")
+        sigs.append(cluster_signature(run, reqs))
+        stream_start = run.stream_start
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        free_cluster(run)
+        del run
+    diff = [k for k in sigs[0] if sigs[0][k] != sigs[1][k]]
+    require(not diff, f"cluster: two runs differ in {diff}")
+    print("[cluster] two runs: identical tokens, router decisions, frame "
+          "table, tier, spill and translation counters")
+    plan = crash_plan(stream_start)
+    run, reqs, counts, wall = serve_cluster(cfg, plan=plan)
+    check_one_copy("cluster:b", run, w_bytes)
+    check_cluster_run(cfg, "cluster:b", run, reqs, counts, faulted=True)
+    print_cluster_run("cluster:b", run, wall)
+    inj = run.cluster.fault_injector
+    print(f"[cluster:b] plan {inj.plan} | injector {inj.stats} | tier "
+          f"retries {run.cluster.tier.stats['disk_retries']}, quarantined "
+          f"{run.cluster.tier.stats['frames_quarantined']}, reclaimed "
+          f"{run.cluster.tier.stats['reclaimed_frames']} | lost-payload "
+          f"restarts {run.cluster.stats().totals.lost_restarts}")
+    print(f"[cluster:b] launches: {json.dumps(counts)}")
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    free_cluster(run)
+    return total
+
+
+def serve_translation(cfg, translation, manager_kind="mosaic", params=None,
+                      device=None):
+    """One phase-8c run: phase 4's stream in sync mode without
+    oversubscription (so every run forms the same batches) and without the
+    step hook, the translation meter in ``translation``.  Returns (engine,
+    stream, batches, launch counts)."""
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, geometry=PoolGeometry(), max_batch=MAX_BATCH,
+                        max_seq=MAX_SEQ, manager_kind=manager_kind,
+                        fault_mode="sync", seed=0, params=params,
+                        device=device, translation=translation)
+    stream = make_stream(cfg.vocab_size)
+    ops.reset_launch_counts()
+    batches = drive(eng, stream)
+    return eng, stream, batches, read_counts()
+
+
+def check_translation_runs(runs):
+    """Phase 8c's gates over {label: (engine, stream, batches)} for
+    ``mosaic:off``, ``mosaic:flat``, ``mosaic:radix`` and
+    ``gpu-mmu:radix``; returns the printed line."""
+    first = runs["mosaic:off"]
+    toks = {k: {r.rid: list(r.out) for _, r in v[1]} for k, v in runs.items()}
+    require(all(v[2] == first[2] for v in runs.values()),
+            "translation: the runs formed different batches")
+    require(all(t == toks["mosaic:off"] for t in toks.values()),
+            "translation: the meter changed a token")
+    off, flat, radix, gmmu = (runs[k][0].stats for k in (
+        "mosaic:off", "mosaic:flat", "mosaic:radix", "gpu-mmu:radix"))
+    require(off.translation_lookups == 0
+            and flat.translation_lookups == radix.translation_lookups > 0
+            and radix.translation_walks <= flat.translation_walks,
+            f"translation: lookups off/flat/radix {off.translation_lookups}"
+            f"/{flat.translation_lookups}/{radix.translation_lookups}, walks "
+            f"flat {flat.translation_walks} radix {radix.translation_walks}")
+    return (f"[translation] off == flat == radix == gpu-mmu radix on every "
+            f"batch and token; mosaic lookups {radix.translation_lookups}: "
+            f"walks flat {flat.translation_walks}, radix "
+            f"{radix.translation_walks} ({radix.translation_us:.0f} us "
+            f"modeled); gpu-mmu radix: {gmmu.translation_lookups} lookups, "
+            f"{gmmu.translation_walks} walks ({gmmu.translation_us:.0f} us "
+            f"modeled)")
+
+
+def phase_translation(cfg):
+    """Phase 8c: the translation meter A/B on one engine at full width;
+    returns the summed launch counts."""
+    import torch
+    total, runs = {}, {}
+    lm = None
+    for kind, tr in (("mosaic", "off"), ("mosaic", "flat"),
+                     ("mosaic", "radix"), ("gpu-mmu", "radix")):
+        eng, stream, batches, counts = serve_translation(cfg, tr, kind, lm)
+        lm = eng.lm
+        runs[f"{kind}:{tr}"] = (eng, stream, batches)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        print(f"[translation:{kind}:{tr}] {eng.stats.summary()}")
+    print(check_translation_runs(runs))
+    del runs, lm, eng
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_cluster_agreement(cfg_full):
+    """Phase 8d: phases 8a and 8b at the narrow f32 width on the card
+    (kernels) and on the CPU (plain versions): identical tokens, router
+    decisions, tier counters and injector log."""
+    import torch
+    cfg = narrow_config(cfg_full)
+    sigs = {}
+    weights = None
+    for dev in ("cuda", "cpu"):
+        run, reqs, _c, _w = serve_cluster(cfg, device=dev, weights=weights)
+        if weights is None:
+            weights = {k: v.cpu() for k, v in
+                       run.cluster.engines[0].lm.state_dict().items()}
+        sig_a = cluster_signature(run, reqs)
+        run, reqs, _c, _w = serve_cluster(
+            cfg, device=dev, plan=crash_plan(run.stream_start),
+            weights=weights)
+        sigs[dev] = (sig_a, cluster_signature(run, reqs))
+        if dev == "cuda":
+            free_cluster(run)
+    for i, tag in enumerate(("8a", "8b")):
+        diff = [k for k in sigs["cpu"][i]
+                if sigs["cpu"][i][k] != sigs["cuda"][i][k]]
+        require(not diff, f"cluster agreement ({tag}): card and CPU differ "
+                f"in {diff}")
+    print("[cluster] narrow model, same weights, 8a and 8b: card (kernels) "
+          "== CPU (plain versions) on tokens, router decisions, tier "
+          "counters and the injector log")
 
 
 def phase_vlm():
@@ -2140,8 +2697,12 @@ def main() -> int:
             counts[k] = counts.get(k, 0) + n_launch
     phase_small_agreement(cfg)
     phase_transparency(cfg, params)
-    del params                  # qwen2.5-3b's weights leave the card
+    del params                  # phase 4's copy of qwen2.5-3b leaves the card
     torch.cuda.empty_cache()
+    for phase in (phase_cluster, phase_translation):
+        for k, n_launch in phase(cfg).items():
+            counts[k] = counts.get(k, 0) + n_launch
+    phase_cluster_agreement(cfg)
     mla_counts = phase_mla_serving()
     dbrx = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     for k, n_launch in phase_stream(dbrx, ("sync",), MOE_REQUESTS).items():

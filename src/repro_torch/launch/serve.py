@@ -3,12 +3,19 @@
 Stands up the port's multi-tenant engine on the Mosaic pool in the engine's
 defaults (async fault-in and the prefix cache on, as the reference's
 launcher) and replays a synthetic request stream; ``--manager gpu-mmu``
-flips to the baseline allocator.  Runs on ``cuda`` by default; ``--device
-cpu`` runs the kernels' plain versions.  The cluster path (``--engines``)
-comes with a later slice.
+flips to the baseline allocator.  ``--engines N`` serves the stream from a
+``ServingCluster`` of N replicas sharing one LM and one host tier, with the
+deadline-aware router dispatching (``--router``) and, unless
+``--no-migrate``, work-stealing across them; the tokens are the
+single-engine run's.  ``--translation flat|radix`` meters each engine's KV
+page translations and prints one summary line per engine.  Runs on
+``cuda`` by default; ``--device cpu`` runs the kernels' plain versions.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --requests 8 --max-new 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --smoke --requests 8 --max-new 8 --engines 2 --translation radix \\
+        --device cpu
 
 ``--arch`` takes every id of the port's registry, the reference's ten: the
 dense qwen2.5-3b, qwen3-8b (qk-norm), llama3-8b and phi3-mini-3.8b; the
@@ -45,10 +52,24 @@ def main(argv=None):
     ap.add_argument("--frame-pages", type=int, default=None,
                     help="default: 4 for --smoke, 16 otherwise")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engines", type=int, default=1,
+                    help="engine replicas sharing one LM and one host tier "
+                         "(cluster tier and deadline router)")
+    ap.add_argument("--router", default="slack", choices=["slack", "fifo"],
+                    help="cluster dispatch policy (with --engines > 1)")
+    ap.add_argument("--no-migrate", action="store_true",
+                    help="disable work-stealing migration between replicas "
+                         "(with --engines > 1)")
+    ap.add_argument("--translation", default="off",
+                    choices=["off", "flat", "radix"],
+                    help="meter KV page translations through the "
+                         "coalesced-TLB + radix-walker model; prints a "
+                         "per-engine translation summary line")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
 
+    from repro_torch.serving.cluster import ServingCluster
     from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
@@ -56,9 +77,19 @@ def main(argv=None):
     geo = PoolGeometry(
         page_tokens=args.page_tokens or (8 if args.smoke else 64),
         frame_pages=args.frame_pages or (4 if args.smoke else 16))
-    eng = ServingEngine(cfg, geometry=geo, max_batch=args.max_batch,
-                        max_seq=args.max_seq, manager_kind=args.manager,
-                        seed=args.seed, device=args.device)
+    if args.engines > 1:
+        eng = ServingCluster(cfg, geometry=geo, n_engines=args.engines,
+                             max_batch=args.max_batch, max_seq=args.max_seq,
+                             manager_kind=args.manager, seed=args.seed,
+                             router_policy=args.router,
+                             migrate=not args.no_migrate,
+                             translation=args.translation,
+                             device=args.device)
+    else:
+        eng = ServingEngine(cfg, geometry=geo, max_batch=args.max_batch,
+                            max_seq=args.max_seq, manager_kind=args.manager,
+                            seed=args.seed, translation=args.translation,
+                            device=args.device)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -70,13 +101,24 @@ def main(argv=None):
         reqs.append(r)
         eng.submit(r)
     steps = eng.run_until_drained()
-    st = eng.cache.stats()
-    print(f"[{args.manager}] {len(reqs)} requests in {steps} steps | "
-          f"{eng.stats.tok_per_s():.1f} tok/s ({eng.device}) | "
-          f"coalesced {eng.stats.coalesced_mean:.1%} | "
-          f"CAC copies {eng.stats.compaction_copies} | "
-          f"bloat {st.get('memory_bloat', 1.0):.2f}")
-    print(eng.stats.summary())
+    if args.engines > 1:
+        print(f"[{args.manager}] {len(reqs)} requests in {steps} cluster "
+              f"steps ({args.engines} engines on {args.device})")
+        print(eng.stats().summary())
+        engines = eng.engines
+    else:
+        st = eng.cache.stats()
+        print(f"[{args.manager}] {len(reqs)} requests in {steps} steps | "
+              f"{eng.stats.tok_per_s():.1f} tok/s ({eng.device}) | "
+              f"coalesced {eng.stats.coalesced_mean:.1%} | "
+              f"CAC copies {eng.stats.compaction_copies} | "
+              f"bloat {st.get('memory_bloat', 1.0):.2f}")
+        print(eng.stats.summary())
+        engines = [eng]
+    if args.translation != "off":
+        for e in engines:
+            print(f"  engine[{e.engine_id}] "
+                  f"{e.translation_meter.summary()}")
     for r in reqs[:4]:
         print(f"  rid={r.rid} tenant={r.tenant} -> {r.out[:10]}")
 

@@ -69,10 +69,28 @@ no recurrent state, image prefix or cross K/V, and MoE capacity depends on
 the forward's length.  With MLA the pages hold K and V latent payloads of
 different widths, and ``"fused"`` is refused.
 
-Not in this slice (raise ``NotImplementedError``): the translation meter,
-and the cluster tier's shared host store, prefix index, failure injection
-and spill promotion.  The pools and the pool writes of prefill, decode,
-fault-in and compaction are updated in place.
+Cluster tier, as in the reference: an engine can be one replica of a
+:class:`~repro_torch.serving.cluster.ServingCluster`.  It then holds a
+domain-bound view of the shared host store (``host=``), a cluster-wide
+prefix index (``prefix_index=``), an ``engine_id`` naming its frame-lease
+protection domain and the cluster's fault injector (``injector=``); the
+replicas share one :class:`LM` (``params`` may be an ``LM``, held without
+copying).  ``export_preempted`` / ``import_preempted`` hand a swapped-out
+request to another replica with zero re-prefill; ``prestage_queued`` /
+``cancel_prestage`` fault a queued request's reusable pages toward this
+engine before admission.  Pages the shared tier spilled to disk are
+promoted before they are read (the modeled disk stall is exposed time); a
+request whose payloads a spill quarantine destroyed restarts from its
+prompt, and a cache hit whose prefix was destroyed falls back to full
+prefill.  A non-dense replica attached to a shared index never parks into
+it (``prefix_park_skipped``), and parks are refused while the tier's
+write-back buffer is full (``prefix_park_refused``).  With ``translation=
+"flat"`` or ``"radix"`` each decode step's page tables run through the
+translation meter (:mod:`repro_torch.core.ptw`): observational, the tokens
+and the clock are unchanged.  Promoted, migrated and cross-engine prefix
+pages land in the pool through the ``page_scatter`` kernel like any other
+fault-in.  The pools and the pool writes of prefill, decode, fault-in and
+compaction are updated in place.
 """
 
 from __future__ import annotations
@@ -88,6 +106,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, PoolGeometry
 from repro_torch.core.cocoa import OutOfMemory
 from repro_torch.core.demand_paging import LinkModel
+from repro_torch.core.ptw import TranslationMeter
 from repro_torch.kernels import ops as kops
 from repro_torch.models.lm import LM
 from repro_torch.models.page_ops import PageCtx
@@ -171,6 +190,31 @@ class EngineStats:
     prefix_h2d_bytes: int = 0    # cached prefix KV copied up for attention
     prefix_h2d_s: float = 0.0
     fused_steps: int = 0         # decode steps that read staged pages
+    # Cluster tier, as the reference: parks a non-dense replica skipped
+    # (shared index) or the tier refused (write-back back-pressure),
+    # admissions that promoted spilled frames and their modeled disk
+    # stall, migrations, restarts after a spill quarantine, cache hits
+    # that fell back to full prefill, pre-staging, and the translation
+    # meter's lookups, walks and modeled µs.
+    prefix_park_skipped: int = 0
+    prefix_park_refused: int = 0
+    promotions: int = 0
+    promote_stall_us: float = 0.0
+    migrations_out: int = 0
+    migrations_in: int = 0
+    lost_restarts: int = 0
+    prefix_rederives: int = 0
+    prestaged_pages: int = 0
+    prestage_hits: int = 0
+    prestage_wasted: int = 0
+    prestage_cancelled: int = 0
+    prestage_refund_us: float = 0.0
+    translation_lookups: int = 0
+    translation_tlb_hits: int = 0
+    translation_walks: int = 0
+    translation_walk_cycles: float = 0.0
+    translation_queue_cycles: float = 0.0
+    translation_us: float = 0.0
     deadline_hits: Dict[int, int] = dataclasses.field(default_factory=dict)
     deadline_misses: Dict[int, int] = dataclasses.field(default_factory=dict)
 
@@ -204,6 +248,14 @@ class EngineStats:
     def admit_cold_mean_us(self) -> float:
         return self.admit_cold_us / max(self.admit_colds, 1)
 
+    def admit_p99_us(self, start: int = 0) -> float:
+        """p99 of the modeled per-admission latencies (µs), optionally
+        over the samples from index ``start`` on.  0.0 when no samples."""
+        samples = self.admit_lat_us[start:]
+        if not samples:
+            return 0.0
+        return float(np.percentile(np.asarray(samples), 99))
+
     def tok_per_s(self) -> float:
         if self.wall_s <= 0.0:
             return 0.0
@@ -233,19 +285,43 @@ class EngineStats:
         if self.prefix_hits or self.prefix_misses:
             line += (f" | prefix {self.prefix_hits}/{self.prefix_misses} "
                      f"hit/miss ({self.prefix_reused_tokens} tok reused)")
+        if self.prefix_park_skipped:
+            line += f" | parks skipped {self.prefix_park_skipped} (non-dense)"
+        if self.prefix_park_refused:
+            line += (f" | parks refused {self.prefix_park_refused} "
+                     f"(wb back-pressure)")
+        if self.promotions:
+            line += (f" | promotes {self.promotions} "
+                     f"({self.promote_stall_us:.0f}us stall, modeled)")
+        if self.migrations_out or self.migrations_in:
+            line += (f" | migrated {self.migrations_out} out / "
+                     f"{self.migrations_in} in")
+        if self.lost_restarts or self.prefix_rederives:
+            line += (f" | quarantine: {self.lost_restarts} restarts, "
+                     f"{self.prefix_rederives} prefix re-derives")
         if self.fused_ready_pages or self.fused_drained_pages:
             line += (f" | fused {self.fused_ready_pages} ready + "
                      f"{self.fused_drained_pages} drained in-kernel "
                      f"({self.fused_tail_us:.0f}us tail, modeled)")
+        if self.prestaged_pages:
+            line += (f" | prestage {self.prestaged_pages} pages "
+                     f"({self.prestage_hits}/{self.prestage_wasted}/"
+                     f"{self.prestage_cancelled} hit/wasted/cancelled)")
+        if self.translation_lookups:
+            line += (f" | translation {self.translation_lookups} lookups, "
+                     f"{self.translation_walks} walks "
+                     f"({self.translation_us:.0f}us modeled, queue "
+                     f"{self.translation_queue_cycles:.0f} cyc)")
         att = self.slo_attainment()
         if att is not None:
-            line += f" | SLO {att:.1%}"
+            tiers = sorted(set(self.deadline_hits) | set(self.deadline_misses),
+                           reverse=True)
+            per = ", ".join(
+                f"t{t} {self.deadline_hits.get(t, 0)}/"
+                f"{self.deadline_hits.get(t, 0) + self.deadline_misses.get(t, 0)}"
+                for t in tiers)
+            line += f" | SLO {att:.1%} ({per})"
         return line
-
-
-def _not_in_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice")
 
 
 class ServingEngine:
@@ -254,19 +330,22 @@ class ServingEngine:
 
     Keyword names match the reference's constructor.  ``params`` is a
     ``state_dict`` for :class:`~repro_torch.models.lm.LM` (for example from
-    :func:`repro_torch.bridge.params_from_jax`); None draws the weights from
-    ``torch.Generator`` seeded with ``seed``.  ``device`` defaults to
-    ``cuda`` and raises when CUDA is absent; ``device="cpu"`` runs every
-    kernel's plain version.  ``dma_channels``, ``prefetch_depth``,
+    :func:`repro_torch.bridge.params_from_jax`), or an ``LM`` of this config
+    on this device, which the engine holds without copying (cluster
+    replicas share one); None draws the weights from ``torch.Generator``
+    seeded with ``seed``.  ``self.params`` is the engine's ``LM``.
+    ``device`` defaults to ``cuda`` and raises when CUDA is absent;
+    ``device="cpu"`` runs every kernel's plain version.  ``dma_channels``, ``prefetch_depth``,
     ``duplex`` and ``slo_urgency_us`` shape the async/fused pipeline as in
     the reference.  ``prefix_cache`` (default True, as the reference) parks
     finished prompts in a :class:`PrefixIndex` of ``prefix_capacity_pages``
     pages and prefills only the suffix of a prompt whose page-aligned
     prefix is cached; ``prefill_us_per_token`` prices the modeled
-    admission latencies.  ``use_pallas``, ``engine_id`` and
-    ``translation_kw`` are accepted for signature parity and have no effect
-    here: in the reference they act only with the translation meter or in
-    a cluster.
+    admission latencies.  ``host``, ``prefix_index``, ``engine_id`` and
+    ``injector`` make the engine a cluster replica (module docstring);
+    ``translation`` (``"off"``, ``"flat"``, ``"radix"``) and
+    ``translation_kw`` configure the translation meter.  ``use_pallas`` is
+    accepted for signature parity and has no effect.
     """
 
     def __init__(self, cfg: ModelConfig, *, geometry: PoolGeometry,
@@ -284,7 +363,7 @@ class ServingEngine:
                  duplex: bool = True,
                  slo_urgency_us: float = 1000.0,
                  host: Optional[HostPageStore] = None,
-                 prefix_index=None,
+                 prefix_index: Optional[PrefixIndex] = None,
                  engine_id: int = 0,
                  injector=None,
                  translation: str = "off",
@@ -307,20 +386,18 @@ class ServingEngine:
             raise ValueError(
                 f"translation must be 'off', 'flat' or 'radix', "
                 f"got {translation!r}")
-        if translation != "off":
-            raise _not_in_slice(f"translation={translation!r}",
-                                "translation meter (core/ptw.py)")
-        if host is not None or prefix_index is not None:
-            raise _not_in_slice("a shared host= / prefix_index=",
-                                "cluster and router")
-        if injector is not None:
-            raise _not_in_slice("injector=", "cluster and router")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available: pass device='cpu' to run the "
                 "kernels' plain versions")
         self.cfg = cfg
+        # Replica identity within a cluster: the host-tier frame-lease
+        # protection domain and the reporting label.
+        self.engine_id = engine_id
+        # False after an injected crash: the router stops dispatching here.
+        self.alive = True
+        self.injector = injector
         self.fault_mode = fault_mode
         self.victim_policy = victim_policy
         # Eviction gathers ride the channels' "out" lanes; only the async
@@ -335,12 +412,21 @@ class ServingEngine:
         # Modeled prefill compute per prompt token (µs): the basis of the
         # per-admission latency samples (admit_lat_us).
         self.prefill_us_per_token = prefill_us_per_token
-        self.lm = LM(cfg, device=self.device)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.lm.init_weights(gen)
+        if isinstance(params, LM):
+            # A cluster's replicas share one set of weights on the card.
+            if params.cfg != cfg or any(p.device.type != self.device.type
+                                        for p in params.parameters()):
+                raise ValueError("a shared LM must have this engine's "
+                                 "config and device")
+            self.lm = params
         else:
-            self.lm.load_state_dict(params)
+            self.lm = LM(cfg, device=self.device)
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                self.lm.init_weights(gen)
+            else:
+                self.lm.load_state_dict(params)
+        self.params = self.lm
         self.geo = geometry
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -368,7 +454,9 @@ class ServingEngine:
         self.cache = ShardedKVCache(geometry, per_shard, n_shards,
                                     manager_kind, link=self.link,
                                     page_bytes=self.page_bytes)
-        self.host = HostPageStore()
+        # ``host`` may be a cluster-shared store view; a standalone engine
+        # owns a private store.
+        self.host = host if host is not None else HostPageStore()
         # Content-hash prefix cache.  Suffix-only prefill needs attention
         # over cached KV pages, which only the dense-transformer family
         # replays bitwise (the reference's condition: ssm and hybrid carry
@@ -377,7 +465,11 @@ class ServingEngine:
         self.prefix_supported = (cfg.family == "dense" and cfg.mla is None
                                  and bool(self.page_bytes))
         self.prefix: Optional[PrefixIndex] = None
-        if prefix_cache and self.prefix_supported:
+        if prefix_index is not None:
+            # Cluster-shared index: kept even when this replica's family
+            # cannot replay cached KV; match and park skip (and count).
+            self.prefix = prefix_index if prefix_cache else None
+        elif prefix_cache and self.prefix_supported:
             self.prefix = PrefixIndex(self.host, geometry.page_tokens,
                                       capacity_pages=prefix_capacity_pages)
         shapes = self.lm.pool_shapes(per_shard * n_shards,
@@ -395,15 +487,32 @@ class ServingEngine:
         self._held: List[Request] = []
         self._saved_tokens: Dict[int, int] = {}
         self.active: List[Request] = []
+        # rids migrated away to another engine: their in-flight prefetch
+        # payloads settle as waste here, never re-stage.
+        self._foreign: set = set()
         self._stalled_steps = 0      # consecutive no-decode steps
         self.stats = EngineStats()
         # Async fault-in pipeline: DMA channel timeline, double-buffered
         # staging and next-step touch predictor, on the modeled µs clock
         # (advanced by the decode window and by exposed stalls).
         self.dma = AsyncDMAEngine(self.link, n_channels=dma_channels,
-                                  duplex=duplex)
+                                  duplex=duplex, injector=injector)
         self.staging = StagingBuffer()
         self.prefetch = Prefetcher(depth=prefetch_depth)
+        # Keys pre-staged toward this engine for still-queued requests,
+        # mapped to the source page's owner id (prefix owners are never
+        # reused, so a matching owner proves the staged bytes are the ones
+        # admission would fetch).
+        self._prestage_keys: Dict[Key, int] = {}
+        # Translation meter: the decode loop feeds it the KV page tables
+        # each step's batch reads; the subregion span is the allocator's
+        # frame, so an unsplintered frame is one TLB entry.
+        self.translation = translation
+        self.translation_meter: Optional[TranslationMeter] = None
+        if translation != "off":
+            self.translation_meter = TranslationMeter(
+                translation, span=max(1, geometry.frame_pages),
+                **(translation_kw or {}))
         self._clock_us = 0.0
         # Fused decode step state: DMA jobs this step's decode consumes
         # (settled at the window end), the staged ((shard, ppn), payload,
@@ -630,6 +739,148 @@ class ServingEngine:
                 return True
         return False
 
+    # ------------------------------------------------- cross-engine handoff
+
+    def export_preempted(self, rid: int) -> Optional[dict]:
+        """Detach a preempted request for migration to another engine.
+        It is fully swapped out (preemption gathers every resident page to
+        the host store), so the bundle is the Request, its decode state
+        and its saved token count; its pages stay in the shared store and
+        the cluster re-leases their frames to the destination.  Local
+        staging and prefetch state for the rid is invalidated, and
+        in-flight payloads settle as waste."""
+        for r in self.preempted:
+            if r.rid == rid:
+                break
+        else:
+            return None
+        self.preempted.remove(r)
+        bundle = {"request": r, "state": self.states.pop(rid, None),
+                  "saved_tokens": self._saved_tokens.pop(rid)}
+        self._note_prestage_waste(rid)
+        dropped = self.staging.invalidate_seq(rid)
+        self.stats.prefetch_wasted += dropped
+        self.prefetch.stats["wasted_pages"] += dropped
+        self.prefetch.cancel_seq(rid)
+        self._foreign.add(rid)
+        self.stats.migrations_out += 1
+        return bundle
+
+    def import_preempted(self, bundle: dict) -> None:
+        """Adopt a migrated request: it joins this engine's resume queue
+        and faults its pages in from the shared host store through this
+        engine's own DMA lanes and ``page_scatter``: no device-to-device
+        copy and no re-prefill."""
+        r = bundle["request"]
+        self._foreign.discard(r.rid)
+        self.preempted.append(r)
+        if bundle["state"] is not None:
+            self.states[r.rid] = bundle["state"]
+        self._saved_tokens[r.rid] = bundle["saved_tokens"]
+        self.stats.migrations_in += 1
+
+    # ------------------------------------------------ proactive pre-staging
+    # The router calls these for queued, never-admitted requests: once a
+    # target engine is picked, the request's prefix-index hits and resume
+    # pages start faulting toward this engine's staging buffers over the
+    # prefetch lanes.  Timing only: the probe is read-only (``peek_match``)
+    # and the staged payloads are the bytes admission would fetch.
+
+    def prestage_queued(self, req: Request) -> int:
+        """Fault ``req``'s known-reusable pages toward staging before its
+        admission step; returns the number of pages issued.
+
+        Two sources: host copies the rid already owns and prefix-index
+        hits, staged under the exact ``(rid, shard, vpn)`` keys
+        :meth:`_prefill_suffix` will enqueue, so admission dedups against
+        them.  Spilled frames are promoted here, but the promote stall is
+        not charged to this engine's clock: it is background work on the
+        tier's disk lanes."""
+        if self.fault_mode not in ("async", "fused") or not self.alive:
+            return 0
+        keys: List[Key] = []
+        srcs: List[Key] = []
+        for key in self.host.seq_pages(req.rid):
+            if self.staging.contains(key) or key in self.prefetch.in_flight:
+                continue
+            keys.append(key)
+            srcs.append(key)
+        if self.prefix is not None and self.prefix_supported:
+            ptok = self.geo.page_tokens
+            n, pages = self.prefix.peek_match(req.prompt)
+            n = min(n, (len(req.prompt) - 1) // ptok)
+            for pg in pages[:n]:
+                key = (req.rid, pg.shard, pg.vpn)
+                if self.staging.contains(key) \
+                        or key in self.prefetch.in_flight:
+                    continue
+                keys.append(key)
+                srcs.append((pg.owner, pg.shard, pg.vpn))
+        if not keys:
+            return 0
+        # Promote spilled source frames now (off the admission path); a
+        # quarantine may destroy sources: drop those from the batch.
+        self.host.ensure_resident(srcs, now_us=self._clock_us)
+        live = [(k, src) for k, src in zip(keys, srcs)
+                if self.host.has(*src)]
+        if not live:
+            return 0
+        keys = [k for k, _ in live]
+        payloads = [self.host.peek(*src) for _, src in live]
+        if any(p is None for p in payloads):
+            return 0
+        job = self.dma.enqueue(keys, list(range(len(keys))),
+                               self.page_bytes, payloads, self._clock_us,
+                               kind="prefetch")
+        self._account_prefetch(job)
+        for k, src in live:
+            self._prestage_keys[k] = src[0]     # source owner fingerprint
+        self.stats.prestaged_pages += len(keys)
+        return len(keys)
+
+    def cancel_prestage(self, rid: int) -> float:
+        """Cancel ``rid``'s pre-staged pages (a steal or a crash
+        retargeted the request before admission).  In-flight jobs whose
+        pages are all pre-stage work for this rid are cancelled with a
+        lane-time refund for the un-elapsed remainder; payloads already
+        staged are dropped.  Returns the refunded µs."""
+        refunded = 0.0
+        jobs: Dict[int, DMAJob] = {}
+        for key, job in list(self.prefetch.in_flight.items()):
+            if key[0] == rid and key in self._prestage_keys:
+                jobs[job.job_id] = job
+        for job in jobs.values():
+            if not all(k[0] == rid and k in self._prestage_keys
+                       for k in job.keys):
+                continue            # mixed job: let it settle normally
+            refunded += self.dma.cancel(job, self._clock_us)
+            self.prefetch.forget(job.keys)
+            self.stats.prestage_cancelled += len(job.keys)
+            for k in job.keys:
+                self._prestage_keys.pop(k, None)
+        mine = [k for k in self._prestage_keys if k[0] == rid]
+        if mine:
+            for k in mine:
+                self._prestage_keys.pop(k, None)
+            self.stats.prestage_cancelled += \
+                self.staging.invalidate_seq(rid)
+        self.prefetch.cancel_seq(rid)
+        self.stats.prestage_refund_us += refunded
+        self.stats.transfer_us = max(0.0, self.stats.transfer_us - refunded)
+        return refunded
+
+    def _note_prestage_hit(self, key: Key) -> None:
+        if self._prestage_keys.pop(key, None) is not None:
+            self.stats.prestage_hits += 1
+
+    def _note_prestage_waste(self, rid: int) -> None:
+        """Account pre-staged pages the request never consumed (counted
+        at the same invalidation points as prefetch waste)."""
+        stale = [k for k in self._prestage_keys if k[0] == rid]
+        for k in stale:
+            self._prestage_keys.pop(k, None)
+            self.stats.prestage_wasted += 1
+
     def _free_pages_total(self) -> int:
         return sum(m.config.num_pages - int(m.pool.page_allocated.sum())
                    for m in self.cache.mgrs)
@@ -642,7 +893,16 @@ class ServingEngine:
         return self._free_pages_total() >= len(self.active) + 2
 
     def _resume(self, req: Request) -> bool:
-        """Re-map a preempted request; payloads fault in on next touch."""
+        """Re-map a preempted request; payloads fault in on next touch.
+
+        If the tier quarantined a spill frame holding this request's
+        swapped-out payloads, the saved state is unusable: restart from
+        the prompt instead (the deterministic decoder replays the same
+        tokens)."""
+        if self.host.take_lost(req.rid):
+            self._forget_request(req)
+            self.stats.lost_restarts += 1
+            return self._admit_one(req)
         tokens = self._saved_tokens[req.rid]
         if not self._alloc_with_preemption(req, tokens,
                                            below_priority=req.priority):
@@ -655,6 +915,34 @@ class ServingEngine:
         self.host.note_swap_in()
         self.stats.swaps_in += 1
         return True
+
+    def _forget_request(self, r: Request) -> None:
+        """Erase every trace of a request whose saved payloads a spill
+        quarantine destroyed, so it can restart from the prompt: device
+        pages, decode state, host copies, staged and in-flight prefetches,
+        saved token count, and the tokens already emitted."""
+        self.cache.free(r.rid)
+        self.states.pop(r.rid, None)
+        self.host.drop_seq(r.rid)
+        self.host.take_lost(r.rid)   # clear a flag re-set during the drop
+        self._note_prestage_waste(r.rid)
+        dropped = self.staging.invalidate_seq(r.rid)
+        self.stats.prefetch_wasted += dropped
+        self.prefetch.stats["wasted_pages"] += dropped
+        self.prefetch.cancel_seq(r.rid)
+        self._saved_tokens.pop(r.rid, None)
+        r.out.clear()
+        r.done = False
+
+    def _restart_lost(self, rids: set) -> None:
+        """Pull active requests whose payloads a quarantine destroyed out
+        of the batch and re-queue them from the prompt (head of the
+        queue: they are the oldest work)."""
+        for r in [r for r in self.active if r.rid in rids]:
+            self.active.remove(r)
+            self._forget_request(r)
+            self.queue.appendleft(r)
+            self.stats.lost_restarts += 1
 
     def _admit_one(self, req: Request) -> bool:
         # vlm requests hold the image's frontend tokens in front of the
@@ -701,23 +989,53 @@ class ServingEngine:
             return
         self._land(gidx, *self._upload(payloads))
 
-    def _fault_in(self, seqs: List[int]) -> None:
+    def _fault_in(self, seqs: List[int]) -> set:
         """touch() this step's pages and fault the missing ones in: blocking
         under ``"sync"``, staged and overlapped under ``"async"``, resolved
-        to decode-time sources under ``"fused"``."""
+        to decode-time sources under ``"fused"``.  Returns the rids whose
+        payloads a spill quarantine destroyed during the promote: their
+        entries were skipped and the caller restarts them."""
         if self.fault_mode == "sync":
-            self._fault_in_sync(seqs)
-        elif self.fault_mode == "fused":
-            self._fault_in_fused(seqs)
-        else:
-            self._fault_in_async(seqs)
+            return self._fault_in_sync(seqs)
+        if self.fault_mode == "fused":
+            return self._fault_in_fused(seqs)
+        return self._fault_in_async(seqs)
 
-    def _fault_in_sync(self, seqs: List[int]) -> None:
+    @staticmethod
+    def _drop_lost_entries(missing: Dict, lost: set) -> Dict:
+        """Remove a lost rid's entries from a missing-pages map: their
+        host payloads no longer exist, so they must not be popped."""
+        if not lost:
+            return missing
+        return {s: kept for s, entries in missing.items()
+                if (kept := [e for e in entries if e[1] not in lost])}
+
+    def _promote_missing(self, missing: Dict) -> set:
+        """Before popping payloads, promote any spilled frames the step's
+        misses live in; the modeled disk-read stall is exposed time,
+        charged to the clock like a demand fault.  Returns the rids whose
+        payloads the promote destroyed (frame quarantine after corruption
+        or a permanent disk error)."""
+        keys = [(owner, s, vpn) for s, entries in missing.items()
+                for _ppn, owner, vpn in entries]
+        promote_us = self.host.ensure_resident(keys, now_us=self._clock_us)
+        if promote_us:
+            self._clock_us += promote_us
+            self.stats.promote_stall_us += promote_us
+            self.stats.promotions += 1
+        return {k[0] for k in keys
+                if k[0] >= 0 and self.host.take_lost(k[0])}
+
+    def _fault_in_sync(self, seqs: List[int]) -> set:
         """The blocking path: the whole batch stalls on the transfer, so
         every µs is exposed."""
         missing = self.cache.missing_pages(seqs)
         if not missing:
-            return
+            return set()
+        lost = self._promote_missing(missing)
+        missing = self._drop_lost_entries(missing, lost)
+        if not missing:
+            return lost
         pps = self.cache.pages_per_shard
         gidx: List[int] = []
         payloads: List[Tuple[torch.Tensor, torch.Tensor]] = []
@@ -737,6 +1055,7 @@ class ServingEngine:
         self.stats.fault_steps += 1
         self._clock_us += step_us       # the whole transfer stalls the step
         self._scatter_pages(gidx, payloads)
+        return lost
 
     def _consume_hit(self, s: int, ppn: int, key: Key) -> None:
         """Book a miss served by a staged or in-flight prefetch: the page
@@ -745,6 +1064,7 @@ class ServingEngine:
         self.host.pop(*key)
         self.stats.faults += 1
         self.stats.prefetch_hits += 1
+        self._note_prestage_hit(key)
         self.prefetch.stats["hits"] += 1
 
     def _demand(self, s: int, demand: List[Tuple[int, int, int]], now: float
@@ -769,22 +1089,24 @@ class ServingEngine:
     def _restage_leftovers(self, waited: Dict[Key, tuple]) -> None:
         """Payloads of a waited multi-page job whose keys were not touched
         this step stay staged for later steps; a key whose owner retired
-        mid-flight is wasted transfer."""
+        (or migrated away) mid-flight is wasted transfer."""
         for key, payload in waited.items():
-            if self.host.has(*key):
+            if self.host.has(*key) and key[0] not in self._foreign:
                 self.staging.stage(key, payload)
             else:
                 self.prefetch.stats["wasted_pages"] += 1
                 self.stats.prefetch_wasted += 1
 
-    def _fault_in_async(self, seqs: List[int]) -> None:
+    def _fault_in_async(self, seqs: List[int]) -> set:
         """Serve this step's misses from staging (hidden), stall on
         in-flight prefetches (partially hidden), and demand-fault only the
         never-predicted remainder (exposed).  The payloads then land
         through the same upload and scatter as sync mode."""
         missing = self.cache.missing_pages(seqs)
         if not missing:
-            return
+            return set()
+        lost = self._promote_missing(missing)
+        missing = self._drop_lost_entries(missing, lost)
         pps = self.cache.pages_per_shard
         now = self._clock_us
         gidx: List[int] = []
@@ -825,6 +1147,7 @@ class ServingEngine:
         self.stats.fault_hidden_us = self.dma.stats["hidden_us"]
         self._clock_us = now
         self._scatter_pages(gidx, payloads)
+        return lost
 
     # ------------------------------------------------ fused decode path
 
@@ -842,7 +1165,7 @@ class ServingEngine:
             out.add((s, table.ppn[len(table.ppn) - 1]))
         return out
 
-    def _fault_in_fused(self, seqs: List[int]) -> None:
+    def _fault_in_fused(self, seqs: List[int]) -> set:
         """Resolve this step's misses to sources (staged payloads,
         in-flight prefetch jobs, fresh demand jobs) without waiting on any
         transfer.  Decode reads them from the step's stage
@@ -854,10 +1177,14 @@ class ServingEngine:
         self._fused_t0 = self._clock_us
         missing = self.cache.missing_pages(seqs)
         if not missing:
-            return
+            return set()
+        lost = self._promote_missing(missing)       # disk stall stays exposed
+        missing = self._drop_lost_entries(missing, lost)
+        self._fused_t0 = self._clock_us
         now = self._clock_us
         pps = self.cache.pages_per_shard
-        write_pages = self._write_page_set(seqs)
+        write_pages = self._write_page_set(
+            [s for s in seqs if s in self.cache.seq_tokens])
         jobs: Dict[int, DMAJob] = {}
         waited: Dict[Key, tuple] = {}
         arrive: Dict[Key, float] = {}
@@ -907,6 +1234,7 @@ class ServingEngine:
             self._fused_staged = [e for e in self._fused_staged
                                   if e[0] not in write_pages]
         self.stats.fault_steps += 1
+        return lost
 
     def _attach_staging(self, ctx: PageCtx) -> PageCtx:
         """Hand decode this step's staged pages: one host→device copy of
@@ -934,9 +1262,9 @@ class ServingEngine:
         window end (transfer µs inside the window are hidden, tails past
         it exposed), then the staged pages are scattered into the pool
         from the copy :meth:`_attach_staging` put on the device, so the
-        pool is authoritative again before any eviction gathers.  (The
-        reference also settles when a spill loss leaves no row to decode;
-        that path comes with the cluster slice's spill tier.)"""
+        pool is authoritative again before any eviction gathers.  When a
+        spill loss left no row to decode, no stage was attached: the
+        payloads then land through an upload and the same scatter."""
         t_end = self._clock_us
         now = t_end
         for job in self._fused_jobs:
@@ -954,8 +1282,12 @@ class ServingEngine:
             self.stats.fused_drained_pages += \
                 len(self._fused_staged) - ready
             pps = self.cache.pages_per_shard
-            self._land([s * pps + p for (s, p), _pl, _t in self._fused_staged],
-                       *self._fused_stage)
+            gidx = [s * pps + p for (s, p), _pl, _t in self._fused_staged]
+            if self._fused_stage is None:
+                self._scatter_pages(gidx,
+                                    [pl for _sp, pl, _t in self._fused_staged])
+            else:
+                self._land(gidx, *self._fused_stage)
             self._fused_staged = []
             self._fused_stage = None
 
@@ -970,9 +1302,12 @@ class ServingEngine:
                 continue    # outbound gathers: settled by drain, no staging
             self.prefetch.forget(job.keys)
             for key, payload in zip(job.keys, job.payloads):
-                if self.host.has(*key):
+                # Pre-staged keys stage under the rid before admission
+                # registers the host copy: they pass on _prestage_keys.
+                if (self.host.has(*key) or key in self._prestage_keys) \
+                        and key[0] not in self._foreign:
                     self.staging.stage(key, payload)
-                else:   # owner retired while the DMA was in flight
+                else:   # owner retired/migrated while the DMA was in flight
                     self.prefetch.stats["wasted_pages"] += 1
                     self.stats.prefetch_wasted += 1
         self.staging.swap()
@@ -1042,8 +1377,10 @@ class ServingEngine:
 
         Capped one page short of the prompt when the whole prompt is
         cached: the engine always prefills ≥ 1 real token, so the first
-        output token comes from live computation."""
-        if self.prefix is None:
+        output token comes from live computation.  A shared (cluster)
+        index attached to a non-dense replica never matches: this engine
+        could not replay the cached KV."""
+        if self.prefix is None or not self.prefix_supported:
             return None
         ptok = self.geo.page_tokens
         T = len(req.prompt)
@@ -1059,27 +1396,29 @@ class ServingEngine:
         """Prefill an already-allocated request: suffix-only when a cached
         prefix matches, full otherwise.  Each admission records a modeled
         latency sample (admit_lat_us): tokens actually prefilled x
-        prefill_us_per_token.  (The reference adds the stall of promoting
-        spilled prefix frames and falls back to full prefill when a
-        promote lost them; both come with the cluster slice's spill
-        tier.)"""
+        prefill_us_per_token, plus the disk stall a cache hit paid to
+        promote spilled prefix frames back."""
         t0 = time.perf_counter()
         T = len(req.prompt)
         match = self._match_prefix(req)
-        if match:
-            self._prefill_suffix(req, match)
+        promote_us = self._prefill_suffix(req, match) if match else None
+        if promote_us is not None:
             self.stats.admit_hits += 1
             self.stats.admit_hit_us += (time.perf_counter() - t0) * 1e6
             model_us = (T - len(match) * self.geo.page_tokens) \
-                * self.prefill_us_per_token
+                * self.prefill_us_per_token + promote_us
         else:
+            if match:
+                # The matched payloads were quarantined mid-admission:
+                # full prefill; the prefix is re-parked at completion.
+                self.stats.prefix_rederives += 1
             self._prefill_full(req)
             self.stats.admit_colds += 1
             self.stats.admit_cold_us += (time.perf_counter() - t0) * 1e6
             model_us = T * self.prefill_us_per_token
         self.stats.admit_lat_us.append(model_us)
 
-    def _prefill_suffix(self, req: Request, pages) -> None:
+    def _prefill_suffix(self, req: Request, pages) -> Optional[float]:
         """Cache-hit admission: restore the matched prefix pages through
         the host tier instead of recomputing them, and forward only the
         suffix (its queries attend over the cached KV).
@@ -1091,11 +1430,28 @@ class ServingEngine:
         in async and fused mode prefetched through the DMA pipeline now,
         at admission.  The attention needs the prefix KV now, so the
         payloads are also copied to the card once for it (counted apart,
-        in ``prefix_h2d_*``: the modeled transfer is the fault-in's)."""
+        in ``prefix_h2d_*``: the modeled transfer is the fault-in's).
+
+        Matched pages whose frames the shared tier spilled to disk are
+        promoted before the payload reads, and the modeled disk stall is
+        returned (it advances the clock and the admission latency sample).
+        Returns None, before any request-visible side effect, when the
+        promote quarantined a matched page: the caller falls back to full
+        prefill."""
         ptok = self.geo.page_tokens
         T = len(req.prompt)
         P = len(pages) * ptok
         self._run_compaction()
+        promote_us = self.host.ensure_resident(
+            [(pg.owner, pg.shard, pg.vpn) for pg in pages],
+            now_us=self._clock_us)
+        if any(not self.host.has(pg.owner, pg.shard, pg.vpn)
+               for pg in pages):
+            return None
+        if promote_us:
+            self._clock_us += promote_us
+            self.stats.promote_stall_us += promote_us
+            self.stats.promotions += 1
         payloads = [self.prefix.payload(pg) for pg in pages]
         locs = [(pg.shard, pg.vpn) for pg in pages]
         for (s, vpn), (kp, vp) in zip(locs, payloads):
@@ -1132,13 +1488,26 @@ class ServingEngine:
         self.stats.prefix_reused_tokens += P
         # Admission-time fault-in through the async pipeline: the first
         # decode step that touches these pages finds them in flight (or
-        # already staged) instead of paying a cold demand fault.  (The
-        # reference first dedups against pages the cluster router
-        # pre-staged toward this engine; that comes with the cluster
-        # slice.)
+        # already staged) instead of paying a cold demand fault.
         if self.fault_mode in ("async", "fused"):
+            # Pre-staged keys whose source owner no longer matches are
+            # stale (the index re-parked other bytes at the same (shard,
+            # vpn) since the router's probe): cancel the rid's pre-stage
+            # before the dedup pass.
+            if any(self._prestage_keys.get((req.rid, s, vpn),
+                                           pages[i].owner) != pages[i].owner
+                   for i, (s, vpn, _ppn) in enumerate(entries)):
+                self.cancel_prestage(req.rid)
             by_shard: Dict[int, List[int]] = {}
-            for i, (s, _vpn, _ppn) in enumerate(entries):
+            for i, (s, vpn, _ppn) in enumerate(entries):
+                key = (req.rid, s, vpn)
+                if key in self._prestage_keys and (
+                        self.staging.contains(key)
+                        or key in self.prefetch.in_flight):
+                    # Pre-staged while the request was queued: the same
+                    # payload is staged or in flight under this key.
+                    self._note_prestage_hit(key)
+                    continue
                 by_shard.setdefault(s, []).append(i)
             for s, idxs in sorted(by_shard.items()):
                 job = self.dma.enqueue(
@@ -1149,6 +1518,7 @@ class ServingEngine:
                     self._clock_us, kind="prefetch")
                 self._account_prefetch(job)
                 self.stats.prefix_fault_us += job.transfer_us
+        return promote_us
 
     def _park_prefix(self, req: Request) -> None:
         """Completion hook: park the finished request's full prompt pages
@@ -1160,10 +1530,19 @@ class ServingEngine:
         device pool (resident pages: one batched gather that rides the
         outbound DMA lanes) or from the request's own host copies (pages
         still swapped out); a page with neither truncates the chain,
-        keeping the index prefix-closed.  (The reference also skips parks
-        of non-dense families into a cluster-shared index and refuses them
-        under spill back-pressure; both come with the cluster slice.)"""
+        keeping the index prefix-closed.
+
+        A family whose KV a suffix prefill cannot replay (a non-dense
+        replica on a cluster-shared index) skips the park and counts it;
+        while the host tier's write-back buffer is full the park is
+        refused and counted (never caching is always token-safe)."""
         if self.prefix is None:
+            return
+        if not self.prefix_supported or self.pools is None:
+            self.stats.prefix_park_skipped += 1
+            return
+        if not self.host.park_allowed():
+            self.stats.prefix_park_refused += 1
             return
         hashes = self.prefix.chain_hashes(req.prompt)
         start = self.prefix.missing_from(hashes)
@@ -1299,7 +1678,13 @@ class ServingEngine:
         → admit → grow → compact → fault in → decode (async/fused: while
         the next step's prefetches are in flight) → (fused: settle) →
         retire."""
+        if not self.alive:
+            return False        # a crashed engine does no work
         t0 = time.perf_counter()
+        # Advance the host tier's write-back pipeline to the engine clock:
+        # frames whose spill completed persist now, before this step's
+        # admissions and parks consult park_allowed().
+        self.host.pump(self._clock_us)
         if self.fault_mode in ("async", "fused"):
             # Publish transfers that finished during the last decode so
             # admission's resumes and this step's fault-in see them.
@@ -1326,7 +1711,20 @@ class ServingEngine:
         # Appends under pressure may compact: execute the copy plan before
         # decode consumes the updated tables.
         self._run_compaction()
-        self._fault_in(seqs)
+        lost = self._fault_in(seqs)
+        if lost:
+            # A spill quarantine destroyed some batch members' payloads
+            # mid-promote: restart them from the prompt, decode the rest.
+            self._restart_lost(lost)
+            runnable = [r for r in runnable if r.rid not in lost]
+            seqs = [r.rid for r in runnable]
+            if not runnable:
+                if self.fault_mode == "fused":
+                    # No decode window opens: settle the collected jobs
+                    # and land the staged payloads now.
+                    self._settle_fused()
+                self.stats.wall_s += time.perf_counter() - t0
+                return bool(self.active or self.queue or self.preempted)
         ctx = self._ctx_global(self.cache.pack_ctx(seqs, self.mpps,
                                                    device=self.device))
         if self.fault_mode == "fused":
@@ -1354,6 +1752,10 @@ class ServingEngine:
             # Settle the consumed jobs (only tails past the window are
             # exposed) and scatter the staged pages before any eviction.
             self._settle_fused()
+        # The decode window may have carried queued write-backs past their
+        # disk-ready time: persist them before the completion parks below.
+        self.host.pump(self._clock_us)
+        self._meter_translation(runnable)
         self._unstack_states(seqs, state)
         done_now = []
         for i, r in enumerate(runnable):
@@ -1370,10 +1772,15 @@ class ServingEngine:
             # Park the finished prompt's pages in the prefix cache before
             # the pages are freed and the host copies dropped.
             self._park_prefix(r)
+            if self.translation_meter is not None:
+                # The address space retires with the sequence.
+                for s in range(self.cache.S):
+                    self.translation_meter.drop_space((r.rid, s))
             self.active.remove(r)
             self.cache.free(r.rid)
             self.states.pop(r.rid, None)
             self.host.drop_seq(r.rid)
+            self._note_prestage_waste(r.rid)
             dropped = self.staging.invalidate_seq(r.rid)
             self.stats.prefetch_wasted += dropped
             self.prefetch.stats["wasted_pages"] += dropped
@@ -1387,10 +1794,48 @@ class ServingEngine:
         self.stats.wall_s += time.perf_counter() - t0
         return True
 
+    def _meter_translation(self, runnable: List[Request]) -> None:
+        """Run this step's KV page tables through the translation meter.
+        Each (seq, shard) pair is an address space; latency is charged to
+        the request's tenant.  Observational: decode and the engine clock
+        are untouched."""
+        if self.translation_meter is None:
+            return
+        tables = []
+        for r in runnable:
+            for s, m in enumerate(self.cache.mgrs):
+                t = m.tables.get(r.rid)
+                if t is not None:
+                    tables.append(((r.rid, s), r.tenant, t.ppn))
+        d = self.translation_meter.step_access(self._clock_us, tables)
+        st = self.stats
+        st.translation_lookups += int(d["lookups"])
+        st.translation_tlb_hits += int(d["tlb_hits"])
+        st.translation_walks += int(d["walks"])
+        st.translation_walk_cycles += d["walk_cycles"]
+        st.translation_queue_cycles += d["queue_cycles"]
+        st.translation_us += self.translation_meter.cycles_us(
+            d["latency_cycles"])
+
+    def translation_backlog_us(self) -> float:
+        """Booked walker time beyond the engine clock, in modeled µs: the
+        translation-interference term of the router's dispatch cost.  0.0
+        when the meter is off."""
+        if self.translation_meter is None:
+            return 0.0
+        return self.translation_meter.backlog_us(self._clock_us)
+
     def _run_compaction(self):
         """Execute pending CAC copy plans on the device (one kernel launch
-        per pool over all layers)."""
+        per pool over all layers).  With the translation meter on, the
+        remapped pages' subregions are splintered out of its TLB."""
         ops = self.cache.drain_copy_ops()
+        if ops and self.translation_meter is not None:
+            for s, op in ops:
+                owner_vpn = self.cache.mgrs[s].rmap.get(op.dst_ppn)
+                if owner_vpn is not None:
+                    self.translation_meter.splinter(
+                        (owner_vpn[0], s), owner_vpn[1])
         if not ops or self.pools is None:
             return
         pps = self.cache.pages_per_shard
@@ -1433,4 +1878,5 @@ class ServingEngine:
             # wasted split covers every issued byte.
             self._clock_us = max(self._clock_us, self.dma.busy_until())
             self._drain_prefetches()
+        self.host.pump(self._clock_us)
         return steps

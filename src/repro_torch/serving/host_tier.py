@@ -22,14 +22,27 @@ eviction and parking gathers copy them off the card (``.cpu()``) and its
 fault-in scatter copies them back (``.to(device)``) — the PCIe transfers of
 demand paging.  :class:`PrefixPage` and :class:`PrefixIndex` are copies of
 the reference's with their logic unchanged; only the payload type differs.
-The disk spill tier (``SpillStore``) comes with the cluster slice.
+
+Below host DRAM sits the disk tier, :class:`SpillStore`: one file per
+spilled host frame (all pages of one protection domain).  It is the
+reference's, with one change the payload type forces: a tensor is packed
+as its raw bytes (``t.contiguous().view(torch.uint8)``) beside its torch
+dtype and shape, so a bfloat16 page comes back with the same dtype, shape
+and bits.  The frame digest is the reference's (blake2b over the packed
+bytes in page order), so the same payload gives the same digest in both
+packages and an injected bit flip lands on the same byte.  The
+spill/promote orchestration lives in
+:class:`~repro_torch.serving.cluster.SharedHostTier`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+import os
+import shutil
+import tempfile
+from typing import Dict, Hashable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,6 +164,238 @@ class HostPageStore:
         """Whether ``seq``'s pages were destroyed by a spill quarantine
         (always False here — a private store has no disk underneath)."""
         return False
+
+
+# ------------------------------------------------------------------- disk
+
+
+class SpillStore:
+    """Disk tier under the host store: whole-frame spill files.
+
+    One ``.npz`` file per spilled host frame, holding every page payload
+    of that frame plus its keys and protection domain — so a frame comes
+    back from disk exactly as it left, and the single-domain-per-frame
+    invariant holds on disk *by construction* (a file cannot mix domains
+    because a frame cannot).  Round-trips are byte-exact; the modeled
+    disk latency/bandwidth lives in the orchestrating tier, not here.
+
+    Integrity: every frame is written with a blake2b digest of its true
+    payload bytes (stored both in the file and in the in-memory frame
+    map), and :meth:`read_frame` re-hashes what it loaded before
+    returning anything — a flipped bit anywhere in the payload raises
+    :class:`~repro_torch.serving.faults.SpillCorruptionError` and the
+    corrupted KV is **never decoded from**.  An optional
+    :class:`~repro_torch.serving.faults.FaultInjector` injects read/write
+    errors and on-disk bit flips at exactly these seams.
+
+    ``root=None`` creates (lazily) and owns a temp directory, removed by
+    :meth:`close`; a caller-supplied ``root`` is reused and kept.  A
+    pre-existing ``root`` is swept of orphaned ``frame_*.npz`` files at
+    construction — a crashed run's leftovers carry no in-memory frame
+    map, so they could never be promoted and must not be misread by (or
+    collide with) the next run's frame ids.  The store is a context
+    manager: ``with SpillStore() as s: ...`` closes (and, when owned,
+    removes) the directory on exit even if the run died mid-spill.
+    """
+
+    def __init__(self, root: Optional[str] = None, *,
+                 injector=None) -> None:
+        self.root = root
+        self._owned = root is None
+        self._dir: Optional[str] = None
+        self.injector = injector
+        # frame id → (path, keys in file order, domain, per-page
+        # (k_dtype, k_shape, v_dtype, v_shape) — payloads are stored as
+        # raw bytes so bfloat16 round-trips exactly — and the blake2b
+        # digest of the true payload bytes)
+        self._frames: Dict[int, Tuple[str, Tuple[Key, ...], Hashable,
+                                      Tuple[tuple, ...], bytes]] = {}
+        self.stats = {
+            "frames_written": 0, "pages_written": 0, "bytes_written": 0,
+            "frames_read": 0, "pages_read": 0, "bytes_read": 0,
+            "frames_deleted": 0, "peak_frames": 0,
+            "orphans_swept": 0, "frames_quarantined": 0,
+            "checksum_failures": 0,
+        }
+        if root is not None and os.path.isdir(root):
+            self._sweep_orphans(root)
+
+    def _sweep_orphans(self, d: str) -> None:
+        """Remove frame files a previous (crashed) run left behind: the
+        in-memory frame map is empty at construction, so every existing
+        ``frame_*.npz`` is unreachable and would only risk being misread
+        under a recycled frame id."""
+        for name in sorted(os.listdir(d)):
+            if name.startswith("frame_") and name.endswith(".npz"):
+                try:
+                    os.remove(os.path.join(d, name))
+                    self.stats["orphans_swept"] += 1
+                except OSError:
+                    pass        # already gone / unreadable: harmless
+
+    def __enter__(self) -> "SpillStore":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def _ensure_dir(self) -> str:
+        if self._dir is None:
+            if self.root is not None:
+                os.makedirs(self.root, exist_ok=True)
+                self._dir = self.root
+            else:
+                self._dir = tempfile.mkdtemp(prefix="mosaic-spill-")
+        return self._dir
+
+    # ------------------------------------------------------------- queries
+
+    def __len__(self) -> int:
+        return len(self._frames)
+
+    def has_frame(self, frame: int) -> bool:
+        return frame in self._frames
+
+    def frame_ids(self) -> List[int]:
+        return sorted(self._frames)
+
+    def frame_keys(self, frame: int) -> Tuple[Key, ...]:
+        return self._frames[frame][1]
+
+    @staticmethod
+    def _pack(t: torch.Tensor) -> Tuple[np.ndarray, torch.dtype, tuple]:
+        """Flatten to raw uint8 (npz cannot hold bfloat16): the tensor's
+        bytes, its dtype and its shape."""
+        c = t.detach().cpu().contiguous()
+        return (c.reshape(-1).view(torch.uint8).numpy(), c.dtype,
+                tuple(c.shape))
+
+    @staticmethod
+    def _unpack(raw: np.ndarray, dtype: torch.dtype,
+                shape: tuple) -> torch.Tensor:
+        return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+    # ------------------------------------------------------------- movement
+
+    @staticmethod
+    def _digest(packed: Sequence[np.ndarray]) -> bytes:
+        """blake2b over a frame's packed payload bytes, in page order."""
+        h = hashlib.blake2b(b"mosaic-spill-v1", digest_size=16)
+        for a in packed:
+            h.update(a.tobytes())
+        return h.digest()
+
+    def write_frame(self, frame: int, domain: Hashable,
+                    pages: Sequence[Tuple[Key, Tuple[torch.Tensor,
+                                                     torch.Tensor]]]) -> int:
+        """Persist one whole frame; returns the payload byte count.
+
+        May raise :class:`~repro_torch.serving.faults.SpillIOError`
+        (injected disk failure) *before* any state mutates — a failed
+        write leaves the store exactly as it was, so the tier can retry
+        or cancel."""
+        assert pages, "spilling an empty frame"
+        assert frame not in self._frames, f"frame {frame} already on disk"
+        if self.injector is not None:
+            self.injector.disk_write_fault(frame)
+        path = os.path.join(self._ensure_dir(), f"frame_{frame:08d}.npz")
+        arrs: Dict[str, np.ndarray] = {
+            "keys": np.asarray([k for k, _ in pages], np.int64),
+            "domain": np.asarray(repr(domain)),
+        }
+        nbytes = 0
+        meta = []
+        packed: List[np.ndarray] = []
+        for i, (_key, (kp, vp)) in enumerate(pages):
+            arrs[f"k{i}"], kdt, ksh = self._pack(kp)
+            arrs[f"v{i}"], vdt, vsh = self._pack(vp)
+            packed.extend((arrs[f"k{i}"], arrs[f"v{i}"]))
+            meta.append((kdt, ksh, vdt, vsh))
+            nbytes += kp.nbytes + vp.nbytes
+        arrs["dtypes"] = np.asarray([f"{m[0]}:{m[2]}" for m in meta])
+        # The digest is of the TRUE bytes; injected corruption flips a
+        # bit only in what lands on disk, so verification must catch it.
+        digest = self._digest(packed)
+        arrs["checksum"] = np.frombuffer(digest, np.uint8).copy()
+        if self.injector is not None:
+            bad = self.injector.corrupt_written(frame, arrs["k0"].tobytes())
+            if bad is not None:
+                arrs["k0"] = np.frombuffer(bad, np.uint8)
+        np.savez(path, **arrs)
+        self._frames[frame] = (path, tuple(k for k, _ in pages), domain,
+                               tuple(meta), digest)
+        self.stats["frames_written"] += 1
+        self.stats["pages_written"] += len(pages)
+        self.stats["bytes_written"] += nbytes
+        self.stats["peak_frames"] = max(self.stats["peak_frames"],
+                                        len(self._frames))
+        return nbytes
+
+    def read_frame(self, frame: int, expect_domain: Hashable = None
+                   ) -> List[Tuple[Key, Tuple[torch.Tensor, torch.Tensor]]]:
+        """Load a whole frame back (promote); file stays until deleted.
+
+        Raises :class:`~repro_torch.serving.faults.SpillIOError` on an
+        (injected) disk error and :class:`~repro_torch.serving.faults.
+        SpillCorruptionError` when the loaded payload bytes fail
+        checksum verification — in both cases **before** returning any
+        payload, so corrupted or unreadable KV is never decoded from."""
+        path, keys, domain, meta, digest = self._frames[frame]
+        if self.injector is not None:
+            self.injector.disk_read_fault(frame)
+        if expect_domain is not None:
+            assert domain == expect_domain, \
+                f"frame {frame} spilled under {domain!r}, " \
+                f"promoted under {expect_domain!r}"
+        out: List[Tuple[Key, Tuple[torch.Tensor, torch.Tensor]]] = []
+        nbytes = 0
+        with np.load(path) as z:
+            stored = tuple(tuple(int(x) for x in row) for row in z["keys"])
+            assert stored == keys, f"frame {frame} file/index key mismatch"
+            raw = [z[f"{kv}{i}"] for i in range(len(stored))
+                   for kv in ("k", "v")]
+            if self._digest(raw) != digest:
+                from repro_torch.serving.faults import SpillCorruptionError
+                self.stats["checksum_failures"] += 1
+                raise SpillCorruptionError(frame)
+            for i, key in enumerate(stored):
+                kdt, ksh, vdt, vsh = meta[i]
+                kp = self._unpack(raw[2 * i], kdt, ksh)
+                vp = self._unpack(raw[2 * i + 1], vdt, vsh)
+                nbytes += kp.nbytes + vp.nbytes
+                out.append((key, (kp, vp)))
+        self.stats["frames_read"] += 1
+        self.stats["pages_read"] += len(out)
+        self.stats["bytes_read"] += nbytes
+        return out
+
+    def delete_frame(self, frame: int) -> None:
+        path = self._frames.pop(frame)[0]
+        if os.path.exists(path):
+            os.remove(path)
+        self.stats["frames_deleted"] += 1
+
+    def quarantine_frame(self, frame: int) -> None:
+        """Drop a corrupted/unreadable frame without counting it as a
+        normal delete: the file (if any) is removed so a bad payload can
+        never be read again, and the frame id leaves the map so the
+        tier can rebuild its contents from upstream truth."""
+        path = self._frames.pop(frame)[0]
+        try:
+            if os.path.exists(path):
+                os.remove(path)
+        except OSError:
+            pass                # unreadable file may also be unlinkable
+        self.stats["frames_quarantined"] += 1
+
+    def close(self) -> None:
+        """Drop every file; removes the temp directory when owned."""
+        for f in list(self._frames):
+            self.delete_frame(f)
+        if self._owned and self._dir is not None \
+                and os.path.isdir(self._dir):
+            shutil.rmtree(self._dir, ignore_errors=True)
+        self._dir = None
 
 
 # ---------------------------------------------------------------- prefixes

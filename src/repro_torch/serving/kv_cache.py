@@ -1,8 +1,6 @@
 """ShardedKVCache: host-side bridge between Mosaic managers and the device.
 
-Counterpart of the reference's ``serving/kv_cache.py`` (the methods the
-single-engine serving paths use; ``pages_needed`` serves only the cluster
-router and comes with it).  Pages of one sequence are spread over ``S``
+Counterpart of the reference's ``serving/kv_cache.py``.  Pages of one sequence are spread over ``S``
 sub-pools; global virtual frame ``f`` of a sequence lives in sub-pool
 ``f % S``, so frames never straddle shards and each sub-pool runs its own
 CoCoA / coalescer / CAC instance.
@@ -175,6 +173,15 @@ class ShardedKVCache:
                             and host.has(seq, s, vpn):
                         out.append((seq, s, vpn, ppn))
         return out
+
+    def pages_needed(self, n_tokens: int) -> int:
+        """Pages a fresh en-masse allocation of ``n_tokens`` consumes
+        (whole frames, CoCoA's reservation granularity).  The cluster
+        router's steal guard sizes a migration target with it without
+        touching the destination pool."""
+        ftok = self.geo.frame_pages * self.geo.page_tokens
+        frames = (n_tokens + ftok - 1) // ftok
+        return frames * self.geo.frame_pages
 
     def resident_page_count(self, seq: int) -> int:
         """HBM-resident pages mapped by ``seq`` (the eviction-cost term

@@ -1233,3 +1233,52 @@ def test_cuda_encdec_lm_counts_flash_by_site(cuda_device):
         "flash_attention.cross_decode": e.dec_layers}
     assert ops.launch_counts()["flash_attention"] \
         == e.enc_layers + 3 * e.dec_layers
+
+
+@pytest.mark.cuda
+def test_cuda_spill_store_round_trip_of_gathered_bf16_pages(cuda_device,
+                                                           tmp_path):
+    """Pages gathered off a bf16 pool by the card's ``page_gather`` go to
+    disk in one spill frame and come back with the same dtype, shape and
+    bits; ``page_scatter`` lands them in another pool bit for bit."""
+    from repro_torch.serving.host_tier import SpillStore
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    L, NP, ptok, n_kv, dh = 36, 80, 64, 2, 128     # qwen2.5-3b's pool
+    pool = torch.randn((L, NP, ptok, n_kv, dh), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ids = [3, 4, 5, 17, 40, 41, 79]
+    idx = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    pages = ops.page_gather(pool, idx).cpu()       # [L, n, ptok, kv, dh]
+    payloads = [(pages[:, i], pages[:, i].flip(-1)) for i in range(len(ids))]
+    keys = [(7, 0, i) for i in range(len(ids))]
+    with SpillStore(str(tmp_path)) as store:
+        store.write_frame(0, 0, list(zip(keys, payloads)))
+        back = store.read_frame(0, expect_domain=0)
+    assert [k for k, _ in back] == keys
+    for (_, (k, v)), (k0, v0) in zip(back, payloads):
+        assert k.dtype == torch.bfloat16 and k.shape == k0.shape
+        assert torch.equal(k.view(torch.int16), k0.view(torch.int16))
+        assert torch.equal(v.view(torch.int16), v0.view(torch.int16))
+    other = torch.zeros_like(pool)
+    ops.page_scatter(other, idx, torch.stack([k for _, (k, _v) in back],
+                                             dim=1).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(other[:, idx.long()].view(torch.int16),
+                       pool[:, idx.long()].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_agreement_with_the_cpu(cuda_device):
+    """chip_smoke.py's phase 8d: phases 8a and 8b with a narrow f32 model
+    on the card (kernels) and on the CPU (plain versions) give identical
+    tokens, router decisions, tier counters and injector logs."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(root)
+    from repro_torch.configs import get_config
+    cs.phase_cluster_agreement(get_config("qwen2.5-3b"))

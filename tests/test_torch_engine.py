@@ -30,6 +30,9 @@ from repro_torch.launch import serve
 from repro_torch.serving.engine import EngineStats
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.host_tier import HostPageStore as TStore
+from repro_torch.serving.host_tier import PrefixIndex as TIndex
 
 ROOT = Path(__file__).resolve().parents[1]
 GEO_KW = dict(page_tokens=8, frame_pages=4, headroom=1.25,
@@ -233,14 +236,26 @@ def test_chip_smoke_transparency_batches_match():
 
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(translation="radix"), "translation"),
-    (dict(host=object()), "cluster"),
-    (dict(prefix_index=object()), "cluster"),
-    (dict(injector=object()), "cluster"),
+    (dict(host=TStore()), "cluster"),
+    (dict(prefix_index=TIndex(TStore(), GEO_KW["page_tokens"])), "cluster"),
+    (dict(injector=FaultInjector()), "cluster"),
 ])
 def test_unported_options_name_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        TEngine(t_smoke("qwen2.5-3b"), geometry=TGeo(**GEO_KW), max_batch=2,
-                max_seq=32, device="cpu", **kw)
+    """The options that once named the slice bringing them (the
+    translation meter, the cluster tier) are ported: the engine takes
+    each and holds what it was given."""
+    eng = TEngine(t_smoke("qwen2.5-3b"), geometry=TGeo(**GEO_KW),
+                  max_batch=2, max_seq=32, device="cpu", **kw)
+    if slice_name == "translation":
+        assert eng.translation_meter is not None
+        assert eng.translation_meter.mode == kw["translation"]
+    elif "host" in kw:
+        assert eng.host is kw["host"]
+    elif "prefix_index" in kw:
+        assert eng.prefix is kw["prefix_index"]
+    else:
+        assert eng.injector is kw["injector"]
+        assert eng.dma.injector is kw["injector"]
 
 
 def test_bad_option_values_raise_value_error():
@@ -275,3 +290,19 @@ def test_serve_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[mosaic] 3 requests in" in out
     assert out.count("rid=") == 3
+
+
+def test_serve_cli_cluster_with_translation_meter_on_cpu(capsys):
+    """``--engines 2 --translation radix``: the cluster summary, one
+    translation line per engine, and the single engine's tokens."""
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--requests", "6",
+            "--max-new", "4", "--translation", "radix", "--device", "cpu"]
+    serve.main(argv)
+    single = [line for line in capsys.readouterr().out.splitlines()
+              if "rid=" in line]
+    serve.main(argv + ["--engines", "2"])
+    out = capsys.readouterr().out
+    assert "[mosaic] 6 requests in" in out and "cluster steps" in out
+    assert "cluster: 2 engines" in out and "router: 6 submitted" in out
+    assert out.count("translation[radix]") == 2
+    assert [line for line in out.splitlines() if "rid=" in line] == single

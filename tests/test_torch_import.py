@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 32, out.stdout
+    assert n_modules >= 38, out.stdout
     assert out.stdout.strip().endswith("BAD []"), out.stdout
 
 
@@ -86,6 +86,41 @@ def test_async_pipeline_and_fused_kernel_import_without_jax():
     model, and their configs: all ten architectures), imported by name."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _NAMED], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "BAD []", out.stdout
+
+
+_CLUSTER = r"""
+import sys
+sys.modules["jax"] = None
+from repro_torch.core.ptw import CoalescedTLB, RadixWalker, TranslationMeter
+from repro_torch.core.tlb_sim import LRU, AppTrace, Link, SimConfig, TranslationSim
+from repro_torch.core.workloads import build_workload, homogeneous_names
+from repro_torch.serving.faults import (FaultInjector, FaultPlan,
+                                        SpillCorruptionError, SpillIOError)
+from repro_torch.serving.host_tier import SpillStore
+from repro_torch.serving.router import RequestRouter, RouterStats
+from repro_torch.serving.cluster import (HostFrameTable, LeasedStoreView,
+                                         ServingCluster, SharedHostTier)
+from repro_torch.serving.engine import EngineStats, ServingEngine
+from repro_torch.serving.kv_cache import ShardedKVCache
+import repro_torch.launch.serve
+assert ServingEngine.__init__.__kwdefaults__["translation"] == "off"
+assert hasattr(ShardedKVCache, "pages_needed")
+assert {"migrations_in", "promotions", "translation_walks",
+        "prestage_hits", "lost_restarts"} <= set(EngineStats.__dataclass_fields__)
+print("BAD", sorted(m for m in sys.modules
+                    if m == "repro" or m.startswith("repro.")
+                    or (m.startswith("jax") and sys.modules[m] is not None)))
+"""
+
+
+def test_cluster_tier_imports_without_jax():
+    """The cluster slice's modules (translation model, faults, spill
+    store, router, cluster, the serve CLI), imported by name."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _CLUSTER], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "BAD []", out.stdout
