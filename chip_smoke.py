@@ -158,6 +158,39 @@ Phases (each synchronised; any failure exits non-zero):
    depths, one after another, the stream's first four requests in sync,
    launches accounted for per layer; qwen3-8b (qk-norm) also cut to 2
    layers on the card against the CPU.
+9. training (after every serving phase, with their weights gone):
+   9a. the training kernels at qwen2.5-3b's training shape (B = 2, T =
+   2048, 16 heads over 2 KV heads of 128, causal, bf16, queries at PEAK_Q
+   times the unit scale): the flash forward with each row's log-sum-exp
+   (``flash_attention.train``) against its plain version, its ``o`` bit for
+   bit the serving call's; the hand-written backward
+   (``flash_attention_bwd``) against its plain version at 2e-2 of each
+   gradient's scale, and two backward calls bit for bit; an f32 case at
+   the narrow model's shape (head dim 32, T = NARROW_T) at 2e-5; a
+   non-causal bf16 case with Tq = 300 != Tk = 700.  Times beside the
+   operations bound (the backward's five products, the forward's two, at
+   989 TFLOP/s) and beside ``scaled_dot_product_attention`` (forward;
+   forward and backward through autograd for the backward's entry);
+   9b. full-width training: qwen2.5-3b at its published width and depth,
+   fp32 master weights from a seed, ``Trainer`` with TrainHParams(lr=3e-4,
+   warmup_steps=2, total_steps=6, remat="block"), TRAIN_B x TRAIN_T tokens
+   a step (``SyntheticLM``), TRAIN_STEPS steps: every loss and grad norm
+   finite, per layer and step two training forwards (remat recomputes)
+   and one backward, no serving kernel; per step the loss, grad norm, step
+   ms and tokens/s, then the peak memory.  The loss falls: the final
+   weights' loss on the last step's batch is below that batch's loss
+   before its update and below the first step's loss.  (Each logged loss
+   is taken before its step's update on a fresh batch; at this learning
+   rate six of them move less than the batches differ, so they are
+   printed, not compared.)  The same six steps with f32 compute (the
+   CUDA-core kernels, f32 products) from the same weights and data give
+   every step's loss within 1e-3 relative;
+   9c. in a subprocess with ``torch.use_deterministic_algorithms(True)``
+   (CUBLAS_WORKSPACE_CONFIG set before CUDA starts): the narrow f32 model
+   trained 4 steps on the card and on the CPU from the same weights, every
+   step's loss within 1e-4 relative; then on the card a run checkpointed at
+   step 2 and resumed in a fresh Trainer for 2 more steps, whose
+   parameters and Adam moments equal the uninterrupted run's bit for bit.
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -166,15 +199,19 @@ phase 4e, ``.vlm`` and ``.g4d128`` from 4g and 4i, ``.phi3`` and
 ``.g1d96`` from phi3's run, ``.g1d64`` and the flash kernel's counts by
 call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
 4h; every other launch of phases 4, 4c, 4d, 4f-4i and 8a-8c under its
-kernel's own entry.  Of the serving phases only 4f is cut in depth.
+kernel's own entry; ``flash_attention.train`` and ``flash_attention_bwd``
+from phase 9b.  Of the serving phases only 4f is cut in depth.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -208,6 +245,9 @@ CLUSTER_WINDOW_US = 50_000.0   # modeled decode window, about the step
 CLUSTER_RID = 100       # the stream's rids follow the waves' 0-5
 CRASH_AFTER = 12        # phase 8b: engine 1's crash, in steps into the stream
 READ_ERROR_RATE = 0.5   # phase 8b: transient disk-read errors per read
+TRAIN_B, TRAIN_T = 2, 2048     # phase 9: qwen2.5-3b's --batch 2 --seq 2048
+TRAIN_STEPS = 6
+NARROW_T = 256          # phase 9a/9c: the narrow model's training length
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
@@ -231,6 +271,9 @@ REPLACES = {
     "page_compact": "src/repro/kernels/page_compact.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:73",
+    "flash_attention_bwd": "repro/models/layers.py:118 attention, "
+                           "differentiated by jax.value_and_grad "
+                           "(repro/train/trainer.py:155)",
 }
 SOURCES = {
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
@@ -241,6 +284,7 @@ SOURCES = {
     "page_compact": "src/repro_torch/csrc/page_copy.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -2628,6 +2672,282 @@ def phase_dense_archs():
     return out
 
 
+# ---------------------------------------------------------------- training
+
+
+def _scaled_err(got, want):
+    """Largest absolute error of ``got`` and ``want``'s scale (max |want|)."""
+    return (float((got.float() - want.float()).abs().max()),
+            float(want.float().abs().max()))
+
+
+def train_kernel_case(B, Tq, Tk, H, n_kv, dh, causal, dtype, tol, label,
+                      seed=0):
+    """Phase 9a at one shape: the forward with lse against its plain
+    version and, bit for bit, the serving forward; the backward against
+    its plain version at ``tol`` of each gradient's scale and bit for bit
+    against a second call.  Returns the inputs and the largest errors."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = (randn(B, Tq, H, dh) * PEAK_Q, randn(B, Tk, n_kv, dh),
+               randn(B, Tk, n_kv, dh))
+    do = randn(B, Tq, H, dh)
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    served = ops.flash_attention(q, k, v, causal=causal)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    grads = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    require(torch.equal(o, served), f"{label}: the forward's o with lse is "
+            f"not bit for bit the serving call's")
+    o_tol = ATTN_TOL if dtype == torch.bfloat16 else dict(rtol=2e-5,
+                                                          atol=2e-5)
+    torch.testing.assert_close(o.float(), want_o.float(), **o_tol)
+    lse_tol = 1e-4 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(lse, want_lse, rtol=lse_tol, atol=lse_tol)
+    errs = []
+    for name, g, g2, w in zip(("dq", "dk", "dv"), grads, again, want):
+        require(bool(torch.isfinite(g.float()).all()), f"{label}: {name} "
+                f"not finite")
+        require(torch.equal(g, g2), f"{label}: two backward calls differ "
+                f"in {name}")
+        err, scale = _scaled_err(g, w)
+        require(err <= tol * scale, f"{label}: {name} off its plain version "
+                f"by {err:.3g} (scale {scale:.3g}, tolerance {tol})")
+        errs.append(err)
+    print(f"[train-kernel] {label}: o == serving o bitwise; lse max err "
+          f"{float((lse - want_lse).abs().max()):.3g}; dq/dk/dv max err "
+          f"{' / '.join(f'{e:.3g}' for e in errs)} (tolerance {tol} of "
+          f"scale); two backward calls bitwise equal")
+    return (q, k, v, o, do, lse), max(errs), float(
+        (o.float() - want_o.float()).abs().max())
+
+
+def phase_train_kernels(results):
+    """Phase 9a: the training kernels at qwen2.5-3b's training shape, at
+    the narrow model's f32 shape and non-causal with Tq != Tk; entries
+    ``flash_attention.train`` and ``flash_attention_bwd`` in ``results``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, T, H, n_kv, dh = TRAIN_B, TRAIN_T, 16, 2, 128
+    (q, k, v, o, do, lse), bwd_err, fwd_err = train_kernel_case(
+        B, T, T, H, n_kv, dh, True, torch.bfloat16, ATTN_TOL["rtol"],
+        f"qwen2.5-3b training shape B={B} T={T} H={H} n_kv={n_kv} dh={dh}")
+    train_kernel_case(2, NARROW_T, NARROW_T, 4, 2, 32, True, torch.float32,
+                      2e-5, f"narrow f32 B=2 T={NARROW_T} H=4 n_kv=2 dh=32")
+    train_kernel_case(2, 300, 700, H, n_kv, dh, False, torch.bfloat16,
+                      ATTN_TOL["rtol"], "non-causal Tq=300 Tk=700 bf16")
+    pairs = T * (T + 1) // 2
+    elems_q, elems_kv = B * T * H * dh, B * T * n_kv * dh
+    fwd_bound = bound_ms(2 * (2 * elems_q + 2 * elems_kv) + 4 * B * H * T,
+                         4 * B * H * dh * pairs)
+    bwd_bound = bound_ms(2 * (5 * elems_q + 4 * elems_kv) + 4 * B * H * T,
+                         10 * B * H * dh * pairs)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    shape = f"B={B} T={T} H={H} n_kv={n_kv} dh={dh} causal bf16"
+    results["flash_attention.train"] = dict(
+        max_abs_err=fwd_err,
+        ms=graph_ms(functools.partial(ops.flash_attention_lse, q, k, v)),
+        plain_ms=eager_ms(functools.partial(ref.flash_attention_lse_ref, q,
+                                            k, v), iters=5),
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+        library_ms=graph_ms(functools.partial(
+            F.scaled_dot_product_attention, qt, kt, vt, is_causal=True,
+            enable_gqa=True)), shape=shape)
+    results["flash_attention_bwd"] = dict(
+        max_abs_err=bwd_err,
+        ms=graph_ms(functools.partial(ops.flash_attention_bwd, q, k, v, o, do,
+                                      lse)),
+        plain_ms=eager_ms(functools.partial(ref.flash_attention_bwd_ref, q,
+                                            k, v, o, do, lse), iters=5),
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library_ms=graph_ms(sdpa_fwd_bwd), shape=shape)
+    f, b = results["flash_attention.train"], results["flash_attention_bwd"]
+    print(f"[kernel] flash_attention.train: kernel_ms {f['ms']:.4f} plain_ms "
+          f"{f['plain_ms']:.4f} bound_ms {f['bound_ms']:.5f} "
+          f"({f['bound_by']}) library_ms {f['library_ms']:.4f} "
+          f"(scaled_dot_product_attention forward) | {shape}")
+    print(f"[kernel] flash_attention_bwd: kernel_ms {b['ms']:.4f} plain_ms "
+          f"{b['plain_ms']:.4f} bound_ms {b['bound_ms']:.5f} "
+          f"({b['bound_by']}) library_ms {b['library_ms']:.4f} "
+          f"(scaled_dot_product_attention forward + backward through "
+          f"autograd; the port's forward + backward: "
+          f"{f['ms'] + b['ms']:.4f}) | {shape} | three launches: D "
+          f"pre-pass, dK/dV over 64-key tiles (grid {-(-T // 64)}x{n_kv}x{B}),"
+          f" dQ over the forward's tiles (grid {-(-T // (64 // (H // n_kv)))}"
+          f"x{n_kv}x{B})")
+
+
+def phase_train(cfg):
+    """Phase 9b: full-width training through ``Trainer``; returns the
+    training kernels' launch counts of the run."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                      remat="block")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, hp, batch_per_step=TRAIN_B, seq_len=TRAIN_T, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    hist = tr.run(TRAIN_STEPS, log_every=1)
+    counts = ops.train_launch_counts()
+    serving = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L, tokens = cfg.n_layers, TRAIN_B * TRAIN_T
+    for r in tr.log:
+        print(f"[train] step {r['step']}: loss {r['loss']:.4f} grad_norm "
+              f"{r['grad_norm']:.4f} step_ms {r['ms']:.1f} tokens/s "
+              f"{tokens / r['ms'] * 1e3:.0f}")
+    losses = [l for _, l in hist]
+    require(len(tr.log) == TRAIN_STEPS
+            and all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                    for r in tr.log),
+            f"training: a loss or grad norm is not finite: {tr.log}")
+    require(counts == {"flash_attention.train": 2 * L * TRAIN_STEPS,
+                       "flash_attention_bwd": L * TRAIN_STEPS}
+            and not any(serving.values()),
+            f"training: launches {counts} (serving {serving}) are not two "
+            f"forwards and one backward per layer and step")
+    steady = [r["ms"] for r in tr.log[1:]]
+    print(f"[train] {cfg.name} at its published width and depth "
+          f"({cfg.param_count() / 1e9:.3f} G parameters, fp32 master "
+          f"weights, bf16 compute), batch {TRAIN_B} x seq {TRAIN_T}, "
+          f"remat block: {TRAIN_STEPS} steps in "
+          f"{sum(r['ms'] for r in tr.log) / 1e3:.1f}s after {t_init:.1f}s "
+          f"of set-up; steps 2-{TRAIN_STEPS} median "
+          f"{float(np.median(steady)):.1f} ms ({tokens / float(np.median(steady)) * 1e3:.0f} "
+          f"tokens/s); loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+          f"{counts}; peak memory {peak:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} "
+          f"({held:.2f} GiB held before) ({SMI})")
+    with torch.no_grad():
+        after = float(tr.lm.loss(tr.data.batch_at(TRAIN_STEPS - 1))[0])
+    require(after < losses[-1] and after < losses[0],
+            f"training: the final weights' loss on the last step's batch, "
+            f"{after:.4f}, is not below its loss before the update, "
+            f"{losses[-1]:.4f}, and the first step's, {losses[0]:.4f}")
+    print(f"[train] the loss falls: the final weights' loss on step "
+          f"{TRAIN_STEPS}'s batch {after:.4f} < {losses[-1]:.4f} before its "
+          f"update and < step 1's {losses[0]:.4f}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = Trainer(dataclasses.replace(cfg, dtype="float32"), hp,
+                 batch_per_step=TRAIN_B, seq_len=TRAIN_T, seed=0)
+    tr.run(TRAIN_STEPS, log_every=1)
+    f32 = [r["loss"] for r in tr.log]
+    # bf16 rounds activations at 2^-8 of their scale; the loss averages
+    # 4094 tokens, so the runs stay far inside 1e-3.
+    require(all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(losses, f32)),
+            f"training: bf16 losses {losses} off the f32 run's {f32}")
+    print(f"[train] the same {TRAIN_STEPS} steps with f32 compute (CUDA-core "
+          f"attention kernels, f32 products): losses "
+          f"{[round(l, 4) for l in f32]}, largest relative difference "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(losses, f32)):.2e} "
+          f"from the bf16 run's")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_agreement(dev="cuda"):
+    """Phase 9c's checks with the narrow model on ``dev`` (the card; the
+    CPU rehearses them) against the CPU: 4 steps' losses, then a
+    checkpoint-resume against the uninterrupted run, bitwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.trainer import Trainer
+    cfg = narrow_config(get_config(ARCH))
+    hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=4, remat="block")
+    kw = dict(batch_per_step=2, seq_len=NARROW_T, seed=0, device=dev)
+    card = Trainer(cfg, hp, **kw)
+    weights = {n: p.detach().cpu().clone() for n, p in card.params.items()}
+    cpu = Trainer(cfg, hp, params=weights, **dict(kw, device="cpu"))
+    card.run(4, log_every=1)
+    cpu.run(4, log_every=1)
+    for a, b in zip(card.log, cpu.log):
+        require(abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"]),
+                f"narrow training: card loss {a['loss']} != CPU loss "
+                f"{b['loss']} at step {a['step']}")
+    print(f"[train:agreement] narrow f32 model, same weights, 4 steps: card "
+          f"losses {[round(r['loss'], 6) for r in card.log]} within 1e-4 "
+          f"of the CPU's {[round(r['loss'], 6) for r in cpu.log]}")
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        first = Trainer(cfg, hp, params=weights, ckpt_dir=str(d),
+                        ckpt_every=2, **kw)
+        first.run(2, log_every=1)
+        del first
+        resumed = Trainer(cfg, hp, params=weights, ckpt_dir=str(d),
+                          resume=True, **kw)
+        require(resumed.start_step == 2, f"resume started at "
+                f"{resumed.start_step}, not at the step-2 checkpoint")
+        resumed.run(2, log_every=1)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for n, p in card.params.items():
+        require(torch.equal(p, resumed.params[n])
+                and torch.equal(card.opt["mu"][n], resumed.opt["mu"][n])
+                and torch.equal(card.opt["nu"][n], resumed.opt["nu"][n]),
+                f"checkpoint-resume: {n} or its moments differ from the "
+                f"uninterrupted run")
+    require(int(resumed.opt["step"]) == int(card.opt["step"]) == 4,
+            "checkpoint-resume: step counters differ")
+    print("[train:restart] checkpoint at step 2, resumed in a fresh Trainer "
+          "for 2 steps: parameters and Adam moments bit for bit the "
+          "uninterrupted 4-step run's")
+
+
+def deterministic_train_agreement():
+    """Phase 9c's child process: deterministic algorithms, TF32 off."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_agreement("cuda")
+
+
+def phase_train_agreement():
+    """Phase 9c: ``train_agreement`` in a subprocess, so that
+    CUBLAS_WORKSPACE_CONFIG is set before CUDA starts and
+    ``torch.use_deterministic_algorithms(True)`` makes a nondeterministic
+    op raise instead of flaking."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.deterministic_train_agreement()")
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        if line.startswith("[train:"):
+            print(line)
+    require(out.returncode == 0, f"phase 9c failed (exit {out.returncode}): "
+            f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+
+
 def family_entries(vlm, encdec, dense):
     """Launch counts of the kernels line's entries from phases 4g-4i, each
     at the shapes its entry times: llava's prefill flash
@@ -2714,6 +3034,9 @@ def main() -> int:
     counts.update(tagged)
     for k, n_launch in rest.items():
         counts[k] = counts.get(k, 0) + n_launch
+    phase_train_kernels(results)
+    counts.update(phase_train(cfg))
+    phase_train_agreement()
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

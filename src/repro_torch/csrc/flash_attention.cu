@@ -50,6 +50,12 @@
 // another row (no tile-wide rescale shortcut).  So the rows of a suffix call
 // equal the same rows of the full call bit for bit.
 // A row with no valid key returns 0 (l = 0), as the Pallas kernel.
+//
+// Training (flash_attention_bwd.cu) also needs each row's log-sum-exp of
+// its scaled scores, lse = m + log l, f32 [B, H, Tq]: with a non-null lse
+// pointer each row's (m, l), already in registers, is written there after
+// o.  Nothing before that store changes, so o keeps its bits with or
+// without lse.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +119,7 @@ template <int DH, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        const void* __restrict__ v, void* __restrict__ o,
+                       float* __restrict__ lse,
                        const int* __restrict__ kv_len, int Tq, int Tk, int H,
                        int n_kv, int q_offset, int causal, int is_f32,
                        float scale) {
@@ -304,6 +311,9 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
             __floats2bfloat162_rn(x0, x1);
       }
     }
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + kvh * g + r / bq) * Tq + pos0 + r % bq] =
+          m[a] + logf(l[a]);
   }
 }
 
@@ -379,6 +389,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse,
                           const int* __restrict__ kv_len, int Tq, int Tk,
                           int H, int n_kv, int q_offset, int causal,
                           float scale_log2) {
@@ -591,12 +602,16 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[n][2 * a] / den,
                                 acc[n][2 * a + 1] / den);
     }
+    // m is in base 2 (scores times log2 e): lse = (m + log2 l) ln 2.
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * H + kvh * g + r / bq) * Tq + pos0 + r % bq] =
+          (m[a] + log2f(lsum)) * 0.6931471805599453f;
   }
 }
 
 template <int DH, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      const int* kv_len, int B, int Tq, int Tk, int H,
+                      float* lse, const int* kv_len, int B, int Tq, int Tk, int H,
                       int n_kv, int q_offset, int causal, float scale,
                       cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(DH, DV);
@@ -614,14 +629,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      kv_len, Tq, Tk, H, n_kv, q_offset, causal,
+      lse, kv_len, Tq, Tk, H, n_kv, q_offset, causal,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* kv_len, int B, int Tq, int Tk, int H, int n_kv,
+                   float* lse, const int* kv_len, int B, int Tq, int Tk, int H, int n_kv,
                    int q_offset, int causal, int is_f32, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(DH, DV);
@@ -638,7 +653,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int bq = kRows / (H / n_kv);
   const dim3 grid((Tq + bq - 1) / bq, n_kv, B);
   flash_attention_kernel<DH, DV><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, kv_len, Tq, Tk, H, n_kv, q_offset, causal, is_f32, scale);
+      q, k, v, o, lse, kv_len, Tq, Tk, H, n_kv, q_offset, causal, is_f32,
+      scale);
   return cudaGetLastError();
 }
 
@@ -647,13 +663,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q [B, Tq, H, dh], k [B, Tk, n_kv, dh], v [B, Tk, n_kv, dh_v], o [B, Tq,
-// H, dh_v], all bf16 (is_f32 = 0) or all f32; kv_len int32 [B] or null;
+// H, dh_v], all bf16 (is_f32 = 0) or all f32; lse f32 [B, H, Tq] or null
+// (written when given); kv_len int32 [B] or null;
 // dh_v = dh a multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA);
 // H / n_kv at most 64.  bf16 at dh = dh_v 32, 64, 96 or 128 and at dh 192 /
 // dh_v 128 runs the tensor-core path, the rest the CUDA-core path.  Returns
 // the launch's cudaError_t (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        const int* kv_len, int B, int Tq, int Tk, int H,
+                        float* lse, const int* kv_len, int B, int Tq, int Tk, int H,
                         int n_kv, int dh, int dh_v, int q_offset, int causal,
                         int is_f32, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -662,8 +679,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     switch (key) {
 #define TC(D, DV)                                                            \
   case D * 1024 + DV:                                                        \
-    return (int)launch_tc<D, DV>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,     \
-                                 q_offset, causal, scale, s);
+    return (int)launch_tc<D, DV>(q, k, v, o, lse, kv_len, B, Tq, Tk, H,      \
+                                 n_kv, q_offset, causal, scale, s);
       TC(32, 32) TC(64, 64) TC(96, 96) TC(128, 128) TC(192, 128)
 #undef TC
       default:
@@ -673,7 +690,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   switch (key) {
 #define CASE(D, DV)                                                          \
   case D * 1024 + DV:                                                        \
-    return (int)launch<D, DV>(q, k, v, o, kv_len, B, Tq, Tk, H, n_kv,        \
+    return (int)launch<D, DV>(q, k, v, o, lse, kv_len, B, Tq, Tk, H, n_kv,   \
                               q_offset, causal, is_f32, scale, s);
     CASE(32, 32) CASE(64, 64) CASE(96, 96) CASE(128, 128) CASE(160, 160)
     CASE(192, 192) CASE(224, 224) CASE(256, 256) CASE(192, 128)

@@ -22,6 +22,18 @@ launches the kernel or raises.  ``flash_attention.launches`` counts kernel
 launches; a call that names its ``site`` (:data:`SITES`: the encoder and
 the cross-attention at prefill and at decode) also adds its launch to
 ``flash_attention.site_launches[site]``.
+
+Training: when grad mode is on and an input requires a gradient, the call
+runs :class:`FlashAttentionFn`.  Its forward is the same kernel writing
+each row's log-sum-exp as well (:func:`flash_attention_lse`, counted by
+``flash_attention_lse.launches``, not ``flash_attention.launches``), and
+its backward is ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`, plain version
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`), counted by
+``flash_attention_bwd.launches``: one per call, which is three launches
+(the D pre-pass, dK / dV, dQ).  Training takes queries at positions 0 ..
+Tq - 1 (no ``q_offset``, no ``kv_len``), equal key and value widths and
+bf16 or f32.  Serving calls run under ``no_grad`` and never take this path.
 """
 
 from __future__ import annotations
@@ -47,6 +59,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     :data:`SITES` or None.  Returns [B, Tq, H, dh_v] in q's dtype."""
     if site is not None and site not in SITES:
         raise ValueError(f"unknown flash-attention site {site!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset or kv_len is not None or site is not None:
+            raise ValueError("a differentiated flash attention takes no "
+                             "q_offset, kv_len or site")
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_len=kv_len,
@@ -63,7 +81,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         return o
     lib = _lib()
     err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
         None if kv_len is None else kv_len.data_ptr(), B, Tq, Tk, H, n_kv,
         dh, dh_v, int(q_offset), int(bool(causal)), int(q.dtype == torch.float32),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
@@ -76,6 +94,107 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 flash_attention.launches = 0
 flash_attention.site_launches = dict.fromkeys(SITES, 0)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None):
+    """The training forward: (o, lse) with lse f32 [B, H, Tq] each row's
+    log-sum-exp of its scaled scores; on the card ``o`` is bit for bit the
+    serving call's.  Queries at positions 0 .. Tq - 1."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                           scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_train_inputs(q, k, v)
+    B, Tq, H, dh = q.shape
+    Tk, n_kv = k.shape[1:3]
+    scale = dh ** -0.5 if scale is None else scale
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = _lib()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), None, B, Tq, Tk, H, n_kv, dh, dh, 0,
+        int(bool(causal)), int(q.dtype == torch.float32), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_fwd")
+    flash_attention_lse.launches += 1
+    return o, lse
+
+
+flash_attention_lse.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        scale=None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_lse`'s ``o`` given
+    its gradient ``do``, in the inputs' dtypes.  Deterministic on the card
+    (no atomics): two calls on the same inputs give the same bits."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                           causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_train_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}")
+    B, Tq, H, dh = q.shape
+    Tk, n_kv = k.shape[1:3]
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 [{B}, {H}, "
+                         f"{Tq}] on {q.device}")
+    scale = dh ** -0.5 if scale is None else scale
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    D = torch.empty_like(lse)
+    lib = _bwd_lib()
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, n_kv, dh,
+        int(bool(causal)), int(q.dtype == torch.float32), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its hand-written backward (queries at
+    positions 0 .. Tq - 1).  Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _check_train_inputs(q, k, v) -> None:
+    """What the training kernels take, beyond :func:`_check_inputs`: equal
+    key and value widths."""
+    _check_inputs(q, k, v, None, 0)
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"training attention takes equal key and value "
+                         f"widths, got {q.shape[-1]} / {v.shape[-1]}")
 
 
 def _check_inputs(q, k, v, kv_len, q_offset) -> None:
@@ -124,7 +243,17 @@ def _check_inputs(q, k, v, kv_len, q_offset) -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                        I, I, ctypes.c_float, P]
+    lib.flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
+                                        I, I, I, I, ctypes.c_float, P]
     lib.flash_attention_fwd.restype = I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 8 + [ctypes.c_float,
+                                                             P]
+    lib.flash_attention_bwd.restype = I
     return lib

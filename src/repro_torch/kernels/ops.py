@@ -3,8 +3,10 @@
 Counterpart of the reference's ``kernels/ops.py``.  The reference picks its
 path with ``use_pallas``; here the tensors' device picks it: CPU tensors run
 each kernel's plain version, CUDA tensors launch the hand-written kernel
-(or raise).  :func:`launch_counts` reads every kernel's launch counter,
-:func:`flash_site_counts` the flash kernel's by call site.
+(or raise).  :func:`launch_counts` reads every serving kernel's launch
+counter, :func:`flash_site_counts` the flash kernel's by call site and
+:func:`train_launch_counts` the training kernels' (the flash forward with
+its log-sum-exp, and the flash backward).
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_lse,
+)
 from repro_torch.kernels.page_compact import (
     page_compact,
     page_gather,
@@ -73,6 +79,15 @@ def flash_site_counts() -> Dict[str, int]:
             for k, n in flash_attention.site_launches.items()}
 
 
+def train_launch_counts() -> Dict[str, int]:
+    """Training kernels' launches since the last :func:`reset_launch_counts`:
+    the flash forward with its log-sum-exp (``flash_attention.train``) and
+    the flash backward (``flash_attention_bwd``, one per call of its three
+    launches)."""
+    return {"flash_attention.train": flash_attention_lse.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
+
+
 def reset_launch_counts() -> None:
     paged_attention_kernel.page_launches = 0
     paged_attention_kernel.frame_launches = 0
@@ -84,10 +99,13 @@ def reset_launch_counts() -> None:
     flash_attention.site_launches = dict.fromkeys(
         flash_attention.site_launches, 0)
     ssd_scan.launches = 0
+    flash_attention_lse.launches = 0
+    flash_attention_bwd.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
            "page_compact", "flash_attention", "ssd_scan", "launch_counts",
-           "flash_site_counts", "reset_launch_counts"]
+           "flash_attention_lse", "flash_attention_bwd", "flash_site_counts",
+           "train_launch_counts", "reset_launch_counts"]

@@ -24,6 +24,54 @@ def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, kv_len=None,
                      kv_len=kv_len, scale=scale)
 
 
+def flash_attention_lse_ref(q, k, v, *, causal=True, scale=None):
+    """The training forward: :func:`flash_attention_ref`'s output and each
+    row's log-sum-exp of its scaled scores, ``m + log l``, f32 [B, H, Tq]."""
+    return attention(q, k, v, causal=causal, scale=scale, return_lse=True)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, scale=None):
+    """Gradients (dq, dk, dv) of the attention of q [B, Tq, H, dh] over k,
+    v [B, Tk, n_kv, dh] given dO = ``do``, written out as the backward
+    kernel computes them, in f32:
+
+        D  = rowsum(dO ∘ O)
+        P  = exp(scale·Q Kᵀ − lse)   (exact zeros where the forward masks)
+        dV = Σ Pᵀ dO        dS = P ∘ (dO Vᵀ − D)
+        dQ = scale · dS K   dK = scale · dSᵀ Q
+
+    with dK and dV summed over the g = H / n_kv query heads of each KV
+    head.  Queries sit at positions 0 .. Tq - 1 (causal: key j is seen by
+    row i when j <= i).  Returned in the inputs' dtypes."""
+    B, Tq, H, dh = q.shape
+    Tk, n_kv = k.shape[1:3]
+    g = H // n_kv
+    scale = dh ** -0.5 if scale is None else scale
+
+    def grouped(t):          # [B, T, H, d] -> [B, n_kv, g, T, d] f32
+        return t.float().reshape(B, t.shape[1], n_kv, g, -1).permute(
+            0, 2, 3, 1, 4)
+
+    qf, of, dof = grouped(q), grouped(o), grouped(do)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    D = (dof * of).sum(-1)                                # [B, n, g, Tq]
+    s = torch.einsum("bngqd,bnkd->bngqk", qf, kf) * scale
+    if causal:
+        mask = torch.arange(Tk, device=q.device)[None, :] \
+            <= torch.arange(Tq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse.float().reshape(B, n_kv, g, Tq, 1))
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bngqk,bngqd->bnkd", p, dof)
+    ds = p * (torch.einsum("bngqd,bnkd->bngqk", dof, vf) - D[..., None])
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds, kf) * scale
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds, qf) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, dh)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
 def frames_to_pages(tables, ntok, *, frame_pages: int, page_tokens: int):
     """Expand frame tables [B, nf] into their pages' tables [B, nf·fp]."""
     B, nf = tables.shape

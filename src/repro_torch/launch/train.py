@@ -1,0 +1,70 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
+
+Counterpart of the reference's ``launch/train.py`` on one device: builds
+the fault-tolerant :class:`~repro_torch.train.trainer.Trainer` on ``cuda``
+(or ``--device cpu``) and runs.  Restart the same command after a failure
+or preemption: ``--resume`` restores the newest complete checkpoint.  The
+reference's multi-device flags (``--parallelism`` other than megatron,
+``--production-mesh``) raise until the port's multi-device work lands.
+
+On the card, qwen2.5-3b at its published width:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --steps 6 --batch 2 --seq 2048
+
+On the CPU (smoke-scale):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --device cpu --steps 20 --batch 4 --seq 64
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.configs.base import TrainHParams
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--remat", default="save_collectives",
+                    choices=["none", "block", "save_collectives"])
+    ap.add_argument("--parallelism", default="megatron",
+                    choices=["megatron", "auto", "fsdp"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="16x16 mesh (multi-device: not ported yet)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError("--production-mesh waits for multi-device "
+                                  "training (ROADMAP Queue 1 item 6)")
+
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
+    hp = TrainHParams(lr=args.lr, total_steps=args.steps,
+                      microbatch=args.microbatch, remat=args.remat,
+                      parallelism=args.parallelism)
+    print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M "
+          f"device={args.device} parallelism={hp.parallelism}")
+    tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
+                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 resume=args.resume, device=args.device)
+    return tr.run(args.steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,134 @@
+"""Where a training step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_profile
+        [--arch qwen2.5-3b --batch 2 --seq 2048 --remat block]
+
+Builds the port's ``Trainer`` for an architecture at its published width
+(fp32 master weights from ``--seed``), runs ``--warm`` steps, times
+``--steps`` more on the host clock (each ends in reading its loss, a
+synchronisation), and traces ``--trace-steps`` with ``torch.profiler``:
+device time by kernel per step, grouped (flash forward, flash backward,
+matrix products, the rest), and the device's busy share of an unprofiled
+step.  Then, on one more step's gradients, the optimizer alone (CUDA
+events): the global norm, and the whole AdamW update that includes it.
+
+Prints one JSON object as its last line.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+# Kernel-name substrings of each group, first match wins.
+GROUPS = (("flash_forward", ("flash_attention_tc_kernel",
+                             "flash_attention_kernel")),
+          ("flash_backward", ("bwd_dkdv", "bwd_dq", "bwd_rowdot")),
+          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--remat", default="block",
+                    choices=["none", "block", "save_collectives"])
+    ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace-steps", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("train_profile: needs a CUDA device")
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.optimizer import adamw_update, global_norm
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    n = args.warm + args.steps + args.trace_steps
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=n,
+                      remat=args.remat)
+    tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
+                 seed=args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    tr.run(args.warm, log_every=1)
+    tr.start_step = args.warm
+    tr.run(args.steps, log_every=1)
+    step_ms = sum(r["ms"] for r in tr.log[-args.steps:]) / args.steps
+    tr.start_step = args.warm + args.steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        w0 = time.perf_counter()
+        tr.run(args.trace_steps, log_every=1)
+        wall = time.perf_counter() - w0
+    # Device-side events only: the operator events above them carry the
+    # same device time again.
+    kernels = [(ev.key, ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    per = args.trace_steps
+    groups = {}
+    for name, us, _ in kernels:
+        g = group_of(name)
+        groups[g] = groups.get(g, 0.0) + us / per * 1e-3
+    busy_ms = sum(groups.values())
+
+    def event_ms(fn):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    remat = {"none": False, "block": True}.get(args.remat, args.remat)
+    tr.lm.loss(tr.data.batch_at(n), remat=remat)[0].backward()
+    grads = {name: p.grad for name, p in tr.params.items()}
+    norm_ms = event_ms(lambda: global_norm(grads.values()))
+    adamw_ms = event_ms(lambda: adamw_update(tr.params, grads, tr.opt, hp))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    tokens = args.batch * args.seq
+    out = {
+        "device": smi.stdout.strip().splitlines()[0] if smi.stdout
+        else torch.cuda.get_device_name(0),
+        "arch": cfg.name, "batch": args.batch, "seq": args.seq,
+        "remat": args.remat,
+        "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "trace_step_ms": wall / per * 1e3,
+        "device_busy_ms_per_step": busy_ms,
+        # Against the unprofiled step: tracing slows the host, not the card.
+        "device_busy_share": busy_ms / step_ms,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "groups_ms_per_step": groups,
+        "global_norm_ms": norm_ms,
+        "adamw_update_ms": adamw_ms,
+        "top_kernels_ms_per_step": [
+            {"name": name[:90], "group": group_of(name),
+             "ms": us / per * 1e-3, "calls": c // per}
+            for name, us, c in kernels[:15]],
+    }
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -49,12 +49,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 def _block_attn_loop(q, k, v, q_offset: int, causal: bool, kv_len,
-                     block: int, scale: float):
+                     block: int, scale: float, return_lse: bool = False):
     """Online-softmax attention: loop over KV blocks.
 
     q: [B, Tq, H, dh]   k/v: [B, Tk, Hkv, dh]  (Tk padded to block multiple)
     kv_len: [B] valid KV length (None -> all valid)
-    Returns [B, Tq, H, dh].
+    Returns [B, Tq, H, dh], and with ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, m + log l, f32 [B, H, Tq].
     """
     B, Tq, H, dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
@@ -90,15 +91,20 @@ def _block_attn_loop(q, k, v, q_offset: int, causal: bool, kv_len,
         o = o * alpha[..., None] + torch.einsum("bngqk,bknd->bngqd", p, vb)
         m = m_new
     o = o / torch.clamp(l[..., None], min=1e-30)
-    o = o.reshape(B, H, Tq, dh_v).transpose(1, 2)
-    return o.to(q.dtype)
+    o = o.reshape(B, H, Tq, dh_v).transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).reshape(B, H, Tq)
+    return o
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-              kv_len=None, block: int = 512, scale: Optional[float] = None):
+              kv_len=None, block: int = 512, scale: Optional[float] = None,
+              return_lse: bool = False):
     """Flash-style blockwise multi-head attention (GQA via head groups).
 
-    Pads KV to a block multiple; masking handles the tail.
+    Pads KV to a block multiple; masking handles the tail.  With
+    ``return_lse`` returns (out, lse [B, H, Tq] f32) (see
+    :func:`_block_attn_loop`).
     """
     dh = q.shape[-1]
     scale = scale if scale is not None else dh ** -0.5
@@ -111,7 +117,8 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         if kv_len is None:
             kv_len = torch.full((q.shape[0],), Tk, dtype=torch.int32,
                                 device=q.device)
-    return _block_attn_loop(q, k, v, q_offset, causal, kv_len, block, scale)
+    return _block_attn_loop(q, k, v, q_offset, causal, kv_len, block, scale,
+                            return_lse)
 
 
 # ----------------------------------------------------------------- MLPs

@@ -17,7 +17,11 @@ Counterpart of the reference's ``models/lm.py`` for all six families:
              encoder memory, whose K/V is dense decode state
 
 The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
-the port stores every weight once in ``cfg.dtype``.  Parameter names follow
+the port's serving LM stores every weight once in ``cfg.dtype``.  For
+training, ``LM(cfg, master=True)`` holds them as fp32 master weights with
+gradients enabled, and :meth:`LM.loss` casts them to ``cfg.dtype`` at its
+entry, as the reference's loss does (dense family; the others follow in
+later slices).  Parameter names follow
 the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
 ``decoder_prefix.mlp.w_up``, ``decoder.moe.router``, ``decoder.mamba.w_in``,
 ...), so :func:`repro_torch.bridge.params_from_jax` maps one onto the other.
@@ -32,6 +36,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -45,9 +50,11 @@ from repro_torch.models.transformer import (
     DecoderParams,
     decoder_stack_decode,
     decoder_stack_prefill,
+    decoder_stack_train,
 )
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+AUX_LOSS_COEF = 0.01
 
 
 def _dense_view(cfg: ModelConfig) -> ModelConfig:
@@ -62,14 +69,17 @@ def _first_dense(cfg: ModelConfig) -> int:
 class LM(nn.Module):
     """An LM of any family of :data:`FAMILIES`.  Weights are allocated
     uninitialised on ``device``; fill them with :meth:`init_weights` or
-    ``load_state_dict``."""
+    ``load_state_dict``.  ``master=True`` allocates them in float32 with
+    ``requires_grad`` set: the fp32 master weights that :meth:`loss`
+    differentiates and the optimizer updates."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cpu"):
+    def __init__(self, cfg: ModelConfig, *, device="cpu",
+                 master: bool = False):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
-        dtype = getattr(torch, cfg.dtype)
+        dtype = torch.float32 if master else getattr(torch, cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(
             torch.empty((V, d), dtype=dtype, device=device),
@@ -104,6 +114,9 @@ class LM(nn.Module):
                                                     dtype, device)
             self.decoder = DecoderParams(cfg, cfg.n_layers - fd, dtype,
                                          device)
+        if master:
+            for p in self.parameters():
+                p.requires_grad_(True)
 
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Draw every weight from ``generator`` with the reference's
@@ -187,6 +200,44 @@ class LM(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ w
+
+    # ------------------------------------------------------------- train
+
+    def loss(self, batch, *, remat=True):
+        """The reference's training loss on ``batch["tokens"]`` [B, T]: the
+        weights cast to ``cfg.dtype``, the stack's training forward
+        (:func:`decoder_stack_train`, ``remat`` as there), logits through
+        the tied ``embed`` or ``unembed``, and the masked mean NLL of each
+        next token over ``log_softmax`` in f32.  Returns (total, {"nll",
+        "aux", "tokens"}); differentiate ``total``."""
+        cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training of the {cfg.family} family is not ported yet "
+                f"(ROADMAP Queue 1 item 5)")
+        dtype = getattr(torch, cfg.dtype)
+        dev = self.embed.device
+        tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
+        B, T = tokens.shape
+        embed = self.embed.to(dtype)
+        x = F.embedding(tokens, embed)
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        x, aux = decoder_stack_train(cfg, self.decoder.train_layers(dtype),
+                                     x, positions, remat=remat)
+        x = rms_norm(x, self.final_norm.to(dtype), cfg.norm_eps)
+        w = embed.T if cfg.tie_embeddings else self.unembed.to(dtype)
+        logits = (x @ w).float()
+        tgt = tokens[:, 1:]
+        lp = F.log_softmax(logits[:, :-1], dim=-1)
+        # nll_loss gathers the targets with a deterministic backward on
+        # CUDA (no atomics), unlike torch.gather.
+        nll = F.nll_loss(lp.reshape(-1, lp.shape[-1]),
+                         tgt.clamp(min=0).reshape(-1),
+                         reduction="none").view(B, T - 1)
+        mask = (tgt >= 0).float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        total = loss + AUX_LOSS_COEF * aux
+        return total, {"nll": loss, "aux": aux, "tokens": mask.sum()}
 
     # ------------------------------------------------------------- prefill
 

@@ -19,7 +19,11 @@ Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
   * decode: one token per sequence, written into the paged pool and
     attended through the paged decode-attention kernel (plain version on
     CPU tensors), or, when the step carries staged pages
-    (``PageCtx.slots``), through the fused gather-attend kernel.
+    (``PageCtx.slots``), through the fused gather-attend kernel;
+  * train (dense layers): the full-sequence forward over per-layer weight
+    trees (:meth:`DecoderParams.train_layers`) under grad mode, where the
+    flash call runs its autograd function (the hand-written backward), with
+    per-layer activation recomputation (:func:`decoder_stack_train`).
 
 Pools are updated in place.
 """
@@ -27,10 +31,11 @@ Pools are updated in place.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -150,6 +155,21 @@ class DecoderParams(nn.Module):
     def n_layers(self) -> int:
         return self.ln1.shape[0]
 
+    def train_layers(self, dtype) -> List[Dict[str, object]]:
+        """Every layer's weights as :meth:`layer`'s tree, cast to ``dtype``
+        (the reference casts its fp32 params at the loss's entry).  Each
+        stacked weight is cast once and unbound along the layer axis, so
+        its gradient comes back as one stacked tensor; indexing the stacked
+        weight per layer would make autograd build a full-size zero
+        gradient for every layer."""
+        per_layer = [{"attn": {}, self.ffn_name: {}}
+                     for _ in range(self.n_layers)]
+        for name, w in self.named_parameters():
+            group, _, leaf = name.rpartition(".")
+            for lp, wl in zip(per_layer, w.to(dtype).unbind(0)):
+                (lp[group] if group else lp)[leaf] = wl
+        return per_layer
+
 
 # ------------------------------------------------------------------ attention
 
@@ -234,6 +254,11 @@ def attn_block_prefill(cfg: ModelConfig, p, x, positions, causal=True,
     return out_proj(o, p["wo"]), k, v
 
 
+# The reference's ``attn_block_train`` without a cached prefix; under grad
+# mode its flash call runs the kernel's autograd function.
+attn_block_train = attn_block_prefill
+
+
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
                       ctx: PageCtx):
     """x [B,1,d], pos [B] -> [B,1,d]; writes this token's K/V in place."""
@@ -258,6 +283,59 @@ def layer_ffn(cfg: ModelConfig, lp, x):
 
 
 # ------------------------------------------------------------------ stack
+
+REMAT = (False, True, "none", "block", "save_collectives")
+
+
+def _attn_train(cfg: ModelConfig, lp, x, positions):
+    """The layer's attention block on the residual stream x."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    return attn_block_train(cfg, lp["attn"], h, positions)[0]
+
+
+def _ffn_train(cfg: ModelConfig, lp, x):
+    """The layer's FFN block on the residual stream x."""
+    return ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _layer_train(cfg: ModelConfig, lp, x, positions):
+    x = x + _attn_train(cfg, lp, x, positions)
+    return x + _ffn_train(cfg, lp, x)
+
+
+def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
+                        x, positions, *, remat=True):
+    """The dense stack's training forward over per-layer weight trees
+    (:meth:`DecoderParams.train_layers`).  Returns (x, aux): the MoE
+    load-balance loss, 0 for dense layers, as the reference.
+
+    remat: False / "none" keeps every activation; True / "block" recomputes
+    each layer in the backward from its input (``torch.utils.checkpoint``,
+    non-reentrant); "save_collectives" checkpoints the attention block and
+    the FFN block separately, keeping their boundaries (the layer's input
+    and the stream after the attention block, which carries its output):
+    the reference keeps the two blocks' outputs so that its recompute
+    skips their tensor-parallel all-reduces.  On one device there is no
+    all-reduce, and each block is recomputed with "block"'s arithmetic.
+    """
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not one of {REMAT}")
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            "training of MoE and MLA layers is not ported yet (ROADMAP "
+            "Queue 1 item 5c)")
+    ckpt = functools.partial(checkpoint, use_reentrant=False,
+                             preserve_rng_state=False)
+    for lp in params:
+        if remat == "save_collectives":
+            x = x + ckpt(_attn_train, cfg, lp, x, positions)
+            x = x + ckpt(_ffn_train, cfg, lp, x)
+        elif remat in (True, "block"):
+            x = ckpt(_layer_train, cfg, lp, x, positions)
+        else:
+            x = _layer_train(cfg, lp, x, positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,

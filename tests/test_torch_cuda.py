@@ -1282,3 +1282,155 @@ def test_cuda_cluster_agreement_with_the_cpu(cuda_device):
         sys.path.remove(root)
     from repro_torch.configs import get_config
     cs.phase_cluster_agreement(get_config("qwen2.5-3b"))
+
+
+# ------------------------------------------------------------ training
+
+
+# (H, n_kv, dh): the training kernels' tensor-core head dims and g values,
+# and the CUDA-core path's widest head dim.
+TRAIN_SHAPES = [
+    (16, 2, 128),     # qwen2.5-3b
+    (4, 4, 32),       # MHA, smallest head dim (the narrow config's)
+    (32, 2, 64),      # 16 query heads per KV head
+    (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
+    (48, 8, 128),     # 6 query heads per KV head
+    (8, 1, 256),      # CUDA-core path in bf16 too, > 48 KB shared memory
+]
+# (Tq, Tk, causal): full causal attention off the tiles, and non-causal
+# with Tq != Tk, neither a multiple of 64.
+TRAIN_CASES = [(200, 200, True), (77, 141, False)]
+
+
+def _train_tol(dtype):
+    # bf16: the kernels round P and dS to bf16 as mma inputs, the plain
+    # version keeps them in f32 (2e-2 of each gradient's scale); f32: the
+    # same arithmetic in another summation order.
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _assert_scaled(got, want, tol):
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv,dh", TRAIN_SHAPES)
+@pytest.mark.parametrize("Tq,Tk,causal", TRAIN_CASES)
+def test_cuda_flash_forward_with_lse(cuda_device, H, n_kv, dh, dtype, Tq, Tk,
+                                     causal):
+    """The training forward: o bit for bit the serving call's, lse against
+    its plain version (f32 2e-5; bf16 1e-4, the same bf16 products summed
+    in another order)."""
+    q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, dh,
+                          getattr(torch, dtype))
+    before = ops.train_launch_counts()["flash_attention.train"]
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    serve = ops.flash_attention(q, k, v, causal=causal)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.train_launch_counts()["flash_attention.train"] == before + 1
+    assert torch.equal(o.view(torch.int16 if dtype == "bfloat16"
+                              else torch.int32),
+                       serve.view(torch.int16 if dtype == "bfloat16"
+                                  else torch.int32))
+    assert lse.shape == (2, H, Tq) and lse.dtype == torch.float32
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    torch.testing.assert_close(o.float(), want_o.float(),
+                               **(dict(rtol=2e-2, atol=2e-2)
+                                  if dtype == "bfloat16"
+                                  else dict(rtol=2e-5, atol=2e-5)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv,dh", TRAIN_SHAPES)
+@pytest.mark.parametrize("Tq,Tk,causal", TRAIN_CASES)
+def test_cuda_flash_backward_matches_plain(cuda_device, H, n_kv, dh, dtype,
+                                           Tq, Tk, causal):
+    q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, dh,
+                          getattr(torch, dtype))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(q.dtype)
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    before = ops.train_launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.train_launch_counts()["flash_attention_bwd"] == before + 1
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g.float()).all())
+        _assert_scaled(g, w, _train_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_backward_is_deterministic(cuda_device, dtype):
+    """No atomics: two backward calls give the same bits, and autograd
+    through the flash call gives the wrapper's gradients."""
+    q, k, v = _flash_case(cuda_device, 2, 333, 333, 16, 2, 128,
+                          getattr(torch, dtype))
+    do = torch.randn(q.shape, device=cuda_device).to(q.dtype)
+    o, lse = ops.flash_attention_lse(q, k, v)
+    a = ops.flash_attention_bwd(q, k, v, o, do, lse)
+    b = ops.flash_attention_bwd(q, k, v, o, do, lse)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qq, kk, vv)
+    c = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _flash_case(cuda_device, 1, 64, 64, 4, 2, 64, torch.bfloat16)
+    o, lse = ops.flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, o, o, lse[:, :, :10].contiguous())
+    with pytest.raises(ValueError, match="do"):
+        ops.flash_attention_bwd(q, k, v, o, o.float(), lse)
+    qm, km, vm = _flash_case(cuda_device, 1, 64, 64, 4, 1, 192,
+                             torch.bfloat16)
+    with pytest.raises(ValueError, match="equal key and value"):
+        ops.flash_attention_lse(qm, km, vm[..., :128].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_step_matches_the_cpu(cuda_device):
+    """Two Trainer steps of a narrow f32 model (head dim 32) on the card
+    (kernels) and on the CPU (plain versions) from the same weights: each
+    step's loss and grad norm within 1e-4 relative (f32, other summation
+    order; TF32 off), and the card's launches: per step two training
+    forwards (remat recomputes) and one backward per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+                              d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                              vocab_size=512, dtype="float32")
+    hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=4, remat="block")
+    params = None
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, hp, batch_per_step=2, seq_len=96, device=dev,
+                     params=params)
+        if params is None:
+            params = {n: p.detach().cpu().clone()
+                      for n, p in tr.lm.named_parameters()}
+        ops.reset_launch_counts()
+        tr.run(2, log_every=1)
+        runs[dev] = (tr.log, ops.train_launch_counts())
+    (log_gpu, c_gpu), (log_cpu, c_cpu) = runs["cuda"], runs["cpu"]
+    for a, b in zip(log_gpu, log_cpu):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
+    assert c_gpu == {"flash_attention.train": 2 * 2 * cfg.n_layers,
+                     "flash_attention_bwd": 2 * cfg.n_layers}
+    assert c_cpu == {"flash_attention.train": 0, "flash_attention_bwd": 0}

@@ -1,0 +1,133 @@
+"""The gradient of the port's flash attention against the reference's.
+
+The reference trains through its blockwise online-softmax attention
+(``repro.models.layers.attention``), differentiated by ``jax.grad``; the
+port has an explicit backward (``ref.flash_attention_bwd_ref``, the plain
+version of ``csrc/flash_attention_bwd.cu``) behind an autograd function.
+On CPU tensors that function runs the plain versions.  Inputs are drawn
+with numpy from a seed and handed to both packages.  Tolerance: 2e-5 of
+each gradient's scale in f32 (other summation order).  The CUDA kernels
+are held against the same plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py phase 9.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import attention as j_attention
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import FlashAttentionFn
+
+TOL = 2e-5
+
+# (B, Tq, Tk, H, n_kv, dh, block): T off the block multiple; g = 1 and 4.
+SHAPES = [
+    (2, 37, 37, 4, 4, 16, 16),
+    (1, 45, 45, 8, 2, 32, 32),
+    (2, 21, 50, 8, 2, 16, 16),      # non-causal only: Tq != Tk
+]
+
+
+def _inputs(seed, B, Tq, Tk, H, n_kv, dh):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((B, Tq, H, dh), (B, Tk, n_kv, dh), (B, Tk, n_kv, dh),
+                      (B, Tq, H, dh))]
+
+
+def _close(got, want):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    want = want.detach().float().numpy() if isinstance(want, torch.Tensor) \
+        else np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= TOL * scale, (err, scale)
+
+
+def _cases():
+    for i, shape in enumerate(SHAPES):
+        for causal in (True, False):
+            if causal and shape[1] != shape[2]:
+                continue
+            yield pytest.param(shape, causal, id=f"{i}-{'causal' if causal else 'full'}")
+
+
+def _autograd(fn, q, k, v, do):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = fn(q, k, v)
+    return (o,) + torch.autograd.grad(o, (q, k, v), torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("shape,causal", list(_cases()))
+def test_bwd_ref_matches_autograd_of_plain_forward(shape, causal):
+    B, Tq, Tk, H, n_kv, dh, _ = shape
+    q, k, v, do = _inputs(0, B, Tq, Tk, H, n_kv, dh)
+    o, *want = _autograd(
+        lambda *a: ref.flash_attention_ref(*a, causal=causal), q, k, v, do)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o2, lse = ref.flash_attention_lse_ref(*t, causal=causal)
+    assert torch.equal(o2, o.detach())
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    got = ref.flash_attention_bwd_ref(*t, o2, torch.from_numpy(do), lse,
+                                      causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w)
+
+
+@pytest.mark.parametrize("shape,causal", list(_cases()))
+def test_autograd_function_matches_jax_grad(shape, causal):
+    """The port's flash attention under autograd (plain forward and
+    backward on the CPU) against ``jax.grad`` of the reference's blockwise
+    attention at a block that does not divide T."""
+    B, Tq, Tk, H, n_kv, dh, block = shape
+    q, k, v, do = _inputs(1, B, Tq, Tk, H, n_kv, dh)
+
+    def j_loss(q, k, v):
+        o = j_attention(q, k, v, causal=causal, block=block)
+        return jnp.sum(o * jnp.asarray(do)), o
+
+    (_, j_o), j_g = jax.value_and_grad(j_loss, argnums=(0, 1, 2),
+                                       has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ops.reset_launch_counts()
+    o, *got = _autograd(
+        lambda *a: ops.flash_attention(*a, causal=causal), q, k, v, do)
+    assert o.grad_fn is not None and "FlashAttentionFn" in type(
+        o.grad_fn).__name__
+    _close(o, j_o)
+    for g, w in zip(got, j_g):
+        _close(g, w)
+    # CPU tensors run the plain versions: no kernel launched.
+    assert ops.train_launch_counts() == {"flash_attention.train": 0,
+                                         "flash_attention_bwd": 0}
+
+
+def test_autograd_function_equals_plain_versions_bitwise():
+    """On the CPU the function's forward is the lse plain forward and its
+    backward is ``flash_attention_bwd_ref``, bit for bit."""
+    q, k, v, do = _inputs(2, 2, 37, 37, 8, 2, 16)
+    o, *got = _autograd(lambda *a: FlashAttentionFn.apply(*a, True, None),
+                        q, k, v, do)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o2, lse = ref.flash_attention_lse_ref(*t, causal=True)
+    want = ref.flash_attention_bwd_ref(*t, o2, torch.from_numpy(do), lse,
+                                       causal=True)
+    assert torch.equal(o.detach(), o2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_serving_call_under_no_grad_keeps_its_path():
+    q, k, v, _ = _inputs(3, 1, 20, 20, 4, 2, 16)
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    with torch.no_grad():
+        o = ops.flash_attention(*t)
+    assert o.grad_fn is None
+    assert torch.equal(o, ref.flash_attention_ref(*t))
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(*t, q_offset=4)

@@ -126,6 +126,40 @@ def test_cluster_tier_imports_without_jax():
     assert out.stdout.strip() == "BAD []", out.stdout
 
 
+_TRAIN = r"""
+import sys
+sys.modules["jax"] = None
+from repro_torch.train.trainer import Trainer, make_train_step
+from repro_torch.train.optimizer import (adamw_init, adamw_update,
+                                         global_norm, lr_schedule)
+from repro_torch.train.checkpoint import latest_step, prune, restore, save
+from repro_torch.train.grad_compress import BLOCK, _quant, pad_to_block
+from repro_torch.data.pipeline import MemmapCorpus, Prefetcher, SyntheticLM
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_bwd,
+                                                 flash_attention_lse)
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_lse_ref)
+from repro_torch.models.transformer import decoder_stack_train
+import repro_torch.launch.train
+assert BLOCK == 256
+print("BAD", sorted(m for m in sys.modules
+                    if m == "repro" or m.startswith("repro.")
+                    or (m.startswith("jax") and sys.modules[m] is not None)))
+"""
+
+
+def test_training_path_imports_without_jax():
+    """The training slice's modules (trainer, optimizer, checkpoints,
+    gradient quantizer, data pipeline, the flash backward and the training
+    CLI), imported by name."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _TRAIN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "BAD []", out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)"
     r"|from\s+repro(\.|\s))", re.M)
