@@ -170,7 +170,8 @@ Phases (each synchronised; any failure exits non-zero):
    non-causal bf16 case with Tq = 300 != Tk = 700.  Times beside the
    operations bound (the backward's five products, the forward's two, at
    989 TFLOP/s) and beside ``scaled_dot_product_attention`` (forward;
-   forward and backward through autograd for the backward's entry);
+   for the backward's entry forward and backward through autograd, and,
+   as ``library_bwd_ms``, its backward alone over one fixed forward);
    9b. full-width training: qwen2.5-3b at its published width and depth,
    fp32 master weights from a seed, ``Trainer`` with TrainHParams(lr=3e-4,
    warmup_steps=2, total_steps=6, remat="block"), TRAIN_B x TRAIN_T tokens
@@ -2758,6 +2759,21 @@ def phase_train_kernels(results):
                                              enable_gqa=True)
         torch.autograd.grad(out, (qg, kg, vg), dot)
 
+    # SDPA's backward alone over one fixed forward.  The leaves and the
+    # forward live on a side stream: autograd runs the backward there, and
+    # a capture may not make the legacy default stream wait on itself.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qb, kb, vb = (x.detach().clone().requires_grad_()
+                      for x in (qt, kt, vt))
+        out_b = F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                               enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out_b, (qb, kb, vb), dot, retain_graph=True)
+
     shape = f"B={B} T={T} H={H} n_kv={n_kv} dh={dh} causal bf16"
     results["flash_attention.train"] = dict(
         max_abs_err=fwd_err,
@@ -2775,21 +2791,31 @@ def phase_train_kernels(results):
         plain_ms=eager_ms(functools.partial(ref.flash_attention_bwd_ref, q,
                                             k, v, o, do, lse), iters=5),
         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-        library_ms=graph_ms(sdpa_fwd_bwd), shape=shape)
+        library_ms=graph_ms(sdpa_fwd_bwd), library_bwd_ms=graph_ms(sdpa_bwd),
+        shape=shape)
     f, b = results["flash_attention.train"], results["flash_attention_bwd"]
     print(f"[kernel] flash_attention.train: kernel_ms {f['ms']:.4f} plain_ms "
           f"{f['plain_ms']:.4f} bound_ms {f['bound_ms']:.5f} "
           f"({f['bound_by']}) library_ms {f['library_ms']:.4f} "
           f"(scaled_dot_product_attention forward) | {shape}")
+    # The launches as csrc/flash_attention_bwd.cu's launch_tc makes them:
+    # dQ over 64 rows = g heads x 64 / g positions, writing D; then dK / dV
+    # in clusters of c = min(g, 4) CTAs per 64-key tile.
+    g = H // n_kv
+    c = min(g, 4)
+    n_q, n_kt = -(-T // (64 // g)), -(-T // 64)
     print(f"[kernel] flash_attention_bwd: kernel_ms {b['ms']:.4f} plain_ms "
           f"{b['plain_ms']:.4f} bound_ms {b['bound_ms']:.5f} "
           f"({b['bound_by']}) library_ms {b['library_ms']:.4f} "
           f"(scaled_dot_product_attention forward + backward through "
           f"autograd; the port's forward + backward: "
-          f"{f['ms'] + b['ms']:.4f}) | {shape} | three launches: D "
-          f"pre-pass, dK/dV over 64-key tiles (grid {-(-T // 64)}x{n_kv}x{B}),"
-          f" dQ over the forward's tiles (grid {-(-T // (64 // (H // n_kv)))}"
-          f"x{n_kv}x{B})")
+          f"{f['ms'] + b['ms']:.4f}) library_bwd_ms "
+          f"{b['library_bwd_ms']:.4f} (its backward alone; the port's: "
+          f"{b['ms']:.4f}) | {shape} | one count, two launches a call, one "
+          f"warpgroup a CTA on wgmma: dQ, which also writes D (grid "
+          f"{n_q * n_kv * B} = {n_q} x {n_kv} x {B}), then dK/dV (grid "
+          f"{c * n_kt * n_kv * B} = {c} ranks x {n_kt} key tiles x {n_kv} x "
+          f"{B}, clusters of {c}, {g // c} heads a rank)")
 
 
 def phase_train(cfg):
@@ -3043,7 +3069,8 @@ def main() -> int:
                  launches=counts[name],
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                 bound_by=r["bound_by"], library_ms=r["library_ms"])
+                 bound_by=r["bound_by"], library_ms=r["library_ms"],
+                 **{k: r[k] for k in ("library_bwd_ms",) if k in r})
             for name, r in results.items()]
     require(all(e["launches"] > 0 for e in line),
             f"an entry's kernel never launched on its path: "

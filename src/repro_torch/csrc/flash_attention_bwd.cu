@@ -9,7 +9,7 @@
 // For q [B, Tq, H, dh], k and v [B, Tk, n_kv, dh], the forward's output o,
 // its gradient dO and lse [B, H, Tq] f32, with queries at positions 0 ..
 // Tq - 1 (causal: row i sees keys j <= i):
-//   D  = rowsum(dO o o)                    (pre-pass, f32 [B, H, Tq])
+//   D  = rowsum(dO o o)                    (f32 [B, H, Tq])
 //   P  = exp(scale Q K^T - lse)            (exact zeros where masked)
 //   dV = sum over rows P^T dO              dS = P o (dO V^T - D)
 //   dQ = scale dS K                        dK = scale dS^T Q
@@ -17,25 +17,58 @@
 //
 // What bounds it on the card: operations.  At the training shape (B 2,
 // T 2048, 16 heads over 2 KV heads of 128, causal, bf16) the five products
-// are ~86 GFLOP against ~50 MB of inputs and outputs.
+// are ~86 GFLOP against ~50 MB of inputs and outputs.  Without atomics dQ
+// needs a launch of its own, which recomputes S and dP: 7 products are
+// issued, a floor of 1.4x the bound.
 //
-// Three launches, no atomics, so the gradient is deterministic (every
-// sum runs in one fixed order):
-//   1. the D pre-pass, one warp per row;
-//   2. dK / dV: one CTA per (64-key tile, KV head, batch row) keeps its
-//      K and V tiles in shared memory and walks the g heads x the query
-//      tiles that can see its keys (causal: from the tile's diagonal on),
-//      recomputing S and P from lse, with dK and dV in f32 registers;
-//   3. dQ: the forward's tiling, one CTA per (64 rows = g heads x 64 / g
+// No atomics, so the gradient is deterministic: every sum runs in an order
+// the code fixes, not the scheduler.  bf16 at head dims 32, 64, 96 and 128
+// is two launches:
+//   1. dQ: the forward's tiling, one CTA per (64 rows = g heads x 64 / g
 //      positions, KV head, batch row), walking the key tiles up to its
-//      last row's diagonal.
-// bf16 at head dims 32, 64, 96 and 128 runs 2 and 3 on the tensor cores
-// (mma.sync.m16n8k16 fragments as in the forward, f32 accumulate; P and
-// dS are rounded to bf16 only as mma inputs); f32, which must match its
-// plain version at 2e-5, and the other head dims run a CUDA-core path of
-// 32 x 32 tiles.  Masked scores get no probability at all (a select, not
-// -inf arithmetic), as the forward's exact zeros.
+//      last row's diagonal; its prologue also computes D for its rows and
+//      writes it, for launch 2;
+//   2. dK / dV: the g query heads of a KV head are split over c = min(g,
+//      4) CTAs per 64-key tile, which form one thread-block cluster.  Rank
+//      r walks heads [r g / c, (r + 1) g / c) x the query tiles that see
+//      its keys (causal: from the tile's diagonal on), recomputing S and P
+//      from lse, with its dK and dV in f32 registers.  Then each rank parks
+//      those partials in its shared memory, and rank r sums its 64 / c
+//      rows of all c partials in rank order through distributed shared
+//      memory (cluster.sync(), map_shared_rank) and writes them: nothing
+//      crosses device memory and no address is written twice, so no
+//      atomic is needed.  At the training shape that is 4 x 32 x 2 x 2 =
+//      512 CTAs, each walking at most 64 steps (4 ranks measured faster
+//      than 8, 2 or 1: launch/flash_bwd_variants.py).
+// Both run the rows or key tile with the longest causal walk first.
+//
+// Each CTA is one warpgroup (4 warps) owning 64 keys (dK / dV) or 64 rows
+// (dQ).  wgmma m64n64k16 computes S^T = K Q^T and dP^T = V dO^T key-major
+// (dQ: S = Q K^T, dP = dO V^T) with both operands K-major in shared
+// memory; P^T and dS^T are rounded to bf16 in registers straight from
+// those accumulators and feed dV += P^T dO and dK += dS^T Q (dQ: dQ += dS
+// K) as register A operands of m64n{dh}k16, the streamed tile read
+// MN-major from the same shared bytes.  Tiles lie in shared memory as
+// 64-column blocks in the 128-byte swizzle that both the descriptors and
+// the tensor memory accelerator (TMA) name: one thread has the TMA bring
+// each tile (a box per 64 columns; rows past the end arrive as zeros) and
+// arms an mbarrier that the warpgroup waits on.  The streamed tiles (Q and
+// dO for dK / dV, with each row's lse and D by cp.async; K and V for dQ)
+// run through two stages (~98 KB a CTA at dh 128: two CTAs a SM), the
+// fixed pair (K, V; Q, dO) stays.  The tensor maps are encoded per call
+// (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint:
+// nothing links libcuda).  P and dS are rounded to bf16 only as mma
+// inputs; masked scores get no probability at all (a select, not -inf
+// arithmetic), as the forward's exact zeros, and tiles that no mask
+// touches skip the mask arithmetic.
+//
+// f32, which must match its plain version at 2e-5, and bf16 at the other
+// head dims run three launches on CUDA cores: the D pre-pass (one warp a
+// row), dK / dV per (32-key tile, KV head, batch row) over all g heads in
+// series, dQ per (32-row query tile, head).
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -43,6 +76,8 @@
 #include <cstdint>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -306,25 +341,29 @@ bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
 // ------------------------------------------------------ tensor-core path
 
-constexpr int kTcThreads = 128;    // 4 warps x 16 rows (keys or queries)
-constexpr int kTile = 64;          // rows of every tile
+constexpr int kTile = 64;          // rows of every tile (keys or queries)
+constexpr int kMaxCluster = 4;     // CTAs a key tile's heads split over
+constexpr int kBlock = kTile * 128;   // bytes of a 64-row x 64-column block
+
+// A 64-row bf16 tile of width DH lies in shared memory as DH / 64 blocks
+// (rounded up) of 64 rows x 64 columns, 128 bytes a row, in the 128-byte
+// swizzle that wgmma's descriptors name: the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8) of its row.  Blocks start on 1024-byte boundaries.
+template <int DH>
+__host__ __device__ constexpr int tile_bytes() {
+  return (DH + 63) / 64 * kBlock;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte (4-byte) asynchronous copy; with ok false it reads nothing and
-// zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+// 4-byte asynchronous copy to a shared-memory address; with ok false it
+// reads nothing and zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -333,32 +372,99 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// mbarriers that the tensor memory accelerator (TMA) completes: one
+// thread arms a barrier with the bytes it expects, and every thread waits
+// for its phase to flip.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at dst; its bytes complete on bar.  Parts of
+// the box outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+// A tile of x [B, T, heads, DH] (the map's layout, see make_map): the
+// boxes of its DH / 64 column blocks at (head, row, b).
+template <int DH>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row,
+                                         int b) {
+#pragma unroll
+  for (int j = 0; j < (DH + 63) / 64; ++j)
+    tma_load(dst + j * kBlock, map, bar, 64 * j, head, row, b);
+}
+
+// Descriptor of a 128-byte-swizzled operand at shared address addr.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// K-major operand (tile rows are M or N, columns the contraction), k-step
+// kk: columns 16 kk .. 16 kk + 15.  8-row groups are 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * kBlock + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major B operand (tile rows are the contraction, columns N), k-step
+// kk: rows 16 kk .. 16 kk + 15.  64-column blocks are kBlock apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2048, kBlock, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pins registers that a wgmma writes asynchronously: reads after a
+// wgmma_wait() stay after it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -366,341 +472,597 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// Fragment helpers over row-major [rows][S] bf16 tiles in shared memory.
-// In an m16n8 accumulator, lane holds rows lane / 4 (e = 0, 1) and
-// lane / 4 + 8 (e = 2, 3), columns 2 (lane % 4) + (e & 1).
-//
-// A operand: rows row0 .. row0 + 15, columns col0 .. col0 + 15.
-template <int S>
-__device__ __forceinline__ void ld_a(uint32_t* a, const __nv_bfloat16* t,
-                                     int row0, int col0, int lane) {
-  ldsm_x4(a, t + (row0 + lane % 8 + ((lane / 8) & 1) * 8) * S + col0
-                 + (lane / 16) * 8);
+// Accumulator layout of a wgmma m64nN (f32): warp w of the warpgroup holds
+// rows 16 w + lane / 4 (e = 0, 1) and 16 w + lane / 4 + 8 (e = 2, 3) at
+// columns 8 n + 2 (lane % 4) + (e & 1) in d[4 n + e].  The A fragment of
+// a register-A wgmma at k-step kk is the same layout over columns 16 kk ..
+// 16 kk + 15, rounded to bf16 pairs.
+__device__ __forceinline__ void a_frag(uint32_t* a, const float* d, int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// B operand of X Y^T: the 16 rows row0 .. row0 + 15 of Y are the n index
-// (two 8-column tiles: b[0..1] and b[2..3]), columns col0 .. col0 + 15 the
-// k index.
-template <int S>
-__device__ __forceinline__ void ld_b_nt(uint32_t* b, const __nv_bfloat16* t,
-                                        int row0, int col0, int lane) {
-  ldsm_x4(b, t + (row0 + lane % 8 + (lane / 16) * 8) * S + col0
-                 + ((lane / 8) & 1) * 8);
+// d[64 x 64] (+)= A B^T with A and B K-major in shared memory (named by
+// descriptors); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// B operand of X Y: rows row0 .. row0 + 15 of Y are the k index, columns
-// col0 .. col0 + 15 the n index (two 8-column tiles).
-template <int S>
-__device__ __forceinline__ void ld_b_nn(uint32_t* b, const __nv_bfloat16* t,
-                                        int row0, int col0, int lane) {
-  ldsm_x4_trans(b, t + (row0 + lane % 8 + ((lane / 8) & 1) * 8) * S + col0
-                       + (lane / 16) * 8);
+// d[64 x N] += A[64 x 16] B[16 x N]: A in registers (a_frag), B MN-major
+// in shared memory (desc_mn).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// acc[16 x 64] = X[row0 .. +15, :DH] Y[0 .. 63, :DH]^T.
-template <int DH, int S>
-__device__ __forceinline__ void mma_xyt(float (*acc)[4],
-                                        const __nv_bfloat16* x,
-                                        const __nv_bfloat16* y, int row0,
-                                        int lane) {
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+constexpr int kThreads = 128;      // one warpgroup a CTA
+
+// 2^x on the special-function unit, subnormal results flushed to zero.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P^T in place from S^T [64 keys x 64 rows] (dK / dV's layout: keys are
+// accumulator rows, query rows its columns): exp2 of the scaled score less
+// the row's lse.  With MASK, keys past Tk, rows past Tq and (causal) keys
+// after their row get an exact zero; without, the caller knows there are
+// none.
+template <bool MASK>
+__device__ __forceinline__ void probs_keys_rows(float* p, const float* lse_s,
+                                                float scale_log2, int key,
+                                                int q0, int Tk, int Tq,
+                                                bool causal, int lane) {
 #pragma unroll
-  for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    ld_a<S>(a, x, row0, kk * 16, lane);
-#pragma unroll
-    for (int np = 0; np < kTile / 16; ++np) {
-      uint32_t bf[4];
-      ld_b_nt<S>(bf, y, np * 16, kk * 16, lane);
-      mma_bf16(acc[2 * np], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+    const float e = fast_exp2(p[i] * scale_log2 - lse_s[r] * kLog2e);
+    if (MASK) {
+      const int kr = key + 8 * ((i >> 1) & 1), row = q0 + r;
+      p[i] = (kr < Tk) & (row < Tq) & (!causal | (kr <= row)) ? e : 0.f;
+    } else {
+      p[i] = e;
     }
   }
 }
 
-// out[16 x DH] += W[16 x 64] Y[0 .. 63, :DH], W given as accumulator
-// fragments (rounded to bf16 here).
-template <int DH, int S>
-__device__ __forceinline__ void mma_wy(float (*out)[4], const float (*w)[4],
-                                       const __nv_bfloat16* y, int lane) {
+// P in place from S [64 rows x 64 keys] (dQ's layout): the thread's rows
+// rows[0, 1] at positions rpos[0, 1], valid where rvalid.
+template <bool MASK>
+__device__ __forceinline__ void probs_rows_keys(float* p, const float* lse_s,
+                                                float scale_log2,
+                                                const int* rows,
+                                                const int* rpos,
+                                                const bool* rvalid, int key0,
+                                                int Tk, bool causal,
+                                                int lane) {
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(w[2 * kk][0], w[2 * kk][1]),
-        pack_bf16(w[2 * kk][2], w[2 * kk][3]),
-        pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-        pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < DH / 16; ++np) {
-      uint32_t bf[4];
-      ld_b_nn<S>(bf, y, kk * 16, np * 16, lane);
-      mma_bf16(out[2 * np], a, bf[0], bf[1]);
-      mma_bf16(out[2 * np + 1], a, bf[2], bf[3]);
+  for (int i = 0; i < 32; ++i) {
+    const int a = (i >> 1) & 1;
+    const float e = fast_exp2(p[i] * scale_log2 - lse_s[rows[a]] * kLog2e);
+    if (MASK) {
+      const int key = key0 + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+      p[i] = rvalid[a] & (key < Tk) & (!causal | (key <= rpos[a])) ? e : 0.f;
+    } else {
+      p[i] = e;
     }
   }
 }
 
-// 64 rows of x [B, T, heads, DH] at (b, head) into dst[64][S]: rows past
-// T zero-filled.
-template <int DH, int S>
-__device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* x, int b,
-                                             int T, int heads, int head,
-                                             int row0) {
-  constexpr int CPR = DH / 8;
-  for (int i = threadIdx.x; i < kTile * CPR; i += kTcThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = row0 + r < T;
-    cp_async16(dst + r * S + c,
-               x + (ok ? (((size_t)b * T + row0 + r) * heads + head) * DH + c
-                       : 0),
-               ok);
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-size_t tc_smem_bytes(int dh) {
-  // Two fixed tiles and two stages of two streamed tiles in bf16, plus two
-  // stages of (lse, D) in f32.
-  return (size_t)6 * kTile * (dh + 8) * sizeof(__nv_bfloat16)
-         + (size_t)4 * kTile * sizeof(float);
-}
-
-// dK / dV: warp w owns keys key0 + 16 w .. + 15 of the CTA's 64.  Each
-// step streams one (head, 64-row query tile) through a two-stage cp.async
-// ring: Q, dO, lse and D.
+// Six tiles (two fixed, two stages of two streamed), two stages of 64 + 64
+// f32 (lse and D), three mbarriers (a stage each and the fixed tiles) and
+// the slack that aligns the base to 1024 bytes.  After its walk a dK / dV
+// CTA reuses the tiles' bytes for its f32 partials [64][DH + 4] of dK and
+// dV, which fit.
 template <int DH>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ D,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int H,
-                   int n_kv, int causal, float scale) {
-  constexpr int S = DH + 8;
-  constexpr int NT = DH / 8;
-  constexpr int ST = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kTile * S;
-  __nv_bfloat16* qd_s = v_s + kTile * S;      // [stage][Q, dO][64][S]
-  float* ld_s = reinterpret_cast<float*>(qd_s + 4 * kTile * S);
-  // ld_s: [stage][lse[64], D[64]]
+constexpr size_t tc_smem_bytes() {
+  static_assert(2 * kTile * (DH + 4) * sizeof(float)
+                    <= 6 * (size_t)tile_bytes<DH>(),
+                "the dK / dV partials fit in the tiles' bytes");
+  return (size_t)6 * tile_bytes<DH>() + 4 * kTile * sizeof(float) + 64
+         + 1024;
+}
+
+// dK / dV: one CTA per (64-key tile, KV head, batch row, rank r of c =
+// min(g, kMaxCluster)); the c CTAs of a key tile form a cluster.  Rank r
+// walks heads kvh g + [r g / c, (r + 1) g / c) x the query tiles that see
+// its keys, one (head, 64-row query tile) step at a time: thread 0 has the
+// TMA bring the next step's Q and dO tiles into the other stage while
+// every thread copies its row's lse and D.  S^T = K Q^T and dP^T = V dO^T
+// are shared x shared wgmmas; dV += P^T dO and dK += dS^T Q take P^T and
+// dS^T from registers and read dO and Q MN-major.  Then every rank parks
+// its f32 partials in its shared memory, and rank r sums rows [64 r / c,
+// 64 (r + 1) / c) of all c partials, in rank order, through distributed
+// shared memory, and writes them.  Key tile 0 (the longest causal walk)
+// runs first.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ D,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int B, int Tq, int Tk,
+                      int H, int n_kv, int causal, float scale) {
+  constexpr int TB = tile_bytes<DH>();
+  constexpr int PS = DH + 4;           // f32 partial row stride
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t k_s = smem_addr(smem);
+  const uint32_t v_s = k_s + TB;
+  const uint32_t qd_s = k_s + 2 * TB;  // [stage][Q, dO] tiles
+  float* ld_s = reinterpret_cast<float*>(smem + 6 * TB);
+  // ld_s: [stage][lse[64], D[64]]; then the mbarriers [stage 0, 1, fixed]
+  const uint32_t bar = smem_addr(ld_s + 4 * kTile);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const float scale_log2 = scale * kLog2e;
   const int g = H / n_kv;
-  const int key0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  int slot = blockIdx.x / c;
+  const int kvh = slot % n_kv;
+  slot /= n_kv;
+  const int b = slot % B;
+  const int key0 = slot / B * kTile;   // key tile 0 (the longest walk) first
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  tc_load_rows<DH, S>(k_s, k, b, Tk, n_kv, kvh, key0);
-  tc_load_rows<DH, S>(v_s, v, b, Tk, n_kv, kvh, key0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(bar + 16, 2 * TB);
+    tma_tile<DH>(k_s, &tm_k, bar + 16, kvh, key0, b);
+    tma_tile<DH>(v_s, &tm_v, bar + 16, kvh, key0, b);
+  }
   const int n_qt = (Tq + kTile - 1) / kTile;
-  const int qt0 = causal ? key0 / kTile : 0;   // rows >= key0 see the tile
+  const int qt0 = causal ? min(key0 / kTile, n_qt) : 0;   // rows >= key0
   const int per_head = n_qt - qt0;
-  const int n_steps = per_head > 0 ? g * per_head : 0;
+  const int j0 = rank * g / c;
+  const int n_steps = ((rank + 1) * g / c - j0) * per_head;
   auto load_step = [&](int step, int stage) {
-    const int h = kvh * g + step / per_head;
+    const int h = kvh * g + j0 + step / per_head;
     const int q0 = (qt0 + step % per_head) * kTile;
-    __nv_bfloat16* qs = qd_s + (size_t)stage * 2 * kTile * S;
-    tc_load_rows<DH, S>(qs, q, b, Tq, H, h, q0);
-    tc_load_rows<DH, S>(qs + kTile * S, dout, b, Tq, H, h, q0);
-    if (threadIdx.x < 2 * kTile) {
-      const int r = threadIdx.x % kTile;
-      const bool ok = q0 + r < Tq;
-      const size_t off = ok ? ((size_t)b * H + h) * Tq + q0 + r : 0;
-      cp_async4(ld_s + stage * 2 * kTile + threadIdx.x,
-                (threadIdx.x < kTile ? lse : D) + off, ok);
+    if (threadIdx.x == 0) {
+      const uint32_t qs = qd_s + stage * 2 * TB;
+      mbar_expect(bar + 8 * stage, 2 * TB);
+      tma_tile<DH>(qs, &tm_q, bar + 8 * stage, h, q0, b);
+      tma_tile<DH>(qs + TB, &tm_do, bar + 8 * stage, h, q0, b);
     }
+    const int r = threadIdx.x % kTile;
+    const bool ok = q0 + r < Tq;
+    const size_t off = ok ? ((size_t)b * H + h) * Tq + q0 + r : 0;
+    cp_async4(smem_addr(ld_s + stage * 2 * kTile + threadIdx.x),
+              (threadIdx.x < kTile ? lse : D) + off, ok);
   };
   if (n_steps > 0) load_step(0, 0);
-  cp_async_commit();                   // group 0: K, V and the first step
+  cp_async_commit();
 
-  float dk_acc[NT][4], dv_acc[NT][4];
+  float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(bar + 16, 0);              // K and V have landed
 
   for (int step = 0; step < n_steps; ++step) {
     if (step + 1 < n_steps) load_step(step + 1, (step + 1) % 2);
     cp_async_commit();
-    cp_async_wait<1>();                // this step's tiles have landed
+    cp_async_wait<1>();                // this step's lse and D
+    mbar_wait(bar + 8 * (step % 2), (step / 2) & 1);   // its Q and dO
     __syncthreads();
-    const __nv_bfloat16* qs = qd_s + (size_t)(step % 2) * 2 * kTile * S;
-    const __nv_bfloat16* dos = qs + kTile * S;
+    const uint32_t qs = qd_s + (step % 2) * 2 * TB;
+    const uint32_t dos = qs + TB;
     const float* lse_s = ld_s + (step % 2) * 2 * kTile;
     const float* d_s = lse_s + kTile;
     const int q0 = (qt0 + step % per_head) * kTile;
-
-    // P^T [16 keys x 64 rows] from S^T = K Q^T.
-    float p[ST][4];
-    mma_xyt<DH, S>(p, k_s, qs, warp * 16, lane);
+    // Masks only where the tile crosses the diagonal or an edge.
+    const bool edge = key0 + kTile > Tk || q0 + kTile > Tq
+                      || (causal && key0 + kTile - 1 > q0);
+    float p[32], ds[32];               // P^T and dS^T [64 keys x 64 rows]
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < ST; ++n)
+    for (int kk = 0; kk < DH / 16; ++kk)             // S^T = K Q^T
+      wgmma_ss_n64(p, desc_k(k_s, kk), desc_k(qs, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + warp * 16 + lane / 4 + 8 * (e >> 1);
-        const int r = n * 8 + 2 * (lane % 4) + (e & 1);
-        const int row = q0 + r;
-        const bool ok = key < Tk && row < Tq && (!causal || key <= row);
-        p[n][e] = ok ? exp2f(p[n][e] * scale_log2 - lse_s[r] * kLog2e)
-                     : 0.f;
-      }
-    mma_wy<DH, S>(dv_acc, p, dos, lane);           // dV += P^T dO
-
-    // dS^T = P^T o (V dO^T - D).
-    float ds[ST][4];
-    mma_xyt<DH, S>(ds, v_s, dos, warp * 16, lane);
+    for (int kk = 0; kk < DH / 16; ++kk)             // dP^T = V dO^T
+      wgmma_ss_n64(ds, desc_k(v_s, kk), desc_k(dos, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(p);
+    const int key = key0 + warp * 16 + lane / 4;
+    if (edge)
+      probs_keys_rows<true>(p, lse_s, scale_log2, key, q0, Tk, Tq, causal,
+                            lane);
+    else
+      probs_keys_rows<false>(p, lse_s, scale_log2, key, q0, Tk, Tq, causal,
+                             lane);
+    // Both A operands are packed before the products are issued: a
+    // register written between two wgmmas makes the compiler fence them.
+    uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
 #pragma unroll
-    for (int n = 0; n < ST; ++n)
+    for (int kk = 0; kk < kTile / 16; ++kk) a_frag(pa[kk], p, kk);
+    wgmma_wait<0>();
+    fence_regs<32>(ds);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = p[n][e] * (ds[n][e] - d_s[n * 8 + 2 * (lane % 4) + (e & 1)]);
-    mma_wy<DH, S>(dk_acc, ds, qs, lane);           // dK += dS^T Q
+    for (int i = 0; i < 32; ++i)                     // dS^T = P^T o (dP^T - D)
+      ds[i] = p[i] * (ds[i] - d_s[(i / 4) * 8 + 2 * (lane % 4) + (i & 1)]);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) a_frag(sa[kk], ds, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)          // dV += P^T dO
+      wgmma_rs<DH>(dv_acc, pa[kk], desc_mn(dos, kk));
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)          // dK += dS^T Q
+      wgmma_rs<DH>(dk_acc, sa[kk], desc_mn(qs, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DH / 2>(dv_acc);
+    fence_regs<DH / 2>(dk_acc);
     __syncthreads();                   // stage step % 2 is consumed
   }
   cp_async_wait<0>();
+  __syncthreads();                     // the tiles are dead: partials next
 
+  float* pk = reinterpret_cast<float*>(smem);
+  float* pv = pk + kTile * PS;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = key0 + warp * 16 + lane / 4 + 8 * half;
-    if (key >= Tk) continue;
-    const size_t off = (((size_t)b * Tk + key) * n_kv + kvh) * DH
-                       + 2 * (lane % 4);
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * half] * scale,
-                                dk_acc[n][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * half],
-                                dv_acc[n][2 * half + 1]);
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + lane / 4 + 8 * half;
+      const int col = n * 8 + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(pk + r * PS + col) =
+          make_float2(dk_acc[4 * n + 2 * half], dk_acc[4 * n + 2 * half + 1]);
+      *reinterpret_cast<float2*>(pv + r * PS + col) =
+          make_float2(dv_acc[4 * n + 2 * half], dv_acc[4 * n + 2 * half + 1]);
     }
+  cluster.sync();                      // every rank's partials are parked
+  const int lo = rank * kTile / c, hi = (rank + 1) * kTile / c;
+  for (int i = threadIdx.x; i < (hi - lo) * (DH / 4); i += kThreads) {
+    const int r = lo + i / (DH / 4), col = (i % (DH / 4)) * 4;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int src = 0; src < c; ++src) {              // rank order
+      const float4 xk = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(pk, src) + r * PS + col);
+      const float4 xv = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(pv, src) + r * PS + col);
+      sk = src ? make_float4(sk.x + xk.x, sk.y + xk.y, sk.z + xk.z,
+                             sk.w + xk.w)
+               : xk;
+      sv = src ? make_float4(sv.x + xv.x, sv.y + xv.y, sv.z + xv.z,
+                             sv.w + xv.w)
+               : xv;
+    }
+    const int key = key0 + r;
+    if (key >= Tk) continue;
+    const size_t off = (((size_t)b * Tk + key) * n_kv + kvh) * DH + col;
+    __nv_bfloat162* dk2 = reinterpret_cast<__nv_bfloat162*>(dk + off);
+    __nv_bfloat162* dv2 = reinterpret_cast<__nv_bfloat162*>(dv + off);
+    dk2[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+    dk2[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+    dv2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    dv2[1] = __floats2bfloat162_rn(sv.z, sv.w);
   }
+  cluster.sync();                      // no rank leaves while read from
 }
 
-// dQ: the forward's tiling.  Row r of the CTA is head kvh * g + r / bq at
-// position pos0 + r % bq; warp w owns rows 16 w .. 16 w + 15.  K and V
-// tiles stream through a two-stage cp.async ring.
+// dQ: the forward's tiling, one CTA per (64 rows, KV head, batch row).
+// Row r is head kvh g + r % g at position pos0 + r / g (bq = 64 / g
+// positions, g bq rows: the order in which one TMA box (64 columns x g
+// heads x bq positions) lands), so each K / V tile staged serves all g
+// heads.  Thread 0 has the TMA bring the next K and V tiles into the other
+// stage; S = Q K^T and dP = dO V^T are shared x shared wgmmas, then dQ +=
+// dS K takes dS from registers and reads K MN-major.  The latest positions
+// (the longest causal walk) run first.
 template <int DH>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ D,
-                 __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H,
-                 int n_kv, int causal, float scale) {
-  constexpr int S = DH + 8;
-  constexpr int NT = DH / 8;
-  constexpr int ST = kTile / 8;
-  constexpr int CPR = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + kTile * S;
-  __nv_bfloat16* kv_s = do_s + kTile * S;     // [stage][K, V][64][S]
-  float* lse_s = reinterpret_cast<float*>(kv_s + 4 * kTile * S);
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __nv_bfloat16* __restrict__ o,
+                    const float* __restrict__ lse, float* __restrict__ D,
+                    __nv_bfloat16* __restrict__ dq, int B, int Tq, int Tk,
+                    int H, int n_kv, int causal, float scale) {
+  constexpr int TB = tile_bytes<DH>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t q_s = smem_addr(smem);
+  const uint32_t do_s = q_s + TB;
+  const uint32_t kv_s = q_s + 2 * TB;  // [stage][K, V] tiles
+  float* lse_s = reinterpret_cast<float*>(smem + 6 * TB);
   float* d_s = lse_s + kTile;
+  const uint32_t bar = smem_addr(lse_s + 4 * kTile);   // [stage 0, 1, fixed]
   const float scale_log2 = scale * kLog2e;
   const int g = H / n_kv;
   const int bq = kTile / g;
-  const int pos0 = (gridDim.x - 1 - blockIdx.x) * bq;   // heaviest first
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int rows_used = g * bq;
+  const int n_pt = (Tq + bq - 1) / bq;
+  int slot = blockIdx.x;
+  const int kvh = slot % n_kv;
+  slot /= n_kv;
+  const int b = slot % B;
+  const int pos0 = (n_pt - 1 - slot / B) * bq;   // heaviest first
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_pos = min(bq, Tq - pos0);
 
-  for (int i = threadIdx.x; i < kTile * CPR; i += kTcThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int j = r / bq, p = r % bq;
-    const bool ok = j < g && p < n_pos;
-    const size_t off =
-        ok ? (((size_t)b * Tq + pos0 + p) * H + kvh * g + j) * DH + c : 0;
-    cp_async16(q_s + r * S + c, q + off, ok);
-    cp_async16(do_s + r * S + c, dout + off, ok);
+  // Rows the box does not reach (g not a power of two) are zeros.
+  for (int i = rows_used * 8 + threadIdx.x; i < kTile * 8; i += kThreads)
+#pragma unroll
+    for (int j = 0; j < 2 * TB / kBlock; ++j)      // Q's blocks, then dO's
+      *reinterpret_cast<uint4*>(smem + j * kBlock + 16 * i) = uint4{};
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i);
+    mbar_init_fence();
   }
-  if (threadIdx.x < 2 * kTile) {
-    const int r = threadIdx.x % kTile;
-    const int j = r / bq, p = r % bq;
-    const bool ok = j < g && p < n_pos;
-    const size_t off = ok ? ((size_t)b * H + kvh * g + j) * Tq + pos0 + p : 0;
-    cp_async4(lse_s + threadIdx.x, (threadIdx.x < kTile ? lse : D) + off, ok);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(bar + 16, 2 * (TB / kBlock) * rows_used * 128);
+    tma_tile<DH>(q_s, &tm_q, bar + 16, kvh * g, pos0, b);
+    tma_tile<DH>(do_s, &tm_do, bar + 16, kvh * g, pos0, b);
+  }
+  if (threadIdx.x < kTile) {
+    const int r = threadIdx.x;
+    const bool ok = r < rows_used && r / g < n_pos;
+    const size_t off =
+        ok ? ((size_t)b * H + kvh * g + r % g) * Tq + pos0 + r / g : 0;
+    cp_async4(smem_addr(lse_s + r), lse + off, ok);
   }
   const int kend = causal ? min(Tk, pos0 + n_pos) : Tk;   // keys [0, kend)
   const int n_kt = (kend + kTile - 1) / kTile;
   auto load_tile = [&](int t, int stage) {
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * kTile * S;
-    tc_load_rows<DH, S>(ks, k, b, Tk, n_kv, kvh, t * kTile);
-    tc_load_rows<DH, S>(ks + kTile * S, v, b, Tk, n_kv, kvh, t * kTile);
+    if (threadIdx.x == 0) {
+      const uint32_t ks = kv_s + stage * 2 * TB;
+      mbar_expect(bar + 8 * stage, 2 * TB);
+      tma_tile<DH>(ks, &tm_k, bar + 8 * stage, kvh, t * kTile, b);
+      tma_tile<DH>(ks + TB, &tm_v, bar + 8 * stage, kvh, t * kTile, b);
+    }
   };
   if (n_kt > 0) load_tile(0, 0);
-  cp_async_commit();                   // group 0: Q, dO, lse, D, tile 0
+  cp_async_commit();
+  // D = rowsum(dO o O) of the CTA's rows, two threads a row, for dS here
+  // and for the dK / dV launch that follows: this thread's half of its
+  // row of O is fetched while the TMA brings Q and dO.
+  const int d_row = threadIdx.x / 2, d_half = threadIdx.x % 2;
+  const bool d_ok = d_row < rows_used && d_row / g < n_pos;
+  uint4 ov[DH / 16];
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        o + (((size_t)b * Tq + pos0 + d_row / g) * H + kvh * g + d_row % g)
+                * DH
+          + d_half * (DH / 2));
+#pragma unroll
+    for (int i = 0; i < DH / 16; ++i) ov[i] = d_ok ? src[i] : uint4{};
+  }
 
-  int rpos[2];
+  int rpos[2], rows[2];
   bool rvalid[2];
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const int r = warp * 16 + lane / 4 + 8 * a;
-    rvalid[a] = r / bq < g && r % bq < n_pos;
-    rpos[a] = pos0 + r % bq;
+    rows[a] = r;
+    rvalid[a] = r < rows_used && r / g < n_pos;
+    rpos[a] = pos0 + r / g;
   }
-  float acc[NT][4];
+  float acc[DH / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  cp_async_wait<0>();                  // lse
+  mbar_wait(bar + 16, 0);              // Q and dO
+  {
+    float sum = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int i = 0; i < DH / 16; ++i) {
+      const int col = d_half * (DH / 2) + 8 * i;
+      const uint4 dv = *reinterpret_cast<const uint4*>(   // swizzled dO
+          smem + TB + (col / 64) * kBlock + d_row * 128
+          + ((((col / 8) & 7) ^ (d_row & 7)) << 4));
+      const __nv_bfloat162* o2 =
+          reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 df = __bfloat1622float2(d2[e]);
+        sum = fmaf(df.y, of.y, fmaf(df.x, of.x, sum));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (d_half == 0) {
+      d_s[d_row] = sum;
+      if (d_ok)
+        D[((size_t)b * H + kvh * g + d_row % g) * Tq + pos0 + d_row / g] =
+            sum;
+    }
+  }
+  __syncthreads();
 
   for (int t = 0; t < n_kt; ++t) {
     if (t + 1 < n_kt) load_tile(t + 1, (t + 1) % 2);
-    cp_async_commit();
-    cp_async_wait<1>();                // tile t (and Q, dO) have landed
-    __syncthreads();
-    const __nv_bfloat16* ks = kv_s + (size_t)(t % 2) * 2 * kTile * S;
-    const __nv_bfloat16* vs = ks + kTile * S;
+    mbar_wait(bar + 8 * (t % 2), (t / 2) & 1);       // tile t
+    const uint32_t ks = kv_s + (t % 2) * 2 * TB;
+    const uint32_t vs = ks + TB;
     const int key0 = t * kTile;
-    float p[ST][4], ds[ST][4];
-    mma_xyt<DH, S>(p, q_s, ks, warp * 16, lane);     // S = Q K^T
-    mma_xyt<DH, S>(ds, do_s, vs, warp * 16, lane);   // dO V^T
+    // Masks only where the tile crosses a row's diagonal or an edge.
+    const bool edge = key0 + kTile > Tk || n_pos < bq || rows_used < kTile
+                      || (causal && key0 + kTile - 1 > pos0);
+    float p[32], ds[32];               // P and dS [64 rows x 64 keys]
+    wgmma_fence();
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = warp * 16 + lane / 4 + 8 * a;
-      const float l2 = lse_s[r] * kLog2e;
-      const float dr = d_s[r];
+    for (int kk = 0; kk < DH / 16; ++kk)             // S = Q K^T
+      wgmma_ss_n64(p, desc_k(q_s, kk), desc_k(ks, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int n = 0; n < ST; ++n)
+    for (int kk = 0; kk < DH / 16; ++kk)             // dP = dO V^T
+      wgmma_ss_n64(ds, desc_k(do_s, kk), desc_k(vs, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(p);
+    if (edge)
+      probs_rows_keys<true>(p, lse_s, scale_log2, rows, rpos, rvalid, key0,
+                            Tk, causal, lane);
+    else
+      probs_rows_keys<false>(p, lse_s, scale_log2, rows, rpos, rvalid, key0,
+                             Tk, causal, lane);
+    wgmma_wait<0>();
+    fence_regs<32>(ds);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = key0 + n * 8 + 2 * (lane % 4) + e;
-          const bool ok = rvalid[a] && key < Tk
-                          && (!causal || key <= rpos[a]);
-          const float pr =
-              ok ? exp2f(p[n][2 * a + e] * scale_log2 - l2) : 0.f;
-          ds[n][2 * a + e] = pr * (ds[n][2 * a + e] - dr);
-        }
-    }
-    mma_wy<DH, S>(acc, ds, ks, lane);               // dQ += dS K
+    for (int i = 0; i < 32; ++i)                     // dS = P o (dP - D)
+      ds[i] = p[i] * (ds[i] - d_s[rows[(i >> 1) & 1]]);
+    uint32_t sa[kTile / 16][4];        // packed before the products issue
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) a_frag(sa[kk], ds, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)          // dQ += dS K
+      wgmma_rs<DH>(acc, sa[kk], desc_mn(ks, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DH / 2>(acc);
     __syncthreads();                   // stage t % 2 is consumed
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     if (!rvalid[a]) continue;
-    const int r = warp * 16 + lane / 4 + 8 * a;
-    const size_t off = (((size_t)b * Tq + pos0 + r % bq) * H + kvh * g
-                        + r / bq) * DH + 2 * (lane % 4);
+    const int r = rows[a];
+    const size_t off = (((size_t)b * Tq + pos0 + r / g) * H + kvh * g
+                        + r % g) * DH + 2 * (lane % 4);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < DH / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dq + off + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * a] * scale,
-                                acc[n][2 * a + 1] * scale);
+          __floats2bfloat162_rn(acc[4 * n + 2 * a] * scale,
+                                acc[4 * n + 2 * a + 1] * scale);
   }
 }
 
@@ -716,45 +1078,122 @@ cudaError_t raise_smem(Kernel kernel, size_t smem, bool* raised) {
   return err;
 }
 
+// cuTensorMapEncodeTiled, a driver-API call, fetched through the runtime
+// (nothing links libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D tensor map of x [B, T, heads, dh] bf16 (innermost first) in
+// boxes of 64 columns x bh heads x bt rows, landing in the 128-byte
+// swizzle (a box's row is 128 bytes: dh 32 pads with zeros).
+bool make_map(CUtensorMap* map, const void* x, int B, int T, int heads,
+              int dh, int bh, int bt) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)T * heads * dh * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bh, (cuuint32_t)bt, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode != nullptr
+         && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(x), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DH>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* D,
-                      void* dq, void* dk, void* dv, int B, int Tq, int Tk,
-                      int H, int n_kv, int causal, float scale,
+                      const void* o, const void* dout, const float* lse,
+                      float* D, void* dq, void* dk, void* dv, int B, int Tq,
+                      int Tk, int H, int n_kv, int causal, float scale,
                       cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const size_t smem = tc_smem_bytes(DH);
+  // The tensor maps are encoded by a driver call, which needs the device's
+  // context current on this thread; a thread that has made no runtime call
+  // yet (autograd's device thread, say) may not have it.
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = tc_smem_bytes<DH>();
   static bool raised_kv = false, raised_q = false;
-  cudaError_t err = raise_smem(bwd_dkdv_tc_kernel<DH>, smem, &raised_kv);
+  err = raise_smem(bwd_dkdv_wgmma_kernel<DH>, smem, &raised_kv);
   if (err != cudaSuccess) return err;
-  err = raise_smem(bwd_dq_tc_kernel<DH>, smem, &raised_q);
+  err = raise_smem(bwd_dq_wgmma_kernel<DH>, smem, &raised_q);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((Tk + kTile - 1) / kTile, n_kv, B);
-  bwd_dkdv_tc_kernel<DH><<<grid_kv, kTcThreads, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, D,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), Tq, Tk, H, n_kv, causal,
-      scale);
+  const int g = H / n_kv;
+  const int c = g < kMaxCluster ? g : kMaxCluster;
+  const int bq = kTile / g;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_q_rows, tm_do_rows;
+  if (!make_map(&tm_q, q, B, Tq, H, DH, 1, kTile)
+      || !make_map(&tm_do, dout, B, Tq, H, DH, 1, kTile)
+      || !make_map(&tm_k, k, B, Tk, n_kv, DH, 1, kTile)
+      || !make_map(&tm_v, v, B, Tk, n_kv, DH, 1, kTile)
+      || !make_map(&tm_q_rows, q, B, Tq, H, DH, g, bq)
+      || !make_map(&tm_do_rows, dout, B, Tq, H, DH, g, bq))
+    return cudaErrorInvalidValue;
+  // dQ first: it also writes D, which dK / dV reads.
+  bwd_dq_wgmma_kernel<DH><<<((Tq + bq - 1) / bq) * n_kv * B, kThreads, smem,
+                            stream>>>(tm_q_rows, tm_do_rows, tm_k, tm_v,
+                                      static_cast<const bf*>(o), lse, D,
+                                      static_cast<bf*>(dq), B, Tq, Tk, H,
+                                      n_kv, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int bq = kTile / (H / n_kv);
-  const dim3 grid_q((Tq + bq - 1) / bq, n_kv, B);
-  bwd_dq_tc_kernel<DH><<<grid_q, kTcThreads, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, D,
-      static_cast<bf*>(dq), Tq, Tk, H, n_kv, causal, scale);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = c;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c * ((Tk + kTile - 1) / kTile) * n_kv * B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<DH>, tm_q, tm_do, tm_k,
+                           tm_v, lse, static_cast<const float*>(D),
+                           static_cast<bf*>(dk), static_cast<bf*>(dv), B, Tq,
+                           Tk, H, n_kv, causal, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_cc(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* D,
-                      void* dq, void* dk, void* dv, int B, int Tq, int Tk,
-                      int H, int n_kv, int causal, int is_f32, float scale,
-                      cudaStream_t stream) {
+                      const void* o, const void* dout, const float* lse,
+                      float* D, void* dq, void* dk, void* dv, int B, int Tq,
+                      int Tk, int H, int n_kv, int causal, int is_f32,
+                      float scale, cudaStream_t stream) {
+  const int rows = B * Tq * H;
+  bwd_rowdot_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, D, rows, Tq,
+                                                        H, DH, is_f32);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const size_t smem = cc_smem_bytes(DH);
   static bool raised_kv = false, raised_q = false;
-  cudaError_t err = raise_smem(bwd_dkdv_cc_kernel<DH>, smem, &raised_kv);
+  err = raise_smem(bwd_dkdv_cc_kernel<DH>, smem, &raised_kv);
   if (err != cudaSuccess) return err;
   err = raise_smem(bwd_dq_cc_kernel<DH>, smem, &raised_q);
   if (err != cudaSuccess) return err;
@@ -776,26 +1215,22 @@ extern "C" {
 // q, o, dout, dq [B, Tq, H, dh]; k, v, dk, dv [B, Tk, n_kv, dh]; all bf16
 // (is_f32 = 0) or all f32, contiguous; lse f32 [B, H, Tq] from the
 // forward; D f32 [B, H, Tq] scratch, written here.  Queries at positions
-// 0 .. Tq - 1; dh a multiple of 32 up to 256; H / n_kv at most 64.  Three
-// launches (D, dK / dV, dQ) on `stream`; returns the first cudaError_t (0
-// on success).
+// 0 .. Tq - 1; dh a multiple of 32 up to 256; H / n_kv at most 64.  On
+// `stream`: bf16 at dh 32, 64, 96 and 128 is two launches (dQ, which also
+// writes D, then dK / dV in clusters), the rest three (D, dK / dV, dQ).
+// Returns the first cudaError_t (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* D, void* dq, void* dk, void* dv, int B, int Tq,
                         int Tk, int H, int n_kv, int dh, int causal,
                         int is_f32, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = B * Tq * H;
-  bwd_rowdot_kernel<<<(rows + 7) / 8, 256, 0, s>>>(o, dout, D, rows, Tq, H,
-                                                   dh, is_f32);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   if (!is_f32) {
     switch (dh) {
 #define TC(D_)                                                               \
   case D_:                                                                   \
-    return (int)launch_tc<D_>(q, k, v, dout, lse, D, dq, dk, dv, B, Tq, Tk,  \
-                              H, n_kv, causal, scale, s);
+    return (int)launch_tc<D_>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Tq,   \
+                              Tk, H, n_kv, causal, scale, s);
       TC(32) TC(64) TC(96) TC(128)
 #undef TC
       default:
@@ -805,8 +1240,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   switch (dh) {
 #define CC(D_)                                                               \
   case D_:                                                                   \
-    return (int)launch_cc<D_>(q, k, v, dout, lse, D, dq, dk, dv, B, Tq, Tk,  \
-                              H, n_kv, causal, is_f32, scale, s);
+    return (int)launch_cc<D_>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Tq,   \
+                              Tk, H, n_kv, causal, is_f32, scale, s);
     CC(32) CC(64) CC(96) CC(128) CC(160) CC(192) CC(224) CC(256)
 #undef CC
     default:

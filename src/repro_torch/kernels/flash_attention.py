@@ -30,10 +30,12 @@ each row's log-sum-exp as well (:func:`flash_attention_lse`, counted by
 its backward is ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_bwd`, plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`), counted by
-``flash_attention_bwd.launches``: one per call, which is three launches
-(the D pre-pass, dK / dV, dQ).  Training takes queries at positions 0 ..
-Tq - 1 (no ``q_offset``, no ``kv_len``), equal key and value widths and
-bf16 or f32.  Serving calls run under ``no_grad`` and never take this path.
+``flash_attention_bwd.launches``: one per call, however many launches it
+makes (bf16 at head dims 32-128: dQ, which also writes D, then dK / dV
+in thread-block clusters on ``wgmma``; otherwise the D pre-pass, dK / dV
+and dQ on CUDA cores).  Training takes queries at positions 0 .. Tq - 1
+(no ``q_offset``, no ``kv_len``), equal key and value widths and bf16 or
+f32.  Serving calls run under ``no_grad`` and never take this path.
 """
 
 from __future__ import annotations
@@ -131,7 +133,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         scale=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention_lse`'s ``o`` given
     its gradient ``do``, in the inputs' dtypes.  Deterministic on the card
-    (no atomics): two calls on the same inputs give the same bits."""
+    (no atomics; the query heads' dK / dV partials are summed in a fixed
+    order): two calls on the same inputs give the same bits.  A refused
+    launch (a cluster the card cannot place, a tensor map it cannot
+    encode) raises."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                            causal=causal, scale=scale)

@@ -15,6 +15,12 @@ the kernel or raises.  A bf16 call is three launches (chunk states, state
 pass, chunk outputs; the last two start early as programmatic dependents,
 see the source's header); f32 is one.  ``ssd_scan.launches`` counts calls
 that launched.
+
+The scan has no backward yet: with grad mode on, a call on any input that
+requires a gradient raises ``ValueError`` on both devices, rather than
+return outputs that autograd cannot trace back through the kernel.  The
+models call it under ``no_grad`` (serving) and ``LM.loss`` refuses the ssm
+and hybrid families.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     """x in bf16 or f32, Bm / Cm [B, T, G, N] in x's dtype; dt [B, T, nh]
     and A [nh] f32; h0 f32 or None; T a multiple of ``chunk``.  Returns
     (y [B, T, nh, hd] f32, h_final [B, nh, hd, N] f32)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, h0)):
+        raise ValueError("ssd_scan has no backward: call it under "
+                         "torch.no_grad() or on inputs that require no "
+                         "gradient")
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     if x.device.type != "cuda":

@@ -1296,6 +1296,7 @@ TRAIN_SHAPES = [
     (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
     (48, 8, 128),     # 6 query heads per KV head
     (8, 1, 256),      # CUDA-core path in bf16 too, > 48 KB shared memory
+    (64, 1, 64),      # MAX_GROUP: a cluster of 4 CTAs, 16 heads each
 ]
 # (Tq, Tk, causal): full causal attention off the tiles, and non-causal
 # with Tq != Tk, neither a multiple of 64.
@@ -1369,17 +1370,24 @@ def test_cuda_flash_backward_matches_plain(cuda_device, H, n_kv, dh, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_cuda_flash_backward_is_deterministic(cuda_device, dtype):
-    """No atomics: two backward calls give the same bits, and autograd
-    through the flash call gives the wrapper's gradients."""
-    q, k, v = _flash_case(cuda_device, 2, 333, 333, 16, 2, 128,
+@pytest.mark.parametrize("H,n_kv,Tq,Tk,causal", [
+    (16, 2, 333, 333, True),      # g = 8: clusters of 4, 2 heads a rank
+    (32, 2, 333, 333, True),      # g = 16: 4 heads a rank
+    (16, 2, 300, 700, False),     # non-causal, Tq != Tk
+])
+def test_cuda_flash_backward_is_deterministic(cuda_device, dtype, H, n_kv,
+                                              Tq, Tk, causal):
+    """No atomics: the g heads' dK / dV partials are summed in rank order,
+    so two backward calls give the same bits, and autograd through the
+    flash call gives the wrapper's gradients."""
+    q, k, v = _flash_case(cuda_device, 2, Tq, Tk, H, n_kv, 128,
                           getattr(torch, dtype))
     do = torch.randn(q.shape, device=cuda_device).to(q.dtype)
-    o, lse = ops.flash_attention_lse(q, k, v)
-    a = ops.flash_attention_bwd(q, k, v, o, do, lse)
-    b = ops.flash_attention_bwd(q, k, v, o, do, lse)
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    a = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    b = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-    out = ops.flash_attention(qq, kk, vv)
+    out = ops.flash_attention(qq, kk, vv, causal=causal)
     c = torch.autograd.grad(out, (qq, kk, vv), do)
     torch.cuda.synchronize()
     assert torch.equal(out, o)

@@ -131,3 +131,26 @@ def test_serving_call_under_no_grad_keeps_its_path():
     assert torch.equal(o, ref.flash_attention_ref(*t))
     with pytest.raises(ValueError, match="q_offset"):
         ops.flash_attention(*t, q_offset=4)
+
+
+@pytest.mark.parametrize("source,group", [
+    ("flash_attention.cu", "flash_forward"),
+    ("flash_attention_bwd.cu", "flash_backward"),
+])
+def test_train_profile_groups_every_flash_kernel(source, group):
+    """``launch/train_profile.py`` files a traced kernel under its group by
+    name; every ``__global__`` kernel of the flash sources, read from the
+    source, must land in its group, so that a renamed or added kernel
+    cannot slip into another group of the step's breakdown unseen."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.launch.train_profile import group_of
+    csrc = Path(ops.__file__).resolve().parents[1] / "csrc"
+    text = (csrc / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", text)
+    assert len(names) == text.count("__global__") >= 2
+    # As the profiler names an instance: namespace, template arguments.
+    assert {n: group_of(f"void (anonymous namespace)::{n}<128, 1>(int)")
+            for n in names} == dict.fromkeys(names, group)

@@ -84,6 +84,25 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
     assert ops.launch_counts()["ssd_scan"] == before
 
 
+@pytest.mark.parametrize("needs_grad", ["x", "dt", "A", "Bm", "Cm", "h0"])
+def test_wrapper_refuses_inputs_that_require_a_gradient(needs_grad):
+    """The scan has no backward: with grad mode on, an input that requires
+    a gradient makes ``ops.ssd_scan`` raise on the CPU path too (the card's
+    outputs would carry no autograd history); under ``no_grad`` the same
+    inputs run and give the plain version's bits."""
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in _inputs(
+        1, 64, 2, 16, 16, True, jnp.float32))
+    inputs = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, h0=h0)
+    inputs[needs_grad] = inputs[needs_grad].clone().requires_grad_()
+    kw = dict(chunk=32, h0=inputs.pop("h0"))
+    with pytest.raises(ValueError, match="no backward"):
+        ops.ssd_scan(*inputs.values(), **kw)
+    with torch.no_grad():
+        y, h = ops.ssd_scan(*inputs.values(), **kw)
+        y_r, h_r = tref.ssd_scan_ref(*inputs.values(), **kw)
+    assert torch.equal(y, y_r) and torch.equal(h, h_r)
+
+
 def test_chunking_does_not_change_the_scan():
     """The scan is the same recurrence whatever the chunk: Q = 16, 48 and
     96 over T = 96 agree at f32 rounding (2e-4), and two calls chained
