@@ -191,7 +191,43 @@ Phases (each synchronised; any failure exits non-zero):
    trained 4 steps on the card and on the CPU from the same weights, every
    step's loss within 1e-4 relative; then on the card a run checkpointed at
    step 2 and resumed in a fresh Trainer for 2 more steps, whose
-   parameters and Adam moments equal the uninterrupted run's bit for bit.
+   parameters and Adam moments equal the uninterrupted run's bit for bit;
+   9a, continued (before 9b): the hand-written SSD-scan backward at
+   mamba2-1.3b's and zamba2-1.2b's training shapes (B 2, T 2048, 64 heads
+   of 64, N 128 / 64, one B/C group, Q 256, bf16; entries
+   ``ssd_scan_bwd`` and ``ssd_scan_bwd.hybrid``) against its plain
+   version at SSD_BWD_TOL of each gradient's scale, and in f32 over three
+   chunks of the narrow shape with an initial state and the final state's
+   gradient at 2e-5; two calls bit for bit; the scan's training forward
+   at the same two shapes (``ssd_scan.train``, ``ssd_scan.train.hybrid``);
+   each timed beside its bound (library: none).  The flash forward with
+   lse and the backward at FLASH_BWD_SHAPES (llava's self-attention over
+   2880 + 1216 rows, seamless's encoder over 4096 frames, its
+   cross-attention of 1024 rows over them and its decoder's causal
+   self-attention, zamba2's shared block), each timed beside its bound
+   and SDPA's (entries ``flash_attention.train.<tag>`` and
+   ``flash_attention_bwd.<tag>``);
+   9d. seamless-m4t-large-v2 at its published width and depth (24 + 24
+   layers), fp32 master weights from seed 0, ``make_train_step`` (remat
+   block) on ENCDEC_TRAIN_B x ENCDEC_TRAIN_T target tokens over ENCDEC_SRC
+   random source frames a step, FAMILY_STEPS steps;
+   9e. llava-next-mistral-7b at its published widths, **reduced: depth 32
+   -> VLM_TRAIN_LAYERS layers** (all 32 need 115.9 GB of training state),
+   B 1 x (VLM_TRAIN_P random image embeddings + VLM_TRAIN_T tokens), the
+   same steps;
+   9f. mamba2-1.3b at its published width and depth, ``Trainer`` on
+   ``SyntheticLM``, TRAIN_B x TRAIN_T, remat block;
+   9g. zamba2-1.2b likewise, remat block, which its stack ignores as the
+   reference's does;
+   each of 9d-9g: finite losses and grad norms, the launches of every
+   layer and step (``train_launches``: flash forward with lse, flash
+   backward, both also by site, SSD scan and SSD backward) and no serving
+   kernel, the final
+   weights' loss on the last step's batch below that batch's loss before
+   its update, step ms, tokens/s and the memory high-water mark;
+   9h. each family's narrow f32 model (``narrow_train_config``) trained
+   FAMILY_STEPS steps on the card and on the CPU from the same weights:
+   every step's loss within 1e-4 relative.
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -201,7 +237,10 @@ phase 4e, ``.vlm`` and ``.g4d128`` from 4g and 4i, ``.phi3`` and
 call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
 4h; every other launch of phases 4, 4c, 4d, 4f-4i and 8a-8c under its
 kernel's own entry; ``flash_attention.train`` and ``flash_attention_bwd``
-from phase 9b.  Of the serving phases only 4f is cut in depth.
+from phase 9b; the entries of phases 9d-9g from the phase of their shape,
+seamless's three attentions by the site its wrappers counted
+(``train_entries``).  Of the serving phases only 4f is cut in depth; of
+the training phases only 9e.
 """
 
 from __future__ import annotations
@@ -248,7 +287,13 @@ CRASH_AFTER = 12        # phase 8b: engine 1's crash, in steps into the stream
 READ_ERROR_RATE = 0.5   # phase 8b: transient disk-read errors per read
 TRAIN_B, TRAIN_T = 2, 2048     # phase 9: qwen2.5-3b's --batch 2 --seq 2048
 TRAIN_STEPS = 6
-NARROW_T = 256          # phase 9a/9c: the narrow model's training length
+NARROW_T = 256          # phase 9a/9c/9h: the narrow model's training length
+FAMILY_STEPS = 3        # phases 9d-9h: steps of each family's training
+ENCDEC_TRAIN_B, ENCDEC_TRAIN_T = 2, 1024   # phase 9d: target tokens a row,
+ENCDEC_SRC = 4096       # over seamless's 4096 source frames
+VLM_TRAIN_LAYERS = 8    # phase 9e: llava's first 8 of 32 layers (32.1 GB of
+VLM_TRAIN_P, VLM_TRAIN_T = 2880, 1216      # training state): image + text
+SSD_BWD_TOL = 2e-2      # the SSD backward, bf16 inputs, of each grad's scale
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 inputs (tests/test_kernels.py)
@@ -275,6 +320,9 @@ REPLACES = {
     "flash_attention_bwd": "repro/models/layers.py:118 attention, "
                            "differentiated by jax.value_and_grad "
                            "(repro/train/trainer.py:155)",
+    "ssd_scan_bwd": "src/repro/models/mamba2.py:96 ssd_chunked (the oracle "
+                    "of src/repro/kernels/ssd_scan.py:73), differentiated by "
+                    "jax.value_and_grad (src/repro/train/trainer.py:155)",
 }
 SOURCES = {
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
@@ -286,6 +334,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
 }
 
 
@@ -2730,6 +2779,58 @@ def train_kernel_case(B, Tq, Tk, H, n_kv, dh, causal, dtype, tol, label,
         (o.float() - want_o.float()).abs().max())
 
 
+def sdpa_grad_ms(q, k, v, do, causal):
+    """``scaled_dot_product_attention``'s times on the flash backward's
+    inputs ([B, T, H, dh] as the port takes them): forward + backward
+    through autograd, and its backward alone over one fixed forward."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    # The backward alone over one fixed forward.  The leaves and the
+    # forward live on a side stream: autograd runs the backward there, and
+    # a capture may not make the legacy default stream wait on itself.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qb, kb, vb = (x.detach().clone().requires_grad_()
+                      for x in (qt, kt, vt))
+        out_b = F.scaled_dot_product_attention(qb, kb, vb, is_causal=causal,
+                                               enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def bwd():
+        torch.autograd.grad(out_b, (qb, kb, vb), dot, retain_graph=True)
+
+    return graph_ms(fwd_bwd), graph_ms(bwd)
+
+
+def flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal):
+    """Bytes (q, k, v read once; o and lse written once, in bf16) and
+    operations (the two products over the pairs a row sees) of one flash
+    forward with lse."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    elems_q, elems_kv = B * Tq * H * dh, B * Tk * n_kv * dh
+    return bound_ms(2 * (2 * elems_q + 2 * elems_kv) + 4 * B * H * Tq,
+                    4 * B * H * dh * pairs)
+
+
+def flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal):
+    """Bytes (q, k, v, o, dO and lse read once; dq, dk, dv written once, in
+    bf16) and operations (the five products over the pairs a row sees) of
+    one flash-backward call."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    elems_q, elems_kv = B * Tq * H * dh, B * Tk * n_kv * dh
+    return bound_ms(2 * (5 * elems_q + 4 * elems_kv) + 4 * B * H * Tq,
+                    10 * B * H * dh * pairs)
+
+
 def phase_train_kernels(results):
     """Phase 9a: the training kernels at qwen2.5-3b's training shape, at
     the narrow model's f32 shape and non-causal with Tq != Tk; entries
@@ -2745,35 +2846,10 @@ def phase_train_kernels(results):
                       2e-5, f"narrow f32 B=2 T={NARROW_T} H=4 n_kv=2 dh=32")
     train_kernel_case(2, 300, 700, H, n_kv, dh, False, torch.bfloat16,
                       ATTN_TOL["rtol"], "non-causal Tq=300 Tk=700 bf16")
-    pairs = T * (T + 1) // 2
-    elems_q, elems_kv = B * T * H * dh, B * T * n_kv * dh
-    fwd_bound = bound_ms(2 * (2 * elems_q + 2 * elems_kv) + 4 * B * H * T,
-                         4 * B * H * dh * pairs)
-    bwd_bound = bound_ms(2 * (5 * elems_q + 4 * elems_kv) + 4 * B * H * T,
-                         10 * B * H * dh * pairs)
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (qg, kg, vg), dot)
-
-    # SDPA's backward alone over one fixed forward.  The leaves and the
-    # forward live on a side stream: autograd runs the backward there, and
-    # a capture may not make the legacy default stream wait on itself.
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        qb, kb, vb = (x.detach().clone().requires_grad_()
-                      for x in (qt, kt, vt))
-        out_b = F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
-                                               enable_gqa=True)
-    torch.cuda.current_stream().wait_stream(side)
-
-    def sdpa_bwd():
-        torch.autograd.grad(out_b, (qb, kb, vb), dot, retain_graph=True)
-
+    fwd_bound = flash_fwd_bound(B, T, T, H, n_kv, dh, True)
+    bwd_bound = flash_bwd_bound(B, T, T, H, n_kv, dh, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms, sdpa_bwd_ms = sdpa_grad_ms(q, k, v, do, True)
     shape = f"B={B} T={T} H={H} n_kv={n_kv} dh={dh} causal bf16"
     results["flash_attention.train"] = dict(
         max_abs_err=fwd_err,
@@ -2791,8 +2867,7 @@ def phase_train_kernels(results):
         plain_ms=eager_ms(functools.partial(ref.flash_attention_bwd_ref, q,
                                             k, v, o, do, lse), iters=5),
         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-        library_ms=graph_ms(sdpa_fwd_bwd), library_bwd_ms=graph_ms(sdpa_bwd),
-        shape=shape)
+        library_ms=sdpa_ms, library_bwd_ms=sdpa_bwd_ms, shape=shape)
     f, b = results["flash_attention.train"], results["flash_attention_bwd"]
     print(f"[kernel] flash_attention.train: kernel_ms {f['ms']:.4f} plain_ms "
           f"{f['plain_ms']:.4f} bound_ms {f['bound_ms']:.5f} "
@@ -2838,7 +2913,7 @@ def phase_train(cfg):
     ops.reset_launch_counts()
     hist = tr.run(TRAIN_STEPS, log_every=1)
     counts = ops.train_launch_counts()
-    serving = ops.launch_counts()
+    serving = {**ops.launch_counts(), **ops.train_site_counts()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     L, tokens = cfg.n_layers, TRAIN_B * TRAIN_T
     for r in tr.log:
@@ -2851,10 +2926,11 @@ def phase_train(cfg):
                     for r in tr.log),
             f"training: a loss or grad norm is not finite: {tr.log}")
     require(counts == {"flash_attention.train": 2 * L * TRAIN_STEPS,
-                       "flash_attention_bwd": L * TRAIN_STEPS}
+                       "flash_attention_bwd": L * TRAIN_STEPS,
+                       "ssd_scan_bwd": 0}
             and not any(serving.values()),
-            f"training: launches {counts} (serving {serving}) are not two "
-            f"forwards and one backward per layer and step")
+            f"training: launches {counts} (serving and by site {serving}) "
+            f"are not two forwards and one backward per layer and step")
     steady = [r["ms"] for r in tr.log[1:]]
     print(f"[train] {cfg.name} at its published width and depth "
           f"({cfg.param_count() / 1e9:.3f} G parameters, fp32 master "
@@ -2974,6 +3050,488 @@ def phase_train_agreement():
             f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
 
 
+# ------------------------------------------------ training of the families
+
+
+# Phase 9a's flash shapes of phases 9d, 9e and 9g: (entry tag, label, B,
+# Tq, Tk, H, n_kv, dh, causal).  Entries ``flash_attention.train.<tag>`` and
+# ``flash_attention_bwd.<tag>``.
+FLASH_BWD_SHAPES = (
+    ("vlm", "llava-next self-attention", 1, VLM_TRAIN_P + VLM_TRAIN_T,
+     VLM_TRAIN_P + VLM_TRAIN_T, 32, 8, 128, True),
+    ("encoder", "seamless-m4t encoder", ENCDEC_TRAIN_B, ENCDEC_SRC,
+     ENCDEC_SRC, 16, 16, 64, False),
+    ("cross", "seamless-m4t cross-attention", ENCDEC_TRAIN_B, ENCDEC_TRAIN_T,
+     ENCDEC_SRC, 16, 16, 64, False),
+    ("decoder", "seamless-m4t decoder self-attention", ENCDEC_TRAIN_B,
+     ENCDEC_TRAIN_T, ENCDEC_TRAIN_T, 16, 16, 64, True),
+    ("hybrid", "zamba2 shared block", TRAIN_B, TRAIN_T, TRAIN_T, 32, 32, 64,
+     True),
+)
+
+
+def ssd_bwd_bound(B, T, nh, hd, N, G, Q, in_bytes):
+    """Bytes (x, B and C at their G groups in the input dtype, dt, A and dy
+    in f32 read once; dx, dB, dC in the input dtype and d dt, dA in f32
+    written once) and operations (per causal pair of a chunk C . B, dy . x,
+    and the three products that take them: dC, dB, dx; per row the
+    recomputed chunk states, the state gradients and the carried terms)
+    of one SSD-scan backward call."""
+    nbytes = (2 * in_bytes * B * T * (nh * hd + 2 * G * N)
+              + 4 * B * T * nh * (2 + hd) + 8 * nh)
+    pairs = Q * (Q + 1) // 2 * (T // Q)
+    flops = B * nh * (pairs * (6 * N + 4 * hd) + 10 * T * hd * N)
+    return bound_ms(nbytes, flops)
+
+
+def ssd_bwd_inputs(B, T, nh, hd, N, G, dtype, with_h0, seed):
+    """Inputs drawn as tests/test_kernels.py draws the scan's (dt in
+    [0.01, 0.2], A in [-2, -0.5]), and dy ~ N(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dt_=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt_)
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+    x = randn(B, T, nh, hd, dt_=dtype)
+    Bm, Cm = randn(B, T, G, N, dt_=dtype), randn(B, T, G, N, dt_=dtype)
+    h0 = randn(B, nh, hd, N) if with_h0 else None
+    return ((x, unif(0.01, 0.2, B, T, nh), -unif(0.5, 2.0, nh), Bm, Cm, h0),
+            randn(B, T, nh, hd))
+
+
+def ssd_bwd_case(label, shape, dtype, tol, with_h0=False, seed=3):
+    """Phase 9a's SSD backward at one shape (B, T, nh, hd, N, G, Q) against
+    its plain version, at ``tol`` of each gradient's scale, and bit for
+    bit against a second call.  Returns (inputs, dy, largest error)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    B, T, nh, hd, N, G, Q = shape
+    args, dy = ssd_bwd_inputs(B, T, nh, hd, N, G, dtype, with_h0, seed)
+    dh = torch.randn_like(args[5]) if with_h0 else None
+    got = ops.ssd_scan_bwd(*args[:5], dy, dh, chunk=Q, h0=args[5])
+    again = ops.ssd_scan_bwd(*args[:5], dy, dh, chunk=Q, h0=args[5])
+    want = ref.ssd_scan_bwd_ref(*args[:5], dy, dh, chunk=Q, h0=args[5])
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, g2, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                              again, want):
+        if w is None:
+            continue
+        require(bool(torch.isfinite(g.float()).all()),
+                f"{label}: {name} not finite")
+        require(torch.equal(g, g2), f"{label}: two backward calls differ "
+                f"in {name}")
+        err, scale = _scaled_err(g, w)
+        require(err <= tol * scale, f"{label}: {name} off its plain version "
+                f"by {err:.3g} (scale {scale:.3g}, tolerance {tol})")
+        errs.append(f"{name} {err:.3g}/{scale:.3g}")
+    print(f"[train-kernel] ssd_scan_bwd {label}: max err / scale "
+          f"{'; '.join(errs)} (tolerance {tol} of scale); two calls bitwise "
+          f"equal")
+    return args, dy, max(float((g.float() - w.float()).abs().max())
+                         for g, w in zip(got, want) if w is not None)
+
+
+def phase_family_train_kernels(results):
+    """Phase 9a at the shapes of phases 9d-9g: the SSD-scan backward at
+    mamba2-1.3b's and zamba2-1.2b's training shapes in bf16 (entries
+    ``ssd_scan_bwd`` and ``ssd_scan_bwd.hybrid``) and at the narrow f32
+    shape over three chunks, with an initial state and the final state's
+    gradient; the training forward of the scan at both training shapes
+    (``ssd_scan.train``, ``ssd_scan.train.hybrid``); the flash forward with
+    lse and the backward at FLASH_BWD_SHAPES (``flash_attention.train.<tag>``
+    and ``flash_attention_bwd.<tag>``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    shapes = (("", "mamba2-1.3b", (TRAIN_B, TRAIN_T, 64, 64, 128, 1, 256)),
+              (".hybrid", "zamba2-1.2b", (TRAIN_B, TRAIN_T, 64, 64, 64, 1,
+                                          256)))
+    for tag, name, shape in shapes:
+        args, dy, err = ssd_bwd_case(f"{name} training shape {shape}",
+                                     shape, torch.bfloat16, SSD_BWD_TOL)
+        B, T, nh, hd, N, G, Q = shape
+        desc = (f"B={B} T={T} nh={nh} hd={hd} N={N} G={G} Q={Q} bf16 "
+                f"({name})")
+        b_ms, b_by = ssd_bwd_bound(*shape, 2)
+        results[f"ssd_scan_bwd{tag}"] = r = dict(
+            max_abs_err=err,
+            ms=graph_ms(functools.partial(ops.ssd_scan_bwd, *args[:5], dy,
+                                          chunk=Q), reps=5, replays=3),
+            plain_ms=eager_ms(functools.partial(
+                ref.ssd_scan_bwd_ref, *args[:5], dy, chunk=Q), iters=2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=desc)
+        print(f"[kernel] ssd_scan_bwd{tag}: kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"library_ms none (no single PyTorch call computes an SSD "
+              f"scan's gradient) | {desc} | seven launches a call, one "
+              f"count ({SMI})")
+        y, h = ops.ssd_scan(*args[:5], chunk=Q)
+        y_r, h_r = ref.ssd_scan_ref(*args[:5], chunk=Q)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_r, **SSD_TOL)
+        torch.testing.assert_close(h, h_r, **SSD_TOL)
+        f_ms, f_by = ssd_bound(B, T, nh, hd, N, Q, False, G)
+        results[f"ssd_scan.train{tag}"] = r = dict(
+            max_abs_err=max(float((y - y_r).abs().max()),
+                            float((h - h_r).abs().max())),
+            ms=graph_ms(functools.partial(ops.ssd_scan, *args[:5], chunk=Q),
+                        reps=5),
+            plain_ms=eager_ms(functools.partial(
+                ref.ssd_scan_ref, *args[:5], chunk=Q), iters=2),
+            bound_ms=f_ms, bound_by=f_by, library_ms=None, shape=desc)
+        print(f"[kernel] ssd_scan.train{tag}: max_abs_err "
+              f"{r['max_abs_err']:.3g} | kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {f_ms:.5f} ({f_by}) library_ms "
+              f"none | {desc}, the training forward")
+        del args, dy, y, h, y_r, h_r
+    T3 = 3 * 256
+    ssd_bwd_case(f"narrow f32 (2, {T3}, 4, 64, 128, 1, 256), three chunks, "
+                 f"h0 and dh", (2, T3, 4, 64, 128, 1, 256), torch.float32,
+                 2e-5, with_h0=True)
+    for tag, label, B, Tq, Tk, H, n_kv, dh, causal in FLASH_BWD_SHAPES:
+        kind = "causal" if causal else "non-causal"
+        shape = f"B={B} Tq={Tq} Tk={Tk} H={H} n_kv={n_kv} dh={dh} {kind} bf16"
+        (q, k, v, o, do, lse), err, fwd_err = train_kernel_case(
+            B, Tq, Tk, H, n_kv, dh, causal, torch.bfloat16,
+            ATTN_TOL["rtol"], f"{label} {shape}")
+        f_ms, f_by = flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        results[f"flash_attention.train.{tag}"] = f = dict(
+            max_abs_err=fwd_err,
+            ms=graph_ms(functools.partial(ops.flash_attention_lse, q, k, v,
+                                          causal=causal), reps=5),
+            plain_ms=eager_ms(functools.partial(
+                ref.flash_attention_lse_ref, q, k, v, causal=causal),
+                iters=2),
+            bound_ms=f_ms, bound_by=f_by,
+            library_ms=graph_ms(functools.partial(
+                F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal,
+                enable_gqa=True), reps=5), shape=shape)
+        del qt, kt, vt
+        print(f"[kernel] flash_attention.train.{tag}: kernel_ms "
+              f"{f['ms']:.4f} plain_ms {f['plain_ms']:.4f} bound_ms "
+              f"{f_ms:.5f} ({f_by}) library_ms {f['library_ms']:.4f} "
+              f"(scaled_dot_product_attention forward) | {label} {shape}")
+        b_ms, b_by = flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal)
+        lib, lib_bwd = sdpa_grad_ms(q, k, v, do, causal)
+        results[f"flash_attention_bwd.{tag}"] = r = dict(
+            max_abs_err=err,
+            ms=graph_ms(functools.partial(ops.flash_attention_bwd, q, k, v, o,
+                                          do, lse, causal=causal), reps=5),
+            plain_ms=eager_ms(functools.partial(
+                ref.flash_attention_bwd_ref, q, k, v, o, do, lse,
+                causal=causal), iters=2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            library_bwd_ms=lib_bwd, shape=shape)
+        print(f"[kernel] flash_attention_bwd.{tag}: kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+              f"library_ms {lib:.4f} (SDPA forward + backward) "
+              f"library_bwd_ms {lib_bwd:.4f} (SDPA backward alone) | "
+              f"{label} {shape}")
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
+
+
+def reset_peak(dev):
+    """Frees what the last phase left and restarts the card's memory
+    high-water mark (nothing to do on the CPU)."""
+    import torch
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(dev):
+    """The card's memory high-water mark since ``reset_peak`` (0 on the
+    CPU, which has none)."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def family_batch(cfg, B, T, step, n_frontend=0, seed=0):
+    """Step ``step``'s batch: ``SyntheticLM``'s tokens (as the reference's
+    Trainer draws them) and, for vlm and encdec, ``n_frontend`` frontend
+    embeddings a row, N(0, 1) from a numpy seed (as
+    tests/test_smoke_archs.py makes them)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    batch = dict(SyntheticLM(cfg.vocab_size, T, B, seed=seed).batch_at(step))
+    key = {"vlm": "patch_embeds", "encdec": "src_embeds"}.get(cfg.family)
+    if key is not None:
+        rng = np.random.default_rng([seed, step])
+        batch[key] = rng.standard_normal((B, n_frontend, cfg.d_model),
+                                         dtype=np.float32)
+    return batch
+
+
+def train_launches(cfg, steps, remat=True):
+    """The training kernels' launches in ``steps`` steps of ``cfg``: per
+    attention layer and step one flash forward with lse (two with remat,
+    which recomputes it) and one backward; per Mamba-2 layer one SSD scan
+    (two with remat) and one backward.  The hybrid stack recomputes
+    nothing whatever ``remat`` says, as the reference's.  The flash calls
+    by site as well (``flash_attention.train.<site>``,
+    ``flash_attention_bwd.<site>``): encdec's encoder layers under
+    ``encoder``, its cross-attention under ``cross_prefill``."""
+    from repro_torch.models.hybrid import n_invocations
+    attn, ssd = {"encdec": lambda: (cfg.encdec.enc_layers
+                                    + 2 * cfg.encdec.dec_layers, 0),
+                 "ssm": lambda: (0, cfg.n_layers),
+                 "hybrid": lambda: (n_invocations(cfg), cfg.n_layers),
+                 }.get(cfg.family, lambda: (cfg.n_layers, 0))()
+    from repro_torch.kernels.flash_attention import SITES
+    k = 2 if remat and cfg.family != "hybrid" else 1
+    out = {"flash_attention.train": k * attn * steps,
+           "flash_attention_bwd": attn * steps,
+           "ssd_scan_bwd": ssd * steps, "ssd_scan": k * ssd * steps}
+    by_site = ({"encoder": cfg.encdec.enc_layers,
+                "cross_prefill": cfg.encdec.dec_layers}
+               if cfg.family == "encdec" else {})
+    for site in SITES:
+        out[f"flash_attention.train.{site}"] = k * by_site.get(site, 0) * steps
+        out[f"flash_attention_bwd.{site}"] = by_site.get(site, 0) * steps
+    return out
+
+
+def read_train_counts():
+    """The training kernels' counts, the flash ones also by site, and the
+    SSD scan's, whose training forward is the serving call; and every
+    other serving kernel's."""
+    from repro_torch.kernels import ops
+    serving = read_counts()
+    return ({**ops.train_launch_counts(), **ops.train_site_counts(),
+             "ssd_scan": serving.pop("ssd_scan")}, serving)
+
+
+def check_family_training(cfg, label, log, counts, serving, steps, remat,
+                          after, tokens, dev, extra=""):
+    """What every phase of 9d-9g must show, on the card or (counts all 0)
+    on the CPU: finite losses and grad norms, the launches of
+    ``train_launches`` and no serving kernel, and the final weights' loss
+    on the last step's batch (``after``) below that batch's loss before its
+    update.  Prints each step and a summary."""
+    for r in log:
+        print(f"[train:{label}] step {r['step']}: loss {r['loss']:.4f} "
+              f"grad_norm {r['grad_norm']:.4f} step_ms {r['ms']:.1f} "
+              f"tokens/s {tokens / r['ms'] * 1e3:.0f}")
+    require(len(log) == steps and all(
+        np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
+        f"{label}: a loss or grad norm is not finite: {log}")
+    want = train_launches(cfg, steps, remat)
+    if dev == "cpu":
+        want = dict.fromkeys(want, 0)
+    require(counts == want and not any(serving.values()),
+            f"{label}: launches {counts} (serving {serving}), not {want}")
+    require(after < log[-1]["loss"],
+            f"{label}: the final weights' loss on the last step's batch, "
+            f"{after:.4f}, is not below its loss before the update, "
+            f"{log[-1]['loss']:.4f}")
+    steady = float(np.median([r["ms"] for r in log[1:]]))
+    print(f"[train:{label}] {cfg.name}{extra} ({cfg.param_count() / 1e9:.3f} "
+          f"G parameters, fp32 master weights, {cfg.dtype} compute): {steps} "
+          f"steps, steps 2-{steps} median {steady:.1f} ms "
+          f"({tokens / steady * 1e3:.0f} tokens/s); the final weights' loss "
+          f"on step {steps}'s batch {after:.4f} < {log[-1]['loss']:.4f} "
+          f"before its update; launches {counts}; peak memory "
+          f"{peak_gib(dev):.2f} GiB ({SMI})")
+
+
+def run_train_steps(lm, hp, batches, dev):
+    """``len(batches)`` steps of ``make_train_step`` on ``lm``, launch
+    counters reset just before; returns (log, counts, serving counts) with
+    each step's loss, grad norm and host ms (until its loss was read)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    step = make_train_step(lm, hp)
+    opt = adamw_init(dict(lm.named_parameters()))
+    log = []
+    ops.reset_launch_counts()
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        opt, m = step(opt, batch)
+        loss = float(m["loss"])
+        log.append(dict(step=i + 1, loss=loss, grad_norm=float(m["grad_norm"]),
+                        ms=(time.perf_counter() - t0) * 1e3))
+    counts, serving = read_train_counts()
+    del opt
+    return log, counts, serving
+
+
+def phase_train_frontend(cfg, label, B, T, n_frontend, steps=FAMILY_STEPS,
+                         dev="cuda", extra=""):
+    """Phases 9d (encdec) and 9e (vlm): ``cfg`` from seed 0 trained
+    ``steps`` steps through ``make_train_step`` on ``family_batch``es of B
+    x T tokens with ``n_frontend`` frontend embeddings a row, remat block.
+    Returns the training launch counts."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.models.lm import LM
+    reset_peak(dev)
+    lm = LM(cfg, device=dev, master=True).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    hp = TrainHParams(lr=3e-4, warmup_steps=1, total_steps=steps,
+                      remat="block")
+    batches = [family_batch(cfg, B, T, i, n_frontend) for i in range(steps)]
+    log, counts, serving = run_train_steps(lm, hp, batches, dev)
+    with torch.no_grad():
+        after = float(lm.loss(batches[-1])[0])
+    check_family_training(cfg, label, log, counts, serving, steps, True,
+                          after, B * T, dev, extra)
+    del lm, batches
+    reset_peak(dev)
+    return counts
+
+
+def phase_train_recurrent(cfg, label, remat, B=TRAIN_B, T=TRAIN_T,
+                          steps=FAMILY_STEPS, dev="cuda"):
+    """Phases 9f (ssm) and 9g (hybrid): ``Trainer`` on ``SyntheticLM`` at B
+    x T from seed 0, ``remat`` as given (the hybrid stack recomputes
+    nothing whatever it says).  Returns the launch counts."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Trainer
+    reset_peak(dev)
+    hp = TrainHParams(lr=3e-4, warmup_steps=1, total_steps=steps,
+                      remat=remat)
+    tr = Trainer(cfg, hp, batch_per_step=B, seq_len=T, seed=0, device=dev)
+    ops.reset_launch_counts()
+    tr.run(steps, log_every=1)
+    counts, serving = read_train_counts()
+    with torch.no_grad():
+        after = float(tr.lm.loss(tr.data.batch_at(steps - 1))[0])
+    check_family_training(cfg, label, tr.log, counts, serving, steps,
+                          remat != "none", after, B * T, dev,
+                          f" at its published width and depth, remat {remat}")
+    del tr
+    reset_peak(dev)
+    return counts
+
+
+def narrow_train_config(arch):
+    """Phase 9h's narrow f32 model of ``arch``'s family: ``narrow_config``'s
+    widths at 2 layers (encdec 2 + 2 over NARROW_T source frames; vlm with
+    64 image tokens; hybrid 3 Mamba-2 layers with the shared block after
+    the first two, so that it also runs a tail)."""
+    from repro_torch.configs import get_config
+    cfg = narrow_config(get_config(arch))
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=2, dec_layers=2, source_len=NARROW_T))
+    elif cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, frontend_tokens=64)
+    elif cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=3, hybrid=dataclasses.replace(
+            cfg.hybrid, period=2))
+    return cfg
+
+
+def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS):
+    """Phase 9h for one family: the narrow f32 model trained ``steps``
+    steps through ``make_train_step`` (remat block) on ``dev`` (the card;
+    the CPU rehearses it) and on the CPU from the same weights: every
+    step's loss and the first step's grad norm within 1e-4 relative, and
+    on the card the launches of ``train_launches``."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.models.lm import LM
+    cfg = narrow_train_config(arch)
+    n_front = (cfg.frontend_tokens if cfg.family == "vlm" else
+               cfg.encdec.source_len if cfg.family == "encdec" else 0)
+    hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=steps,
+                      remat="block")
+    batches = [family_batch(cfg, 2, NARROW_T, i, n_front)
+               for i in range(steps)]
+    card = LM(cfg, device=dev, master=True).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    cpu = LM(cfg, master=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    runs = [run_train_steps(lm, hp, batches, d)
+            for lm, d in ((card, dev), (cpu, "cpu"))]
+    (log_c, counts, serving), (log_p, _, _) = runs
+    for a, b in zip(log_c, log_p):
+        # The first step's grad norm too: later ones follow AdamW updates,
+        # whose m / sqrt(v) turns the two devices' last-bit differences in
+        # small gradients into whole learning-rate steps.
+        for key in ("loss", "grad_norm") if a["step"] == 1 else ("loss",):
+            require(abs(a[key] - b[key]) <= 1e-4 * abs(b[key]),
+                    f"narrow {arch} training: card {key} {a[key]} != CPU "
+                    f"{key} {b[key]} at step {a['step']}")
+    want = train_launches(cfg, steps) if dev == "cuda" else dict.fromkeys(
+        counts, 0)
+    require(counts == want and not any(serving.values()),
+            f"narrow {arch} training: launches {counts} (serving "
+            f"{serving}), not {want}")
+    print(f"[train:agreement:{cfg.family}] narrow f32 {arch}, same weights, "
+          f"{steps} steps: {dev} losses "
+          f"{[round(r['loss'], 6) for r in log_c]} within 1e-4 of the "
+          f"CPU's {[round(r['loss'], 6) for r in log_p]}, step 1's grad "
+          f"norm {log_c[0]['grad_norm']:.6f} too; launches {counts}")
+
+
+def phase_train_families(counts):
+    """Phases 9d-9h; adds each phase's launches to ``counts`` under the
+    kernels line's entries (by shape, see ``train_entries``)."""
+    import torch
+    from repro_torch.configs import get_config
+    enc = get_config(ENCDEC_ARCH)
+    vlm = dataclasses.replace(get_config(VLM_ARCH),
+                              n_layers=VLM_TRAIN_LAYERS)
+    runs = {
+        "encdec": phase_train_frontend(enc, "encdec", ENCDEC_TRAIN_B,
+                                       ENCDEC_TRAIN_T, ENCDEC_SRC,
+                                       extra=" at its published width and "
+                                       "depth, remat block"),
+        "vlm": phase_train_frontend(vlm, "vlm", 1, VLM_TRAIN_T, VLM_TRAIN_P,
+                                    extra=f" at its published widths, "
+                                    f"reduced: depth 32 -> "
+                                    f"{VLM_TRAIN_LAYERS} layers, remat "
+                                    f"block"),
+        "ssm": phase_train_recurrent(get_config(SSM_ARCH), "ssm", "block"),
+        "hybrid": phase_train_recurrent(get_config(HYBRID_ARCH), "hybrid",
+                                        "block"),
+    }
+    for arch in (ENCDEC_ARCH, VLM_ARCH, SSM_ARCH, HYBRID_ARCH):
+        family_train_agreement(arch)
+    torch.cuda.empty_cache()
+    for k, n in train_entries(runs).items():
+        counts[k] = counts.get(k, 0) + n
+
+
+def train_entries(runs):
+    """The kernels line's launches from phases 9d-9g, each as its phase's
+    wrappers counted it and at the shape its entry times: the flash
+    forward with lse and the backward of llava (``.vlm``) and of zamba2's
+    shared block (``.hybrid``); seamless's by site, the encoder's
+    (``.encoder``), the cross-attention's (``.cross``, site
+    ``cross_prefill``) and the rest, its decoder's self-attention
+    (``.decoder``); the SSD scan's training forward (``ssd_scan.train``)
+    and backward (``ssd_scan_bwd``) of mamba2, and zamba2's
+    (``.hybrid``)."""
+    enc = runs["encdec"]
+    out = {}
+    for kern in ("flash_attention.train", "flash_attention_bwd"):
+        out[f"{kern}.vlm"] = runs["vlm"][kern]
+        out[f"{kern}.hybrid"] = runs["hybrid"][kern]
+        out[f"{kern}.encoder"] = enc[f"{kern}.encoder"]
+        out[f"{kern}.cross"] = enc[f"{kern}.cross_prefill"]
+        out[f"{kern}.decoder"] = (enc[kern] - enc[f"{kern}.encoder"]
+                                  - enc[f"{kern}.cross_prefill"])
+    for kern in ("ssd_scan.train", "ssd_scan_bwd"):
+        key = kern.split(".")[0]
+        out[kern] = runs["ssm"][key]
+        out[f"{kern}.hybrid"] = runs["hybrid"][key]
+    return out
+
+
 def family_entries(vlm, encdec, dense):
     """Launch counts of the kernels line's entries from phases 4g-4i, each
     at the shapes its entry times: llava's prefill flash
@@ -3061,8 +3619,10 @@ def main() -> int:
     for k, n_launch in rest.items():
         counts[k] = counts.get(k, 0) + n_launch
     phase_train_kernels(results)
+    phase_family_train_kernels(results)
     counts.update(phase_train(cfg))
     phase_train_agreement()
+    phase_train_families(counts)
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

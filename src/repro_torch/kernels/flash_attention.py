@@ -33,9 +33,13 @@ its backward is ``csrc/flash_attention_bwd.cu``
 ``flash_attention_bwd.launches``: one per call, however many launches it
 makes (bf16 at head dims 32-128: dQ, which also writes D, then dK / dV
 in thread-block clusters on ``wgmma``; otherwise the D pre-pass, dK / dV
-and dQ on CUDA cores).  Training takes queries at positions 0 .. Tq - 1
-(no ``q_offset``, no ``kv_len``), equal key and value widths and bf16 or
-f32.  Serving calls run under ``no_grad`` and never take this path.
+and dQ on CUDA cores).  A differentiated call that names its site (the
+encoder, or ``cross_prefill`` for the decoder's rows over the whole
+memory) also counts under ``flash_attention_lse.site_launches[site]`` and
+``flash_attention_bwd.site_launches[site]``, never under the serving
+call's.  Training takes queries at positions 0 .. Tq - 1 (no
+``q_offset``, no ``kv_len``), equal key and value widths and bf16 or f32.
+Serving calls run under ``no_grad`` and never take this path.
 """
 
 from __future__ import annotations
@@ -63,10 +67,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         raise ValueError(f"unknown flash-attention site {site!r}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q_offset or kv_len is not None or site is not None:
+        if q_offset or kv_len is not None:
             raise ValueError("a differentiated flash attention takes no "
-                             "q_offset, kv_len or site")
-        return FlashAttentionFn.apply(q, k, v, causal, scale)
+                             "q_offset or kv_len")
+        return FlashAttentionFn.apply(q, k, v, causal, scale, site)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_len=kv_len,
@@ -98,10 +102,14 @@ flash_attention.launches = 0
 flash_attention.site_launches = dict.fromkeys(SITES, 0)
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
+                        site=None):
     """The training forward: (o, lse) with lse f32 [B, H, Tq] each row's
     log-sum-exp of its scaled scores; on the card ``o`` is bit for bit the
-    serving call's.  Queries at positions 0 .. Tq - 1."""
+    serving call's.  Queries at positions 0 .. Tq - 1; ``site`` one of
+    :data:`SITES` or None."""
+    if site is not None and site not in SITES:
+        raise ValueError(f"unknown flash-attention site {site!r}")
     if q.device.type == "cpu":
         return ref.flash_attention_lse_ref(q, k, v, causal=causal,
                                            scale=scale)
@@ -123,20 +131,25 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None):
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_fwd")
     flash_attention_lse.launches += 1
+    if site is not None:
+        flash_attention_lse.site_launches[site] += 1
     return o, lse
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.site_launches = dict.fromkeys(SITES, 0)
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        scale=None):
+                        scale=None, site=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention_lse`'s ``o`` given
     its gradient ``do``, in the inputs' dtypes.  Deterministic on the card
     (no atomics; the query heads' dK / dV partials are summed in a fixed
     order): two calls on the same inputs give the same bits.  A refused
     launch (a cluster the card cannot place, a tensor map it cannot
-    encode) raises."""
+    encode) raises.  ``site``: as :func:`flash_attention_lse`'s."""
+    if site is not None and site not in SITES:
+        raise ValueError(f"unknown flash-attention site {site!r}")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                            causal=causal, scale=scale)
@@ -168,29 +181,35 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    if site is not None:
+        flash_attention_bwd.site_launches[site] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.site_launches = dict.fromkeys(SITES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its hand-written backward (queries at
-    positions 0 .. Tq - 1).  Saves q, k, v, o and lse."""
+    positions 0 .. Tq - 1).  Saves q, k, v, o and lse; both passes count
+    under the call's site."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, site):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                     site=site)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.site = causal, scale, site
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         site=ctx.site)
+        return dq, dk, dv, None, None, None
 
 
 def _check_train_inputs(q, k, v) -> None:

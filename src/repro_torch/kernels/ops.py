@@ -4,9 +4,12 @@ Counterpart of the reference's ``kernels/ops.py``.  The reference picks its
 path with ``use_pallas``; here the tensors' device picks it: CPU tensors run
 each kernel's plain version, CUDA tensors launch the hand-written kernel
 (or raise).  :func:`launch_counts` reads every serving kernel's launch
-counter, :func:`flash_site_counts` the flash kernel's by call site and
+counter, :func:`flash_site_counts` the flash kernel's by call site,
 :func:`train_launch_counts` the training kernels' (the flash forward with
-its log-sum-exp, and the flash backward).
+its log-sum-exp, the flash backward and the SSD-scan backward; the SSD
+scan's training forward is the serving call and counts under
+``ssd_scan``) and :func:`train_site_counts` the training flash kernels'
+by call site.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.kernels.paged_attention import (
     fused_paged_attention_kernel,
     paged_attention_kernel,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
 KERNELS = ("paged_attention.page", "paged_attention.frame",
            "paged_attention.fused", "page_gather", "page_scatter",
@@ -81,11 +84,23 @@ def flash_site_counts() -> Dict[str, int]:
 
 def train_launch_counts() -> Dict[str, int]:
     """Training kernels' launches since the last :func:`reset_launch_counts`:
-    the flash forward with its log-sum-exp (``flash_attention.train``) and
-    the flash backward (``flash_attention_bwd``, one per call of its three
-    launches)."""
+    the flash forward with its log-sum-exp (``flash_attention.train``), the
+    flash backward (``flash_attention_bwd``) and the SSD-scan backward
+    (``ssd_scan_bwd``), each one per call whatever its launches."""
     return {"flash_attention.train": flash_attention_lse.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "ssd_scan_bwd": ssd_scan_bwd.launches}
+
+
+def train_site_counts() -> Dict[str, int]:
+    """The training flash kernels' launches by call site
+    (``flash_attention.train.<site>``, ``flash_attention_bwd.<site>``) since
+    the last :func:`reset_launch_counts`; each is also in
+    ``train_launch_counts()``'s entry of its kernel."""
+    return {**{f"flash_attention.train.{k}": n
+               for k, n in flash_attention_lse.site_launches.items()},
+            **{f"flash_attention_bwd.{k}": n
+               for k, n in flash_attention_bwd.site_launches.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -101,11 +116,16 @@ def reset_launch_counts() -> None:
     ssd_scan.launches = 0
     flash_attention_lse.launches = 0
     flash_attention_bwd.launches = 0
+    for fn in (flash_attention_lse, flash_attention_bwd):
+        fn.site_launches = dict.fromkeys(fn.site_launches, 0)
+    ssd_scan_bwd.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "fused_paged_attention_kernel",
            "combine_granularities", "page_gather", "page_scatter",
-           "page_compact", "flash_attention", "ssd_scan", "launch_counts",
+           "page_compact", "flash_attention", "ssd_scan", "ssd_scan_bwd",
+           "launch_counts",
            "flash_attention_lse", "flash_attention_bwd", "flash_site_counts",
-           "train_launch_counts", "reset_launch_counts"]
+           "train_launch_counts", "train_site_counts",
+           "reset_launch_counts"]

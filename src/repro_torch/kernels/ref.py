@@ -184,3 +184,27 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", Cc, h_prev,
                          torch.exp(cum))
     return (y_diag + y_off).reshape(Bsz, T, nh, hd), h
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int, h0=None):
+    """Gradients of :func:`ssd_scan_ref`'s (y, h_final) given dy [B, T, nh,
+    hd] and dh [B, nh, hd, N] (None: zero), as the reference takes them:
+    the vector-Jacobian product of the chunked scan through autograd
+    (``jax.value_and_grad`` of ``ssd_chunked``, ``repro/models/mamba2.py``).
+    Returns (dx, d dt, dA, dB, dC, dh0) in the inputs' dtypes, dB / dC over
+    the [B, T, G, N] groups (summed over each group's heads); dh0 is None
+    without h0."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, dt, A, Bm, Cm) + ((h0,) if h0 is not None
+                                                 else ())]
+        y, h = ssd_scan_ref(*leaves[:5], chunk=chunk,
+                            h0=leaves[5] if h0 is not None else None)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g
+           for t, g in zip(leaves, got)]
+    return (*got[:5], got[5] if h0 is not None else None)

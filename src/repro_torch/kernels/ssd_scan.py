@@ -16,11 +16,13 @@ pass, chunk outputs; the last two start early as programmatic dependents,
 see the source's header); f32 is one.  ``ssd_scan.launches`` counts calls
 that launched.
 
-The scan has no backward yet: with grad mode on, a call on any input that
-requires a gradient raises ``ValueError`` on both devices, rather than
-return outputs that autograd cannot trace back through the kernel.  The
-models call it under ``no_grad`` (serving) and ``LM.loss`` refuses the ssm
-and hybrid families.
+Training: when grad mode is on and an input requires a gradient, the call
+runs :class:`SSDScanFn`, whose forward is the same call (so ``y`` and the
+final state are bit for bit the ``no_grad`` call's) and whose backward is
+:func:`ssd_scan_bwd`: on CUDA tensors ``csrc/ssd_scan_bwd.cu`` (seven
+launches, one count in ``ssd_scan_bwd.launches``), on CPU tensors the
+plain version :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  The
+backward takes the models' training shapes (:data:`BWD_DIMS`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from repro_torch.kernels import build, ref
 
 DIMS = (16, 32, 64, 128)   # head dims and state sizes the kernel takes
 MAX_CHUNK = 256
+# (head dim, state size) pairs the backward takes: mamba2-1.3b's and
+# zamba2-1.2b's, and the smoke configs'.
+BWD_DIMS = ((64, 128), (64, 64), (16, 16))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
@@ -43,9 +48,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, h0)):
-        raise ValueError("ssd_scan has no backward: call it under "
-                         "torch.no_grad() or on inputs that require no "
-                         "gradient")
+        return SSDScanFn.apply(x, dt, A, Bm, Cm, h0, chunk)
+    return _scan(x, dt, A, Bm, Cm, chunk, h0)
+
+
+def _scan(x, dt, A, Bm, Cm, chunk, h0):
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
@@ -82,6 +89,89 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int, h0=None):
+    """Gradients (dx, d dt, dA, dB, dC, dh0) of :func:`ssd_scan`'s (y,
+    h_final) given dy [B, T, nh, hd] f32 and dh [B, nh, hd, N] f32 (None:
+    zero), in the inputs' dtypes; dB / dC over the [B, T, G, N] groups;
+    dh0 None without h0.  Deterministic on the card (no atomics): two calls
+    give the same bits."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh, chunk=chunk,
+                                    h0=h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD-scan path for device {x.device}")
+    _check_inputs(x, dt, A, Bm, Cm, chunk, h0)
+    Bsz, T, nh, hd = x.shape
+    G, N = Bm.shape[2:]
+    if (hd, N) not in BWD_DIMS:
+        raise ValueError(f"the backward takes (head dim, state size) in "
+                         f"{BWD_DIMS}, not ({hd}, {N})")
+    for name, t, shape in (("dy", dy, x.shape),
+                           ("dh", dh, (Bsz, nh, hd, N))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(shape)} on {x.device}")
+    dev, f32 = x.device, torch.float32
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    nc = T // chunk
+    S, E = (torch.empty((Bsz, nc, nh, hd, N), dtype=f32, device=dev)
+            for _ in range(2))
+    cum_last, dA_part = (torch.empty((Bsz, nc, nh), dtype=f32, device=dev)
+                         for _ in range(2))
+    dBh, dCh = (torch.empty((Bsz, T, nh, N), dtype=f32, device=dev)
+                for _ in range(2))
+    rows = torch.empty((4, Bsz, nh, T), dtype=f32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    lib = _bwd_lib()
+    err = lib.ssd_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dh0),
+        S.data_ptr(), E.data_ptr(), cum_last.data_ptr(), dBh.data_ptr(),
+        dCh.data_ptr(), rows.data_ptr(), dA_part.data_ptr(), Bsz, T, nh, G,
+        hd, N, int(chunk), int(x.dtype == torch.float32),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with its backward (:func:`ssd_scan_bwd`).  Saves the
+    inputs: the backward recomputes the chunk states itself.  A missing
+    gradient of either output counts as zero (the final state's is unused
+    in training)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        y, h = _scan(x, dt, A, Bm, Cm, chunk, h0)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, dA, dB, dC, dh0 = ssd_scan_bwd(
+            x, dt, A, Bm, Cm, dy.contiguous(),
+            None if dh is None else dh.contiguous(), chunk=ctx.chunk, h0=h0)
+        return (dx, ddt, dA, dB, dC,
+                dh0 if ctx.needs_input_grad[5] else None, None)
 
 
 def _check_inputs(x, dt, A, Bm, Cm, chunk, h0) -> None:
@@ -135,6 +225,15 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk, h0) -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     return bind(build.library("ssd_scan"))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.library("ssd_scan_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [P] * 21 + [I] * 8 + [P]
+    lib.ssd_scan_bwd.restype = I
+    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -7,10 +7,16 @@ or preemption: ``--resume`` restores the newest complete checkpoint.  The
 reference's multi-device flags (``--parallelism`` other than megatron,
 ``--production-mesh``) raise until the port's multi-device work lands.
 
-On the card, qwen2.5-3b at its published width:
+On the card, qwen2.5-3b, mamba2-1.3b or zamba2-1.2b at its published
+width and depth:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --steps 6 --batch 2 --seq 2048
+
+The data is ``SyntheticLM``'s tokens, so the vlm and encdec families, whose
+loss also takes frontend embeddings, are refused here: train them through
+``make_train_step`` on batches that carry ``patch_embeds`` or
+``src_embeds`` (``chip_smoke.py`` phases 9d and 9e do).
 
 On the CPU (smoke-scale):
 
@@ -55,6 +61,12 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
+    if cfg.family in ("vlm", "encdec"):
+        need = "patch_embeds" if cfg.family == "vlm" else "src_embeds"
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) trains on batches with frontend "
+            f"embeddings ({need!r}) that SyntheticLM does not make: build "
+            f"them and call repro_torch.train.trainer.make_train_step")
     hp = TrainHParams(lr=args.lr, total_steps=args.steps,
                       microbatch=args.microbatch, remat=args.remat,
                       parallelism=args.parallelism)

@@ -11,6 +11,8 @@ device time by kernel per step, grouped (flash forward, flash backward,
 matrix products, the rest), and the device's busy share of an unprofiled
 step.  Then, on one more step's gradients, the optimizer alone (CUDA
 events): the global norm, and the whole AdamW update that includes it.
+For the ssm and hybrid families (``--arch mamba2-1.3b``, ``zamba2-1.2b``)
+the SSD scan's forward and backward kernels are groups of their own.
 
 Prints one JSON object as its last line.  Needs a CUDA device.
 """
@@ -28,6 +30,9 @@ import torch
 GROUPS = (("flash_forward", ("flash_attention_tc_kernel",
                              "flash_attention_kernel")),
           ("flash_backward", ("bwd_dkdv", "bwd_dq", "bwd_rowdot")),
+          ("ssd_backward", ("ssd_bwd_",)),
+          ("ssd_forward", ("ssd_states_kernel", "ssd_pass_kernel",
+                           "ssd_out_kernel", "ssd_scan_f32_kernel")),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 

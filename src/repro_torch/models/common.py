@@ -4,15 +4,19 @@ The reference draws from ``jax.random``; the port draws the same
 distributions from an explicit ``torch.Generator``, so the numbers differ
 from the reference's for the same seed.  Tests that compare the two
 packages load the reference's weights through :mod:`repro_torch.bridge`
-instead of re-drawing them.
+instead of re-drawing them.  :func:`unbind_layers` gives training its
+per-layer weight trees, and :func:`layer_remat` and :data:`ckpt` its
+per-layer activation recomputation.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
@@ -46,3 +50,40 @@ def embed_init_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     with torch.no_grad():
         t.copy_(w.mul_(0.02))
     return t
+
+
+def unbind_layers(named: Iterable[Tuple[str, torch.Tensor]], dtype,
+                  n: int) -> List[Dict[str, object]]:
+    """Per-layer weight trees of ``n`` layers from (name, weight [n, ...])
+    pairs: ``ln1`` and ``attn.wq`` of layer l land at ``tree["ln1"]`` and
+    ``tree["attn"]["wq"]``.  Each weight is cast to ``dtype`` once and
+    unbound along its layer axis, so its gradient comes back as one
+    stacked tensor; indexing the stacked weight per layer would make
+    autograd build a full-size zero gradient for every layer (the
+    reference casts its fp32 params at the loss's entry)."""
+    per_layer: List[Dict[str, object]] = [{} for _ in range(n)]
+    for name, w in named:
+        group, _, leaf = name.rpartition(".")
+        for lp, wl in zip(per_layer, w.to(dtype).unbind(0)):
+            (lp.setdefault(group, {}) if group else lp)[leaf] = wl
+    return per_layer
+
+
+REMAT = (False, True, "none", "block", "save_collectives")
+
+
+def layer_remat(remat) -> bool:
+    """Whether a training stack recomputes each layer in the backward:
+    every value of :data:`REMAT` except False and "none" (the reference's
+    stacks other than the dense one wrap each layer in ``jax.checkpoint``
+    when ``remat`` is truthy, so "save_collectives" recomputes whole
+    layers there)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not one of {REMAT}")
+    return remat not in (False, "none")
+
+
+# Per-layer activation recomputation (non-reentrant, no RNG state: the
+# layers draw no random numbers).
+ckpt = functools.partial(checkpoint, use_reentrant=False,
+                         preserve_rng_state=False)

@@ -23,8 +23,15 @@ Parameter names follow the reference's tree (``encoder.attn.wq``,
 ``decoder.ln_cross``, ``decoder.cross.wk``, ``enc_norm``, ...): the
 encoder is a dense :class:`~repro_torch.models.transformer.DecoderParams`
 stack, and :class:`CrossDecoderParams` adds ``ln_cross`` and ``cross`` to
-one.  The flash calls name their site (``encoder``, ``cross_prefill``,
-``cross_decode``), so the launch counters tell them apart.
+one.  The encoder's and the cross-attention's flash calls name their site
+(``encoder``, ``cross_prefill``, ``cross_decode``), so the launch counters
+tell them apart.  Training (:func:`encoder_apply` over the encoder's
+per-layer trees and :func:`decoder_stack_train`) follows the reference's
+``encoder_apply`` and ``decoder_stack_train``; its flash calls run the
+differentiated wrapper, which counts them under ``flash_attention.train``
+and ``flash_attention_bwd``, the encoder's and the cross-attention's
+(site ``cross_prefill``: the decoder's rows over the whole memory) also
+by site.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import empty_param
+from repro_torch.models.common import ckpt, empty_param, layer_remat
 from repro_torch.models.layers import head_proj, out_proj, rms_norm
 from repro_torch.models.page_ops import PageCtx, prefill_write_op
 from repro_torch.models.transformer import (
@@ -43,6 +50,7 @@ from repro_torch.models.transformer import (
     DecoderParams,
     attn_block_decode,
     attn_block_prefill,
+    attn_block_train,
     ffn_block,
 )
 
@@ -70,19 +78,30 @@ class CrossDecoderParams(DecoderParams):
         return out
 
 
-def encoder_apply(cfg: ModelConfig, params: DecoderParams, enc_norm, src):
-    """src [B, S, d] frame embeddings (projected) -> memory [B, S, d]."""
+def encoder_apply(cfg: ModelConfig, layers, enc_norm, src, *,
+                  remat=False):
+    """src [B, S, d] frame embeddings (projected) -> memory [B, S, d].
+
+    ``layers``: the encoder's per-layer weight trees (serving:
+    :meth:`DecoderParams.layer` of each layer; training:
+    :meth:`DecoderParams.train_layers`), each layer recomputed in the
+    backward unless ``remat`` is False or "none".  The flash calls count
+    under the ``encoder`` site."""
     B, S, _ = src.shape
     positions = torch.arange(S, device=src.device)[None].expand(B, S)
-    x = src
-    for l in range(params.n_layers):
-        lp = params.layer(l)
+
+    def layer(lp, x):
         x = x + attn_block_prefill(cfg, lp["attn"],
                                    rms_norm(x, lp["ln1"], cfg.norm_eps),
                                    positions, causal=False,
                                    site="encoder")[0]
-        x = x + ffn_block(cfg, lp["mlp"],
-                          rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x + ffn_block(cfg, lp["mlp"],
+                             rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+    x = src
+    on = layer_remat(remat)
+    for lp in layers:
+        x = ckpt(layer, lp, x) if on else layer(lp, x)
     return rms_norm(x, enc_norm, cfg.norm_eps)
 
 
@@ -122,6 +141,28 @@ def decoder_stack_prefill(cfg: ModelConfig, params: CrossDecoderParams, x,
         cks.append(ck)
         cvs.append(cv)
     return x, pools, (torch.stack(cks), torch.stack(cvs))
+
+
+def decoder_stack_train(cfg: ModelConfig, layers, x, positions, memory, *,
+                        remat=True):
+    """The decoder's training forward over its per-layer trees
+    (:meth:`CrossDecoderParams.train_layers`): causal self-attention,
+    cross-attention to ``memory`` [B, S, d] (non-causal, all S rows), then
+    SwiGLU; each layer recomputed in the backward unless ``remat`` is
+    False or "none".  The cross-attention counts under the
+    ``cross_prefill`` site, the self-attention under none."""
+
+    def layer(lp, x, memory):
+        a = attn_block_train(cfg, lp["attn"],
+                             rms_norm(x, lp["ln1"], cfg.norm_eps),
+                             positions)[0]
+        ck, cv = cross_kv(lp["cross"], memory)
+        return _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill")
+
+    on = layer_remat(remat)
+    for lp in layers:
+        x = ckpt(layer, lp, x, memory) if on else layer(lp, x, memory)
+    return x
 
 
 def decoder_stack_decode(cfg: ModelConfig, params: CrossDecoderParams, x,

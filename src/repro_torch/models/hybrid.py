@@ -1,6 +1,8 @@
 """Zamba2-style hybrid: Mamba-2 backbone plus one shared attention block.
 
-Counterpart of the reference's ``models/hybrid.py`` for serving.
+Counterpart of the reference's ``models/hybrid.py``: prefill, decode and
+the training stack (:func:`hybrid_stack_train`, without remat, as the
+reference).
 ``n_layers`` Mamba-2 blocks; after every ``period`` of them a *single
 shared* transformer block (attention + MLP, the same weights at each
 invocation) runs.  Its KV cache is Mosaic-paged with one pool slice per
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import empty_param
+from repro_torch.models.common import empty_param, unbind_layers
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import (
     MambaParams,
@@ -38,6 +40,7 @@ from repro_torch.models.transformer import (
     FFNParams,
     attn_block_decode,
     attn_block_prefill,
+    attn_block_train,
     ffn_block,
 )
 
@@ -103,6 +106,31 @@ class HybridParams(nn.Module):
                 "attn": dict(sp.attn.named_parameters()),
                 "mlp": dict(sp.mlp.named_parameters())}
 
+    def train_tree(self, dtype):
+        """The training forward's weights, as :meth:`mamba_layers` and
+        :meth:`shared_tree` give them, cast to ``dtype``: the grouped and
+        tail Mamba-2 weights each cast once and unbound along their layer
+        axes (:func:`unbind_layers`), the shared block's cast once (its
+        gradient sums over the G invocations).  Returns (groups, tail,
+        shared)."""
+        G, period = self.mamba_ln.shape[:2]
+        flat = unbind_layers(
+            [("ln", self.mamba_ln.flatten(0, 1))]
+            + [(n, p.flatten(0, 1)) for n, p in self.mamba.named_parameters()],
+            dtype, G * period)
+        groups = [[(lp, lp.pop("ln")) for lp in flat[g * period:
+                                                    (g + 1) * period]]
+                  for g in range(G)]
+        tail = []
+        if hasattr(self, "tail"):
+            tail = [(lp, lp.pop("ln")) for lp in unbind_layers(
+                [("ln", self.tail_ln), *self.tail.named_parameters()], dtype,
+                self.tail_ln.shape[0])]
+        shared = {k: ({n: w.to(dtype) for n, w in v.items()}
+                      if isinstance(v, dict) else v.to(dtype))
+                  for k, v in self.shared_tree().items()}
+        return groups, tail, shared
+
     def mamba_layers(self):
         """(layer weights, norm weight) of every Mamba-2 layer in order,
         grouped: G groups of ``period``, then the tail (possibly empty)."""
@@ -124,6 +152,31 @@ def _shared_block_prefill(cfg: ModelConfig, sp, x, positions, pools,
     x = x + a
     return x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
                                                   cfg.norm_eps))
+
+
+def _shared_block_train(cfg: ModelConfig, sp, x, positions):
+    """The shared block's training forward (the reference's, without
+    pools)."""
+    h = rms_norm(x, sp["ln1"], cfg.norm_eps)
+    x = x + attn_block_train(cfg, sp["attn"], h, positions)[0]
+    return x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
+                                                  cfg.norm_eps))
+
+
+def hybrid_stack_train(cfg: ModelConfig, tree, x, positions):
+    """The hybrid stack's training forward over the weights of
+    :meth:`HybridParams.train_tree`.  Nothing is recomputed in the
+    backward: the reference's ``LM.loss`` passes no ``remat`` to its
+    ``hybrid_stack_train``, whose Mamba-2 scans and shared block keep
+    every activation, and the port keeps that behaviour."""
+    groups, tail, sp = tree
+    for group in groups:
+        for lp, ln in group:
+            x = x + mamba_block_train(cfg, lp, rms_norm(x, ln, cfg.norm_eps))
+        x = _shared_block_train(cfg, sp, x, positions)
+    for lp, ln in tail:
+        x = x + mamba_block_train(cfg, lp, rms_norm(x, ln, cfg.norm_eps))
+    return x
 
 
 def hybrid_stack_prefill(cfg: ModelConfig, params: HybridParams, x,

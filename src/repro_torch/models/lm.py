@@ -20,8 +20,8 @@ The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
 the port's serving LM stores every weight once in ``cfg.dtype``.  For
 training, ``LM(cfg, master=True)`` holds them as fp32 master weights with
 gradients enabled, and :meth:`LM.loss` casts them to ``cfg.dtype`` at its
-entry, as the reference's loss does (dense family; the others follow in
-later slices).  Parameter names follow
+entry, as the reference's loss does (every family but moe, whose MoE and
+MLA layers follow in a later slice).  Parameter names follow
 the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
 ``decoder_prefix.mlp.w_up``, ``decoder.moe.router``, ``decoder.mamba.w_in``,
 ...), so :func:`repro_torch.bridge.params_from_jax` maps one onto the other.
@@ -196,6 +196,12 @@ class LM(nn.Module):
         return embeds.to(device=like.device, dtype=like.dtype) \
             @ self.frontend_proj
 
+    def _frontend_train(self, embeds, dtype):
+        """The training forward's frontend: ``embeds @ frontend_proj``, both
+        in ``dtype``, ``frontend_proj`` differentiated."""
+        e = torch.as_tensor(embeds).to(self.embed.device, dtype)
+        return e @ self.frontend_proj.to(dtype)
+
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -204,26 +210,51 @@ class LM(nn.Module):
     # ------------------------------------------------------------- train
 
     def loss(self, batch, *, remat=True):
-        """The reference's training loss on ``batch["tokens"]`` [B, T]: the
-        weights cast to ``cfg.dtype``, the stack's training forward
-        (:func:`decoder_stack_train`, ``remat`` as there), logits through
-        the tied ``embed`` or ``unembed``, and the masked mean NLL of each
-        next token over ``log_softmax`` in f32.  Returns (total, {"nll",
-        "aux", "tokens"}); differentiate ``total``."""
+        """The reference's training loss on ``batch["tokens"]`` [B, T] (vlm
+        also takes ``batch["patch_embeds"]`` [B, P, d], encdec
+        ``batch["src_embeds"]`` [B, S, d]): the weights cast to
+        ``cfg.dtype``, the family's training stack (``remat`` as
+        :func:`decoder_stack_train`'s; the hybrid stack recomputes nothing,
+        as the reference), logits through the tied ``embed`` or
+        ``unembed`` for the token positions only, and the masked mean NLL of
+        each next token over ``log_softmax`` in f32.  Returns (total,
+        {"nll", "aux", "tokens"}); differentiate ``total``."""
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family == "moe" or cfg.mla is not None:
             raise NotImplementedError(
-                f"training of the {cfg.family} family is not ported yet "
-                f"(ROADMAP Queue 1 item 5)")
+                f"training of the {cfg.family} family (MoE and MLA layers) "
+                f"is not ported yet (ROADMAP Queue 1 item 5c)")
         dtype = getattr(torch, cfg.dtype)
         dev = self.embed.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
         B, T = tokens.shape
         embed = self.embed.to(dtype)
         x = F.embedding(tokens, embed)
-        positions = torch.arange(T, device=dev)[None].expand(B, T)
-        x, aux = decoder_stack_train(cfg, self.decoder.train_layers(dtype),
-                                     x, positions, remat=remat)
+        n_prefix = 0
+        if cfg.family == "vlm":
+            pe = self._frontend_train(batch["patch_embeds"], dtype)
+            x = torch.cat([pe, x], dim=1)
+            n_prefix = pe.shape[1]
+        positions = torch.arange(x.shape[1], device=dev)[None].expand(
+            B, x.shape[1])
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        if cfg.family == "encdec":
+            memory = ed.encoder_apply(
+                cfg, self.encoder.train_layers(dtype), self.enc_norm.to(dtype),
+                self._frontend_train(batch["src_embeds"], dtype), remat=remat)
+            x = ed.decoder_stack_train(cfg, self.decoder.train_layers(dtype),
+                                       x, positions, memory, remat=remat)
+        elif cfg.family == "ssm":
+            x = m2.ssm_stack_train(cfg, self.decoder.train_layers(dtype), x,
+                                   remat=remat)
+        elif cfg.family == "hybrid":
+            x = hy.hybrid_stack_train(cfg, self.decoder.train_tree(dtype), x,
+                                      positions)
+        else:
+            x, aux = decoder_stack_train(cfg,
+                                         self.decoder.train_layers(dtype),
+                                         x, positions, remat=remat)
+        x = x[:, n_prefix:]
         x = rms_norm(x, self.final_norm.to(dtype), cfg.norm_eps)
         w = embed.T if cfg.tie_embeddings else self.unembed.to(dtype)
         logits = (x @ w).float()
@@ -287,7 +318,8 @@ class LM(nn.Module):
         state: Dict[str, torch.Tensor] = {}
         if self.cfg.family == "encdec":
             memory = ed.encoder_apply(
-                self.cfg, self.encoder, self.enc_norm,
+                self.cfg, map(self.encoder.layer,
+                              range(self.encoder.n_layers)), self.enc_norm,
                 self._frontend(batch["src_embeds"], x))
             x, pools, (state["cross_k"], state["cross_v"]) = \
                 ed.decoder_stack_prefill(self.cfg, self.decoder, x,

@@ -1,7 +1,7 @@
 """Mamba-2 (SSD, state-space duality) blocks: chunked prefill scan and decode.
 
-Counterpart of the reference's ``models/mamba2.py`` for serving (prefill and
-the recurrent decode step; training comes with a later slice).  Per chunk
+Counterpart of the reference's ``models/mamba2.py``: prefill, the recurrent
+decode step and the training stack (:func:`ssm_stack_train`).  Per chunk
 the scan is a quadratic, attention-like intra-chunk term plus an
 inter-chunk linear recurrence on the [heads, head_dim, d_state] state;
 :func:`ssd_chunked` runs it through the port's SSD-scan kernel (its plain
@@ -21,7 +21,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.common import dense_init_, empty_param
+from repro_torch.models.common import (
+    ckpt,
+    dense_init_,
+    empty_param,
+    layer_remat,
+    unbind_layers,
+)
 from repro_torch.models.layers import rms_norm
 
 
@@ -96,6 +102,11 @@ class SSMStackParams(nn.Module):
     @property
     def n_layers(self) -> int:
         return self.ln.shape[0]
+
+    def train_layers(self, dtype):
+        """Every layer's ``{"ln", "mamba": {...}}`` tree, each stacked
+        weight cast to ``dtype`` once (:func:`unbind_layers`)."""
+        return unbind_layers(self.named_parameters(), dtype, self.n_layers)
 
 
 # ------------------------------------------------------------------ block
@@ -216,6 +227,24 @@ def mamba_block_decode(cfg: ModelConfig, p, x, h, conv_cache):
 
 
 # ------------------------------------------------------------------ stack
+
+
+def _ssm_layer_train(cfg: ModelConfig, lp, x):
+    return x + mamba_block_train(cfg, lp["mamba"],
+                                 rms_norm(x, lp["ln"], cfg.norm_eps))
+
+
+def ssm_stack_train(cfg: ModelConfig, layers, x, *, remat=True):
+    """The ssm stack's training forward over its per-layer trees
+    (:meth:`SSMStackParams.train_layers`), each layer recomputed in the
+    backward unless ``remat`` is False or "none" (the reference's
+    ``ssm_stack_train``).  Under grad mode each layer's scan runs
+    :class:`~repro_torch.kernels.ssd_scan.SSDScanFn`."""
+    on = layer_remat(remat)
+    for lp in layers:
+        x = ckpt(_ssm_layer_train, cfg, lp, x) if on \
+            else _ssm_layer_train(cfg, lp, x)
+    return x
 
 
 def ssm_stack_prefill(cfg: ModelConfig, params: SSMStackParams, x):

@@ -35,11 +35,16 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init_, empty_param
+from repro_torch.models.common import (
+    ckpt,
+    dense_init_,
+    empty_param,
+    layer_remat,
+    unbind_layers,
+)
 from repro_torch.models.layers import (
     apply_rope,
     gqa_qkv,
@@ -156,19 +161,10 @@ class DecoderParams(nn.Module):
         return self.ln1.shape[0]
 
     def train_layers(self, dtype) -> List[Dict[str, object]]:
-        """Every layer's weights as :meth:`layer`'s tree, cast to ``dtype``
-        (the reference casts its fp32 params at the loss's entry).  Each
-        stacked weight is cast once and unbound along the layer axis, so
-        its gradient comes back as one stacked tensor; indexing the stacked
-        weight per layer would make autograd build a full-size zero
-        gradient for every layer."""
-        per_layer = [{"attn": {}, self.ffn_name: {}}
-                     for _ in range(self.n_layers)]
-        for name, w in self.named_parameters():
-            group, _, leaf = name.rpartition(".")
-            for lp, wl in zip(per_layer, w.to(dtype).unbind(0)):
-                (lp[group] if group else lp)[leaf] = wl
-        return per_layer
+        """Every layer's weights as :meth:`layer`'s tree (with a subclass's
+        groups, e.g. encdec's ``cross`` and ``ln_cross``), cast to
+        ``dtype``, each stacked weight once (:func:`unbind_layers`)."""
+        return unbind_layers(self.named_parameters(), dtype, self.n_layers)
 
 
 # ------------------------------------------------------------------ attention
@@ -284,9 +280,6 @@ def layer_ffn(cfg: ModelConfig, lp, x):
 
 # ------------------------------------------------------------------ stack
 
-REMAT = (False, True, "none", "block", "save_collectives")
-
-
 def _attn_train(cfg: ModelConfig, lp, x, positions):
     """The layer's attention block on the residual stream x."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -318,14 +311,11 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
     skips their tensor-parallel all-reduces.  On one device there is no
     all-reduce, and each block is recomputed with "block"'s arithmetic.
     """
-    if remat not in REMAT:
-        raise ValueError(f"remat {remat!r} not one of {REMAT}")
+    layer_remat(remat)
     if cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
             "training of MoE and MLA layers is not ported yet (ROADMAP "
             "Queue 1 item 5c)")
-    ckpt = functools.partial(checkpoint, use_reentrant=False,
-                             preserve_rng_state=False)
     for lp in params:
         if remat == "save_collectives":
             x = x + ckpt(_attn_train, cfg, lp, x, positions)
@@ -335,7 +325,6 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
         else:
             x = _layer_train(cfg, lp, x, positions)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
-
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,

@@ -38,8 +38,10 @@ _MULTI_DEVICE = "waits for multi-device training (ROADMAP Queue 1 item 6)"
 
 def make_train_step(lm: LM, hp: TrainHParams) -> Callable:
     """Returns ``step(opt_state, batch) -> (opt_state, metrics)``: one
-    optimizer step on ``lm``'s master weights, updated in place; metrics
-    hold 0-d tensors ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr``."""
+    optimizer step on ``lm``'s master weights, updated in place; ``batch``
+    maps names to tensors or arrays with the batch on dim 0 (``tokens``,
+    and vlm's ``patch_embeds`` or encdec's ``src_embeds``); metrics hold
+    0-d tensors ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr``."""
     if hp.grad_compress:
         raise NotImplementedError(f"grad_compress {_MULTI_DEVICE}")
     if hp.parallelism != "megatron":
@@ -50,17 +52,20 @@ def make_train_step(lm: LM, hp: TrainHParams) -> Callable:
     n_micro = hp.microbatch if hp.microbatch and hp.microbatch > 1 else 1
 
     def train_step(opt, batch):
-        tokens = torch.as_tensor(batch["tokens"])
-        if tokens.shape[0] % n_micro:
-            raise ValueError(f"batch {tokens.shape[0]} does not split into "
-                             f"{n_micro} microbatches")
-        mb = tokens.shape[0] // n_micro
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        if B % n_micro:
+            raise ValueError(f"batch {B} does not split into {n_micro} "
+                             f"microbatches")
+        mb = B // n_micro
         for p in params.values():
             p.grad = None
         lsum = None
         for i in range(n_micro):
-            loss, aux = lm.loss({"tokens": tokens[i * mb:(i + 1) * mb]},
-                                remat=remat)
+            # Every key of the batch (tokens, patch_embeds, src_embeds) is
+            # cut along dim 0, as the reference's _accum_grads does.
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, aux = lm.loss(micro, remat=remat)
             loss.backward()     # the f32 grads accumulate across micros
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
         grads = {n: p.grad for n, p in params.items()}
@@ -83,7 +88,10 @@ class Trainer:
     Weights: ``params`` (a state_dict, e.g. ``bridge.params_from_jax`` of
     the reference's ``LM.init``) or drawn from ``generator`` (default: a
     generator on ``device`` seeded with ``seed``).  Data: ``SyntheticLM``
-    from ``seed``, as the reference's.
+    from ``seed``, as the reference's: tokens only, so the families that
+    also take frontend embeddings (vlm, encdec) train through
+    :func:`make_train_step` on batches their caller builds, as the
+    reference trains them through ``LM.loss``.
     """
 
     def __init__(self, cfg: ModelConfig, hp: TrainHParams,

@@ -10,7 +10,8 @@ imports JAX and the reference package).  Every test here is marked
 Tolerances: normalized attention (decode and prefill) 2e-2 for bf16 and
 2e-5 for f32 inputs, as tests/test_kernels.py (other summation order and
 rounding points); the f32 accumulators m and l 1e-5; the SSD scan 3e-2
-for bf16 and 2e-4 for f32 inputs, as tests/test_kernels.py; copies exact.
+for bf16 and 2e-4 for f32 inputs, as tests/test_kernels.py; its backward
+2e-2 (bf16) and 2e-5 (f32) of each gradient's scale; copies exact.
 The fused gather-attend kernel is also held bitwise to the page kernel
 where it reads the same bytes, the flash kernel's suffix rows bitwise to
 its full rows, and the SSD scan bitwise to itself: grouped B / C against
@@ -1440,5 +1441,128 @@ def test_cuda_trainer_step_matches_the_cpu(cuda_device):
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
     assert c_gpu == {"flash_attention.train": 2 * 2 * cfg.n_layers,
-                     "flash_attention_bwd": 2 * cfg.n_layers}
-    assert c_cpu == {"flash_attention.train": 0, "flash_attention_bwd": 0}
+                     "flash_attention_bwd": 2 * cfg.n_layers,
+                     "ssd_scan_bwd": 0}
+    assert c_cpu == {"flash_attention.train": 0, "flash_attention_bwd": 0,
+                     "ssd_scan_bwd": 0}
+
+
+# ------------------------------------------------------- SSD-scan backward
+
+
+def _ssd_bwd_case(dev, B, T, nh, hd, N, G, dtype, with_h0, with_dh, seed=43):
+    """_ssd_case's inputs with B / C as G groups, plus dy and (with_dh) the
+    final state's gradient, f32."""
+    x, dt, A, Bm, Cm, h0 = _ssd_case(dev, B, T, nh, hd, N, dtype, with_h0,
+                                     seed)
+    Bm, Cm = (t[:, :, :G].contiguous() for t in (Bm, Cm))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((B, T, nh, hd), generator=gen, device=dev)
+    dh = torch.randn((B, nh, hd, N), generator=gen, device=dev) \
+        if with_dh else None
+    return (x, dt, A, Bm, Cm, h0), dy, dh
+
+
+def _check_scaled(got, want, tol, what):
+    """|got - want| <= tol * max |want|, each gradient at its own scale."""
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                          want):
+        if w is None:
+            assert g is None, (what, name)
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert bool(torch.isfinite(g.float()).all()), (what, name)
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= tol * scale, (what, name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd,N,Q", [(64, 128, 256), (64, 64, 256),
+                                    (16, 16, 32), (64, 64, 48),
+                                    (64, 128, 96)])
+def test_cuda_ssd_scan_bwd_matches_plain(cuda_device, hd, N, Q, dtype,
+                                         grouped, with_h0):
+    """The hand-written backward against its plain version (autograd
+    through ``ssd_scan_ref`` on the card) over three chunks and four heads,
+    B / C as one group or head-expanded, with and without h0 and the final
+    state's gradient: 2e-2 of each gradient's scale for bf16 inputs, 2e-5
+    for f32 (f32 sums in another order); two calls bit for bit."""
+    tdt = getattr(torch, dtype)
+    nh = 4
+    G = 1 if grouped else nh
+    args, dy, dh = _ssd_bwd_case(cuda_device, 2, 3 * Q, nh, hd, N, G, tdt,
+                                 with_h0, with_dh=with_h0)
+    x, dt, A, Bm, Cm, h0 = args
+    before = ops.train_launch_counts()["ssd_scan_bwd"]
+    got = ops.ssd_scan_bwd(*args[:5], dy, dh, chunk=Q, h0=h0)
+    again = ops.ssd_scan_bwd(*args[:5], dy, dh, chunk=Q, h0=h0)
+    want = ref.ssd_scan_bwd_ref(*args[:5], dy, dh, chunk=Q, h0=h0)
+    torch.cuda.synchronize()
+    assert ops.train_launch_counts()["ssd_scan_bwd"] == before + 2
+    _check_scaled(got, want, 2e-2 if dtype == "bfloat16" else 2e-5,
+                  (hd, N, Q, dtype, G, with_h0))
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_ssd_scan_autograd_forward_bitwise_and_grads(cuda_device,
+                                                          dtype):
+    """Under grad mode ``ops.ssd_scan`` runs SSDScanFn: its outputs are bit
+    for bit the ``no_grad`` call's, and autograd's gradients of a loss on
+    y alone are the backward's with dh = 0."""
+    tdt = getattr(torch, dtype)
+    args, dy, _ = _ssd_bwd_case(cuda_device, 2, 512, 4, 64, 64, 1, tdt,
+                                True, False)
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h = ops.ssd_scan(*leaves[:5], chunk=256, h0=leaves[5])
+    with torch.no_grad():
+        y0, h0_ = ops.ssd_scan(*args[:5], chunk=256, h0=args[5])
+    assert torch.equal(y.detach(), y0) and torch.equal(h.detach(), h0_)
+    assert "SSDScanFn" in type(y.grad_fn).__name__
+    (y * dy).sum().backward()
+    want = ops.ssd_scan_bwd(*args[:5], dy, None, chunk=256, h0=args[5])
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_refuses_what_it_does_not_take(cuda_device):
+    """Head dim / state size pairs outside BWD_DIMS, a dy that is not f32
+    and a dh of the wrong shape raise."""
+    args, dy, dh = _ssd_bwd_case(cuda_device, 1, 64, 2, 32, 32, 1,
+                                 torch.float32, False, True)
+    with pytest.raises(ValueError, match="backward takes"):
+        ops.ssd_scan_bwd(*args[:5], dy, dh, chunk=32)
+    args, dy, dh = _ssd_bwd_case(cuda_device, 1, 64, 2, 64, 64, 1,
+                                 torch.float32, False, True)
+    with pytest.raises(ValueError, match="dy"):
+        ops.ssd_scan_bwd(*args[:5], dy.half(), dh, chunk=32)
+    with pytest.raises(ValueError, match="dh"):
+        ops.ssd_scan_bwd(*args[:5], dy, dh[:, :1], chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_family_train_step_matches_the_cpu(cuda_device, arch):
+    """chip_smoke.py's phase 9h for one family: the narrow f32 model
+    trained 2 steps on the card and on the CPU from the same weights, each
+    step's loss and the first step's grad norm within 1e-4 relative; the
+    card's launches account for its attention and SSD layers."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.family_train_agreement(arch, "cuda", steps=2)

@@ -61,13 +61,14 @@ def test_encoder_apply_matches_reference():
     jcfg, _jlm, jparams, tlm = bridged(ARCH)
     src = _src(jcfg)
     want = jed.encoder_apply(jcfg, jparams, jnp.asarray(src), remat=False)
-    got = ted.encoder_apply(tlm.cfg, tlm.encoder, tlm.enc_norm,
+    layers = [tlm.encoder.layer(l) for l in range(tlm.encoder.n_layers)]
+    got = ted.encoder_apply(tlm.cfg, layers, tlm.enc_norm,
                             torch.from_numpy(src))
     close(got, want)
     # Non-causal: the first position depends on the last frame.
     src2 = src.copy()
     src2[:, -1] += 1.0
-    moved = ted.encoder_apply(tlm.cfg, tlm.encoder, tlm.enc_norm,
+    moved = ted.encoder_apply(tlm.cfg, layers, tlm.enc_norm,
                               torch.from_numpy(src2))
     assert not torch.allclose(moved[:, 0], got[:, 0])
 

@@ -104,15 +104,16 @@ def test_autograd_function_matches_jax_grad(shape, causal):
         _close(g, w)
     # CPU tensors run the plain versions: no kernel launched.
     assert ops.train_launch_counts() == {"flash_attention.train": 0,
-                                         "flash_attention_bwd": 0}
+                                         "flash_attention_bwd": 0,
+                                         "ssd_scan_bwd": 0}
 
 
 def test_autograd_function_equals_plain_versions_bitwise():
     """On the CPU the function's forward is the lse plain forward and its
     backward is ``flash_attention_bwd_ref``, bit for bit."""
     q, k, v, do = _inputs(2, 2, 37, 37, 8, 2, 16)
-    o, *got = _autograd(lambda *a: FlashAttentionFn.apply(*a, True, None),
-                        q, k, v, do)
+    o, *got = _autograd(
+        lambda *a: FlashAttentionFn.apply(*a, True, None, None), q, k, v, do)
     t = [torch.from_numpy(a) for a in (q, k, v)]
     o2, lse = ref.flash_attention_lse_ref(*t, causal=True)
     want = ref.flash_attention_bwd_ref(*t, o2, torch.from_numpy(do), lse,
@@ -133,23 +134,44 @@ def test_serving_call_under_no_grad_keeps_its_path():
         ops.flash_attention(*t, q_offset=4)
 
 
+def test_differentiated_call_takes_only_known_sites():
+    """A differentiated call may name its site (training's encoder and
+    cross-attention do, for the card's counters); the site changes no
+    value, and an unknown one raises."""
+    q, k, v, do = _inputs(4, 2, 20, 24, 4, 4, 16)
+    plain = _autograd(lambda *a: ops.flash_attention(*a, causal=False),
+                      q, k, v, do)
+    named = _autograd(lambda *a: ops.flash_attention(*a, causal=False,
+                                                     site="cross_prefill"),
+                      q, k, v, do)
+    for a, b in zip(plain, named):
+        assert torch.equal(a, b)
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    with pytest.raises(ValueError, match="site"):
+        ops.flash_attention(*t, causal=False, site="decoder")
+
+
 @pytest.mark.parametrize("source,group", [
     ("flash_attention.cu", "flash_forward"),
     ("flash_attention_bwd.cu", "flash_backward"),
+    ("ssd_scan.cu", "ssd_forward"),
+    ("ssd_scan_bwd.cu", "ssd_backward"),
 ])
 def test_train_profile_groups_every_flash_kernel(source, group):
     """``launch/train_profile.py`` files a traced kernel under its group by
-    name; every ``__global__`` kernel of the flash sources, read from the
-    source, must land in its group, so that a renamed or added kernel
-    cannot slip into another group of the step's breakdown unseen."""
+    name; every ``__global__`` kernel of the flash and SSD-scan sources,
+    read from the source, must land in its group, so that a renamed or
+    added kernel cannot slip into another group of the step's breakdown
+    unseen."""
     import re
     from pathlib import Path
 
     from repro_torch.launch.train_profile import group_of
     csrc = Path(ops.__file__).resolve().parents[1] / "csrc"
     text = (csrc / source).read_text()
-    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
-                       r"\s+)?(\w+)\s*\(", text)
+    # Launch bounds may hold one level of parentheses (a constexpr call).
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                       r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(", text)
     assert len(names) == text.count("__global__") >= 2
     # As the profiler names an instance: namespace, template arguments.
     assert {n: group_of(f"void (anonymous namespace)::{n}<128, 1>(int)")

@@ -7,7 +7,9 @@ interpret mode (as tests/test_kernels.py runs it) and the reference's
 ``ref.ssd_scan_ref`` (the ``ssd_chunked`` oracle) on the same inputs,
 drawn with numpy from a seed.  Tolerances are tests/test_kernels.py's: 3e-2
 for bf16 inputs (bf16 x / B / C rounded identically in both packages; the
-f32 sums run in another order) and 2e-4 for f32.
+f32 sums run in another order) and 2e-4 for f32.  Under grad mode the
+wrapper runs ``SSDScanFn``, whose CPU backward is the plain backward
+(tests/test_torch_ssd_grad.py holds that against the reference).
 """
 
 import jax.numpy as jnp
@@ -85,22 +87,31 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
 
 
 @pytest.mark.parametrize("needs_grad", ["x", "dt", "A", "Bm", "Cm", "h0"])
-def test_wrapper_refuses_inputs_that_require_a_gradient(needs_grad):
-    """The scan has no backward: with grad mode on, an input that requires
-    a gradient makes ``ops.ssd_scan`` raise on the CPU path too (the card's
-    outputs would carry no autograd history); under ``no_grad`` the same
-    inputs run and give the plain version's bits."""
+def test_wrapper_differentiates_each_input(needs_grad):
+    """With grad mode on and one input requiring a gradient,
+    ``ops.ssd_scan`` runs ``SSDScanFn``: its outputs are bit for bit the
+    ``no_grad`` call's, and autograd's gradient of that input for a loss on
+    both outputs is the plain backward's (on the CPU the function's
+    backward is ``ref.ssd_scan_bwd_ref``, so bit for bit)."""
     x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in _inputs(
         1, 64, 2, 16, 16, True, jnp.float32))
     inputs = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, h0=h0)
-    inputs[needs_grad] = inputs[needs_grad].clone().requires_grad_()
+    leaf = inputs[needs_grad] = inputs[needs_grad].clone().requires_grad_()
     kw = dict(chunk=32, h0=inputs.pop("h0"))
-    with pytest.raises(ValueError, match="no backward"):
-        ops.ssd_scan(*inputs.values(), **kw)
+    y, h = ops.ssd_scan(*inputs.values(), **kw)
+    assert "SSDScanFn" in type(y.grad_fn).__name__
     with torch.no_grad():
-        y, h = ops.ssd_scan(*inputs.values(), **kw)
         y_r, h_r = tref.ssd_scan_ref(*inputs.values(), **kw)
-    assert torch.equal(y, y_r) and torch.equal(h, h_r)
+    assert torch.equal(y.detach(), y_r) and torch.equal(h.detach(), h_r)
+    rng = np.random.default_rng(5)
+    dy = torch.from_numpy(rng.normal(size=y.shape).astype(np.float32))
+    dh = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    plain = [t.detach() for t in inputs.values()]
+    want = tref.ssd_scan_bwd_ref(*plain, dy, dh, chunk=32,
+                                 h0=kw["h0"].detach())
+    names = ["x", "dt", "A", "Bm", "Cm", "h0"]
+    assert torch.equal(leaf.grad, want[names.index(needs_grad)])
 
 
 def test_chunking_does_not_change_the_scan():
