@@ -192,7 +192,8 @@ Phases (each synchronised; any failure exits non-zero):
    step's loss within 1e-4 relative; then on the card a run checkpointed at
    step 2 and resumed in a fresh Trainer for 2 more steps, whose
    parameters and Adam moments equal the uninterrupted run's bit for bit;
-   9a, continued (before 9b): the hand-written SSD-scan backward at
+   9a, continued (before 9b): the hand-written SSD-scan backward (bf16
+   on the tensor cores, f32 on CUDA cores) at
    mamba2-1.3b's and zamba2-1.2b's training shapes (B 2, T 2048, 64 heads
    of 64, N 128 / 64, one B/C group, Q 256, bf16; entries
    ``ssd_scan_bwd`` and ``ssd_scan_bwd.hybrid``) against its plain
@@ -3168,8 +3169,9 @@ def phase_family_train_kernels(results):
         print(f"[kernel] ssd_scan_bwd{tag}: kernel_ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}) "
               f"library_ms none (no single PyTorch call computes an SSD "
-              f"scan's gradient) | {desc} | seven launches a call, one "
-              f"count ({SMI})")
+              f"scan's gradient) | {desc} | seven launches a call (the "
+              f"chunk states, the state pass and both pair passes on the "
+              f"tensor cores), one count ({SMI})")
         y, h = ops.ssd_scan(*args[:5], chunk=Q)
         y_r, h_r = ref.ssd_scan_ref(*args[:5], chunk=Q)
         torch.cuda.synchronize()

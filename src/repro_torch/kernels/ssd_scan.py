@@ -20,9 +20,12 @@ Training: when grad mode is on and an input requires a gradient, the call
 runs :class:`SSDScanFn`, whose forward is the same call (so ``y`` and the
 final state are bit for bit the ``no_grad`` call's) and whose backward is
 :func:`ssd_scan_bwd`: on CUDA tensors ``csrc/ssd_scan_bwd.cu`` (seven
-launches, one count in ``ssd_scan_bwd.launches``), on CPU tensors the
-plain version :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  The
-backward takes the models' training shapes (:data:`BWD_DIMS`).
+launches, one count in ``ssd_scan_bwd.launches``; bf16 runs its products
+on the tensor cores (wgmma), each CTA of its two pair passes walking up
+to :data:`BWD_MAX_HEADS` heads of a B/C group; f32 runs on CUDA cores), on
+CPU tensors the plain version
+:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  The backward takes the
+models' training shapes (:data:`BWD_DIMS`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,16 @@ MAX_CHUNK = 256
 # (head dim, state size) pairs the backward takes: mamba2-1.3b's and
 # zamba2-1.2b's, and the smoke configs'.
 BWD_DIMS = ((64, 128), (64, 64), (16, 16))
+# Most heads of one B/C group that a CTA of the bf16 backward's pair
+# passes walks in turn, summing their dB and dC before they leave it.
+BWD_MAX_HEADS = 8
+
+
+def bwd_heads(heads_per_group: int) -> int:
+    """Heads a CTA of the bf16 backward's pair passes takes: the largest
+    divisor of a group's heads up to :data:`BWD_MAX_HEADS`."""
+    return max(k for k in range(1, BWD_MAX_HEADS + 1)
+               if heads_per_group % k == 0)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
@@ -116,18 +129,29 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int, h0=None):
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{tuple(shape)} on {x.device}")
     dev, f32 = x.device, torch.float32
+    is_f32 = x.dtype == torch.float32
     dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    nc = T // chunk
+    nc, nt = T // chunk, -(-chunk // 64)        # chunks, 64-row tiles
+    heads = 1 if is_f32 else bwd_heads(nh // G)
     S, E = (torch.empty((Bsz, nc, nh, hd, N), dtype=f32, device=dev)
             for _ in range(2))
     cum_last, dA_part = (torch.empty((Bsz, nc, nh), dtype=f32, device=dev)
                          for _ in range(2))
-    dBh, dCh = (torch.empty((Bsz, T, nh, N), dtype=f32, device=dev)
+    dBh, dCh = (torch.empty((Bsz, T, nh // heads, N), dtype=f32, device=dev)
                 for _ in range(2))
-    rows = torch.empty((4, Bsz, nh, T), dtype=f32, device=dev)
+    rows = torch.empty((4 if is_f32 else 6 + nt, Bsz, nh, T), dtype=f32,
+                       device=dev)
+    dys = hpg = ghp = None
+    if not is_f32:
+        bf16 = torch.bfloat16
+        dys = torch.empty((2, Bsz, T, nh, hd), dtype=bf16, device=dev)
+        hpg = torch.empty((4, Bsz, nc, nh, hd, N), dtype=bf16, device=dev)
+        # <g, h_p> per warp of the state pass: 8 warps a 1024 elements
+        ghp = torch.empty((Bsz, nc, nh, 8 * -(-hd * N // 1024)), dtype=f32,
+                          device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -137,9 +161,9 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int, h0=None):
         Cm.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dh0),
         S.data_ptr(), E.data_ptr(), cum_last.data_ptr(), dBh.data_ptr(),
-        dCh.data_ptr(), rows.data_ptr(), dA_part.data_ptr(), Bsz, T, nh, G,
-        hd, N, int(chunk), int(x.dtype == torch.float32),
-        torch.cuda.current_stream(dev).cuda_stream)
+        dCh.data_ptr(), rows.data_ptr(), dA_part.data_ptr(), ptr(dys),
+        ptr(hpg), ptr(ghp), Bsz, T, nh, G, hd, N, int(chunk), int(is_f32),
+        heads, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, dh0
@@ -150,9 +174,9 @@ ssd_scan_bwd.launches = 0
 
 class SSDScanFn(torch.autograd.Function):
     """The SSD scan with its backward (:func:`ssd_scan_bwd`).  Saves the
-    inputs: the backward recomputes the chunk states itself.  A missing
-    gradient of either output counts as zero (the final state's is unused
-    in training)."""
+    inputs: the backward recomputes the chunk states itself, so no forward
+    scratch outlives the call.  A missing gradient of either output counts
+    as zero (the final state's is unused in training)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
@@ -231,7 +255,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.library("ssd_scan_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [P] * 21 + [I] * 8 + [P]
+    lib.ssd_scan_bwd.argtypes = [P] * 24 + [I] * 9 + [P]
     lib.ssd_scan_bwd.restype = I
     return lib
 

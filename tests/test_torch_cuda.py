@@ -1483,14 +1483,18 @@ def _check_scaled(got, want, tol, what):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hd,N,Q", [(64, 128, 256), (64, 64, 256),
                                     (16, 16, 32), (64, 64, 48),
-                                    (64, 128, 96)])
+                                    (64, 128, 96), (64, 64, 80),
+                                    (64, 128, 160), (16, 16, 80)])
 def test_cuda_ssd_scan_bwd_matches_plain(cuda_device, hd, N, Q, dtype,
                                          grouped, with_h0):
     """The hand-written backward against its plain version (autograd
     through ``ssd_scan_ref`` on the card) over three chunks and four heads,
-    B / C as one group or head-expanded, with and without h0 and the final
+    B / C as one group (a CTA of the bf16 pair passes walks all four heads)
+    or head-expanded (one head a CTA), with and without h0 and the final
     state's gradient: 2e-2 of each gradient's scale for bf16 inputs, 2e-5
-    for f32 (f32 sums in another order); two calls bit for bit."""
+    for f32 (f32 sums in another order); two calls bit for bit.  Q 48 is
+    one partial 64-row tile; Q 80, 96 and 160 end in a partial tile on
+    both sides of the diagonal."""
     tdt = getattr(torch, dtype)
     nh = 4
     G = 1 if grouped else nh

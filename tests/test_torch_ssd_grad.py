@@ -177,3 +177,152 @@ def test_missing_final_state_gradient_is_zero():
     b = ops.ssd_scan_bwd(*t, torch.zeros_like(th0), chunk=32, h0=th0)
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), a, b):
         _scaled(g.numpy(), w.numpy(), 1e-6, name)
+
+
+def _hi_lo(t):
+    """t as a bf16 pair: hi = t rounded, lo = the remainder rounded (the
+    kernel's ``pack_split``), both returned as float32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _bf16_path_model(x, dt, A, Bm, Cm, dy, dh, Q, h0, kt=64):
+    """The bf16 path of ``csrc/ssd_scan_bwd.cu`` in float32, tile by tile
+    in the kernel's order (kt-row query and key tiles), every operand
+    rounded where the kernel rounds it: x, B, C as they come (bf16); dy,
+    e dy, w x, h_p, g, W and M as bf16 hi + lo pairs (the lo x lo term
+    dropped where both sides are split); products accumulated in f32.
+    The states pass (1)-(2), the query-side pass (3), the key-side pass
+    (4) with its per-key-tile row partials, then (5)-(7)."""
+    Bsz, T, nh, hd = x.shape
+    G, N = Bm.shape[2:]
+    nc, hpg = T // Q, nh // G
+    f32 = torch.float32
+    dx = torch.zeros((Bsz, T, nh, hd), dtype=f32)
+    ddt = torch.zeros((Bsz, T, nh), dtype=f32)
+    dA = torch.zeros((nh,), dtype=f32)
+    dBh = torch.zeros((Bsz, T, nh, N), dtype=f32)
+    dCh = torch.zeros((Bsz, T, nh, N), dtype=f32)
+    dh0 = torch.zeros((Bsz, nh, hd, N), dtype=f32)
+    tiles = [slice(t0, min(t0 + kt, Q)) for t0 in range(0, Q, kt)]
+    for b in range(Bsz):
+        for h in range(nh):
+            g = h // hpg
+            rows = [slice(c * Q, (c + 1) * Q) for c in range(nc)]
+            X = [x[b, r, h].float() for r in rows]
+            Bc = [Bm[b, r, g].float() for r in rows]
+            Cc = [Cm[b, r, g].float() for r in rows]
+            Y = [dy[b, r, h] for r in rows]
+            d = [dt[b, r, h] for r in rows]
+            cum = [torch.cumsum(dc * A[h], 0) for dc in d]
+            S, E = [], []
+            for c in range(nc):   # (1) on the tensor cores, split operands
+                wx = sum(_hi_lo((d[c] * torch.exp(cum[c][-1] - cum[c]))
+                                [:, None] * X[c]))
+                ey = sum(_hi_lo(torch.exp(cum[c])[:, None] * Y[c]))
+                S.append(wx.T @ Bc[c])
+                E.append(ey.T @ Cc[c])
+            gv = torch.zeros((hd, N)) if dh is None else dh[b, h].clone()
+            Gs = [None] * nc
+            for c in reversed(range(nc)):   # (2) reverse, then forward
+                Gs[c] = _hi_lo(gv)
+                gv = torch.exp(cum[c][-1]) * gv + E[c]
+            dh0[b, h] = gv
+            hv = torch.zeros((hd, N)) if h0 is None else h0[b, h].clone()
+            Hs, gh = [], []
+            for c in range(nc):
+                Hs.append(_hi_lo(hv))
+                gh.append(((Gs[c][0] + Gs[c][1]) * hv).sum())
+                hv = torch.exp(cum[c][-1]) * hv + S[c]
+            for c in range(nc):
+                Yh, Yl = _hi_lo(Y[c])
+                cc, dc, Xc, Bq, Cq = cum[c], d[c], X[c], Bc[c], Cc[c]
+                rowc = torch.zeros(Q)
+                rowparts = torch.zeros(len(tiles), Q)
+                cp, q, dd = (torch.zeros(Q) for _ in range(3))
+                dC = torch.zeros((Q, N))
+                dB = torch.zeros((Q, N))
+                u = torch.zeros((Q, hd))
+
+                def seg(ti, tj):
+                    i = torch.arange(Q)[ti][:, None]
+                    j = torch.arange(Q)[tj][None, :]
+                    return torch.where(
+                        j <= i, torch.exp(torch.where(
+                            j <= i, cc[ti][:, None] - cc[tj][None, :],
+                            torch.tensor(-1e30))), torch.tensor(0.0))
+                for I, ti in enumerate(tiles):   # (3) query side
+                    for tj in tiles[:I + 1]:
+                        D = Yh[ti] @ Xc[tj].T + Yl[ti] @ Xc[tj].T
+                        Wh, Wl = _hi_lo(seg(ti, tj) * dc[tj][None, :] * D)
+                        dC[ti] += Wh @ Bq[tj] + Wl @ Bq[tj]
+                    hh, hl = Hs[c]
+                    off = torch.exp(cc[ti])[:, None] * (
+                        Yh[ti] @ hh + Yl[ti] @ hh + Yh[ti] @ hl)
+                    rowc[ti] = (Cq[ti] * off).sum(1)
+                    dC[ti] += off
+                for J, tj in enumerate(tiles):   # (4) key side
+                    for ti in tiles[J:]:
+                        sT = Bq[tj] @ Cq[ti].T
+                        dT = Xc[tj] @ Yh[ti].T + Xc[tj] @ Yl[ti].T
+                        LT = seg(ti, tj).T
+                        WT = LT * dc[tj][:, None] * dT
+                        P = sT * WT
+                        cp[tj] += P.sum(1)
+                        rowparts[J, ti] = P.sum(0)
+                        Mh, Ml = _hi_lo(sT * LT)
+                        u[tj] += Mh @ Yh[ti] + Ml @ Yh[ti] + Mh @ Yl[ti]
+                        Wh, Wl = _hi_lo(WT)
+                        dB[tj] += Wh @ Cq[ti] + Wl @ Cq[ti]
+                    gg = Gs[c][0] + Gs[c][1]
+                    f = torch.exp(cc[-1] - cc[tj])
+                    gB = f[:, None] * (Bq[tj] @ gg.T)
+                    u[tj] += gB
+                    q[tj] = dc[tj] * (Xc[tj] * gB).sum(1)
+                    dd[tj] = (Xc[tj] * u[tj]).sum(1)
+                    dB[tj] += (dc[tj] * f)[:, None] * (Xc[tj] @ gg)
+                r = rows[c]
+                dx[b, r, h] = dc[:, None] * u
+                dBh[b, r, h] = dB
+                dCh[b, r, h] = dC
+                dcum = rowc + rowparts.sum(0) - cp - q   # (5)
+                dcum[-1] += torch.exp(cc[-1]) * gh[c] + q.sum()
+                da = torch.flip(torch.cumsum(torch.flip(dcum, [0]), 0), [0])
+                ddt[b, r, h] = dd + A[h] * da
+                dA[h] += (dc * da).sum()
+    dB = dBh.reshape(Bsz, T, G, hpg, N).sum(3)   # (6)
+    dC = dCh.reshape(Bsz, T, G, hpg, N).sum(3)
+    bf = torch.bfloat16
+    return (dx.to(bf), ddt, dA, dB.to(bf), dC.to(bf),
+            dh0 if h0 is not None else None)
+
+
+@pytest.mark.parametrize("B,T,hd,N,G,Q,with_h0,with_dh", [
+    (1, 160, 16, 16, 1, 80, True, True),
+    (1, 160, 16, 16, NH, 80, False, False),
+    (2, 96, 16, 16, 2, 48, True, False),
+    (1, 256, 16, 32, 1, 128, False, True),
+])
+def test_bf16_path_rounding_meets_the_tolerance(B, T, hd, N, G, Q, with_h0,
+                                                with_dh):
+    """The bf16 kernel's rounding scheme (``_bf16_path_model``: dy, W, M
+    and the made state operands as bf16 hi + lo pairs) against the plain
+    backward on the same bf16 inputs: 2e-2 of each gradient's scale (the
+    card's tolerance), d dt and dA included, over partial last tiles (Q 80,
+    48), G = 1 and G = nh, with and without h0 and dh."""
+    (x, dt, A, Bm, Cm, h0), dy, dh = _inputs(B, T, NH, hd, N, G, with_h0,
+                                             seed=Q + G)
+    bf = torch.bfloat16
+    xb, Bb, Cb = (torch.from_numpy(a).to(bf) for a in (x, Bm, Cm))
+    t = [torch.from_numpy(a) for a in (dt, A, dy)]
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    tdh = torch.from_numpy(dh) if with_dh else None
+    want = tref.ssd_scan_bwd_ref(xb, t[0], t[1], Bb, Cb, t[2], tdh, chunk=Q,
+                                 h0=th0)
+    got = _bf16_path_model(xb, t[0], t[1], Bb, Cb, t[2], tdh, Q, th0)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _scaled(g.float().numpy(), w.float().numpy(), 2e-2, name)
