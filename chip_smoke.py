@@ -192,6 +192,9 @@ Phases (each synchronised; any failure exits non-zero):
    step's loss within 1e-4 relative; then on the card a run checkpointed at
    step 2 and resumed in a fresh Trainer for 2 more steps, whose
    parameters and Adam moments equal the uninterrupted run's bit for bit;
+   the same resume with the narrow deepseek-v2-lite (MLA at dh 192 / dh_v
+   128 on the CUDA-core kernels, 64 experts: the MoE dispatch and combine
+   under the deterministic algorithms);
    9a, continued (before 9b): the hand-written SSD-scan backward (bf16
    on the tensor cores, f32 on CUDA cores) at
    mamba2-1.3b's and zamba2-1.2b's training shapes (B 2, T 2048, 64 heads
@@ -207,7 +210,13 @@ Phases (each synchronised; any failure exits non-zero):
    cross-attention of 1024 rows over them and its decoder's causal
    self-attention, zamba2's shared block), each timed beside its bound
    and SDPA's (entries ``flash_attention.train.<tag>`` and
-   ``flash_attention_bwd.<tag>``);
+   ``flash_attention_bwd.<tag>``); and at the moe family's shapes
+   (MOE_FLASH_SHAPES): deepseek-v2-lite's MLA attention (B 2, T 2048, H =
+   n_kv = 16, dh 192 / dh_v 128, causal, bf16; ``.mla``, launches from
+   9i) and dbrx-132b's (H 48 over n_kv 8, dh 128: g = 6, the dK / dV
+   cluster's 4 ranks take 1, 2, 1, 2 heads; ``.moe``, 0 launches: no
+   dbrx training fits the card, ZERO_LAUNCHES), and (192, 128) in f32 on
+   the CUDA-core path at the narrow T, at 2e-5;
    9d. seamless-m4t-large-v2 at its published width and depth (24 + 24
    layers), fp32 master weights from seed 0, ``make_train_step`` (remat
    block) on ENCDEC_TRAIN_B x ENCDEC_TRAIN_T target tokens over ENCDEC_SRC
@@ -228,7 +237,15 @@ Phases (each synchronised; any failure exits non-zero):
    its update, step ms, tokens/s and the memory high-water mark;
    9h. each family's narrow f32 model (``narrow_train_config``) trained
    FAMILY_STEPS steps on the card and on the CPU from the same weights:
-   every step's loss within 1e-4 relative.
+   every step's loss within 1e-4 relative; the moe family's deepseek-v2-lite
+   and dbrx-132b too, their CPU runs taking the card's expert choices
+   (``ExpertChoices``), at least 90 % of the tokens routed alike;
+   9i. deepseek-v2-lite at its published widths, **reduced: depth 27 ->
+   MOE_TRAIN_LAYERS layers** (the dense one and 4 MoE; all 27 need ~283
+   GB of training state), ``Trainer`` on ``SyntheticLM`` at TRAIN_B x
+   TRAIN_T from seed 0, remat block, FAMILY_STEPS steps: 9d-9g's checks
+   (launches: two flash forwards with lse and one backward at dh 192 /
+   dh_v 128 per layer and step) and the MoE aux loss finite and above 0.
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -240,8 +257,9 @@ call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
 kernel's own entry; ``flash_attention.train`` and ``flash_attention_bwd``
 from phase 9b; the entries of phases 9d-9g from the phase of their shape,
 seamless's three attentions by the site its wrappers counted
-(``train_entries``).  Of the serving phases only 4f is cut in depth; of
-the training phases only 9e.
+(``train_entries``); the training ``.mla`` entries from phase 9i, the
+``.moe`` entries none (``ZERO_LAUNCHES`` says why).  Of the serving phases
+only 4f is cut in depth; of the training phases 9e and 9i.
 """
 
 from __future__ import annotations
@@ -294,6 +312,9 @@ ENCDEC_TRAIN_B, ENCDEC_TRAIN_T = 2, 1024   # phase 9d: target tokens a row,
 ENCDEC_SRC = 4096       # over seamless's 4096 source frames
 VLM_TRAIN_LAYERS = 8    # phase 9e: llava's first 8 of 32 layers (32.1 GB of
 VLM_TRAIN_P, VLM_TRAIN_T = 2880, 1216      # training state): image + text
+MOE_TRAIN_LAYERS = 5    # phase 9i: deepseek-v2-lite's first 5 of 27 layers,
+#                         the dense one and 4 MoE (2.84 G parameters, ~51 GB
+#                         of training state; all 27 need ~283 GB)
 SSD_BWD_TOL = 2e-2      # the SSD backward, bf16 inputs, of each grad's scale
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
@@ -1660,6 +1681,55 @@ def phase_main_path(cfg, modes=MODES, tag="engine", max_seq=MAX_SEQ):
     return total, params
 
 
+class ExpertChoices:
+    """One device's MoE expert choices replayed on another, through the
+    ``moe.top_k`` hook.  A router near-tie that two devices break apart
+    would move that token's output far beyond any rounding, so the second
+    run takes the first's choices, and ``share()`` counts the tokens whose
+    own choice was the same.  The two runs must call the router in the
+    same order (the same model, inputs and steps)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.top_k = moe, moe.top_k
+        self.choices, self.same = [], []
+
+    def record(self, probs, k):
+        vals, idx = self.top_k(probs, k)
+        self.choices.append(idx)
+        return vals, idx
+
+    def replay(self, probs, k):
+        import torch
+        require(len(self.same) < len(self.choices), "expert replay: the "
+                "second run routes more often than the first")
+        idx = self.choices[len(self.same)].to(probs.device)
+        own = self.top_k(probs, k)[1]
+        self.same.append((own.sort(-1).values == idx.sort(-1).values)
+                         .all(-1).reshape(-1))
+        return torch.gather(probs, -1, idx), idx
+
+    def run(self, hook, fn, *args, **kw):
+        """``fn(*args, **kw)`` with ``moe.top_k`` replaced by ``hook``."""
+        self.moe.top_k = hook
+        try:
+            return fn(*args, **kw)
+        finally:
+            self.moe.top_k = self.top_k
+
+    def share(self):
+        """(share of tokens routed alike, tokens routed); every recorded
+        choice must have been replayed."""
+        import torch
+        require(len(self.same) == len(self.choices), f"expert replay: "
+                f"{len(self.choices)} router calls recorded, "
+                f"{len(self.same)} replayed")
+        if not self.same:
+            return 1.0, 0
+        same = torch.cat(self.same)
+        return float(same.float().mean()), len(same)
+
+
 def lm_agreement(cfg, dev, ref_dev="cpu", ref_dtype=None):
     """``cfg``'s LM on ``dev`` (the kernels, on the card) against the same
     weights on ``ref_dev`` (the plain versions, on the CPU; in
@@ -1679,7 +1749,6 @@ def lm_agreement(cfg, dev, ref_dev="cpu", ref_dtype=None):
     largest error relative to its scale)."""
     import torch
     from repro_torch.configs.base import PoolGeometry
-    from repro_torch.models import moe
     from repro_torch.models.lm import LM
     from repro_torch.serving.kv_cache import ShardedKVCache
     lm = LM(cfg, device=dev).init_weights(
@@ -1705,47 +1774,33 @@ def lm_agreement(cfg, dev, ref_dev="cpu", ref_dtype=None):
     if cfg.family == "encdec":
         batch["src_embeds"] = rng.standard_normal(
             (1, cfg.encdec.source_len, cfg.d_model), dtype=np.float32)
-    choices, same = [], []
-    top_k = moe.top_k
+    experts = ExpertChoices()
 
-    def record(probs, k):
-        vals, idx = top_k(probs, k)
-        choices.append(idx)
-        return vals, idx
-
-    def replay(probs, k):
-        idx = choices[len(same)].to(probs.device)
-        own = top_k(probs, k)[1]
-        same.append((own.sort(-1).values == idx.sort(-1).values)
-                    .all(-1).reshape(-1))
-        return torch.gather(probs, -1, idx), idx
-    runs = []
-    for d, model, hook in ((dev, lm, record), (ref_dev, ref_lm, replay)):
+    def serve(d, model):
         cache = ShardedKVCache(geo, NP, 1)
         cache.allocate(0, n_prefix + T)
         pools = tuple(torch.zeros(sh, dtype=dt, device=d) for sh, dt in
                       model.pool_shapes(NP, ptok, dtype=getattr(
                           torch, model.cfg.dtype)))
-        moe.top_k = hook
-        try:
-            logits, pools, state = model.prefill(
-                {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
-                pools, cache.pack_ctx([0], mpps, device=d),
-                last_pos=torch.tensor([T - 1], device=d))
-            out = [logits]
-            for i in range(2):
-                cache.append(0)
-                logits, pools, state = model.decode_step(
-                    torch.from_numpy(new[i:i + 1]).to(d),
-                    torch.tensor([n_prefix + T + i], device=d), pools,
-                    cache.pack_ctx([0], mpps, device=d), state)
-                out.append(logits)
-        finally:
-            moe.top_k = top_k
-        runs.append((out, pools, [state[k] for k in sorted(state)]))
+        logits, pools, state = model.prefill(
+            {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
+            pools, cache.pack_ctx([0], mpps, device=d),
+            last_pos=torch.tensor([T - 1], device=d))
+        out = [logits]
+        for i in range(2):
+            cache.append(0)
+            logits, pools, state = model.decode_step(
+                torch.from_numpy(new[i:i + 1]).to(d),
+                torch.tensor([n_prefix + T + i], device=d), pools,
+                cache.pack_ctx([0], mpps, device=d), state)
+            out.append(logits)
+        return out, pools, [state[k] for k in sorted(state)]
+    runs = [experts.run(hook, serve, d, model)
+            for d, model, hook in ((dev, lm, experts.record),
+                                   (ref_dev, ref_lm, experts.replay))]
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
-    agree = float(torch.cat(same).float().mean()) if same else 1.0
+    agree, n_routed = experts.share()
     require(agree >= 0.9, f"agreement: the two devices route only "
             f"{agree:.1%} of the tokens to the same experts")
     errs = []
@@ -1772,8 +1827,8 @@ def lm_agreement(cfg, dev, ref_dev="cpu", ref_dtype=None):
           f"tokens, 2 decode steps: logits, pools"
           f"{' and cross K/V' if runs[0][2] else ''} within {max(errs):.3g} "
           f"of their scale; same experts for {agree:.1%} of "
-          f"{sum(len(x) for x in same)} routed tokens")
-    return agree, sum(len(x) for x in same), max(errs)
+          f"{n_routed} routed tokens")
+    return agree, n_routed, max(errs)
 
 
 def check_agreement(cut, ref_dtype=None):
@@ -2733,21 +2788,23 @@ def _scaled_err(got, want):
 
 
 def train_kernel_case(B, Tq, Tk, H, n_kv, dh, causal, dtype, tol, label,
-                      seed=0):
-    """Phase 9a at one shape: the forward with lse against its plain
-    version and, bit for bit, the serving forward; the backward against
-    its plain version at ``tol`` of each gradient's scale and bit for bit
-    against a second call.  Returns the inputs and the largest errors."""
+                      seed=0, dh_v=None):
+    """Phase 9a at one shape (values ``dh_v`` wide, default ``dh``): the
+    forward with lse against its plain version and, bit for bit, the
+    serving forward; the backward against its plain version at ``tol`` of
+    each gradient's scale and bit for bit against a second call.  Returns
+    the inputs and the largest errors."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    dh_v = dh if dh_v is None else dh_v
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v = (randn(B, Tq, H, dh) * PEAK_Q, randn(B, Tk, n_kv, dh),
-               randn(B, Tk, n_kv, dh))
-    do = randn(B, Tq, H, dh)
+               randn(B, Tk, n_kv, dh_v))
+    do = randn(B, Tq, H, dh_v)
     o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
     served = ops.flash_attention(q, k, v, causal=causal)
     want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
@@ -2812,24 +2869,28 @@ def sdpa_grad_ms(q, k, v, do, causal):
     return graph_ms(fwd_bwd), graph_ms(bwd)
 
 
-def flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal):
+def flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal, dh_v=None):
     """Bytes (q, k, v read once; o and lse written once, in bf16) and
-    operations (the two products over the pairs a row sees) of one flash
-    forward with lse."""
+    operations (the two products over the pairs a row sees, Q K^T over dh
+    and P V over dh_v, default dh) of one flash forward with lse."""
+    dh_v = dh if dh_v is None else dh_v
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    elems_q, elems_kv = B * Tq * H * dh, B * Tk * n_kv * dh
-    return bound_ms(2 * (2 * elems_q + 2 * elems_kv) + 4 * B * H * Tq,
-                    4 * B * H * dh * pairs)
+    rows_q, rows_kv = B * Tq * H, B * Tk * n_kv
+    return bound_ms(2 * (rows_q + rows_kv) * (dh + dh_v) + 4 * B * H * Tq,
+                    2 * B * H * pairs * (dh + dh_v))
 
 
-def flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal):
+def flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal, dh_v=None):
     """Bytes (q, k, v, o, dO and lse read once; dq, dk, dv written once, in
-    bf16) and operations (the five products over the pairs a row sees) of
-    one flash-backward call."""
+    bf16) and operations (the five products over the pairs a row sees:
+    S = Q K^T, dQ and dK over dh, dP = dO V^T and dV over dh_v, default
+    dh) of one flash-backward call."""
+    dh_v = dh if dh_v is None else dh_v
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    elems_q, elems_kv = B * Tq * H * dh, B * Tk * n_kv * dh
-    return bound_ms(2 * (5 * elems_q + 4 * elems_kv) + 4 * B * H * Tq,
-                    10 * B * H * dh * pairs)
+    rows_q, rows_kv = B * Tq * H, B * Tk * n_kv
+    return bound_ms(2 * 2 * (rows_q + rows_kv) * (dh + dh_v)
+                    + 4 * B * H * Tq,
+                    2 * B * H * pairs * (3 * dh + 2 * dh_v))
 
 
 def phase_train_kernels(results):
@@ -2975,30 +3036,35 @@ def phase_train(cfg):
     return counts
 
 
-def train_agreement(dev="cuda"):
-    """Phase 9c's checks with the narrow model on ``dev`` (the card; the
-    CPU rehearses them) against the CPU: 4 steps' losses, then a
-    checkpoint-resume against the uninterrupted run, bitwise."""
+def train_agreement(dev="cuda", arch=ARCH, against_cpu=True):
+    """Phase 9c's checks with ``arch``'s narrow model
+    (``narrow_train_config``) on ``dev`` (the card; the CPU rehearses
+    them): with ``against_cpu`` 4 steps' losses against the CPU's, then a
+    checkpoint-resume against the uninterrupted run, bitwise.  (The moe
+    family's card-vs-CPU losses are phase 9h's, which replays the card's
+    expert choices; here it takes only the resume.)"""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainHParams
     from repro_torch.train.trainer import Trainer
-    cfg = narrow_config(get_config(ARCH))
+    cfg = narrow_train_config(arch)
     hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=4, remat="block")
     kw = dict(batch_per_step=2, seq_len=NARROW_T, seed=0, device=dev)
     card = Trainer(cfg, hp, **kw)
     weights = {n: p.detach().cpu().clone() for n, p in card.params.items()}
-    cpu = Trainer(cfg, hp, params=weights, **dict(kw, device="cpu"))
     card.run(4, log_every=1)
-    cpu.run(4, log_every=1)
-    for a, b in zip(card.log, cpu.log):
-        require(abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"]),
-                f"narrow training: card loss {a['loss']} != CPU loss "
-                f"{b['loss']} at step {a['step']}")
-    print(f"[train:agreement] narrow f32 model, same weights, 4 steps: card "
-          f"losses {[round(r['loss'], 6) for r in card.log]} within 1e-4 "
-          f"of the CPU's {[round(r['loss'], 6) for r in cpu.log]}")
-    d = ROOT / "build" / "train_ckpt"
+    if against_cpu:
+        cpu = Trainer(cfg, hp, params=weights, **dict(kw, device="cpu"))
+        cpu.run(4, log_every=1)
+        for a, b in zip(card.log, cpu.log):
+            require(abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"]),
+                    f"narrow training: card loss {a['loss']} != CPU loss "
+                    f"{b['loss']} at step {a['step']}")
+        print(f"[train:agreement] narrow f32 {arch}, same weights, 4 steps: "
+              f"card losses {[round(r['loss'], 6) for r in card.log]} "
+              f"within 1e-4 of the CPU's "
+              f"{[round(r['loss'], 6) for r in cpu.log]}")
+    # One directory per model: the CPU tests rehearse two models at once.
+    d = ROOT / "build" / f"train_ckpt.{arch}"
     shutil.rmtree(d, ignore_errors=True)
     try:
         first = Trainer(cfg, hp, params=weights, ckpt_dir=str(d),
@@ -3020,18 +3086,22 @@ def train_agreement(dev="cuda"):
                 f"uninterrupted run")
     require(int(resumed.opt["step"]) == int(card.opt["step"]) == 4,
             "checkpoint-resume: step counters differ")
-    print("[train:restart] checkpoint at step 2, resumed in a fresh Trainer "
-          "for 2 steps: parameters and Adam moments bit for bit the "
-          "uninterrupted 4-step run's")
+    print(f"[train:restart] narrow f32 {arch}: checkpoint at step 2, resumed "
+          f"in a fresh Trainer for 2 steps: parameters and Adam moments bit "
+          f"for bit the uninterrupted 4-step run's")
 
 
 def deterministic_train_agreement():
-    """Phase 9c's child process: deterministic algorithms, TF32 off."""
+    """Phase 9c's child process: deterministic algorithms, TF32 off; the
+    dense narrow model's agreement and resume, then the narrow
+    deepseek-v2-lite's resume (MLA attention, MoE dispatch and combine
+    under the deterministic algorithms)."""
     import torch
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     train_agreement("cuda")
+    train_agreement("cuda", MLA_ARCH, against_cpu=False)
 
 
 def phase_train_agreement():
@@ -3057,6 +3127,23 @@ def phase_train_agreement():
 # Phase 9a's flash shapes of phases 9d, 9e and 9g: (entry tag, label, B,
 # Tq, Tk, H, n_kv, dh, causal).  Entries ``flash_attention.train.<tag>`` and
 # ``flash_attention_bwd.<tag>``.
+# Phase 9a's flash shapes of the moe family: (entry tag, label, B, Tq, Tk,
+# H, n_kv, dh, dh_v, causal).  deepseek-v2-lite's MLA attention is phase
+# 9i's; dbrx-132b trains on the card only as the narrow model of 9h, so its
+# entries have no launches (ZERO_LAUNCHES).
+MOE_FLASH_SHAPES = (
+    ("mla", "deepseek-v2-lite MLA attention", TRAIN_B, TRAIN_T, TRAIN_T, 16,
+     16, 192, 128, True),
+    ("moe", "dbrx-132b attention", TRAIN_B, TRAIN_T, TRAIN_T, 48, 8, 128, 128,
+     True),
+)
+ZERO_LAUNCHES = dict.fromkeys(
+    ("flash_attention.train.moe", "flash_attention_bwd.moe"),
+    "no dbrx-132b training fits the card: one layer at its published widths "
+    "is 4.49 G parameters, ~81 GB of training state (fp32 master, grad, "
+    "AdamW moments, bf16 copy); its attention shape is held and timed here "
+    "and its narrow f32 model trains in phase 9h")
+
 FLASH_BWD_SHAPES = (
     ("vlm", "llava-next self-attention", 1, VLM_TRAIN_P + VLM_TRAIN_T,
      VLM_TRAIN_P + VLM_TRAIN_T, 32, 8, 128, True),
@@ -3147,7 +3234,6 @@ def phase_family_train_kernels(results):
     lse and the backward at FLASH_BWD_SHAPES (``flash_attention.train.<tag>``
     and ``flash_attention_bwd.<tag>``)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     shapes = (("", "mamba2-1.3b", (TRAIN_B, TRAIN_T, 64, 64, 128, 1, 256)),
               (".hybrid", "zamba2-1.2b", (TRAIN_B, TRAIN_T, 64, 64, 64, 1,
@@ -3196,47 +3282,77 @@ def phase_family_train_kernels(results):
                  f"h0 and dh", (2, T3, 4, 64, 128, 1, 256), torch.float32,
                  2e-5, with_h0=True)
     for tag, label, B, Tq, Tk, H, n_kv, dh, causal in FLASH_BWD_SHAPES:
-        kind = "causal" if causal else "non-causal"
-        shape = f"B={B} Tq={Tq} Tk={Tk} H={H} n_kv={n_kv} dh={dh} {kind} bf16"
-        (q, k, v, o, do, lse), err, fwd_err = train_kernel_case(
-            B, Tq, Tk, H, n_kv, dh, causal, torch.bfloat16,
-            ATTN_TOL["rtol"], f"{label} {shape}")
-        f_ms, f_by = flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        results[f"flash_attention.train.{tag}"] = f = dict(
-            max_abs_err=fwd_err,
-            ms=graph_ms(functools.partial(ops.flash_attention_lse, q, k, v,
-                                          causal=causal), reps=5),
-            plain_ms=eager_ms(functools.partial(
-                ref.flash_attention_lse_ref, q, k, v, causal=causal),
-                iters=2),
-            bound_ms=f_ms, bound_by=f_by,
-            library_ms=graph_ms(functools.partial(
-                F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal,
-                enable_gqa=True), reps=5), shape=shape)
-        del qt, kt, vt
-        print(f"[kernel] flash_attention.train.{tag}: kernel_ms "
-              f"{f['ms']:.4f} plain_ms {f['plain_ms']:.4f} bound_ms "
-              f"{f_ms:.5f} ({f_by}) library_ms {f['library_ms']:.4f} "
-              f"(scaled_dot_product_attention forward) | {label} {shape}")
-        b_ms, b_by = flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal)
-        lib, lib_bwd = sdpa_grad_ms(q, k, v, do, causal)
-        results[f"flash_attention_bwd.{tag}"] = r = dict(
-            max_abs_err=err,
-            ms=graph_ms(functools.partial(ops.flash_attention_bwd, q, k, v, o,
-                                          do, lse, causal=causal), reps=5),
-            plain_ms=eager_ms(functools.partial(
-                ref.flash_attention_bwd_ref, q, k, v, o, do, lse,
-                causal=causal), iters=2),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-            library_bwd_ms=lib_bwd, shape=shape)
-        print(f"[kernel] flash_attention_bwd.{tag}: kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}) "
-              f"library_ms {lib:.4f} (SDPA forward + backward) "
-              f"library_bwd_ms {lib_bwd:.4f} (SDPA backward alone) | "
-              f"{label} {shape}")
-        del q, k, v, o, do, lse
-        torch.cuda.empty_cache()
+        flash_train_entry(results, tag, label, B, Tq, Tk, H, n_kv, dh, causal)
+
+
+def flash_train_entry(results, tag, label, B, Tq, Tk, H, n_kv, dh, causal,
+                      dh_v=None):
+    """Phase 9a's flash forward with lse and backward at one bf16 training
+    shape (``train_kernel_case``), timed beside their bounds and SDPA's:
+    entries ``flash_attention.train.<tag>`` and
+    ``flash_attention_bwd.<tag>``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    kind = "causal" if causal else "non-causal"
+    widths = f"dh={dh}" if dh_v is None else f"dh={dh} dh_v={dh_v}"
+    shape = f"B={B} Tq={Tq} Tk={Tk} H={H} n_kv={n_kv} {widths} {kind} bf16"
+    (q, k, v, o, do, lse), err, fwd_err = train_kernel_case(
+        B, Tq, Tk, H, n_kv, dh, causal, torch.bfloat16,
+        ATTN_TOL["rtol"], f"{label} {shape}", dh_v=dh_v)
+    f_ms, f_by = flash_fwd_bound(B, Tq, Tk, H, n_kv, dh, causal, dh_v)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    results[f"flash_attention.train.{tag}"] = f = dict(
+        max_abs_err=fwd_err,
+        ms=graph_ms(functools.partial(ops.flash_attention_lse, q, k, v,
+                                      causal=causal), reps=5),
+        plain_ms=eager_ms(functools.partial(
+            ref.flash_attention_lse_ref, q, k, v, causal=causal),
+            iters=2),
+        bound_ms=f_ms, bound_by=f_by,
+        library_ms=graph_ms(functools.partial(
+            F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal,
+            enable_gqa=True), reps=5), shape=shape)
+    del qt, kt, vt
+    print(f"[kernel] flash_attention.train.{tag}: kernel_ms "
+          f"{f['ms']:.4f} plain_ms {f['plain_ms']:.4f} bound_ms "
+          f"{f_ms:.5f} ({f_by}) library_ms {f['library_ms']:.4f} "
+          f"(scaled_dot_product_attention forward) | {label} {shape}")
+    b_ms, b_by = flash_bwd_bound(B, Tq, Tk, H, n_kv, dh, causal, dh_v)
+    lib, lib_bwd = sdpa_grad_ms(q, k, v, do, causal)
+    results[f"flash_attention_bwd.{tag}"] = r = dict(
+        max_abs_err=err,
+        ms=graph_ms(functools.partial(ops.flash_attention_bwd, q, k, v, o,
+                                      do, lse, causal=causal), reps=5),
+        plain_ms=eager_ms(functools.partial(
+            ref.flash_attention_bwd_ref, q, k, v, o, do, lse,
+            causal=causal), iters=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        library_bwd_ms=lib_bwd, shape=shape)
+    print(f"[kernel] flash_attention_bwd.{tag}: kernel_ms {r['ms']:.4f} "
+          f"plain_ms {r['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+          f"library_ms {lib:.4f} (SDPA forward + backward) "
+          f"library_bwd_ms {lib_bwd:.4f} (SDPA backward alone) | "
+          f"{label} {shape}")
+    del q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+
+
+def phase_moe_train_kernels(results):
+    """Phase 9a at the moe family's training shapes (MOE_FLASH_SHAPES):
+    deepseek-v2-lite's MLA attention (H = n_kv = 16, dh 192 / dh_v 128,
+    bf16 on the tensor cores; entries ``.mla``, whose launches phase 9i
+    counts) and dbrx-132b's (48 query heads over 8 KV heads of 128: g = 6,
+    which the dK / dV clusters of 4 ranks split 1, 2, 1, 2; entries
+    ``.moe``); then (192, 128) in f32 on the CUDA-core path at the narrow
+    model's T, at 2e-5."""
+    import torch
+    for tag, label, B, Tq, Tk, H, n_kv, dh, dh_v, causal in MOE_FLASH_SHAPES:
+        flash_train_entry(results, tag, label, B, Tq, Tk, H, n_kv, dh, causal,
+                          dh_v)
+    train_kernel_case(2, NARROW_T, NARROW_T, 4, 4, 192, True, torch.float32,
+                      2e-5, f"MLA widths f32 B=2 T={NARROW_T} H=n_kv=4 "
+                      f"dh=192 dh_v=128", dh_v=128)
 
 
 def reset_peak(dev):
@@ -3314,18 +3430,22 @@ def read_train_counts():
 
 def check_family_training(cfg, label, log, counts, serving, steps, remat,
                           after, tokens, dev, extra=""):
-    """What every phase of 9d-9g must show, on the card or (counts all 0)
-    on the CPU: finite losses and grad norms, the launches of
+    """What every phase of 9d-9g and 9i must show, on the card or (counts
+    all 0) on the CPU: finite losses, MoE aux losses and grad norms, the
+    aux above 0 where the model has MoE layers, the launches of
     ``train_launches`` and no serving kernel, and the final weights' loss
     on the last step's batch (``after``) below that batch's loss before its
     update.  Prints each step and a summary."""
     for r in log:
         print(f"[train:{label}] step {r['step']}: loss {r['loss']:.4f} "
-              f"grad_norm {r['grad_norm']:.4f} step_ms {r['ms']:.1f} "
-              f"tokens/s {tokens / r['ms'] * 1e3:.0f}")
+              f"aux {r['aux']:.4f} grad_norm {r['grad_norm']:.4f} step_ms "
+              f"{r['ms']:.1f} tokens/s {tokens / r['ms'] * 1e3:.0f}")
     require(len(log) == steps and all(
-        np.isfinite([r["loss"], r["grad_norm"]]).all() for r in log),
-        f"{label}: a loss or grad norm is not finite: {log}")
+        np.isfinite([r["loss"], r["aux"], r["grad_norm"]]).all()
+        for r in log), f"{label}: a loss, aux or grad norm is not finite: "
+        f"{log}")
+    require(cfg.moe is None or all(r["aux"] > 0 for r in log),
+            f"{label}: a MoE model's load-balance aux is not above 0: {log}")
     want = train_launches(cfg, steps, remat)
     if dev == "cpu":
         want = dict.fromkeys(want, 0)
@@ -3348,7 +3468,8 @@ def check_family_training(cfg, label, log, counts, serving, steps, remat,
 def run_train_steps(lm, hp, batches, dev):
     """``len(batches)`` steps of ``make_train_step`` on ``lm``, launch
     counters reset just before; returns (log, counts, serving counts) with
-    each step's loss, grad norm and host ms (until its loss was read)."""
+    each step's loss, grad norm, MoE aux and host ms (until its loss was
+    read)."""
     from repro_torch.kernels import ops
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.trainer import make_train_step
@@ -3361,6 +3482,7 @@ def run_train_steps(lm, hp, batches, dev):
         opt, m = step(opt, batch)
         loss = float(m["loss"])
         log.append(dict(step=i + 1, loss=loss, grad_norm=float(m["grad_norm"]),
+                        aux=float(m["aux"]),
                         ms=(time.perf_counter() - t0) * 1e3))
     counts, serving = read_train_counts()
     del opt
@@ -3393,10 +3515,12 @@ def phase_train_frontend(cfg, label, B, T, n_frontend, steps=FAMILY_STEPS,
 
 
 def phase_train_recurrent(cfg, label, remat, B=TRAIN_B, T=TRAIN_T,
-                          steps=FAMILY_STEPS, dev="cuda"):
-    """Phases 9f (ssm) and 9g (hybrid): ``Trainer`` on ``SyntheticLM`` at B
-    x T from seed 0, ``remat`` as given (the hybrid stack recomputes
-    nothing whatever it says).  Returns the launch counts."""
+                          steps=FAMILY_STEPS, dev="cuda", extra=None):
+    """Phases 9f (ssm), 9g (hybrid) and 9i (moe): ``Trainer`` on
+    ``SyntheticLM`` at B x T from seed 0, ``remat`` as given (the hybrid
+    stack recomputes nothing whatever it says); ``extra`` describes the
+    model (default: at its published width and depth).  Returns the launch
+    counts."""
     import torch
     from repro_torch.configs.base import TrainHParams
     from repro_torch.kernels import ops
@@ -3412,7 +3536,8 @@ def phase_train_recurrent(cfg, label, remat, B=TRAIN_B, T=TRAIN_T,
         after = float(tr.lm.loss(tr.data.batch_at(steps - 1))[0])
     check_family_training(cfg, label, tr.log, counts, serving, steps,
                           remat != "none", after, B * T, dev,
-                          f" at its published width and depth, remat {remat}")
+                          (extra or " at its published width and depth")
+                          + f", remat {remat}")
     del tr
     reset_peak(dev)
     return counts
@@ -3436,16 +3561,19 @@ def narrow_train_config(arch):
     return cfg
 
 
-def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS):
-    """Phase 9h for one family: the narrow f32 model trained ``steps``
-    steps through ``make_train_step`` (remat block) on ``dev`` (the card;
-    the CPU rehearses it) and on the CPU from the same weights: every
-    step's loss and the first step's grad norm within 1e-4 relative, and
-    on the card the launches of ``train_launches``."""
+def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS, cfg=None):
+    """Phase 9h for one family: the narrow f32 model (``cfg``, default
+    ``narrow_train_config(arch)``) trained ``steps`` steps through
+    ``make_train_step`` (remat block) on ``dev`` (the card; the CPU
+    rehearses it) and on the CPU from the same weights: every step's loss
+    and the first step's grad norm within 1e-4 relative, and on the card
+    the launches of ``train_launches``.  A MoE model's CPU run takes the
+    card's expert choices (``ExpertChoices``; forward and recompute alike),
+    and at least 90 % of the tokens must get the same experts from both."""
     import torch
     from repro_torch.configs.base import TrainHParams
     from repro_torch.models.lm import LM
-    cfg = narrow_train_config(arch)
+    cfg = narrow_train_config(arch) if cfg is None else cfg
     n_front = (cfg.frontend_tokens if cfg.family == "vlm" else
                cfg.encdec.source_len if cfg.family == "encdec" else 0)
     hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=steps,
@@ -3456,9 +3584,14 @@ def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS):
         torch.Generator(device=dev).manual_seed(0))
     cpu = LM(cfg, master=True)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    runs = [run_train_steps(lm, hp, batches, d)
-            for lm, d in ((card, dev), (cpu, "cpu"))]
+    experts = ExpertChoices()
+    runs = [experts.run(hook, run_train_steps, lm, hp, batches, d)
+            for lm, d, hook in ((card, dev, experts.record),
+                                (cpu, "cpu", experts.replay))]
     (log_c, counts, serving), (log_p, _, _) = runs
+    agree, n_routed = experts.share()
+    require(agree >= 0.9, f"narrow {arch} training: the two devices route "
+            f"only {agree:.1%} of {n_routed} tokens to the same experts")
     for a, b in zip(log_c, log_p):
         # The first step's grad norm too: later ones follow AdamW updates,
         # whose m / sqrt(v) turns the two devices' last-bit differences in
@@ -3472,11 +3605,14 @@ def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS):
     require(counts == want and not any(serving.values()),
             f"narrow {arch} training: launches {counts} (serving "
             f"{serving}), not {want}")
+    routed = (f"; the CPU took the {dev}'s expert choices, its own the same "
+              f"for {agree:.1%} of {n_routed} routed tokens"
+              if n_routed else "")
     print(f"[train:agreement:{cfg.family}] narrow f32 {arch}, same weights, "
           f"{steps} steps: {dev} losses "
           f"{[round(r['loss'], 6) for r in log_c]} within 1e-4 of the "
           f"CPU's {[round(r['loss'], 6) for r in log_p]}, step 1's grad "
-          f"norm {log_c[0]['grad_norm']:.6f} too; launches {counts}")
+          f"norm {log_c[0]['grad_norm']:.6f} too{routed}; launches {counts}")
 
 
 def phase_train_families(counts):
@@ -3501,11 +3637,41 @@ def phase_train_families(counts):
         "hybrid": phase_train_recurrent(get_config(HYBRID_ARCH), "hybrid",
                                         "block"),
     }
-    for arch in (ENCDEC_ARCH, VLM_ARCH, SSM_ARCH, HYBRID_ARCH):
+    for arch in (ENCDEC_ARCH, VLM_ARCH, SSM_ARCH, HYBRID_ARCH, MLA_ARCH,
+                 MOE_ARCH):
         family_train_agreement(arch)
     torch.cuda.empty_cache()
     for k, n in train_entries(runs).items():
         counts[k] = counts.get(k, 0) + n
+    counts.update(moe_entries(phase_train_moe()))
+
+
+def phase_train_moe(dev="cuda", cfg=None, B=TRAIN_B, T=TRAIN_T):
+    """Phase 9i: deepseek-v2-lite (``cfg``, default its published widths,
+    reduced: depth 27 -> MOE_TRAIN_LAYERS, the dense layer and 4 MoE)
+    trained FAMILY_STEPS steps by ``Trainer`` on ``SyntheticLM`` at B x T
+    from seed 0, remat block: ``check_family_training``'s checks (aux above
+    0; per layer and step two flash forwards with lse and one backward, at
+    dh 192 / dh_v 128).  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    full = get_config(MLA_ARCH)
+    if cfg is None:
+        cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    return phase_train_recurrent(
+        cfg, "moe", "block", B=B, T=T, dev=dev,
+        extra=f" at its published widths, reduced: depth {full.n_layers} -> "
+              f"{cfg.n_layers} layers (the dense one and "
+              f"{cfg.n_layers - cfg.moe.first_dense} MoE)")
+
+
+def moe_entries(counts):
+    """The kernels line's launches of the moe family's entries: phase 9i's
+    flash forwards with lse and backwards at the MLA shape (``.mla``), and
+    none at dbrx's (``.moe``, ZERO_LAUNCHES)."""
+    out = dict.fromkeys(ZERO_LAUNCHES, 0)
+    for kern in ("flash_attention.train", "flash_attention_bwd"):
+        out[f"{kern}.mla"] = counts[kern]
+    return out
 
 
 def train_entries(runs):
@@ -3622,6 +3788,7 @@ def main() -> int:
         counts[k] = counts.get(k, 0) + n_launch
     phase_train_kernels(results)
     phase_family_train_kernels(results)
+    phase_moe_train_kernels(results)
     counts.update(phase_train(cfg))
     phase_train_agreement()
     phase_train_families(counts)
@@ -3634,9 +3801,14 @@ def main() -> int:
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  **{k: r[k] for k in ("library_bwd_ms",) if k in r})
             for name, r in results.items()]
-    require(all(e["launches"] > 0 for e in line),
+    require(all(e["launches"] > 0 or e["name"] in ZERO_LAUNCHES
+                for e in line),
             f"an entry's kernel never launched on its path: "
             f"{[e['name'] for e in line if not e['launches']]}")
+    require(all(counts[k] == 0 for k in ZERO_LAUNCHES), "an entry of a "
+            "shape no phase trains counted launches")
+    for name, why in ZERO_LAUNCHES.items():
+        print(f"[kernels] {name}: 0 launches: {why}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f}s "
           f"({SMI})")
     print(json.dumps({"kernels": line}))

@@ -6,10 +6,11 @@
 // source is that gradient as kernels, beside the forward of
 // flash_attention.cu, which hands it each row's log-sum-exp (lse).
 //
-// For q [B, Tq, H, dh], k and v [B, Tk, n_kv, dh], the forward's output o,
-// its gradient dO and lse [B, H, Tq] f32, with queries at positions 0 ..
-// Tq - 1 (causal: row i sees keys j <= i):
-//   D  = rowsum(dO o o)                    (f32 [B, H, Tq])
+// For q [B, Tq, H, dh], k [B, Tk, n_kv, dh] and v [B, Tk, n_kv, dh_v], the
+// forward's output o [B, Tq, H, dh_v], its gradient dO and lse [B, H, Tq]
+// f32, with queries at positions 0 .. Tq - 1 (causal: row i sees keys j <=
+// i); dh_v = dh, or MLA's dh 192 (nope 128 + rope 64) with dh_v 128:
+//   D  = rowsum(dO o o)                    (f32 [B, H, Tq], over dh_v)
 //   P  = exp(scale Q K^T - lse)            (exact zeros where masked)
 //   dV = sum over rows P^T dO              dS = P o (dO V^T - D)
 //   dQ = scale dS K                        dK = scale dS^T Q
@@ -22,8 +23,8 @@
 // issued, a floor of 1.4x the bound.
 //
 // No atomics, so the gradient is deterministic: every sum runs in an order
-// the code fixes, not the scheduler.  bf16 at head dims 32, 64, 96 and 128
-// is two launches:
+// the code fixes, not the scheduler.  bf16 at head dims 32, 64, 96 and 128,
+// and at MLA's 192 / 128, is two launches:
 //   1. dQ: the forward's tiling, one CTA per (64 rows = g heads x 64 / g
 //      positions, KV head, batch row), walking the key tiles up to its
 //      last row's diagonal; its prologue also computes D for its rows and
@@ -54,8 +55,13 @@
 // each tile (a box per 64 columns; rows past the end arrive as zeros) and
 // arms an mbarrier that the warpgroup waits on.  The streamed tiles (Q and
 // dO for dK / dV, with each row's lse and D by cp.async; K and V for dQ)
-// run through two stages (~98 KB a CTA at dh 128: two CTAs a SM), the
-// fixed pair (K, V; Q, dO) stays.  The tensor maps are encoded per call
+// run through two stages (~98 KB a CTA at dh 128: two CTAs a SM; ~122 KB
+// at 192 / 128, where Q and K take three 64-column blocks and V and dO
+// two: one CTA a SM), the fixed pair (K, V; Q, dO) stays.  At 192 / 128
+// dK's and dV's accumulators alone take 160 registers a thread, so a dK /
+// dV step runs its 64 query rows as two parts of 32 (S^T and dP^T as
+// m64n32 products; dK += dS^T Q as m64n192k16, dV += P^T dO as
+// m64n128k16); the dQ launch needs no split (m64n192k16 for dQ).  The tensor maps are encoded per call
 // (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint:
 // nothing links libcuda).  P and dS are rounded to bf16 only as mma
 // inputs; masked scores get no probability at all (a select, not -inf
@@ -65,7 +71,8 @@
 // f32, which must match its plain version at 2e-5, and bf16 at the other
 // head dims run three launches on CUDA cores: the D pre-pass (one warp a
 // row), dK / dV per (32-key tile, KV head, batch row) over all g heads in
-// series, dQ per (32-row query tile, head).
+// series, dQ per (32-row query tile, head).  The path is picked by an
+// explicit (dtype, dh, dh_v) dispatch in flash_attention_bwd below.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -97,18 +104,18 @@ __device__ __forceinline__ void stf(void* base, size_t off, bool f32,
 // ------------------------------------------------------------ D pre-pass
 
 // D[b, h, i] = sum_d dO[b, i, h, d] o[b, i, h, d]: one warp per row of
-// [B, Tq, H] (row-major), lanes striding the head dim.
+// [B, Tq, H] (row-major), lanes striding the value width dv.
 __global__ void bwd_rowdot_kernel(const void* __restrict__ o,
                                   const void* __restrict__ dout,
                                   float* __restrict__ D, int rows, int Tq,
-                                  int H, int dh, int is_f32) {
+                                  int H, int dv, int is_f32) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const bool f32 = is_f32 != 0;
   float s = 0.f;
-  for (int d = lane; d < dh; d += 32) {
-    const size_t off = (size_t)row * dh + d;
+  for (int d = lane; d < dv; d += 32) {
+    const size_t off = (size_t)row * dv + d;
     s = fmaf(ldf(dout, off, f32), ldf(o, off, f32), s);
   }
 #pragma unroll
@@ -127,10 +134,11 @@ __global__ void bwd_rowdot_kernel(const void* __restrict__ o,
 constexpr int kCcTile = 32;        // keys and query rows per tile
 constexpr int kCcThreads = 256;    // 16 x 16: 2 x 2 scores each
 
-// Four [32][dh + 1] f32 tiles (the +1 keeps a column walk across rows on
-// distinct banks), two [32][33] score tiles, lse and D.
-size_t cc_smem_bytes(int dh) {
-  return ((size_t)4 * kCcTile * (dh + 1)
+// Two [32][dh + 1] f32 tiles (K and Q; the +1 keeps a column walk across
+// rows on distinct banks), two [32][dv + 1] (V and dO), two [32][33] score
+// tiles, lse and D.
+size_t cc_smem_bytes(int dh, int dv) {
+  return ((size_t)2 * kCcTile * (dh + 1) + (size_t)2 * kCcTile * (dv + 1)
           + (size_t)2 * kCcTile * (kCcTile + 1) + 2 * kCcTile)
          * sizeof(float);
 }
@@ -153,8 +161,9 @@ __device__ __forceinline__ void cc_load_rows(float* dst, const void* x,
 
 // dK / dV: one CTA per (32-key tile, KV head, batch row).  Thread (tx, ty)
 // owns the scores of keys 2 ty + {0, 1} x query rows 2 tx + {0, 1}, then
-// the dK / dV columns tx + 16 c of its two keys.
-template <int DH>
+// the dK / dV columns tx + 16 c of its two keys.  Keys and queries are DH
+// wide, values and dO DV wide.
+template <int DH, int DV>
 __global__ void __launch_bounds__(kCcThreads)
 bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
                    const void* __restrict__ v, const void* __restrict__ dout,
@@ -163,14 +172,16 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
                    int Tk, int H, int n_kv, int causal, int is_f32,
                    float scale) {
   constexpr int P = DH + 1;
+  constexpr int PV = DV + 1;
   constexpr int PS = kCcTile + 1;
   constexpr int NC = DH / 16;
+  constexpr int NCV = DV / 16;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kCcTile * P;
-  float* q_s = v_s + kCcTile * P;
+  float* q_s = v_s + kCcTile * PV;
   float* do_s = q_s + kCcTile * P;
-  float* p_s = do_s + kCcTile * P;     // [query][key]
+  float* p_s = do_s + kCcTile * PV;    // [query][key]
   float* ds_s = p_s + kCcTile * PS;    // [query][key]
   float* lse_s = ds_s + kCcTile * PS;
   float* d_s = lse_s + kCcTile;
@@ -182,13 +193,16 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   cc_load_rows<DH>(k_s, k, f32, b, Tk, n_kv, kvh, key0);
-  cc_load_rows<DH>(v_s, v, f32, b, Tk, n_kv, kvh, key0);
+  cc_load_rows<DV>(v_s, v, f32, b, Tk, n_kv, kvh, key0);
 
-  float dk_acc[2][NC], dv_acc[2][NC];
+  float dk_acc[2][NC], dv_acc[2][NCV];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int a = 0; a < 2; ++a) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+    for (int c = 0; c < NC; ++c) dk_acc[a][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) dv_acc[a][c] = 0.f;
+  }
 
   const int n_qt = (Tq + kCcTile - 1) / kCcTile;
   const int qt0 = causal ? key0 / kCcTile : 0;   // rows >= key0 see the tile
@@ -198,7 +212,7 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
       const int q0 = qt * kCcTile;
       __syncthreads();                 // the previous step is consumed
       cc_load_rows<DH>(q_s, q, f32, b, Tq, H, h, q0);
-      cc_load_rows<DH>(do_s, dout, f32, b, Tq, H, h, q0);
+      cc_load_rows<DV>(do_s, dout, f32, b, Tq, H, h, q0);
       if (threadIdx.x < kCcTile) {
         const int i = q0 + threadIdx.x;
         const size_t off = ((size_t)b * H + h) * Tq + i;
@@ -213,10 +227,11 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
           const int kr = 2 * ty + a, qr = 2 * tx + c;
           float s = 0.f, dp = 0.f;
 #pragma unroll 8
-          for (int d = 0; d < DH; ++d) {
+          for (int d = 0; d < DH; ++d)
             s = fmaf(k_s[kr * P + d], q_s[qr * P + d], s);
-            dp = fmaf(v_s[kr * P + d], do_s[qr * P + d], dp);
-          }
+#pragma unroll 8
+          for (int d = 0; d < DV; ++d)
+            dp = fmaf(v_s[kr * PV + d], do_s[qr * PV + d], dp);
           const int key = key0 + kr, row = q0 + qr;
           const bool ok = key < Tk && row < Tq && (!causal || key <= row);
           const float p = ok ? expf(s * scale - lse_s[qr]) : 0.f;
@@ -230,10 +245,11 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
           const float pa = p_s[r * PS + 2 * ty + a];
           const float da = ds_s[r * PS + 2 * ty + a];
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[a][c] = fmaf(pa, do_s[r * P + tx + 16 * c], dv_acc[a][c]);
+          for (int c = 0; c < NCV; ++c)
+            dv_acc[a][c] = fmaf(pa, do_s[r * PV + tx + 16 * c], dv_acc[a][c]);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
             dk_acc[a][c] = fmaf(da, q_s[r * P + tx + 16 * c], dk_acc[a][c]);
-          }
         }
       }
     }
@@ -242,19 +258,20 @@ bwd_dkdv_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int a = 0; a < 2; ++a) {
     const int key = key0 + 2 * ty + a;
     if (key >= Tk) continue;
-    const size_t off = (((size_t)b * Tk + key) * n_kv + kvh) * DH;
+    const size_t row = ((size_t)b * Tk + key) * n_kv + kvh;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      stf(dk, off + tx + 16 * c, f32, dk_acc[a][c] * scale);
-      stf(dv, off + tx + 16 * c, f32, dv_acc[a][c]);
-    }
+    for (int c = 0; c < NC; ++c)
+      stf(dk, row * DH + tx + 16 * c, f32, dk_acc[a][c] * scale);
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+      stf(dv, row * DV + tx + 16 * c, f32, dv_acc[a][c]);
   }
 }
 
 // dQ: one CTA per (32-row query tile, query head, batch row).  Thread
 // (tx, ty) owns the scores of rows 2 ty + {0, 1} x keys 2 tx + {0, 1},
 // then the dQ columns tx + 16 c of its two rows.
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(kCcThreads)
 bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  const void* __restrict__ v, const void* __restrict__ dout,
@@ -262,14 +279,15 @@ bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  void* __restrict__ dq, int Tq, int Tk, int H, int n_kv,
                  int causal, int is_f32, float scale) {
   constexpr int P = DH + 1;
+  constexpr int PV = DV + 1;
   constexpr int PS = kCcTile + 1;
   constexpr int NC = DH / 16;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kCcTile * P;
-  float* k_s = do_s + kCcTile * P;
+  float* k_s = do_s + kCcTile * PV;
   float* v_s = k_s + kCcTile * P;
-  float* ds_s = v_s + kCcTile * P;     // [row][key]
+  float* ds_s = v_s + kCcTile * PV;    // [row][key]
   float* lse_s = ds_s + 2 * kCcTile * PS;
   float* d_s = lse_s + kCcTile;
   const bool f32 = is_f32 != 0;
@@ -280,7 +298,7 @@ bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   cc_load_rows<DH>(q_s, q, f32, b, Tq, H, h, q0);
-  cc_load_rows<DH>(do_s, dout, f32, b, Tq, H, h, q0);
+  cc_load_rows<DV>(do_s, dout, f32, b, Tq, H, h, q0);
   if (threadIdx.x < kCcTile) {
     const int i = q0 + threadIdx.x;
     const size_t off = ((size_t)b * H + h) * Tq + i;
@@ -299,7 +317,7 @@ bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
     const int key0 = kt * kCcTile;
     __syncthreads();                   // the previous tile is consumed
     cc_load_rows<DH>(k_s, k, f32, b, Tk, n_kv, kvh, key0);
-    cc_load_rows<DH>(v_s, v, f32, b, Tk, n_kv, kvh, key0);
+    cc_load_rows<DV>(v_s, v, f32, b, Tk, n_kv, kvh, key0);
     __syncthreads();
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -308,10 +326,11 @@ bwd_dq_cc_kernel(const void* __restrict__ q, const void* __restrict__ k,
         const int qr = 2 * ty + a, kr = 2 * tx + c;
         float s = 0.f, dp = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
+        for (int d = 0; d < DH; ++d)
           s = fmaf(q_s[qr * P + d], k_s[kr * P + d], s);
-          dp = fmaf(do_s[qr * P + d], v_s[kr * P + d], dp);
-        }
+#pragma unroll 8
+        for (int d = 0; d < DV; ++d)
+          dp = fmaf(do_s[qr * PV + d], v_s[kr * PV + d], dp);
         const int key = key0 + kr, row = q0 + qr;
         const bool ok = key < Tk && row < Tq && (!causal || key <= row);
         const float p = ok ? expf(s * scale - lse_s[qr]) : 0.f;
@@ -484,9 +503,30 @@ __device__ __forceinline__ void a_frag(uint32_t* a, const float* d, int kk) {
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// d[64 x 64] (+)= A B^T with A and B K-major in shared memory (named by
+// d[64 x N] (+)= A B^T with A and B K-major in shared memory (named by
 // descriptors); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -613,6 +653,52 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 constexpr int kThreads = 128;      // one warpgroup a CTA
 
 // 2^x on the special-function unit, subnormal results flushed to zero.
@@ -622,18 +708,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// P^T in place from S^T [64 keys x 64 rows] (dK / dV's layout: keys are
-// accumulator rows, query rows its columns): exp2 of the scaled score less
-// the row's lse.  With MASK, keys past Tk, rows past Tq and (causal) keys
-// after their row get an exact zero; without, the caller knows there are
-// none.
-template <bool MASK>
+// P^T in place from S^T [64 keys x 2 NI rows] (dK / dV's layout: keys are
+// accumulator rows, query rows q0 .. its columns, lse_s their lse): exp2 of
+// the scaled score less the row's lse.  With MASK, keys past Tk, rows past
+// Tq and (causal) keys after their row get an exact zero; without, the
+// caller knows there are none.
+template <bool MASK, int NI>
 __device__ __forceinline__ void probs_keys_rows(float* p, const float* lse_s,
                                                 float scale_log2, int key,
                                                 int q0, int Tk, int Tq,
                                                 bool causal, int lane) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const int r = (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
     const float e = fast_exp2(p[i] * scale_log2 - lse_s[r] * kLog2e);
     if (MASK) {
@@ -672,18 +758,59 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// Six tiles (two fixed, two stages of two streamed), two stages of 64 + 64
-// f32 (lse and D), three mbarriers (a stage each and the fixed tiles) and
-// the slack that aligns the base to 1024 bytes.  After its walk a dK / dV
-// CTA reuses the tiles' bytes for its f32 partials [64][DH + 4] of dK and
+// Three pairs of tiles, a DH-wide and a DV-wide one each (the fixed pair
+// and two stages of the streamed pair), two stages of 64 + 64 f32 (lse and
+// D), three mbarriers (a stage each and the fixed tiles) and the slack that
+// aligns the base to 1024 bytes.  After its walk a dK / dV CTA reuses the
+// tiles' bytes for its f32 partials [64][DH + 4] of dK and [64][DV + 4] of
 // dV, which fit.
-template <int DH>
+template <int DH, int DV>
 constexpr size_t tc_smem_bytes() {
-  static_assert(2 * kTile * (DH + 4) * sizeof(float)
-                    <= 6 * (size_t)tile_bytes<DH>(),
+  static_assert(kTile * (DH + 4 + DV + 4) * sizeof(float)
+                    <= 3 * (size_t)(tile_bytes<DH>() + tile_bytes<DV>()),
                 "the dK / dV partials fit in the tiles' bytes");
-  return (size_t)6 * tile_bytes<DH>() + 4 * kTile * sizeof(float) + 64
-         + 1024;
+  return (size_t)3 * (tile_bytes<DH>() + tile_bytes<DV>())
+         + 4 * kTile * sizeof(float) + 64 + 1024;
+}
+
+// Parts a dK / dV step splits its 64 query rows into.  At DH + DV above
+// 256 (MLA's 192 / 128) dK's and dV's f32 accumulators take DH / 2 + DV /
+// 2 = 160 registers a thread, and S^T and dP^T over all 64 rows 32 more
+// each: a step then runs as two parts of 32 rows (S^T and dP^T m64n32,
+// 16 registers each), so that nothing spills.
+template <int DH, int DV>
+__host__ __device__ constexpr int q_parts() {
+  return DH + DV > 256 ? 2 : 1;
+}
+
+// Rows [lo, hi) of the c ranks' f32 partials part [64][stride] (W columns
+// wide), summed in rank order through distributed shared memory, times
+// mul, into out [.., Tk, n_kv, W] bf16 at keys key0 + row (head row
+// kv_row0 + key n_kv); rows past Tk are not written.
+template <int W>
+__device__ __forceinline__ void cluster_sum_rows(cg::cluster_group& cluster,
+                                                 float* part, int stride,
+                                                 int lo, int hi, int c,
+                                                 __nv_bfloat16* out, int key0,
+                                                 int Tk, size_t kv_row0,
+                                                 int n_kv, float mul) {
+  for (int i = threadIdx.x; i < (hi - lo) * (W / 4); i += kThreads) {
+    const int r = lo + i / (W / 4), col = (i % (W / 4)) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < c; ++src) {              // rank order
+      const float4 x = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, src) + r * stride + col);
+      sum = src ? make_float4(sum.x + x.x, sum.y + x.y, sum.z + x.z,
+                              sum.w + x.w)
+                : x;
+    }
+    const int key = key0 + r;
+    if (key >= Tk) continue;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
+        out + (kv_row0 + (size_t)key * n_kv) * W + col);
+    o2[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+    o2[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+  }
 }
 
 // dK / dV: one CTA per (64-key tile, KV head, batch row, rank r of c =
@@ -693,12 +820,12 @@ constexpr size_t tc_smem_bytes() {
 // TMA bring the next step's Q and dO tiles into the other stage while
 // every thread copies its row's lse and D.  S^T = K Q^T and dP^T = V dO^T
 // are shared x shared wgmmas; dV += P^T dO and dK += dS^T Q take P^T and
-// dS^T from registers and read dO and Q MN-major.  Then every rank parks
-// its f32 partials in its shared memory, and rank r sums rows [64 r / c,
-// 64 (r + 1) / c) of all c partials, in rank order, through distributed
-// shared memory, and writes them.  Key tile 0 (the longest causal walk)
-// runs first.
-template <int DH>
+// dS^T from registers and read dO and Q MN-major (a step in q_parts()
+// parts of its query rows).  Then every rank parks its f32 partials in its
+// shared memory, and rank r sums rows [64 r / c, 64 (r + 1) / c) of all c
+// partials, in rank order, through distributed shared memory, and writes
+// them.  Key tile 0 (the longest causal walk) runs first.
+template <int DH, int DV>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
@@ -709,14 +836,19 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int B, int Tq, int Tk,
                       int H, int n_kv, int causal, float scale) {
-  constexpr int TB = tile_bytes<DH>();
-  constexpr int PS = DH + 4;           // f32 partial row stride
+  constexpr int TBK = tile_bytes<DH>();
+  constexpr int TBV = tile_bytes<DV>();
+  constexpr int TBP = TBK + TBV;       // a pair of tiles
+  constexpr int PSK = DH + 4;          // f32 partial row strides
+  constexpr int PSV = DV + 4;
+  constexpr int QP = q_parts<DH, DV>();
+  constexpr int QN = kTile / QP;       // query rows of a part
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t k_s = smem_addr(smem);
-  const uint32_t v_s = k_s + TB;
-  const uint32_t qd_s = k_s + 2 * TB;  // [stage][Q, dO] tiles
-  float* ld_s = reinterpret_cast<float*>(smem + 6 * TB);
+  const uint32_t v_s = k_s + TBK;
+  const uint32_t qd_s = k_s + TBP;     // [stage][Q, dO] tiles
+  float* ld_s = reinterpret_cast<float*>(smem + 3 * TBP);
   // ld_s: [stage][lse[64], D[64]]; then the mbarriers [stage 0, 1, fixed]
   const uint32_t bar = smem_addr(ld_s + 4 * kTile);
   cg::cluster_group cluster = cg::this_cluster();
@@ -738,9 +870,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect(bar + 16, 2 * TB);
+    mbar_expect(bar + 16, TBP);
     tma_tile<DH>(k_s, &tm_k, bar + 16, kvh, key0, b);
-    tma_tile<DH>(v_s, &tm_v, bar + 16, kvh, key0, b);
+    tma_tile<DV>(v_s, &tm_v, bar + 16, kvh, key0, b);
   }
   const int n_qt = (Tq + kTile - 1) / kTile;
   const int qt0 = causal ? min(key0 / kTile, n_qt) : 0;   // rows >= key0
@@ -751,10 +883,10 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int h = kvh * g + j0 + step / per_head;
     const int q0 = (qt0 + step % per_head) * kTile;
     if (threadIdx.x == 0) {
-      const uint32_t qs = qd_s + stage * 2 * TB;
-      mbar_expect(bar + 8 * stage, 2 * TB);
+      const uint32_t qs = qd_s + stage * TBP;
+      mbar_expect(bar + 8 * stage, TBP);
       tma_tile<DH>(qs, &tm_q, bar + 8 * stage, h, q0, b);
-      tma_tile<DH>(qs + TB, &tm_do, bar + 8 * stage, h, q0, b);
+      tma_tile<DV>(qs + TBK, &tm_do, bar + 8 * stage, h, q0, b);
     }
     const int r = threadIdx.x % kTile;
     const bool ok = q0 + r < Tq;
@@ -765,9 +897,11 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
 
-  float dk_acc[DH / 2], dv_acc[DH / 2];
+  float dk_acc[DH / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
   mbar_wait(bar + 16, 0);              // K and V have landed
 
   for (int step = 0; step < n_steps; ++step) {
@@ -776,101 +910,86 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     cp_async_wait<1>();                // this step's lse and D
     mbar_wait(bar + 8 * (step % 2), (step / 2) & 1);   // its Q and dO
     __syncthreads();
-    const uint32_t qs = qd_s + (step % 2) * 2 * TB;
-    const uint32_t dos = qs + TB;
+    const uint32_t qs = qd_s + (step % 2) * TBP;
+    const uint32_t dos = qs + TBK;
     const float* lse_s = ld_s + (step % 2) * 2 * kTile;
     const float* d_s = lse_s + kTile;
     const int q0 = (qt0 + step % per_head) * kTile;
     // Masks only where the tile crosses the diagonal or an edge.
     const bool edge = key0 + kTile > Tk || q0 + kTile > Tq
                       || (causal && key0 + kTile - 1 > q0);
-    float p[32], ds[32];               // P^T and dS^T [64 keys x 64 rows]
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)             // S^T = K Q^T
-      wgmma_ss_n64(p, desc_k(k_s, kk), desc_k(qs, kk), kk);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)             // dP^T = V dO^T
-      wgmma_ss_n64(ds, desc_k(v_s, kk), desc_k(dos, kk), kk);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs<32>(p);
     const int key = key0 + warp * 16 + lane / 4;
-    if (edge)
-      probs_keys_rows<true>(p, lse_s, scale_log2, key, q0, Tk, Tq, causal,
-                            lane);
-    else
-      probs_keys_rows<false>(p, lse_s, scale_log2, key, q0, Tk, Tq, causal,
-                             lane);
-    // Both A operands are packed before the products are issued: a
-    // register written between two wgmmas makes the compiler fence them.
-    uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) a_frag(pa[kk], p, kk);
-    wgmma_wait<0>();
-    fence_regs<32>(ds);
+    for (int part = 0; part < QP; ++part) {
+      const int r0 = part * QN;        // the part's first row in the tile
+      float p[QN / 2], ds[QN / 2];     // P^T and dS^T [64 keys x QN rows]
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 32; ++i)                     // dS^T = P^T o (dP^T - D)
-      ds[i] = p[i] * (ds[i] - d_s[(i / 4) * 8 + 2 * (lane % 4) + (i & 1)]);
+      for (int kk = 0; kk < DH / 16; ++kk)           // S^T = K Q^T
+        wgmma_ss<QN>(p, desc_k(k_s, kk), desc_k(qs + r0 * 128, kk), kk);
+      wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) a_frag(sa[kk], ds, kk);
-    wgmma_fence();
+      for (int kk = 0; kk < DV / 16; ++kk)           // dP^T = V dO^T
+        wgmma_ss<QN>(ds, desc_k(v_s, kk), desc_k(dos + r0 * 128, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs<QN / 2>(p);
+      if (edge)
+        probs_keys_rows<true, QN / 2>(p, lse_s + r0, scale_log2, key,
+                                      q0 + r0, Tk, Tq, causal, lane);
+      else
+        probs_keys_rows<false, QN / 2>(p, lse_s + r0, scale_log2, key,
+                                       q0 + r0, Tk, Tq, causal, lane);
+      // Both A operands are packed before the products are issued: a
+      // register written between two wgmmas makes the compiler fence them.
+      uint32_t pa[QN / 16][4], sa[QN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)          // dV += P^T dO
-      wgmma_rs<DH>(dv_acc, pa[kk], desc_mn(dos, kk));
+      for (int kk = 0; kk < QN / 16; ++kk) a_frag(pa[kk], p, kk);
+      wgmma_wait<0>();
+      fence_regs<QN / 2>(ds);
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)          // dK += dS^T Q
-      wgmma_rs<DH>(dk_acc, sa[kk], desc_mn(qs, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<DH / 2>(dv_acc);
-    fence_regs<DH / 2>(dk_acc);
+      for (int i = 0; i < QN / 2; ++i)               // dS^T = P^T o (dP^T - D)
+        ds[i] = p[i] * (ds[i]
+                        - d_s[r0 + (i / 4) * 8 + 2 * (lane % 4) + (i & 1)]);
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk) a_frag(sa[kk], ds, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)           // dV += P^T dO
+        wgmma_rs<DV>(dv_acc, pa[kk], desc_mn(dos, r0 / 16 + kk));
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)           // dK += dS^T Q
+        wgmma_rs<DH>(dk_acc, sa[kk], desc_mn(qs, r0 / 16 + kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<DV / 2>(dv_acc);
+      fence_regs<DH / 2>(dk_acc);
+    }
     __syncthreads();                   // stage step % 2 is consumed
   }
   cp_async_wait<0>();
   __syncthreads();                     // the tiles are dead: partials next
 
   float* pk = reinterpret_cast<float*>(smem);
-  float* pv = pk + kTile * PS;
+  float* pv = pk + kTile * PSK;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + lane / 4 + 8 * half;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = warp * 16 + lane / 4 + 8 * half;
-      const int col = n * 8 + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(pk + r * PS + col) =
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(pk + r * PSK + n * 8 + 2 * (lane % 4)) =
           make_float2(dk_acc[4 * n + 2 * half], dk_acc[4 * n + 2 * half + 1]);
-      *reinterpret_cast<float2*>(pv + r * PS + col) =
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+      *reinterpret_cast<float2*>(pv + r * PSV + n * 8 + 2 * (lane % 4)) =
           make_float2(dv_acc[4 * n + 2 * half], dv_acc[4 * n + 2 * half + 1]);
-    }
+  }
   cluster.sync();                      // every rank's partials are parked
   const int lo = rank * kTile / c, hi = (rank + 1) * kTile / c;
-  for (int i = threadIdx.x; i < (hi - lo) * (DH / 4); i += kThreads) {
-    const int r = lo + i / (DH / 4), col = (i % (DH / 4)) * 4;
-    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
-    for (int src = 0; src < c; ++src) {              // rank order
-      const float4 xk = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(pk, src) + r * PS + col);
-      const float4 xv = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(pv, src) + r * PS + col);
-      sk = src ? make_float4(sk.x + xk.x, sk.y + xk.y, sk.z + xk.z,
-                             sk.w + xk.w)
-               : xk;
-      sv = src ? make_float4(sv.x + xv.x, sv.y + xv.y, sv.z + xv.z,
-                             sv.w + xv.w)
-               : xv;
-    }
-    const int key = key0 + r;
-    if (key >= Tk) continue;
-    const size_t off = (((size_t)b * Tk + key) * n_kv + kvh) * DH + col;
-    __nv_bfloat162* dk2 = reinterpret_cast<__nv_bfloat162*>(dk + off);
-    __nv_bfloat162* dv2 = reinterpret_cast<__nv_bfloat162*>(dv + off);
-    dk2[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
-    dk2[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
-    dv2[0] = __floats2bfloat162_rn(sv.x, sv.y);
-    dv2[1] = __floats2bfloat162_rn(sv.z, sv.w);
-  }
+  cluster_sum_rows<DH>(cluster, pk, PSK, lo, hi, c, dk, key0, Tk,
+                       ((size_t)b * Tk * n_kv + kvh), n_kv, scale);
+  cluster_sum_rows<DV>(cluster, pv, PSV, lo, hi, c, dv, key0, Tk,
+                       ((size_t)b * Tk * n_kv + kvh), n_kv, 1.f);
   cluster.sync();                      // no rank leaves while read from
 }
 
@@ -882,7 +1001,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // stage; S = Q K^T and dP = dO V^T are shared x shared wgmmas, then dQ +=
 // dS K takes dS from registers and reads K MN-major.  The latest positions
 // (the longest causal walk) run first.
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
@@ -892,13 +1011,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse, float* __restrict__ D,
                     __nv_bfloat16* __restrict__ dq, int B, int Tq, int Tk,
                     int H, int n_kv, int causal, float scale) {
-  constexpr int TB = tile_bytes<DH>();
+  constexpr int TBK = tile_bytes<DH>();
+  constexpr int TBV = tile_bytes<DV>();
+  constexpr int TBP = TBK + TBV;       // a pair of tiles
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t q_s = smem_addr(smem);
-  const uint32_t do_s = q_s + TB;
-  const uint32_t kv_s = q_s + 2 * TB;  // [stage][K, V] tiles
-  float* lse_s = reinterpret_cast<float*>(smem + 6 * TB);
+  const uint32_t do_s = q_s + TBK;
+  const uint32_t kv_s = q_s + TBP;     // [stage][K, V] tiles
+  float* lse_s = reinterpret_cast<float*>(smem + 3 * TBP);
   float* d_s = lse_s + kTile;
   const uint32_t bar = smem_addr(lse_s + 4 * kTile);   // [stage 0, 1, fixed]
   const float scale_log2 = scale * kLog2e;
@@ -918,7 +1039,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // Rows the box does not reach (g not a power of two) are zeros.
   for (int i = rows_used * 8 + threadIdx.x; i < kTile * 8; i += kThreads)
 #pragma unroll
-    for (int j = 0; j < 2 * TB / kBlock; ++j)      // Q's blocks, then dO's
+    for (int j = 0; j < TBP / kBlock; ++j)         // Q's blocks, then dO's
       *reinterpret_cast<uint4*>(smem + j * kBlock + 16 * i) = uint4{};
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   if (threadIdx.x == 0) {
@@ -927,9 +1048,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect(bar + 16, 2 * (TB / kBlock) * rows_used * 128);
+    mbar_expect(bar + 16, (TBP / kBlock) * rows_used * 128);
     tma_tile<DH>(q_s, &tm_q, bar + 16, kvh * g, pos0, b);
-    tma_tile<DH>(do_s, &tm_do, bar + 16, kvh * g, pos0, b);
+    tma_tile<DV>(do_s, &tm_do, bar + 16, kvh * g, pos0, b);
   }
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x;
@@ -942,10 +1063,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_kt = (kend + kTile - 1) / kTile;
   auto load_tile = [&](int t, int stage) {
     if (threadIdx.x == 0) {
-      const uint32_t ks = kv_s + stage * 2 * TB;
-      mbar_expect(bar + 8 * stage, 2 * TB);
+      const uint32_t ks = kv_s + stage * TBP;
+      mbar_expect(bar + 8 * stage, TBP);
       tma_tile<DH>(ks, &tm_k, bar + 8 * stage, kvh, t * kTile, b);
-      tma_tile<DH>(ks + TB, &tm_v, bar + 8 * stage, kvh, t * kTile, b);
+      tma_tile<DV>(ks + TBK, &tm_v, bar + 8 * stage, kvh, t * kTile, b);
     }
   };
   if (n_kt > 0) load_tile(0, 0);
@@ -955,14 +1076,14 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // row of O is fetched while the TMA brings Q and dO.
   const int d_row = threadIdx.x / 2, d_half = threadIdx.x % 2;
   const bool d_ok = d_row < rows_used && d_row / g < n_pos;
-  uint4 ov[DH / 16];
+  uint4 ov[DV / 16];
   {
     const uint4* src = reinterpret_cast<const uint4*>(
         o + (((size_t)b * Tq + pos0 + d_row / g) * H + kvh * g + d_row % g)
-                * DH
-          + d_half * (DH / 2));
+                * DV
+          + d_half * (DV / 2));
 #pragma unroll
-    for (int i = 0; i < DH / 16; ++i) ov[i] = d_ok ? src[i] : uint4{};
+    for (int i = 0; i < DV / 16; ++i) ov[i] = d_ok ? src[i] : uint4{};
   }
 
   int rpos[2], rows[2];
@@ -982,10 +1103,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   {
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < DH / 16; ++i) {
-      const int col = d_half * (DH / 2) + 8 * i;
+    for (int i = 0; i < DV / 16; ++i) {
+      const int col = d_half * (DV / 2) + 8 * i;
       const uint4 dv = *reinterpret_cast<const uint4*>(   // swizzled dO
-          smem + TB + (col / 64) * kBlock + d_row * 128
+          smem + TBK + (col / 64) * kBlock + d_row * 128
           + ((((col / 8) & 7) ^ (d_row & 7)) << 4));
       const __nv_bfloat162* o2 =
           reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
@@ -1010,8 +1131,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int t = 0; t < n_kt; ++t) {
     if (t + 1 < n_kt) load_tile(t + 1, (t + 1) % 2);
     mbar_wait(bar + 8 * (t % 2), (t / 2) & 1);       // tile t
-    const uint32_t ks = kv_s + (t % 2) * 2 * TB;
-    const uint32_t vs = ks + TB;
+    const uint32_t ks = kv_s + (t % 2) * TBP;
+    const uint32_t vs = ks + TBK;
     const int key0 = t * kTile;
     // Masks only where the tile crosses a row's diagonal or an edge.
     const bool edge = key0 + kTile > Tk || n_pos < bq || rows_used < kTile
@@ -1020,11 +1141,11 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)             // S = Q K^T
-      wgmma_ss_n64(p, desc_k(q_s, kk), desc_k(ks, kk), kk);
+      wgmma_ss<64>(p, desc_k(q_s, kk), desc_k(ks, kk), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)             // dP = dO V^T
-      wgmma_ss_n64(ds, desc_k(do_s, kk), desc_k(vs, kk), kk);
+    for (int kk = 0; kk < DV / 16; ++kk)             // dP = dO V^T
+      wgmma_ss<64>(ds, desc_k(do_s, kk), desc_k(vs, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs<32>(p);
@@ -1121,7 +1242,7 @@ bool make_map(CUtensorMap* map, const void* x, int B, int T, int heads,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* D, void* dq, void* dk, void* dv, int B, int Tq,
@@ -1135,29 +1256,28 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = tc_smem_bytes<DH>();
+  const size_t smem = tc_smem_bytes<DH, DV>();
   static bool raised_kv = false, raised_q = false;
-  err = raise_smem(bwd_dkdv_wgmma_kernel<DH>, smem, &raised_kv);
+  err = raise_smem(bwd_dkdv_wgmma_kernel<DH, DV>, smem, &raised_kv);
   if (err != cudaSuccess) return err;
-  err = raise_smem(bwd_dq_wgmma_kernel<DH>, smem, &raised_q);
+  err = raise_smem(bwd_dq_wgmma_kernel<DH, DV>, smem, &raised_q);
   if (err != cudaSuccess) return err;
   const int g = H / n_kv;
   const int c = g < kMaxCluster ? g : kMaxCluster;
   const int bq = kTile / g;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_q_rows, tm_do_rows;
   if (!make_map(&tm_q, q, B, Tq, H, DH, 1, kTile)
-      || !make_map(&tm_do, dout, B, Tq, H, DH, 1, kTile)
+      || !make_map(&tm_do, dout, B, Tq, H, DV, 1, kTile)
       || !make_map(&tm_k, k, B, Tk, n_kv, DH, 1, kTile)
-      || !make_map(&tm_v, v, B, Tk, n_kv, DH, 1, kTile)
+      || !make_map(&tm_v, v, B, Tk, n_kv, DV, 1, kTile)
       || !make_map(&tm_q_rows, q, B, Tq, H, DH, g, bq)
-      || !make_map(&tm_do_rows, dout, B, Tq, H, DH, g, bq))
+      || !make_map(&tm_do_rows, dout, B, Tq, H, DV, g, bq))
     return cudaErrorInvalidValue;
   // dQ first: it also writes D, which dK / dV reads.
-  bwd_dq_wgmma_kernel<DH><<<((Tq + bq - 1) / bq) * n_kv * B, kThreads, smem,
-                            stream>>>(tm_q_rows, tm_do_rows, tm_k, tm_v,
-                                      static_cast<const bf*>(o), lse, D,
-                                      static_cast<bf*>(dq), B, Tq, Tk, H,
-                                      n_kv, causal, scale);
+  bwd_dq_wgmma_kernel<DH, DV><<<((Tq + bq - 1) / bq) * n_kv * B, kThreads,
+                                smem, stream>>>(
+      tm_q_rows, tm_do_rows, tm_k, tm_v, static_cast<const bf*>(o), lse, D,
+      static_cast<bf*>(dq), B, Tq, Tk, H, n_kv, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute cluster;
@@ -1172,7 +1292,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<DH>, tm_q, tm_do, tm_k,
+  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<DH, DV>, tm_q, tm_do,
+                           tm_k,
                            tm_v, lse, static_cast<const float*>(D),
                            static_cast<bf*>(dk), static_cast<bf*>(dv), B, Tq,
                            Tk, H, n_kv, causal, scale);
@@ -1180,7 +1301,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch_cc(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* D, void* dq, void* dk, void* dv, int B, int Tq,
@@ -1188,22 +1309,22 @@ cudaError_t launch_cc(const void* q, const void* k, const void* v,
                       float scale, cudaStream_t stream) {
   const int rows = B * Tq * H;
   bwd_rowdot_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(o, dout, D, rows, Tq,
-                                                        H, DH, is_f32);
+                                                        H, DV, is_f32);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = cc_smem_bytes(DH);
+  const size_t smem = cc_smem_bytes(DH, DV);
   static bool raised_kv = false, raised_q = false;
-  err = raise_smem(bwd_dkdv_cc_kernel<DH>, smem, &raised_kv);
+  err = raise_smem(bwd_dkdv_cc_kernel<DH, DV>, smem, &raised_kv);
   if (err != cudaSuccess) return err;
-  err = raise_smem(bwd_dq_cc_kernel<DH>, smem, &raised_q);
+  err = raise_smem(bwd_dq_cc_kernel<DH, DV>, smem, &raised_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((Tk + kCcTile - 1) / kCcTile, n_kv, B);
-  bwd_dkdv_cc_kernel<DH><<<grid_kv, kCcThreads, smem, stream>>>(
+  bwd_dkdv_cc_kernel<DH, DV><<<grid_kv, kCcThreads, smem, stream>>>(
       q, k, v, dout, lse, D, dk, dv, Tq, Tk, H, n_kv, causal, is_f32, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((Tq + kCcTile - 1) / kCcTile, H, B);
-  bwd_dq_cc_kernel<DH><<<grid_q, kCcThreads, smem, stream>>>(
+  bwd_dq_cc_kernel<DH, DV><<<grid_q, kCcThreads, smem, stream>>>(
       q, k, v, dout, lse, D, dq, Tq, Tk, H, n_kv, causal, is_f32, scale);
   return cudaGetLastError();
 }
@@ -1212,37 +1333,42 @@ cudaError_t launch_cc(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, o, dout, dq [B, Tq, H, dh]; k, v, dk, dv [B, Tk, n_kv, dh]; all bf16
-// (is_f32 = 0) or all f32, contiguous; lse f32 [B, H, Tq] from the
-// forward; D f32 [B, H, Tq] scratch, written here.  Queries at positions
-// 0 .. Tq - 1; dh a multiple of 32 up to 256; H / n_kv at most 64.  On
-// `stream`: bf16 at dh 32, 64, 96 and 128 is two launches (dQ, which also
-// writes D, then dK / dV in clusters), the rest three (D, dK / dV, dQ).
-// Returns the first cudaError_t (0 on success).
+// q, dq [B, Tq, H, dh]; o, dout [B, Tq, H, dh_v]; k, dk [B, Tk, n_kv, dh];
+// v, dv [B, Tk, n_kv, dh_v]; all bf16 (is_f32 = 0) or all f32,
+// contiguous; lse f32 [B, H, Tq] from the forward; D f32 [B, H, Tq]
+// scratch, written here.  Queries at positions 0 .. Tq - 1; dh_v = dh a
+// multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA); H / n_kv at
+// most 64.  On `stream`: bf16 at dh = dh_v 32, 64, 96 and 128 and at dh
+// 192 / dh_v 128 is two launches (dQ, which also writes D, then dK / dV in
+// clusters), the rest three (D, dK / dV, dQ).  Returns the first
+// cudaError_t (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* D, void* dq, void* dk, void* dv, int B, int Tq,
-                        int Tk, int H, int n_kv, int dh, int causal,
+                        int Tk, int H, int n_kv, int dh, int dh_v, int causal,
                         int is_f32, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int key = dh * 1024 + dh_v;
   if (!is_f32) {
-    switch (dh) {
-#define TC(D_)                                                               \
-  case D_:                                                                   \
-    return (int)launch_tc<D_>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Tq,   \
-                              Tk, H, n_kv, causal, scale, s);
-      TC(32) TC(64) TC(96) TC(128)
+    switch (key) {
+#define TC(D_, DV_)                                                          \
+  case D_ * 1024 + DV_:                                                      \
+    return (int)launch_tc<D_, DV_>(q, k, v, o, dout, lse, D, dq, dk, dv, B,  \
+                                   Tq, Tk, H, n_kv, causal, scale, s);
+      TC(32, 32) TC(64, 64) TC(96, 96) TC(128, 128) TC(192, 128)
 #undef TC
       default:
         break;
     }
   }
-  switch (dh) {
-#define CC(D_)                                                               \
-  case D_:                                                                   \
-    return (int)launch_cc<D_>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Tq,   \
-                              Tk, H, n_kv, causal, is_f32, scale, s);
-    CC(32) CC(64) CC(96) CC(128) CC(160) CC(192) CC(224) CC(256)
+  switch (key) {
+#define CC(D_, DV_)                                                          \
+  case D_ * 1024 + DV_:                                                      \
+    return (int)launch_cc<D_, DV_>(q, k, v, o, dout, lse, D, dq, dk, dv, B,  \
+                                   Tq, Tk, H, n_kv, causal, is_f32, scale,   \
+                                   s);
+    CC(32, 32) CC(64, 64) CC(96, 96) CC(128, 128) CC(160, 160) CC(192, 192)
+    CC(224, 224) CC(256, 256) CC(192, 128)
 #undef CC
     default:
       return (int)cudaErrorInvalidValue;

@@ -31,15 +31,17 @@ its backward is ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_bwd`, plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`), counted by
 ``flash_attention_bwd.launches``: one per call, however many launches it
-makes (bf16 at head dims 32-128: dQ, which also writes D, then dK / dV
-in thread-block clusters on ``wgmma``; otherwise the D pre-pass, dK / dV
-and dQ on CUDA cores).  A differentiated call that names its site (the
-encoder, or ``cross_prefill`` for the decoder's rows over the whole
-memory) also counts under ``flash_attention_lse.site_launches[site]`` and
+makes (bf16 at head dims 32-128 and at MLA's 192 / 128: dQ, which also
+writes D, then dK / dV in thread-block clusters on ``wgmma``; otherwise the
+D pre-pass, dK / dV and dQ on CUDA cores).  A differentiated call that
+names its site (the encoder, or ``cross_prefill`` for the decoder's rows
+over the whole memory) also counts under
+``flash_attention_lse.site_launches[site]`` and
 ``flash_attention_bwd.site_launches[site]``, never under the serving
 call's.  Training takes queries at positions 0 .. Tq - 1 (no
-``q_offset``, no ``kv_len``), equal key and value widths and bf16 or f32.
-Serving calls run under ``no_grad`` and never take this path.
+``q_offset``, no ``kv_len``), the widths of :data:`HEAD_DIMS` (MLA's
+expanded attention included: dq and dk 192 wide, dv 128) and bf16 or
+f32.  Serving calls run under ``no_grad`` and never take this path.
 """
 
 from __future__ import annotations
@@ -115,18 +117,19 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
                                            scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
-    _check_train_inputs(q, k, v)
+    _check_inputs(q, k, v, None, 0)
     B, Tq, H, dh = q.shape
     Tk, n_kv = k.shape[1:3]
+    dh_v = v.shape[-1]
     scale = dh ** -0.5 if scale is None else scale
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Tq, H, dh_v))
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), None, B, Tq, Tk, H, n_kv, dh, dh, 0,
+        lse.data_ptr(), None, B, Tq, Tk, H, n_kv, dh, dh_v, 0,
         int(bool(causal)), int(q.dtype == torch.float32), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_fwd")
@@ -147,26 +150,29 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     (no atomics; the query heads' dK / dV partials are summed in a fixed
     order): two calls on the same inputs give the same bits.  A refused
     launch (a cluster the card cannot place, a tensor map it cannot
-    encode) raises.  ``site``: as :func:`flash_attention_lse`'s."""
+    encode) raises.  ``o`` and ``do`` must be [B, Tq, H, dh_v] in q's dtype
+    and ``lse`` f32 [B, H, Tq], on every device.  ``site``: as
+    :func:`flash_attention_lse`'s."""
     if site is not None and site not in SITES:
         raise ValueError(f"unknown flash-attention site {site!r}")
+    B, Tq, H, dh = q.shape
+    Tk, n_kv = k.shape[1:3]
+    dh_v = v.shape[-1]
+    for name, t, shape, dtype in (("o", o, (B, Tq, H, dh_v), q.dtype),
+                                  ("do", do, (B, Tq, H, dh_v), q.dtype),
+                                  ("lse", lse, (B, H, Tq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {dtype} {shape} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                            causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
-    _check_train_inputs(q, k, v)
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {q.dtype} "
-                             f"{tuple(q.shape)} on {q.device}")
-    B, Tq, H, dh = q.shape
-    Tk, n_kv = k.shape[1:3]
-    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise ValueError(f"lse must be a contiguous float32 [{B}, {H}, "
-                         f"{Tq}] on {q.device}")
+    _check_inputs(q, k, v, None, 0)
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     scale = dh ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
@@ -176,7 +182,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, n_kv, dh,
+        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, n_kv, dh, dh_v,
         int(bool(causal)), int(q.dtype == torch.float32), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
@@ -210,15 +216,6 @@ class FlashAttentionFn(torch.autograd.Function):
                                          causal=ctx.causal, scale=ctx.scale,
                                          site=ctx.site)
         return dq, dk, dv, None, None, None
-
-
-def _check_train_inputs(q, k, v) -> None:
-    """What the training kernels take, beyond :func:`_check_inputs`: equal
-    key and value widths."""
-    _check_inputs(q, k, v, None, 0)
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"training attention takes equal key and value "
-                         f"widths, got {q.shape[-1]} / {v.shape[-1]}")
 
 
 def _check_inputs(q, k, v, kv_len, q_offset) -> None:
@@ -277,7 +274,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.library("flash_attention_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 8 + [ctypes.c_float,
+    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 9 + [ctypes.c_float,
                                                              P]
     lib.flash_attention_bwd.restype = I
     return lib

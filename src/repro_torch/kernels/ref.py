@@ -31,9 +31,10 @@ def flash_attention_lse_ref(q, k, v, *, causal=True, scale=None):
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, scale=None):
-    """Gradients (dq, dk, dv) of the attention of q [B, Tq, H, dh] over k,
-    v [B, Tk, n_kv, dh] given dO = ``do``, written out as the backward
-    kernel computes them, in f32:
+    """Gradients (dq, dk, dv) of the attention of q [B, Tq, H, dh] over k
+    [B, Tk, n_kv, dh] and v [B, Tk, n_kv, dh_v] given o and dO = ``do``
+    [B, Tq, H, dh_v] (dh_v = dh, or MLA's narrower values), written out as
+    the backward kernel computes them, in f32:
 
         D  = rowsum(dO ∘ O)
         P  = exp(scale·Q Kᵀ − lse)   (exact zeros where the forward masks)

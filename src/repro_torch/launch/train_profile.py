@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile
-        [--arch qwen2.5-3b --batch 2 --seq 2048 --remat block]
+        [--arch qwen2.5-3b --batch 2 --seq 2048 --remat block] [--layers N]
 
 Builds the port's ``Trainer`` for an architecture at its published width
 (fp32 master weights from ``--seed``), runs ``--warm`` steps, times
@@ -13,6 +13,10 @@ step.  Then, on one more step's gradients, the optimizer alone (CUDA
 events): the global norm, and the whole AdamW update that includes it.
 For the ssm and hybrid families (``--arch mamba2-1.3b``, ``zamba2-1.2b``)
 the SSD scan's forward and backward kernels are groups of their own.
+``--layers N`` cuts the depth to N layers at the published widths (a MoE
+model's dense-FFN layers count among them), so that a model whose training
+state does not fit the card whole (deepseek-v2-lite-16b: ``--layers 5``)
+can be profiled; the JSON line names the cut under ``reduced``.
 
 Prints one JSON object as its last line.  Needs a CUDA device.
 """
@@ -20,6 +24,7 @@ Prints one JSON object as its last line.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -54,6 +59,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace-steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA device")
@@ -65,6 +72,13 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
+    reduced = None
+    if args.layers is not None:
+        if not 0 < args.layers <= cfg.n_layers:
+            raise SystemExit(f"train_profile: --layers {args.layers} not in "
+                             f"1..{cfg.n_layers}")
+        reduced = f"depth {cfg.n_layers} -> {args.layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n = args.warm + args.steps + args.trace_steps
     hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=n,
                       remat=args.remat)
@@ -116,8 +130,8 @@ def main(argv=None):
     out = {
         "device": smi.stdout.strip().splitlines()[0] if smi.stdout
         else torch.cuda.get_device_name(0),
-        "arch": cfg.name, "batch": args.batch, "seq": args.seq,
-        "remat": args.remat,
+        "arch": cfg.name, "reduced": reduced, "batch": args.batch,
+        "seq": args.seq, "remat": args.remat,
         "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
         "trace_step_ms": wall / per * 1e3,
         "device_busy_ms_per_step": busy_ms,

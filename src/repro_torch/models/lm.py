@@ -20,8 +20,7 @@ The reference casts its fp32 parameter tree to ``cfg.dtype`` on every call;
 the port's serving LM stores every weight once in ``cfg.dtype``.  For
 training, ``LM(cfg, master=True)`` holds them as fp32 master weights with
 gradients enabled, and :meth:`LM.loss` casts them to ``cfg.dtype`` at its
-entry, as the reference's loss does (every family but moe, whose MoE and
-MLA layers follow in a later slice).  Parameter names follow
+entry, as the reference's loss does (every family).  Parameter names follow
 the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
 ``decoder_prefix.mlp.w_up``, ``decoder.moe.router``, ``decoder.mamba.w_in``,
 ...), so :func:`repro_torch.bridge.params_from_jax` maps one onto the other.
@@ -218,12 +217,11 @@ class LM(nn.Module):
         as the reference), logits through the tied ``embed`` or
         ``unembed`` for the token positions only, and the masked mean NLL of
         each next token over ``log_softmax`` in f32.  Returns (total,
-        {"nll", "aux", "tokens"}); differentiate ``total``."""
+        {"nll", "aux", "tokens"}); differentiate ``total`` = nll +
+        :data:`AUX_LOSS_COEF` x aux, where aux sums the MoE layers'
+        load-balance losses (0 without MoE).  A MoE model's dense-FFN
+        layers (``decoder_prefix``) run first, as the reference's."""
         cfg = self.cfg
-        if cfg.family == "moe" or cfg.mla is not None:
-            raise NotImplementedError(
-                f"training of the {cfg.family} family (MoE and MLA layers) "
-                f"is not ported yet (ROADMAP Queue 1 item 5c)")
         dtype = getattr(torch, cfg.dtype)
         dev = self.embed.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
@@ -251,9 +249,14 @@ class LM(nn.Module):
             x = hy.hybrid_stack_train(cfg, self.decoder.train_tree(dtype), x,
                                       positions)
         else:
-            x, aux = decoder_stack_train(cfg,
-                                         self.decoder.train_layers(dtype),
-                                         x, positions, remat=remat)
+            if hasattr(self, "decoder_prefix"):
+                x, a0 = decoder_stack_train(
+                    _dense_view(cfg), self.decoder_prefix.train_layers(dtype),
+                    x, positions, remat=remat)
+                aux = aux + a0
+            x, a1 = decoder_stack_train(cfg, self.decoder.train_layers(dtype),
+                                        x, positions, remat=remat)
+            aux = aux + a1
         x = x[:, n_prefix:]
         x = rms_norm(x, self.final_norm.to(dtype), cfg.norm_eps)
         w = embed.T if cfg.tie_embeddings else self.unembed.to(dtype)

@@ -1,6 +1,7 @@
 """Multi-head Latent Attention (DeepSeek-V2): prefill and absorbed decode.
 
-Counterpart of the reference's ``models/mla.py``.  Prefill up-projects the
+Counterpart of the reference's ``models/mla.py``.  Prefill (and training,
+:data:`mla_block_train`) up-projects the
 latent ``c = RMSNorm(x · W_DKV)`` to per-head K_nope / V and runs the
 expanded attention through the flash-attention kernel (key width
 nope + rope = 192, value width 128 at deepseek-v2-lite).  The paged cache
@@ -95,6 +96,12 @@ def mla_block_prefill(cfg: ModelConfig, p, x, positions
     payload = {"k": torch.cat([lat, k_rope], dim=-1)[:, :, None, :],
                "v": lat[:, :, None, :]}
     return out, payload
+
+
+# The reference's ``mla_block_train``: under grad mode the flash call runs
+# the kernel's autograd function at key width nope + rope (192) and value
+# width v (128), and k_rope's gradient sums over the H heads its expand fed.
+mla_block_train = mla_block_prefill
 
 
 def mla_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool, ctx):

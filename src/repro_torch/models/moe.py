@@ -15,6 +15,17 @@ page multiple with token 0 spends capacity on the pad tokens, as in the
 reference.  The experts run as batched matrix products over the experts;
 no TPU kernel exists for them.
 
+Training differentiates the block as the reference's: the router's
+gradient flows through the gates (the top-k values of the softmax, which
+``torch.sort`` keeps differentiable, as ``jax.lax.top_k``) and through
+``me`` in the aux loss; ``fe`` and the capacity positions are counts and
+carry none.  The dispatch (``index_copy_``) writes each kept slot once and
+its backward gathers; the combine (``index_select``) reads each kept slot
+once, so its backward (an ``index_add_``) sums one row into each.  Only
+the dropped entries share an address, slot C, and they carry exact zeros:
+two backward runs give the same bits on the card, with or without
+``torch.use_deterministic_algorithms``.
+
 The expert-parallel shard_map paths (training EP and serving 2-D EP) are
 multi-device and not ported here.
 """

@@ -20,10 +20,12 @@ Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
     attended through the paged decode-attention kernel (plain version on
     CPU tensors), or, when the step carries staged pages
     (``PageCtx.slots``), through the fused gather-attend kernel;
-  * train (dense layers): the full-sequence forward over per-layer weight
-    trees (:meth:`DecoderParams.train_layers`) under grad mode, where the
-    flash call runs its autograd function (the hand-written backward), with
-    per-layer activation recomputation (:func:`decoder_stack_train`).
+  * train: the full-sequence forward over per-layer weight trees
+    (:meth:`DecoderParams.train_layers`) under grad mode, where the flash
+    call runs its autograd function (the hand-written backward; MLA's at
+    key width 192 and value width 128), with per-layer activation
+    recomputation; MoE layers also return their load-balance aux loss,
+    summed over the stack (:func:`decoder_stack_train`).
 
 Pools are updated in place.
 """
@@ -57,6 +59,7 @@ from repro_torch.models.mla import (
     MLAParams,
     mla_block_decode,
     mla_block_prefill,
+    mla_block_train,
 )
 from repro_torch.models.moe import MoEParams, moe_block
 from repro_torch.models.page_ops import (
@@ -281,26 +284,35 @@ def layer_ffn(cfg: ModelConfig, lp, x):
 # ------------------------------------------------------------------ stack
 
 def _attn_train(cfg: ModelConfig, lp, x, positions):
-    """The layer's attention block on the residual stream x."""
+    """The layer's attention block (MLA or GQA) on the residual stream x."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    return attn_block_train(cfg, lp["attn"], h, positions)[0]
+    block = mla_block_train if cfg.mla is not None else attn_block_train
+    return block(cfg, lp["attn"], h, positions)[0]
 
 
 def _ffn_train(cfg: ModelConfig, lp, x):
-    """The layer's FFN block on the residual stream x."""
-    return ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    """The layer's FFN block on the residual stream x: (out, aux), the
+    routed experts' load-balance loss or, for SwiGLU, 0."""
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return moe_block(cfg, lp["moe"], h)
+    return (ffn_block(cfg, lp["mlp"], h),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _layer_train(cfg: ModelConfig, lp, x, positions):
     x = x + _attn_train(cfg, lp, x, positions)
-    return x + _ffn_train(cfg, lp, x)
+    f, aux = _ffn_train(cfg, lp, x)
+    return x + f, aux
 
 
 def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
                         x, positions, *, remat=True):
-    """The dense stack's training forward over per-layer weight trees
-    (:meth:`DecoderParams.train_layers`).  Returns (x, aux): the MoE
-    load-balance loss, 0 for dense layers, as the reference.
+    """The stack's training forward (the reference's ``_layer_train`` per
+    layer: MLA or GQA attention, routed experts or SwiGLU) over per-layer
+    weight trees (:meth:`DecoderParams.train_layers`).  Returns (x, aux):
+    the MoE load-balance losses summed over the layers (0 for dense
+    layers), as the reference.
 
     remat: False / "none" keeps every activation; True / "block" recomputes
     each layer in the backward from its input (``torch.utils.checkpoint``,
@@ -310,21 +322,22 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
     the reference keeps the two blocks' outputs so that its recompute
     skips their tensor-parallel all-reduces.  On one device there is no
     all-reduce, and each block is recomputed with "block"'s arithmetic.
+    A MoE layer's recompute routes its tokens as its forward did: the
+    capacity follows the forward's token count, which it sees again.
     """
     layer_remat(remat)
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            "training of MoE and MLA layers is not ported yet (ROADMAP "
-            "Queue 1 item 5c)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params:
         if remat == "save_collectives":
             x = x + ckpt(_attn_train, cfg, lp, x, positions)
-            x = x + ckpt(_ffn_train, cfg, lp, x)
+            f, a = ckpt(_ffn_train, cfg, lp, x)
+            x = x + f
         elif remat in (True, "block"):
-            x = ckpt(_layer_train, cfg, lp, x, positions)
+            x, a = ckpt(_layer_train, cfg, lp, x, positions)
         else:
-            x = _layer_train(cfg, lp, x, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _layer_train(cfg, lp, x, positions)
+        aux = aux + a
+    return x, aux
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,

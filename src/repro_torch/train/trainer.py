@@ -76,7 +76,7 @@ def make_train_step(lm: LM, hp: TrainHParams) -> Callable:
         for p in params.values():
             p.grad = None
         return opt, {"loss": lsum / n_micro, "nll": aux["nll"].detach(),
-                     "aux": aux["aux"], **om}
+                     "aux": aux["aux"].detach(), **om}
 
     return train_step
 
@@ -150,7 +150,8 @@ class Trainer:
             ) -> List[Tuple[int, float]]:
         """``n_steps`` steps from ``start_step``; returns the (step, loss)
         history of the logged steps (every ``log_every``-th and the first).
-        Each logged step also goes to ``self.log`` with its grad norm and
+        Each logged step also goes to ``self.log`` with its grad norm, its
+        MoE load-balance ``aux`` (summed over the layers; 0 without MoE) and
         ``ms``: host time from the step's start until its loss was read
         (with ``log_every=1``, the step's own time).  SIGTERM during the
         loop checkpoints after the current step and stops."""
@@ -170,6 +171,7 @@ class Trainer:
                     dt = (now - t0) / max(1, i + 1 - self.start_step)
                     history.append((i + 1, loss))
                     self.log.append(dict(step=i + 1, loss=loss, grad_norm=gn,
+                                         aux=float(m["aux"]),
                                          ms=(now - t_step) * 1e3))
                     print(f"step {i+1}: loss={loss:.4f} gnorm={gn:.3f} "
                           f"{dt*1e3:.0f} ms/step", flush=True)

@@ -1133,6 +1133,41 @@ def test_cuda_moe_block_bf16_matches_f32(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_moe_block_gradients_are_deterministic(cuda_device):
+    """deepseek-v2-lite's MoE layer at full width, bf16, over 2 x 512
+    tokens at a capacity that drops entries: two forward and backward runs
+    give the same output, aux and gradients bit for bit.  The dispatch
+    (``index_copy_``) writes each kept slot once and the combine's backward
+    (``index_add_``) sums one row into each kept slot; only the dropped
+    entries share an address, slot C, and carry exact zeros."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p16 = moe.MoEParams(cfg, 1, torch.bfloat16, cuda_device)
+    p16.init_(torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((2, 512, cfg.d_model), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(x.dtype)
+    runs = []
+    for _ in range(2):
+        lp = {n: w[0].detach().clone().requires_grad_()
+              for n, w in p16.named_parameters()}
+        xx = x.clone().requires_grad_()
+        y, aux = moe.moe_block(cfg, lp, xx)
+        ((y.float() * dy.float()).sum() + aux).backward()
+        runs.append([y.detach(), aux.detach(), xx.grad]
+                    + [lp[n].grad for n in sorted(lp)])
+    keep = moe.route(cfg, p16.router[0], x)[4]
+    torch.cuda.synchronize()
+    assert bool((~keep).any())
+    for a, b in zip(*runs):
+        assert bool(torch.isfinite(a.float()).all()) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_moe_lm_matches_cpu_plain_path(cuda_device):
     """dbrx's smoke config at head dim 32 (the attention kernels'
     smallest) on the card (flash and paged kernels, cuBLAS experts)
@@ -1396,6 +1431,57 @@ def test_cuda_flash_backward_is_deterministic(cuda_device, dtype, H, n_kv,
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
+def _mla_case(dev, B, Tq, Tk, H, n_kv, dtype, seed=37):
+    """q [B, Tq, H, 192], k [B, Tk, n_kv, 192] and v [B, Tk, n_kv, 128]:
+    MLA's expanded attention (nope 128 + rope 64 keys, 128-wide values)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, Tq, H, 192), (B, Tk, n_kv, 192),
+                               (B, Tk, n_kv, 128)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_kv", [(16, 16), (8, 2)])
+@pytest.mark.parametrize("Tq,Tk,causal", TRAIN_CASES + [(333, 333, True)])
+def test_cuda_flash_mla_widths_train_kernels_match_plain(cuda_device, H, n_kv,
+                                                         dtype, Tq, Tk,
+                                                         causal):
+    """The training forward and backward at dh 192 / dh_v 128 (bf16 on the
+    tensor cores, f32 on CUDA cores): o [.., 128] bit for bit the serving
+    call's, lse and the gradients (dq and dk 192 wide, dv 128) against
+    their plain versions at the tolerances above, two backward calls
+    bitwise, and autograd through the flash call gives the wrapper's."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_case(cuda_device, 2, Tq, Tk, H, n_kv, dt)
+    scale = 192 ** -0.5
+    do = torch.randn((2, Tq, H, 128), device=cuda_device).to(dt)
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal, scale=scale)
+    serve = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                                   scale=scale)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  scale=scale)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                    scale=scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                       scale=scale)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qq, kk, vv, causal=causal, scale=scale)
+    auto = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert o.shape == (2, Tq, H, 128) and torch.equal(o, serve)
+    assert torch.equal(out, o)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    _assert_scaled(o, want_o, _train_tol(dtype))
+    for g, g2, g3, w, x in zip(got, again, auto, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert torch.equal(g, g2) and torch.equal(g, g3)
+        _assert_scaled(g, w, _train_tol(dtype))
+
+
 @pytest.mark.cuda
 def test_cuda_flash_backward_refuses_what_it_does_not_take(cuda_device):
     q, k, v = _flash_case(cuda_device, 1, 64, 64, 4, 2, 64, torch.bfloat16)
@@ -1404,10 +1490,12 @@ def test_cuda_flash_backward_refuses_what_it_does_not_take(cuda_device):
         ops.flash_attention_bwd(q, k, v, o, o, lse[:, :, :10].contiguous())
     with pytest.raises(ValueError, match="do"):
         ops.flash_attention_bwd(q, k, v, o, o.float(), lse)
-    qm, km, vm = _flash_case(cuda_device, 1, 64, 64, 4, 1, 192,
-                             torch.bfloat16)
-    with pytest.raises(ValueError, match="equal key and value"):
-        ops.flash_attention_lse(qm, km, vm[..., :128].contiguous())
+    # MLA's widths: o and dO are as wide as the values (128), not the keys.
+    qm, km, vm = _mla_case(cuda_device, 1, 64, 64, 4, 1, torch.bfloat16)
+    om, lsem = ops.flash_attention_lse(qm, km, vm)
+    assert om.shape == (1, 64, 4, 128)
+    with pytest.raises(ValueError, match="do"):
+        ops.flash_attention_bwd(qm, km, vm, om, torch.zeros_like(qm), lsem)
 
 
 @pytest.mark.cuda
@@ -1554,12 +1642,14 @@ def test_cuda_ssd_scan_bwd_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b",
                                   "llava-next-mistral-7b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2",
+                                  "deepseek-v2-lite-16b", "dbrx-132b"])
 def test_cuda_family_train_step_matches_the_cpu(cuda_device, arch):
     """chip_smoke.py's phase 9h for one family: the narrow f32 model
     trained 2 steps on the card and on the CPU from the same weights, each
-    step's loss and the first step's grad norm within 1e-4 relative; the
-    card's launches account for its attention and SSD layers."""
+    step's loss and the first step's grad norm within 1e-4 relative (a MoE
+    model's CPU run takes the card's expert choices); the card's launches
+    account for its attention and SSD layers."""
     import sys
     from pathlib import Path
     root = str(Path(__file__).resolve().parents[1])

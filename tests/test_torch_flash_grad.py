@@ -6,9 +6,12 @@ port has an explicit backward (``ref.flash_attention_bwd_ref``, the plain
 version of ``csrc/flash_attention_bwd.cu``) behind an autograd function.
 On CPU tensors that function runs the plain versions.  Inputs are drawn
 with numpy from a seed and handed to both packages.  Tolerance: 2e-5 of
-each gradient's scale in f32 (other summation order).  The CUDA kernels
-are held against the same plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py phase 9.
+each gradient's scale in f32 (other summation order).  Values may be
+narrower than keys (MLA's expanded attention: 24 / 16 at the smoke
+config, 192 / 128 at deepseek-v2-lite's widths), which the wrapper's
+shape checks follow on every device.  The CUDA kernels are held against
+the same plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py phase 9.
 """
 
 import jax
@@ -121,6 +124,57 @@ def test_autograd_function_equals_plain_versions_bitwise():
     assert torch.equal(o.detach(), o2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dh,dh_v,T", [(24, 16, 37), (192, 128, 21)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_widths_backward_matches_jax_vjp(dh, dh_v, T, causal):
+    """The plain forward with lse and backward at key width dh and value
+    width dh_v (the smoke MLA's and deepseek-v2-lite's, scale dh^-0.5),
+    through the autograd function and called directly, against
+    ``jax.vjp`` of the reference's ``attention``: o [.., dh_v], dq and dk
+    dh wide, dv dh_v wide."""
+    rng = np.random.default_rng(6)
+    B, H = 2, 4
+    q, k = (rng.normal(size=(B, T, H, dh)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.normal(size=(B, T, H, dh_v)).astype(np.float32)
+             for _ in range(2))
+    scale = dh ** -0.5
+    j_o, vjp = jax.vjp(lambda q, k, v: j_attention(
+        q, k, v, causal=causal, scale=scale, block=16),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    j_g = vjp(jnp.asarray(do))
+    o, *got = _autograd(lambda *a: ops.flash_attention(
+        *a, causal=causal, scale=scale), q, k, v, do)
+    assert o.shape == (B, T, H, dh_v)
+    _close(o, j_o)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o2, lse = ops.flash_attention_lse(*t, causal=causal, scale=scale)
+    direct = ops.flash_attention_bwd(*t, o2, torch.from_numpy(do), lse,
+                                     causal=causal, scale=scale)
+    for g, g2, w, width in zip(got, direct, j_g, (dh, dh, dh_v)):
+        assert g.shape[-1] == width and torch.equal(g, g2)
+        _close(g, w)
+
+
+def test_backward_checks_grad_shapes_at_mla_widths():
+    """o and dO are as wide as the values, lse is f32 [B, H, Tq]: the
+    wrapper refuses others on the CPU as on the card."""
+    rng = np.random.default_rng(8)
+    q, k = (torch.from_numpy(rng.normal(size=(1, 16, 2, 24)).astype(
+        np.float32)) for _ in range(2))
+    v = torch.from_numpy(rng.normal(size=(1, 16, 2, 16)).astype(np.float32))
+    o, lse = ops.flash_attention_lse(q, k, v)
+    assert o.shape == (1, 16, 2, 16) and lse.shape == (1, 2, 16)
+    ops.flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse)
+    with pytest.raises(ValueError, match="do must be"):
+        ops.flash_attention_bwd(q, k, v, o, torch.ones_like(q), lse)
+    with pytest.raises(ValueError, match="o must be"):
+        ops.flash_attention_bwd(q, k, v, q, torch.ones_like(o), lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        ops.flash_attention_bwd(q, k, v, o, torch.ones_like(o),
+                                lse.double())
 
 
 def test_serving_call_under_no_grad_keeps_its_path():

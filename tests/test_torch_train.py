@@ -279,16 +279,6 @@ def test_remat_modes_give_the_same_gradients_bitwise():
         lm.loss({"tokens": toks}, remat="all")
 
 
-def test_loss_refuses_families_not_ported():
-    """The moe family (dbrx's MoE layers, deepseek's MLA) waits for ROADMAP
-    Queue 1 item 5c."""
-    for arch in ("dbrx-132b", "deepseek-v2-lite-16b"):
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-        with pytest.raises(NotImplementedError, match="moe.*5c"):
-            LM(cfg, master=True).loss(
-                {"tokens": np.zeros((1, 8), np.int32)})
-
-
 def test_microbatch_two_matches_full_batch():
     """One optimizer step with 2 sequential microbatches against the full
     batch: the averaged f32 grads differ by summation order only (loss
