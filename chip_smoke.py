@@ -245,7 +245,18 @@ Phases (each synchronised; any failure exits non-zero):
    GB of training state), ``Trainer`` on ``SyntheticLM`` at TRAIN_B x
    TRAIN_T from seed 0, remat block, FAMILY_STEPS steps: 9d-9g's checks
    (launches: two flash forwards with lse and one backward at dh 192 /
-   dh_v 128 per layer and step) and the MoE aux loss finite and above 0.
+   dh_v 128 per layer and step) and the MoE aux loss finite and above 0;
+   9j. data-parallel training through the distributed code, in ranks that
+   ``launch/spawn.py`` starts (a FileStore rendezvous in a temporary
+   directory): full-width qwen2.5-3b on a one-rank NCCL group, megatron +
+   ZeRO-1 + ``grad_compress``, TRAIN_B x TRAIN_T, remat block, DIST_STEPS
+   steps (step ms, tokens/s, peak GiB; the last step's batch scores lower
+   after its update); the narrow f32 model under megatron +
+   ``grad_compress`` and under fsdp on the card's rank and on a gloo CPU
+   rank (losses within 1e-4); the card rank's step-2 checkpoint resumed
+   on 2 gloo CPU ranks (the restored state bit for bit the saved arrays,
+   the next losses within 1e-4 of the CPU rank's).  No kernels-line
+   entry: 9j adds no kernel and counts no launch.
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -3737,6 +3748,224 @@ def family_entries(vlm, encdec, dense):
     return tagged, rest
 
 
+# ------------------------------------------------ data-parallel training
+
+DIST_STEPS = 3          # phase 9j (a): full-width qwen2.5-3b steps
+DIST_NARROW_STEPS = 4   # phase 9j (b), (c): the narrow model's steps
+
+
+def narrow_dist_weights(cfg):
+    """The narrow model's fp32 weights from a CPU generator at seed 0:
+    the same numbers in every process of phase 9j, card or CPU."""
+    import torch
+    from repro_torch.models.lm import LM
+    lm = LM(cfg, master=True).init_weights(torch.Generator().manual_seed(0))
+    return {k: v.detach() for k, v in lm.state_dict().items()}
+
+
+def narrow_dist_trainer(parallelism, compress, dev, mesh, ckpt_dir=None,
+                        resume=False):
+    """``Trainer`` of the narrow model over ``mesh`` (this group's ranks),
+    B 2 x NARROW_T, remat block, from ``narrow_dist_weights``; checkpoints
+    every 2 steps into ``ckpt_dir`` unless it resumes from there."""
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.trainer import Trainer
+    cfg = narrow_train_config(ARCH)
+    hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=DIST_NARROW_STEPS,
+                      remat="block", parallelism=parallelism,
+                      grad_compress=compress)
+    return Trainer(cfg, hp, batch_per_step=2, seq_len=NARROW_T, mesh=mesh,
+                   device=dev, ckpt_dir=ckpt_dir,
+                   ckpt_every=0 if resume or not ckpt_dir else 2,
+                   resume=resume, params=narrow_dist_weights(cfg))
+
+
+def dist_rank(case):
+    """Phase 9j's work on one rank of a group that ``run_ranks`` started
+    (NCCL on the card, gloo on the CPU).  ``case["part"]``:
+
+    * ``full``: (a) ``case["arch"]`` (the smoke config on the CPU) through
+      ``Trainer`` on ``make_host_mesh()``, megatron + ZeRO-1 +
+      ``grad_compress``, remat block, B x T, DIST_STEPS steps; then the
+      final weights' loss on the last step's batch;
+    * ``narrow``: (b) the narrow model on ``make_host_mesh()`` under
+      megatron + ``grad_compress`` (checkpoints into ``case["ckpt_dir"]``)
+      and under fsdp, DIST_NARROW_STEPS steps each;
+    * ``reshard``: (c) that megatron + ``grad_compress`` run resumed from
+      the step-2 checkpoint in ``case["ckpt_dir"]`` on this group's ranks,
+      all data-parallel (``make_elastic_mesh(world, model=1)``): its
+      restored state gathered to full arrays, then the remaining steps."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.launch.mesh import make_elastic_mesh, make_host_mesh
+    from repro_torch.train.trainer import Trainer
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if dev == "cpu":
+        torch.set_num_threads(2)
+    if case["part"] == "full":
+        cfg = (get_config if case["width"] == "full" else get_smoke_config)(
+            case["arch"])
+        hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=DIST_STEPS,
+                          remat="block", grad_compress=True)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, hp, batch_per_step=case["B"], seq_len=case["T"],
+                     mesh=make_host_mesh(), seed=0, device=dev)
+        t_init = time.perf_counter() - t0
+        tr.run(DIST_STEPS, log_every=1)
+        with torch.no_grad():
+            after = float(tr.lm.loss(tr.data.batch_at(DIST_STEPS - 1))[0])
+        mem = {"peak": 0.0, "reserved": 0.0, "retries": 0}
+        if dev == "cuda":
+            mem = {"peak": torch.cuda.max_memory_allocated() / 2**30,
+                   "reserved": torch.cuda.max_memory_reserved() / 2**30,
+                   "retries": torch.cuda.memory_stats()["num_alloc_retries"]}
+        return {"log": tr.log, "after": after, "t_init": t_init,
+                "mesh": str(tr.mesh.shape), "params": cfg.param_count(),
+                **mem}
+    if case["part"] == "narrow":
+        out = {}
+        for name, compress, d in (("megatron", True, case["ckpt_dir"]),
+                                  ("fsdp", False, None)):
+            tr = narrow_dist_trainer(name, compress, dev, make_host_mesh(),
+                                     ckpt_dir=d)
+            tr.run(DIST_NARROW_STEPS, log_every=1)
+            out[name] = [r["loss"] for r in tr.log]
+            del tr
+        return out
+    tr = narrow_dist_trainer("megatron", True, dev,
+                             make_elastic_mesh(dist.get_world_size(),
+                                               model=1),
+                             ckpt_dir=case["ckpt_dir"], resume=True)
+    st = tr.step_fn
+    state = {"start": tr.start_step,
+             "sharded": sum(p.sharded for p in st.places.values()),
+             "params": {n: t.detach().clone()
+                        for n, t in tr.params.items()}}
+    for part in ("mu", "nu"):
+        state[part] = {n: st.places[n].gather(t)
+                       for n, t in tr.opt[part].items()}
+    tr.run(DIST_NARROW_STEPS - tr.start_step, log_every=1)
+    state["losses"] = [r["loss"] for r in tr.log]
+    return state
+
+
+def _saved_arrays(step_dir):
+    """{path: array} of a checkpoint directory."""
+    meta = json.loads((step_dir / "meta.json").read_text())
+    return {l["path"]: np.load(step_dir / "arrays" / f"{l['idx']}.npy")
+            for l in meta["leaves"]}
+
+
+def phase_train_dist(dev="cuda"):
+    """Phase 9j: data-parallel training through the distributed code, each
+    part on ranks that ``run_ranks`` starts (rendezvous through a
+    ``FileStore`` in a temporary directory).  On the card one rank over
+    NCCL; ``dev="cpu"`` rehearses it on gloo ranks with the smoke config
+    in (a).
+
+    (a) full-width qwen2.5-3b, megatron + ZeRO-1 + ``grad_compress``:
+        step ms, tokens/s and peak GiB; the final weights' loss on the last
+        step's batch below that batch's loss before the update;
+    (b) the narrow f32 model under megatron + ``grad_compress`` and under
+        fsdp, on ``dev``'s rank and on a gloo rank: losses within 1e-4;
+    (c) ``dev``'s world-1 step-2 checkpoint of (b) resumed on 2 gloo ranks:
+        the restored state bit for bit the saved arrays, the next losses
+        within 1e-4 of (b)'s CPU run."""
+    import tempfile
+    import torch
+    from repro_torch.launch.spawn import run_ranks
+    held = 0.0
+    if dev == "cuda":       # the ranks' processes need the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() / 2**30
+    full = dict(part="full", arch=ARCH, width="full", B=TRAIN_B, T=TRAIN_T)
+    if dev == "cpu":
+        full.update(width="smoke", B=2, T=64)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_ckpt_"))
+    try:
+        # Expandable segments: the full-width rank peaks at ~64 GiB of
+        # tensors, which the default allocator's fragmentation takes to
+        # ~76 GiB reserved, beside this process's own context.
+        run = functools.partial(
+            run_ranks, "chip_smoke:dist_rank", paths=[str(ROOT)],
+            timeout=600, env=dict(
+                os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        card = run(1, device=dev, args=[full])[0]
+        log = card["log"]
+        tokens = full["B"] * full["T"]
+        steady = float(np.median([r["ms"] for r in log[1:]]))
+        for r in log:
+            print(f"[train:dist] step {r['step']}: loss {r['loss']:.4f} "
+                  f"grad_norm {r['grad_norm']:.4f} step_ms {r['ms']:.1f} "
+                  f"tokens/s {tokens / r['ms'] * 1e3:.0f}")
+        losses = [r["loss"] for r in log]
+        require(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                    for r in log), f"9j (a): a loss or grad norm is not "
+                f"finite: {log}")
+        require(card["after"] < losses[-1],
+                f"9j (a): the final weights' loss on the last step's batch, "
+                f"{card['after']:.4f}, is not below its loss before the "
+                f"update, {losses[-1]:.4f}")
+        print(f"[train:dist] {full['arch']} ({full['width']} width, "
+              f"{card['params'] / 1e9:.3f} G parameters) on mesh "
+              f"{card['mesh']} over one {dev} rank, megatron + ZeRO-1 + "
+              f"grad_compress, remat block, batch {full['B']} x seq "
+              f"{full['T']}: {DIST_STEPS} steps after {card['t_init']:.1f}s "
+              f"of set-up; steps 2-{DIST_STEPS} median {steady:.1f} ms "
+              f"({tokens / steady * 1e3:.0f} tokens/s); loss {losses[0]:.4f} "
+              f"-> {losses[-1]:.4f}, on step {DIST_STEPS}'s batch after its "
+              f"update {card['after']:.4f}; peak memory {card['peak']:.2f} "
+              f"GiB ({card['reserved']:.2f} reserved, {card['retries']} "
+              f"allocator retries; this process held "
+              f"{held:.2f} GiB) ({SMI})")
+        case = dict(part="narrow", ckpt_dir=str(tmp / "world1"))
+        on_dev = run(1, device=dev, args=[case])[0]
+        on_cpu = run(1, device="cpu",
+                     args=[dict(case, ckpt_dir=str(tmp / "cpu"))])[0]
+        for name in ("megatron", "fsdp"):
+            a, b = on_dev[name], on_cpu[name]
+            require(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(a, b)),
+                    f"9j (b) {name}: {dev} losses {a} off the CPU's {b}")
+            print(f"[train:dist:agreement] narrow f32 {ARCH}, {name}"
+                  f"{' + grad_compress' if name == 'megatron' else ''}, "
+                  f"{dev} rank {[round(x, 6) for x in a]} within 1e-4 of "
+                  f"the CPU rank's {[round(x, 6) for x in b]}")
+        # The step-2 checkpoint alone: resume takes the newest one.
+        step2 = Path(case["ckpt_dir"]) / "step_00000002"
+        shutil.copytree(step2, tmp / "reshard" / step2.name)
+        res = run(2, device="cpu", args=[dict(part="reshard",
+                                              ckpt_dir=str(tmp / "reshard"))])
+        saved = _saved_arrays(step2)
+        for r, got in enumerate(res):
+            require(got["start"] == 2 and got["sharded"] > 0,
+                    f"9j (c): rank {r} resumed at {got['start']} with "
+                    f"{got['sharded']} sharded leaves")
+            for part, prefix in (("params", "params/"), ("mu", "opt/mu/"),
+                                 ("nu", "opt/nu/")):
+                for n, t in got[part].items():
+                    require(np.array_equal(t.numpy(), saved[prefix + n]),
+                            f"9j (c): rank {r}'s restored {prefix}{n} "
+                            f"differs from the saved array")
+            want = on_cpu["megatron"][2:]
+            require(all(abs(x - y) <= 1e-4 * abs(y)
+                        for x, y in zip(got["losses"], want)),
+                    f"9j (c): rank {r}'s losses {got['losses']} off the "
+                    f"world-1 CPU run's {want}")
+        print(f"[train:dist:reshard] the {dev} rank's step-2 checkpoint "
+              f"resumed on 2 gloo ranks ({res[0]['sharded']} leaves' "
+              f"moments sharded): state bit for bit the saved arrays; "
+              f"losses {[round(x, 6) for x in res[0]['losses']]} within "
+              f"1e-4 of the world-1 CPU run's "
+              f"{[round(x, 6) for x in on_cpu['megatron'][2:]]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def entry_kernel(name):
     """The kernel of a kernels-line entry: ``paged_attention.page.g4d128``
     -> ``paged_attention.page``, ``flash_attention.encoder`` ->
@@ -3792,6 +4021,7 @@ def main() -> int:
     counts.update(phase_train(cfg))
     phase_train_agreement()
     phase_train_families(counts)
+    phase_train_dist()
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

@@ -1,11 +1,17 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
-Counterpart of the reference's ``launch/train.py`` on one device: builds
-the fault-tolerant :class:`~repro_torch.train.trainer.Trainer` on ``cuda``
-(or ``--device cpu``) and runs.  Restart the same command after a failure
-or preemption: ``--resume`` restores the newest complete checkpoint.  The
-reference's multi-device flags (``--parallelism`` other than megatron,
-``--production-mesh``) raise until the port's multi-device work lands.
+Counterpart of the reference's ``launch/train.py``.  Under ``torchrun`` it
+initialises the process group from torchrun's environment (NCCL on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``), builds the mesh of its
+ranks (``make_host_mesh()``, or ``make_production_mesh()`` under
+``--production-mesh``, which needs a world of 256 ranks) and trains the
+fault-tolerant :class:`~repro_torch.train.trainer.Trainer` data-parallel
+over it.  Run alone, it trains on one device.  Restart the same command
+after a failure or preemption: ``--resume`` restores the newest complete
+checkpoint and re-shards it onto this run's ranks, whatever their number.
+``make_host_mesh()`` gives ``model = min(4, ranks)``: a tensor-parallel
+axis, which only ``--parallelism fsdp`` uses until ROADMAP 6c-ii
+(megatron raises).
 
 On the card, qwen2.5-3b, mamba2-1.3b or zamba2-1.2b at its published
 width and depth:
@@ -18,15 +24,18 @@ loss also takes frontend embeddings, are refused here: train them through
 ``make_train_step`` on batches that carry ``patch_embeds`` or
 ``src_embeds`` (``chip_smoke.py`` phases 9d and 9e do).
 
-On the CPU (smoke-scale):
+On the CPU (smoke-scale), on one process or four gloo ranks:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --smoke --device cpu --steps 20 --batch 4 --seq 64
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2.5-3b --smoke --device cpu --parallelism fsdp --steps 20
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.configs.base import TrainHParams
@@ -50,13 +59,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (multi-device: not ported yet)")
+                    help="16x16 (requires 256 ranks)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh waits for multi-device "
-                                  "training (ROADMAP Queue 1 item 6)")
 
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (
+        init_distributed,
+        make_host_mesh,
+        make_production_mesh,
+    )
     from repro_torch.train.trainer import Trainer
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
@@ -70,12 +82,25 @@ def main(argv=None):
     hp = TrainHParams(lr=args.lr, total_steps=args.steps,
                       microbatch=args.microbatch, remat=args.remat,
                       parallelism=args.parallelism)
-    print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M "
-          f"device={args.device} parallelism={hp.parallelism}")
-    tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
-                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                 resume=args.resume, device=args.device)
-    return tr.run(args.steps)
+    device = args.device
+    launched = "WORLD_SIZE" in os.environ        # under torchrun
+    if launched:
+        device = init_distributed(args.device)
+    try:
+        mesh = (make_production_mesh() if args.production_mesh
+                else make_host_mesh())
+        if not (dist.is_initialized() and dist.get_rank()):
+            print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M "
+                  f"device={device} mesh={mesh.shape} "
+                  f"parallelism={hp.parallelism}")
+        tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
+                     mesh=mesh, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, resume=args.resume,
+                     device=device)
+        return tr.run(args.steps)
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile
         [--arch qwen2.5-3b --batch 2 --seq 2048 --remat block] [--layers N]
+        [--grad-compress]
 
 Builds the port's ``Trainer`` for an architecture at its published width
 (fp32 master weights from ``--seed``), runs ``--warm`` steps, times
@@ -17,6 +18,11 @@ the SSD scan's forward and backward kernels are groups of their own.
 model's dense-FFN layers count among them), so that a model whose training
 state does not fit the card whole (deepseek-v2-lite-16b: ``--layers 5``)
 can be profiled; the JSON line names the cut under ``reduced``.
+``--grad-compress`` trains with the int8 compression of the gradients
+(on one device: ``Q(g + e)`` and the new error feedback per leaf) and
+also times that pass alone on one step's gradients.  The JSON line
+carries the caching allocator's retries (``num_alloc_retries``: each
+frees the cache and synchronises) and its reserved high-water mark.
 
 Prints one JSON object as its last line.  Needs a CUDA device.
 """
@@ -61,12 +67,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8 gradient compression with error feedback")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA device")
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.grad_compress import (
+        compressed_allreduce_flat,
+        pad_to_block,
+    )
     from repro_torch.train.optimizer import adamw_update, global_norm
     from repro_torch.train.trainer import Trainer
 
@@ -81,7 +93,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n = args.warm + args.steps + args.trace_steps
     hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=n,
-                      remat=args.remat)
+                      remat=args.remat, grad_compress=args.grad_compress)
     tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
                  seed=args.seed)
     torch.cuda.reset_peak_memory_stats()
@@ -122,6 +134,15 @@ def main(argv=None):
     tr.lm.loss(tr.data.batch_at(n), remat=remat)[0].backward()
     grads = {name: p.grad for name, p in tr.params.items()}
     norm_ms = event_ms(lambda: global_norm(grads.values()))
+    compress_ms = None
+    if args.grad_compress:
+        ef = tr.step_fn.ef
+
+        def compress_all():     # one leaf's outputs alive at a time
+            for name, g in grads.items():
+                compressed_allreduce_flat(pad_to_block(g)[0], ef[name], None)
+        compress_ms = event_ms(compress_all)
+    mem = torch.cuda.memory_stats()
     adamw_ms = event_ms(lambda: adamw_update(tr.params, grads, tr.opt, hp))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -132,15 +153,19 @@ def main(argv=None):
         else torch.cuda.get_device_name(0),
         "arch": cfg.name, "reduced": reduced, "batch": args.batch,
         "seq": args.seq, "remat": args.remat,
+        "grad_compress": args.grad_compress,
         "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
         "trace_step_ms": wall / per * 1e3,
         "device_busy_ms_per_step": busy_ms,
         # Against the unprofiled step: tracing slows the host, not the card.
         "device_busy_share": busy_ms / step_ms,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+        "num_alloc_retries": mem["num_alloc_retries"],
         "groups_ms_per_step": groups,
         "global_norm_ms": norm_ms,
         "adamw_update_ms": adamw_ms,
+        "compress_ms": compress_ms,
         "top_kernels_ms_per_step": [
             {"name": name[:90], "group": group_of(name),
              "ms": us / per * 1e-3, "calls": c // per}

@@ -5,7 +5,8 @@ distributions from an explicit ``torch.Generator``, so the numbers differ
 from the reference's for the same seed.  Tests that compare the two
 packages load the reference's weights through :mod:`repro_torch.bridge`
 instead of re-drawing them.  :func:`unbind_layers` gives training its
-per-layer weight trees, and :func:`layer_remat` and :data:`ckpt` its
+per-layer weight trees (through :func:`train_weight`, which also gathers
+an FSDP-sharded weight), and :func:`layer_remat` and :data:`ckpt` its
 per-layer activation recomputation.
 """
 
@@ -52,6 +53,15 @@ def embed_init_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return t
 
 
+def train_weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """``w`` in ``dtype`` for a training forward: its whole value, gathered
+    over the data-parallel ranks where the trainer keeps only this rank's
+    shard of it (FSDP: the parameter then carries ``fsdp_gather(w, dtype)``,
+    an all-gather whose backward reduce-scatters), else cast."""
+    gather = getattr(w, "fsdp_gather", None)
+    return w.to(dtype) if gather is None else gather(w, dtype)
+
+
 def unbind_layers(named: Iterable[Tuple[str, torch.Tensor]], dtype,
                   n: int) -> List[Dict[str, object]]:
     """Per-layer weight trees of ``n`` layers from (name, weight [n, ...])
@@ -60,11 +70,12 @@ def unbind_layers(named: Iterable[Tuple[str, torch.Tensor]], dtype,
     unbound along its layer axis, so its gradient comes back as one
     stacked tensor; indexing the stacked weight per layer would make
     autograd build a full-size zero gradient for every layer (the
-    reference casts its fp32 params at the loss's entry)."""
+    reference casts its fp32 params at the loss's entry).  A sharded
+    weight is gathered here (:func:`train_weight`)."""
     per_layer: List[Dict[str, object]] = [{} for _ in range(n)]
     for name, w in named:
         group, _, leaf = name.rpartition(".")
-        for lp, wl in zip(per_layer, w.to(dtype).unbind(0)):
+        for lp, wl in zip(per_layer, train_weight(w, dtype).unbind(0)):
             (lp.setdefault(group, {}) if group else lp)[leaf] = wl
     return per_layer
 

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import empty_param, unbind_layers
+from repro_torch.models.common import empty_param, train_weight, unbind_layers
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import (
     MambaParams,
@@ -115,8 +115,9 @@ class HybridParams(nn.Module):
         shared)."""
         G, period = self.mamba_ln.shape[:2]
         flat = unbind_layers(
-            [("ln", self.mamba_ln.flatten(0, 1))]
-            + [(n, p.flatten(0, 1)) for n, p in self.mamba.named_parameters()],
+            [("ln", train_weight(self.mamba_ln, dtype).flatten(0, 1))]
+            + [(n, train_weight(p, dtype).flatten(0, 1))
+               for n, p in self.mamba.named_parameters()],
             dtype, G * period)
         groups = [[(lp, lp.pop("ln")) for lp in flat[g * period:
                                                     (g + 1) * period]]
@@ -126,8 +127,8 @@ class HybridParams(nn.Module):
             tail = [(lp, lp.pop("ln")) for lp in unbind_layers(
                 [("ln", self.tail_ln), *self.tail.named_parameters()], dtype,
                 self.tail_ln.shape[0])]
-        shared = {k: ({n: w.to(dtype) for n, w in v.items()}
-                      if isinstance(v, dict) else v.to(dtype))
+        shared = {k: ({n: train_weight(w, dtype) for n, w in v.items()}
+                      if isinstance(v, dict) else train_weight(v, dtype))
                   for k, v in self.shared_tree().items()}
         return groups, tail, shared
 

@@ -42,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.common import embed_init_
+from repro_torch.models.common import embed_init_, train_weight
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.page_ops import PageCtx
 from repro_torch.models.transformer import (
@@ -199,7 +199,7 @@ class LM(nn.Module):
         """The training forward's frontend: ``embeds @ frontend_proj``, both
         in ``dtype``, ``frontend_proj`` differentiated."""
         e = torch.as_tensor(embeds).to(self.embed.device, dtype)
-        return e @ self.frontend_proj.to(dtype)
+        return e @ train_weight(self.frontend_proj, dtype)
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -208,7 +208,7 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- train
 
-    def loss(self, batch, *, remat=True):
+    def loss(self, batch, *, remat=True, dp_group=None):
         """The reference's training loss on ``batch["tokens"]`` [B, T] (vlm
         also takes ``batch["patch_embeds"]`` [B, P, d], encdec
         ``batch["src_embeds"]`` [B, S, d]): the weights cast to
@@ -220,13 +220,20 @@ class LM(nn.Module):
         {"nll", "aux", "tokens"}); differentiate ``total`` = nll +
         :data:`AUX_LOSS_COEF` x aux, where aux sums the MoE layers'
         load-balance losses (0 without MoE).  A MoE model's dense-FFN
-        layers (``decoder_prefix``) run first, as the reference's."""
+        layers (``decoder_prefix``) run first, as the reference's.
+
+        Under data parallelism each rank passes its rows of the batch and
+        its data-parallel ``dp_group``: the MoE load-balance loss then
+        takes its expert loads over every rank's rows (:func:`moe_block`),
+        so that the ranks' mean loss and gradient are the whole batch's.
+        Weights the trainer shards (FSDP) are gathered where they are cast
+        (:func:`train_weight`)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         dev = self.embed.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
         B, T = tokens.shape
-        embed = self.embed.to(dtype)
+        embed = train_weight(self.embed, dtype)
         x = F.embedding(tokens, embed)
         n_prefix = 0
         if cfg.family == "vlm":
@@ -238,7 +245,8 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         if cfg.family == "encdec":
             memory = ed.encoder_apply(
-                cfg, self.encoder.train_layers(dtype), self.enc_norm.to(dtype),
+                cfg, self.encoder.train_layers(dtype),
+                train_weight(self.enc_norm, dtype),
                 self._frontend_train(batch["src_embeds"], dtype), remat=remat)
             x = ed.decoder_stack_train(cfg, self.decoder.train_layers(dtype),
                                        x, positions, memory, remat=remat)
@@ -255,11 +263,13 @@ class LM(nn.Module):
                     x, positions, remat=remat)
                 aux = aux + a0
             x, a1 = decoder_stack_train(cfg, self.decoder.train_layers(dtype),
-                                        x, positions, remat=remat)
+                                        x, positions, remat=remat,
+                                        dp_group=dp_group)
             aux = aux + a1
         x = x[:, n_prefix:]
-        x = rms_norm(x, self.final_norm.to(dtype), cfg.norm_eps)
-        w = embed.T if cfg.tie_embeddings else self.unembed.to(dtype)
+        x = rms_norm(x, train_weight(self.final_norm, dtype), cfg.norm_eps)
+        w = embed.T if cfg.tie_embeddings else train_weight(self.unembed,
+                                                             dtype)
         logits = (x @ w).float()
         tgt = tokens[:, 1:]
         lp = F.log_softmax(logits[:, :-1], dim=-1)

@@ -26,8 +26,14 @@ the dropped entries share an address, slot C, and they carry exact zeros:
 two backward runs give the same bits on the card, with or without
 ``torch.use_deterministic_algorithms``.
 
-The expert-parallel shard_map paths (training EP and serving 2-D EP) are
-multi-device and not ported here.
+Under data parallelism (each rank holding its rows of the batch) the
+load-balance loss spans the whole batch, as the reference's shard_map path
+computes it (``E · Σ mean_dp(me) · mean_dp(fe)``): each rank all-reduces
+its expert loads ``fe`` (counts, no gradient) and returns
+``E · Σ me_r · fe_dp``, whose mean over the ranks, and its gradient's, are
+the reference's.  Capacity is per row, so it does not change.  The
+expert-parallel paths (training EP and serving 2-D EP) wait for ROADMAP
+6c-ii.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -147,11 +154,17 @@ def _moe_shared(p, x):
     return h @ p["ws_down"]
 
 
-def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss)."""
+def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x,
+              dp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss);
+    ``dp_group``: the data-parallel ranks that hold the batch's other rows,
+    whose expert loads the aux loss takes (None: this rank's rows are the
+    batch)."""
     mo = cfg.moe
     y, me, fe = _moe_routed(cfg, p, x)
+    if dp_group is not None:
+        dist.all_reduce(fe, group=dp_group)
+        fe = fe / dist.get_world_size(dp_group)
     if mo.n_shared:
         y = y + _moe_shared(p, x)
     return y, mo.n_experts * torch.sum(me * fe)

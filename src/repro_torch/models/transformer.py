@@ -290,24 +290,24 @@ def _attn_train(cfg: ModelConfig, lp, x, positions):
     return block(cfg, lp["attn"], h, positions)[0]
 
 
-def _ffn_train(cfg: ModelConfig, lp, x):
+def _ffn_train(cfg: ModelConfig, lp, x, dp_group=None):
     """The layer's FFN block on the residual stream x: (out, aux), the
     routed experts' load-balance loss or, for SwiGLU, 0."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        return moe_block(cfg, lp["moe"], h)
+        return moe_block(cfg, lp["moe"], h, dp_group)
     return (ffn_block(cfg, lp["mlp"], h),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _layer_train(cfg: ModelConfig, lp, x, positions):
+def _layer_train(cfg: ModelConfig, lp, x, positions, dp_group=None):
     x = x + _attn_train(cfg, lp, x, positions)
-    f, aux = _ffn_train(cfg, lp, x)
+    f, aux = _ffn_train(cfg, lp, x, dp_group)
     return x + f, aux
 
 
 def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
-                        x, positions, *, remat=True):
+                        x, positions, *, remat=True, dp_group=None):
     """The stack's training forward (the reference's ``_layer_train`` per
     layer: MLA or GQA attention, routed experts or SwiGLU) over per-layer
     weight trees (:meth:`DecoderParams.train_layers`).  Returns (x, aux):
@@ -324,18 +324,20 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
     all-reduce, and each block is recomputed with "block"'s arithmetic.
     A MoE layer's recompute routes its tokens as its forward did: the
     capacity follows the forward's token count, which it sees again.
+    ``dp_group``: the data-parallel ranks whose rows the MoE load-balance
+    loss spans (:func:`moe_block`); None on one rank.
     """
     layer_remat(remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params:
         if remat == "save_collectives":
             x = x + ckpt(_attn_train, cfg, lp, x, positions)
-            f, a = ckpt(_ffn_train, cfg, lp, x)
+            f, a = ckpt(_ffn_train, cfg, lp, x, dp_group)
             x = x + f
         elif remat in (True, "block"):
-            x, a = ckpt(_layer_train, cfg, lp, x, positions)
+            x, a = ckpt(_layer_train, cfg, lp, x, positions, dp_group)
         else:
-            x, a = _layer_train(cfg, lp, x, positions)
+            x, a = _layer_train(cfg, lp, x, positions, dp_group)
         aux = aux + a
     return x, aux
 

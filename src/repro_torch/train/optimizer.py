@@ -12,14 +12,23 @@ reference's are f32 arrays.
 Unlike the reference's pure functions, :func:`adamw_update` updates the
 params, the moments and the (f32) grads in place: at full width each copy
 is 12 GB, and the card holds four of them.
+
+Under data parallelism the update runs on this rank's shards (ZeRO-1 /
+FSDP): each leaf's update is elementwise, and only the clip scale needs
+the whole gradient.  :func:`global_norm` then sums, on each rank, the
+squares of the shards it counts (every sharded leaf's shard, and a leaf
+replicated over ranks only on its first replica) and all-reduces that sum
+once, so that every leaf counts once and the scale is the same on every
+rank.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Collection, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainHParams
 
@@ -52,24 +61,37 @@ def adamw_init(params: Tensors) -> Dict[str, object]:
             "nu": zeros()}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over tensors of their f32 sums of squares."""
+def global_norm(tensors: Iterable[torch.Tensor], group=None,
+                device=None) -> torch.Tensor:
+    """sqrt of the sum over tensors of their f32 sums of squares; with
+    ``group``, that sum is all-reduced over it first (each rank passing the
+    shards it counts, perhaps none: then ``device`` places the zero)."""
     total = None
     for g in tensors:
         sq = g.float().square().sum()
         total = sq if total is None else total + sq
+    if group is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=device)
+        dist.all_reduce(total, group=group)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params: Tensors, grads: Tensors, state, hp: TrainHParams
+def adamw_update(params: Tensors, grads: Tensors, state, hp: TrainHParams,
+                 *, counted: Optional[Collection[str]] = None, group=None
                  ) -> Tuple[Tensors, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}); the
     params and ``state["mu"]`` / ``state["nu"]`` are updated in place,
     ``state["step"]`` is replaced, and f32 grads are overwritten (scaled,
-    then squared)."""
+    then squared).  Under data parallelism ``params``, ``grads`` and the
+    moments are this rank's shards, ``counted`` names the leaves whose
+    squares this rank adds to the grad norm (default: all) and ``group``
+    the ranks that norm sums over (:func:`global_norm`)."""
     step = state["step"] + 1
-    gn = global_norm(grads[n] for n in params)
+    gn = global_norm((grads[n] for n in params
+                      if counted is None or n in counted), group,
+                     next(iter(params.values())).device)
     scale = torch.clamp(hp.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
     lr = lr_schedule(hp, step)
     c1 = 1 - _f32(hp.b1) ** step.float()

@@ -1535,6 +1535,27 @@ def test_cuda_trainer_step_matches_the_cpu(cuda_device):
                      "ssd_scan_bwd": 0}
 
 
+@pytest.mark.cuda
+def test_cuda_nccl_world_one_trainer_matches_the_cpu(cuda_device, tmp_path):
+    """chip_smoke.py's phase 9j (b): the narrow f32 model's Trainer on a
+    one-rank NCCL group (megatron + ZeRO-1 + grad_compress, then fsdp), 4
+    steps each, against the same on a one-rank gloo group on the CPU: every
+    loss within 1e-4 relative (the standing training gate)."""
+    from pathlib import Path
+    from repro_torch.launch.spawn import run_ranks
+    root = str(Path(__file__).resolve().parents[1])
+    runs = {dev: run_ranks("chip_smoke:dist_rank", 1, device=dev,
+                           args=[dict(part="narrow",
+                                      ckpt_dir=str(tmp_path / dev))],
+                           paths=[root], timeout=300)[0]
+            for dev in ("cuda", "cpu")}
+    for name in ("megatron", "fsdp"):
+        card, cpu = runs["cuda"][name], runs["cpu"][name]
+        assert len(card) == len(cpu) == 4
+        for a, b in zip(card, cpu):
+            assert a == pytest.approx(b, rel=1e-4), name
+
+
 # ------------------------------------------------------- SSD-scan backward
 
 

@@ -35,6 +35,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainHParams
 from repro_torch.data import pipeline
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.lm import LM
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import grad_compress as gc
@@ -178,9 +179,25 @@ def test_quant_and_pad_bitwise_the_reference():
     assert n == jn
     np.testing.assert_array_equal(padded.numpy(), np.asarray(jpadded))
     assert gc.padded_size(1000, 4) == j_gc.padded_size(1000, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gc.compressed_allreduce_flat(padded, torch.zeros_like(padded),
-                                     "data")
+    # One rank: the ring is skipped, the mean is dequant(quant(g + e)) and
+    # the error feedback the residual, bitwise the reference's on a
+    # one-device axis (its test_compressed_allreduce_single_device_exact
+    # input, then a vector with error feedback carried in).
+    from jax.sharding import PartitionSpec as P
+    from repro.compat import shard_map
+    fn = shard_map(lambda a, b: j_gc.compressed_allreduce_flat(a, b, "data"),
+                   mesh=jax.make_mesh((1,), ("data",)), in_specs=(P(), P()),
+                   out_specs=(P(), P()), check_vma=False)
+    g1 = np.linspace(-1, 1, gc.BLOCK).astype(np.float32)
+    for g, e in ((g1, np.zeros_like(g1)),
+                 (x, (rng.normal(size=x.shape) * 1e-2).astype(np.float32))):
+        red, err = gc.compressed_allreduce_flat(torch.tensor(g),
+                                                torch.tensor(e), None)
+        jred, jerr = fn(jnp.asarray(g), jnp.asarray(e))
+        np.testing.assert_array_equal(red.numpy(), np.asarray(jred))
+        np.testing.assert_array_equal(err.numpy(), np.asarray(jerr))
+        np.testing.assert_allclose((red + err).numpy(), g + e, rtol=1e-6,
+                                   atol=1e-6)
 
 
 # ---------------------------------------------------------------- ckpt
@@ -357,10 +374,27 @@ def test_trainer_checkpoint_restart_bit_identical(tmp_path):
 
 
 def test_trainer_refuses_multi_device_features():
-    _, cfg = _cfgs("qwen2.5-3b")
+    """Tensor parallelism (megatron with model > 1) raises, naming ROADMAP
+    6c-ii.  ``grad_compress`` and fsdp run on one device, as the
+    reference's Trainer runs them on its one-device host mesh: the first
+    three losses within 1e-4 relative of the reference's.  Without a card,
+    the default device raises."""
+    jcfg, cfg = _cfgs("qwen2.5-3b")
+    with pytest.raises(NotImplementedError, match="6c-ii"):
+        Trainer(cfg, TrainHParams(), 2, 16, device="cpu",
+                mesh=Mesh((1, 2), ("data", "model")))
+    jparams = _ref_params("qwen2.5-3b")
     for kw in (dict(grad_compress=True), dict(parallelism="fsdp")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            Trainer(cfg, TrainHParams(**kw), 2, 16, device="cpu")
+        tr = Trainer(cfg, TrainHParams(**{**HP, **kw}), batch_per_step=4,
+                     seq_len=32, ckpt_every=0, device="cpu",
+                     params=params_from_jax(jparams))
+        hist = tr.run(3, log_every=1)
+        jtr = JTrainer(jcfg, JHP(**{**HP, **kw}), make_host_mesh(),
+                       batch_per_step=4, seq_len=32, ckpt_every=0)
+        jhist = jtr.run(3, log_every=1)
+        assert [s for s, _ in hist] == [s for s, _ in jhist] == [1, 2, 3]
+        for (_, got), (_, want) in zip(hist, jhist):
+            assert got == pytest.approx(want, rel=1e-4), kw
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, TrainHParams(), 2, 16)
