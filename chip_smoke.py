@@ -256,7 +256,25 @@ Phases (each synchronised; any failure exits non-zero):
    rank (losses within 1e-4); the card rank's step-2 checkpoint resumed
    on 2 gloo CPU ranks (the restored state bit for bit the saved arrays,
    the next losses within 1e-4 of the CPU rank's).  No kernels-line
-   entry: 9j adds no kernel and counts no launch.
+   entry: 9j adds no kernel and counts no launch;
+   9k. tensor and expert parallelism over a ``model`` axis of 2, in gloo
+   ranks sharing cuda:0 (NCCL cannot put two ranks on one GPU; their step
+   times are two ranks time-sharing the card, not a TP speed): (a)
+   qwen2.5-3b at its published widths, **reduced: depth 36 -> TP_LAYERS
+   layers** (two ranks' training state on one card), megatron, remat
+   "save_collectives", TRAIN_B x TRAIN_T, TP_STEPS steps, on one rank (in
+   this process) and at TP_MESH: step ms, tokens/s, peak GiB per rank; 4
+   all-reduces over ``model`` a layer and step by kind and none for the
+   gathered leaves; step 1's loss within 5e-3 of the one-rank run's; the
+   last step's batch scores lower after its update; the flash kernels'
+   launches at the shard's shape (phase 9a's ``.tp`` entries, timed at
+   TP_FLASH_SHAPE: 8 query heads over 1 KV head); (b) qwen2.5-3b,
+   qwen3-8b, dbrx-132b and deepseek-v2-lite as f32 models the card's
+   kernels take (``narrow_tp_config``: EP at 4 experts, 2 a rank; MLA
+   gathered) at TP_MESH on the card's ranks and on gloo CPU ranks (the
+   MoE models' CPU runs replaying the card's expert choices): losses
+   within 1e-4; (c) (b)'s qwen2.5-3b step-2 checkpoint resumed on 2 gloo
+   CPU ranks at (2, 1): the restored state bit for bit the saved arrays.
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -269,12 +287,14 @@ kernel's own entry; ``flash_attention.train`` and ``flash_attention_bwd``
 from phase 9b; the entries of phases 9d-9g from the phase of their shape,
 seamless's three attentions by the site its wrappers counted
 (``train_entries``); the training ``.mla`` entries from phase 9i, the
-``.moe`` entries none (``ZERO_LAUNCHES`` says why).  Of the serving phases
-only 4f is cut in depth; of the training phases 9e and 9i.
+``.moe`` entries none (``ZERO_LAUNCHES`` says why), the ``.tp`` entries
+from phase 9k (a)'s two ranks.  Of the serving phases only 4f is cut in
+depth; of the training phases 9e, 9i and 9k (a).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -3966,6 +3986,380 @@ def phase_train_dist(dev="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------ tensor / expert parallelism
+
+TP_LAYERS = 18          # phase 9k (a): qwen2.5-3b's first 18 of 36 layers:
+#                         each of two ranks sharing the card holds ~22 GB
+#                         of training state (all 36: ~72 GB for the two)
+TP_STEPS = 2            # phase 9k (a): the script stays near half its limit
+TP_MESH = (1, 2)        # (data, model)
+TP_ARCHS = (ARCH, "qwen3-8b", MOE_ARCH, MLA_ARCH)   # phase 9k (b)
+# Phase 9a's rows at qwen2.5-3b's tp = 2 shard: 8 query heads over 1 KV
+# head of 128 (entries ``.tp``, launches from 9k (a)).
+TP_FLASH_SHAPE = ("tp", "qwen2.5-3b's tp = 2 shard", TRAIN_B, TRAIN_T,
+                  TRAIN_T, 8, 1, 128, True)
+
+
+def phase_tp_kernels(results):
+    """Phase 9a at a tensor-parallel shard's head counts: the flash forward
+    with lse and the backward at TP_FLASH_SHAPE, timed beside their bounds
+    and SDPA's (``flash_attention.train.tp``, ``flash_attention_bwd.tp``).
+    With one KV head and B 2 the backward's dK / dV step has 2 x 32 key
+    tiles x 4 cluster ranks = 256 CTAs and its dQ step 2 x 256 row tiles:
+    under two waves of 132 SMs each."""
+    tag, label, B, Tq, Tk, H, n_kv, dh, causal = TP_FLASH_SHAPE
+    flash_train_entry(results, tag, label, B, Tq, Tk, H, n_kv, dh, causal)
+
+
+def narrow_tp_config(arch):
+    """Phase 9k (b)'s f32 model of ``arch``: ``narrow_train_config``'s
+    (head dim 32, or the architecture's own 128 and MLA's 192 / 128: the
+    widths the card's kernels take; the smoke configs' 8-24 are not), with
+    the smoke config's MoE (4 experts: 2 a rank at tp = 2)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = narrow_train_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=get_smoke_config(arch).moe)
+    return cfg
+
+
+class ModelCollectives:
+    """Counts, while active, the all-reduces over ``group`` (the model
+    axis) by kind: ``reduce`` (reduce-from-model, forward), ``copy``
+    (copy-to-model, backward), ``other`` (the rest, e.g. the grad norm's
+    when the mesh is the model axis), and the all-gathers over it
+    (``gather``: the gathered leaves)."""
+
+    def __init__(self, group):
+        from repro_torch.models import common
+        self.group, self.common = group, common
+        self.counts = dict(reduce=0, copy=0, other=0, gather=0)
+
+    def __enter__(self):
+        import torch.distributed as dist
+        c, self.dist = self.common, dist
+        self.saved = (c._ReduceFromModel.forward, c._CopyToModel.backward,
+                      dist.all_reduce, dist.all_gather_into_tensor)
+        fwd, bwd, ar, ag = self.saved
+        kind = [None]
+
+        def tagged(name, fn):
+            def run(ctx, *args):
+                kind[0] = name
+                try:
+                    return fn(ctx, *args)
+                finally:
+                    kind[0] = None
+            return staticmethod(run)
+
+        def all_reduce(t, *a, group=None, **kw):
+            if group is self.group:
+                self.counts[kind[0] or "other"] += 1
+            return ar(t, *a, group=group, **kw)
+
+        def all_gather(out, t, *a, group=None, **kw):
+            self.counts["gather"] += group is self.group
+            return ag(out, t, *a, group=group, **kw)
+        c._ReduceFromModel.forward = tagged("reduce", fwd)
+        c._CopyToModel.backward = tagged("copy", bwd)
+        dist.all_reduce, dist.all_gather_into_tensor = all_reduce, all_gather
+        return self
+
+    def __exit__(self, *exc):
+        c = self.common
+        c._ReduceFromModel.forward = staticmethod(self.saved[0])
+        c._CopyToModel.backward = staticmethod(self.saved[1])
+        self.dist.all_reduce, self.dist.all_gather_into_tensor = \
+            self.saved[2:]
+
+
+def tp_trainer(arch, dev, mesh, ckpt_dir=None, resume=False):
+    """``Trainer`` of ``narrow_tp_config(arch)`` over ``mesh`` (this group's
+    ranks), megatron, B 2 x NARROW_T, remat block, from
+    ``narrow_dist_weights``; checkpoints every 2 steps into ``ckpt_dir``
+    unless it resumes from there."""
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.trainer import Trainer
+    cfg = narrow_tp_config(arch)
+    hp = TrainHParams(lr=1e-3, warmup_steps=1, total_steps=DIST_NARROW_STEPS,
+                      remat="block")
+    return Trainer(cfg, hp, batch_per_step=2, seq_len=NARROW_T,
+                   mesh=Mesh(mesh, ("data", "model")), device=dev,
+                   ckpt_dir=ckpt_dir,
+                   ckpt_every=0 if resume or not ckpt_dir else 2,
+                   resume=resume, params=narrow_dist_weights(cfg))
+
+
+def tp_full_run(case):
+    """Phase 9k (a) on this process's ranks of ``case["mesh"]`` (a (1, 1)
+    mesh needs no process group): see ``tp_rank``'s ``full``."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.trainer import Trainer
+    dev = case["device"]
+    cfg = (get_config if case["width"] == "full" else get_smoke_config)(ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=case["layers"])
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=TP_STEPS,
+                      remat="save_collectives")
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, hp, batch_per_step=case["B"], seq_len=case["T"],
+                 mesh=Mesh(case["mesh"], ("data", "model")), seed=0,
+                 device=dev)
+    t_init = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    group = tr.step_fn.par.model_group
+    coll = (ModelCollectives(group) if group is not None
+            else contextlib.nullcontext())
+    with coll:
+        tr.run(TP_STEPS, log_every=1)
+    launches = ops.train_launch_counts()
+    after = tr.step_fn.loss(tr.data.batch_at(TP_STEPS - 1))
+    mem = {"peak": peak_gib(dev), "reserved": 0.0}
+    if torch.device(dev).type == "cuda":
+        mem["reserved"] = torch.cuda.max_memory_reserved() / 2**30
+    return {"log": tr.log, "after": after, "t_init": t_init,
+            "collectives": getattr(coll, "counts", None),
+            "launches": launches, "params": cfg.param_count(), **mem}
+
+
+def tp_rank(case):
+    """Phase 9k's work on one rank of a gloo group that ``run_ranks``
+    started, on ``case["device"]`` (the card: every rank on cuda:0).
+    ``case["part"]``:
+
+    * ``full``: (a) qwen2.5-3b (``case["width"]``: its published widths,
+      or the smoke config on the CPU) cut to ``case["layers"]`` layers,
+      ``Trainer`` over ``case["mesh"]``, megatron, remat
+      "save_collectives", B x T, TP_STEPS steps: the log, the all-reduces
+      over ``model`` by kind (``ModelCollectives``), the training kernels'
+      launches, the final weights' loss on the last step's batch, memory;
+    * ``narrow``: (b) ``narrow_tp_config(arch)`` of each arch of
+      ``case["archs"]`` over ``case["mesh"]`` for DIST_NARROW_STEPS steps
+      (checkpoints into ``case["ckpt_dir"][arch]`` if given): {arch: its
+      losses and MoE aux}; a MoE model's expert choices recorded
+      (``case["choices"]`` None) or replayed from the file
+      ``case["choices"][arch]`` (``ExpertChoices``);
+    * ``reshard``: (c) that checkpoint restored over ``case["mesh"]``: its
+      state gathered to full arrays, then the remaining steps' losses."""
+    import torch
+    dev = case["device"]
+    if dev == "cpu":
+        torch.set_num_threads(2)
+    if case["part"] == "full":
+        return tp_full_run(case)
+    if case["part"] == "narrow":
+        outs = {}
+        for arch in case["archs"]:
+            experts = ExpertChoices()
+            hook = experts.record
+            replay = (case.get("choices") or {}).get(arch)
+            if replay:
+                experts.choices = torch.load(replay, weights_only=True)
+                hook = experts.replay
+            tr = tp_trainer(arch, dev, case["mesh"],
+                            ckpt_dir=case.get("ckpt_dir", {}).get(arch))
+            experts.run(hook, tr.run, DIST_NARROW_STEPS, log_every=1)
+            out = outs[arch] = {"loss": [r["loss"] for r in tr.log],
+                                "aux": [r["aux"] for r in tr.log]}
+            if replay:
+                out["routed_alike"] = experts.share()[0]
+            else:
+                out["choices"] = [c.cpu() for c in experts.choices]
+            del tr
+        return outs
+    tr = tp_trainer(ARCH, dev, case["mesh"], ckpt_dir=case["ckpt_dir"],
+                    resume=True)
+    st = tr.step_fn
+    state = {"start": tr.start_step,
+             "sharded": sum(p.sharded for p in st.places.values()),
+             "params": {n: st.param_places[n].gather(
+                 t.detach().contiguous()).clone()
+                 for n, t in tr.params.items()}}
+    for part in ("mu", "nu"):       # copies: the steps below update them
+        state[part] = {n: st.places[n].gather(t).clone()
+                       for n, t in tr.opt[part].items()}
+    tr.run(DIST_NARROW_STEPS - tr.start_step, log_every=1)
+    state["losses"] = [r["loss"] for r in tr.log]
+    return state
+
+
+def phase_train_tp(dev="cuda"):
+    """Phase 9k: tensor and expert parallelism over a ``model`` axis of 2,
+    in gloo ranks that ``run_ranks`` starts; on the card both ranks of a
+    group share cuda:0 (NCCL cannot put two ranks on one GPU), so their
+    step times are two ranks time-sharing one card, not a TP speed.
+    ``dev="cpu"`` rehearses it on gloo CPU ranks (the smoke config in (a)).
+
+    (a) qwen2.5-3b at its published widths, reduced: depth 36 -> TP_LAYERS,
+        megatron, remat "save_collectives", TRAIN_B x TRAIN_T, TP_STEPS
+        steps, on one rank (mesh (1, 1)) and on two (TP_MESH): step ms,
+        tokens/s and peak GiB per rank; per step 4 all-reduces over
+        ``model`` a layer (2 reduces forward, 2 copies backward) and none
+        for the gathered leaves (all-gathers, whose backward takes the
+        rank's chunk); step 1's loss within 5e-3 relative of the one-rank
+        run's (bf16 partial sums); the last step's batch scores lower after
+        its update.  Returns the launches of the flash kernels at the tp
+        shard (TP_FLASH_SHAPE's entries: both ranks' calls);
+    (b) TP_ARCHS' f32 models (``narrow_tp_config``; EP at 4 experts, 2 a
+        rank; MLA gathered) at TP_MESH on ``dev``'s ranks and on gloo CPU
+        ranks (a MoE model's CPU run replaying the card's expert choices):
+        losses within 1e-4;
+    (c) (b)'s qwen2.5-3b step-2 checkpoint at TP_MESH resumed on 2 gloo CPU
+        ranks at (2, 1): the restored state bit for bit the saved arrays,
+        the next losses within 1e-4 of (b)'s CPU run's."""
+    import tempfile
+    import torch
+    from repro_torch.launch.spawn import run_ranks
+    held = 0.0
+    if dev == "cuda":       # the ranks' processes need the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() / 2**30
+    full = dict(part="full", width="full", layers=TP_LAYERS, B=TRAIN_B,
+                T=TRAIN_T, device=dev)
+    if dev == "cpu":
+        full.update(width="smoke", layers=2, B=2, T=64)
+    tmp = Path(tempfile.mkdtemp(prefix="tp_ckpt_"))
+    run = functools.partial(
+        run_ranks, "chip_smoke:tp_rank", paths=[str(ROOT)], timeout=600,
+        backend="gloo", env=dict(
+            os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    t0 = time.perf_counter()
+    try:
+        one = tp_full_run(dict(full, mesh=[1, 1]))     # in this process
+        reset_peak(dev)
+        t_one = time.perf_counter()
+        two = run(2, device=dev, args=[dict(full, mesh=list(TP_MESH))])
+        t_two = time.perf_counter()
+        tokens = full["B"] * full["T"]
+        L = full["layers"]
+        for label, ranks in (("(1, 1)", [one]), (str(TP_MESH), two)):
+            for r, out in enumerate(ranks):
+                log = out["log"]
+                require(all(np.isfinite([x["loss"], x["grad_norm"]]).all()
+                            for x in log), f"9k (a) {label}: a loss or grad "
+                        f"norm is not finite: {log}")
+                require(out["after"] < log[-1]["loss"],
+                        f"9k (a) {label} rank {r}: the final weights' loss "
+                        f"on the last step's batch, {out['after']:.4f}, is "
+                        f"not below its loss before the update, "
+                        f"{log[-1]['loss']:.4f}")
+                steady = float(np.median([x["ms"] for x in log[1:]]))
+                print(f"[train:tp] {ARCH} ({full['width']} width, "
+                      f"{out['params'] / 1e9:.3f} G parameters, reduced: "
+                      f"depth 36 -> {L} layers) mesh {label} rank {r}: "
+                      f"losses {[round(x['loss'], 5) for x in log]}, step "
+                      f"ms {[round(x['ms'], 1) for x in log]} (median "
+                      f"after the first {steady:.1f}, "
+                      f"{tokens / steady * 1e3:.0f} tokens/s"
+                      f"{'; two gloo ranks time-sharing one card, not a TP speed' if len(ranks) > 1 and dev == 'cuda' else ''}"
+                      f"), after the last update {out['after']:.4f}; set-up "
+                      f"{out['t_init']:.1f}s; peak {out['peak']:.2f} GiB "
+                      f"({out['reserved']:.2f} reserved; this process held "
+                      f"{held:.2f} GiB) ({SMI})")
+        for r, out in enumerate(two):
+            c = out["collectives"]
+            per_step = {k: v / TP_STEPS for k, v in c.items()}
+            require(c["reduce"] == c["copy"] == 2 * L * TP_STEPS
+                    and c["other"] == TP_STEPS,
+                    f"9k (a) rank {r}: all-reduces over model {c} in "
+                    f"{TP_STEPS} steps, not 2 x {L} reduces and 2 x {L} "
+                    f"copies a step and the grad norm's")
+            print(f"[train:tp:collectives] rank {r}, a step: all-reduces "
+                  f"over model {per_step['reduce'] + per_step['copy']:.0f} "
+                  f"= 4 x {L} layers ({per_step['reduce']:.0f} "
+                  f"reduce-from-model forward, {per_step['copy']:.0f} "
+                  f"copy-to-model backward) + 0 for the gathered leaves "
+                  f"(their {per_step['gather']:.0f} all-gathers' backward "
+                  f"takes the rank's chunk) + {per_step['other']:.0f} (the "
+                  f"grad norm, over every rank: here the model axis)")
+        gap = abs(two[0]["log"][0]["loss"] - one["log"][0]["loss"]) / abs(
+            one["log"][0]["loss"])
+        require(gap <= 5e-3, f"9k (a): step 1's loss at {TP_MESH} "
+                f"{two[0]['log'][0]['loss']} off the one-rank run's "
+                f"{one['log'][0]['loss']} by {gap:.3g} relative")
+        require([x["loss"] for x in two[0]["log"]]
+                == [x["loss"] for x in two[1]["log"]],
+                "9k (a): the two model ranks' losses differ")
+        print(f"[train:tp] step 1's loss at {TP_MESH} "
+              f"{two[0]['log'][0]['loss']:.6f} vs one rank "
+              f"{one['log'][0]['loss']:.6f}: {gap:.3g} relative (bf16 "
+              f"partial sums; limit 5e-3)")
+        launches = {}
+        for kern in ("flash_attention.train", "flash_attention_bwd"):
+            want = (2 if kern == "flash_attention.train" else 1) \
+                * L * TP_STEPS
+            got = [out["launches"][kern] for out in two]
+            require(all(g == (want if dev == "cuda" else 0) for g in got),
+                    f"9k (a): {kern} launched {got} times on the ranks, not "
+                    f"{want} each")
+            launches[f"{kern}.tp"] = sum(got)
+        # (b)
+        t_b = time.perf_counter()
+        case = dict(part="narrow", archs=TP_ARCHS, mesh=list(TP_MESH))
+        on_dev = run(2, device=dev, args=[dict(
+            case, device=dev, ckpt_dir={ARCH: str(tmp / "tp")})])[0]
+        choices = {}
+        for arch, out in on_dev.items():
+            if out["choices"]:
+                choices[arch] = str(tmp / f"{arch}.choices.pt")
+                torch.save(out["choices"], choices[arch])
+        on_cpu = run(2, device="cpu", args=[dict(case, device="cpu",
+                                                 choices=choices)])[0]
+        qwen_cpu = on_cpu[ARCH]["loss"]
+        for arch in TP_ARCHS:
+            a, b = on_dev[arch]["loss"], on_cpu[arch]["loss"]
+            require(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(a, b)),
+                    f"9k (b) {arch}: {dev} losses {a} off the CPU's {b}")
+            routed = (f"; the CPU ranks took the {dev} ranks' expert "
+                      f"choices, their own the same for "
+                      f"{on_cpu[arch]['routed_alike']:.1%}"
+                      if arch in choices else "")
+            print(f"[train:tp:agreement] f32 {arch} at {TP_MESH}: {dev} "
+                  f"ranks' losses {[round(x, 6) for x in a]} within 1e-4 "
+                  f"of the CPU ranks' {[round(x, 6) for x in b]}{routed}")
+        # (c)
+        t_c = time.perf_counter()
+        step2 = tmp / "tp" / "step_00000002"
+        shutil.copytree(step2, tmp / "reshard" / step2.name)
+        res = run(2, device="cpu", args=[dict(
+            part="reshard", device="cpu", mesh=[2, 1],
+            ckpt_dir=str(tmp / "reshard"))])
+        saved = _saved_arrays(step2)
+        for r, got in enumerate(res):
+            require(got["start"] == 2, f"9k (c): rank {r} resumed at "
+                    f"{got['start']}")
+            require(all(abs(x - y) <= 1e-4 * abs(y)
+                        for x, y in zip(got["losses"], qwen_cpu[2:])),
+                    f"9k (c): rank {r}'s losses {got['losses']} off (b)'s "
+                    f"CPU run's {qwen_cpu[2:]}")
+            for part, prefix in (("params", "params/"), ("mu", "opt/mu/"),
+                                 ("nu", "opt/nu/")):
+                for n, t in got[part].items():
+                    require(np.array_equal(t.numpy(), saved[prefix + n]),
+                            f"9k (c): rank {r}'s restored {prefix}{n} "
+                            f"differs from the saved array")
+        print(f"[train:tp:reshard] the {dev} ranks' {TP_MESH} step-2 "
+              f"checkpoint resumed on 2 gloo CPU ranks at (2, 1) "
+              f"({res[0]['sharded']} leaves' moments sharded): state bit "
+              f"for bit the saved arrays; losses "
+              f"{[round(x, 6) for x in res[0]['losses']]} within 1e-4 of "
+              f"(b)'s CPU run's {[round(x, 6) for x in qwen_cpu[2:]]}")
+        t_end = time.perf_counter()
+        print(f"[train:tp] 9k took {t_end - t0:.1f}s: (a) one rank "
+              f"{t_one - t0:.1f}s, two ranks {t_two - t_one:.1f}s (both with "
+              f"set-up; the ranks' process starts included), (b) "
+              f"{t_c - t_b:.1f}s, (c) {t_end - t_c:.1f}s")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def entry_kernel(name):
     """The kernel of a kernels-line entry: ``paged_attention.page.g4d128``
     -> ``paged_attention.page``, ``flash_attention.encoder`` ->
@@ -4018,10 +4412,12 @@ def main() -> int:
     phase_train_kernels(results)
     phase_family_train_kernels(results)
     phase_moe_train_kernels(results)
+    phase_tp_kernels(results)
     counts.update(phase_train(cfg))
     phase_train_agreement()
     phase_train_families(counts)
     phase_train_dist()
+    counts.update(phase_train_tp())
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

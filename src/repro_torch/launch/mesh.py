@@ -10,10 +10,12 @@ at the row-major coordinates of r in the grid, as in
 Building a mesh, and asking its ``axis_names`` and ``shape``, touches no
 process group, so the sharding rules (:mod:`repro_torch.launch.sharding`)
 stay pure functions of shapes.  Only :meth:`Mesh.device_mesh` and
-:meth:`Mesh.group` need the default process group, and they raise unless
-it is initialised with the mesh's size as its world size.
-:func:`init_distributed` initialises it: NCCL for ``cuda``, gloo only when
-the caller asks for the CPU.
+:meth:`Mesh.group` (a rank's ``model`` group, its data group, or any set
+of axes) need the default process group, and they raise unless it is
+initialised with the mesh's size as its world size.
+:func:`init_distributed` initialises it: NCCL for ``cuda``, gloo when the
+caller asks for the CPU, or for gloo ranks sharing one card when it names
+that backend.
 """
 
 from __future__ import annotations
@@ -146,23 +148,34 @@ def make_host_mesh() -> Mesh:
 def init_distributed(device: str = "cuda", *,
                      init_method: Optional[str] = None,
                      rank: Optional[int] = None,
-                     world_size: Optional[int] = None) -> torch.device:
+                     world_size: Optional[int] = None,
+                     backend: Optional[str] = None) -> torch.device:
     """Initialise the default process group and return this rank's device.
 
     ``device="cuda"``: NCCL, on ``cuda:LOCAL_RANK`` (made current); raises
     without a CUDA device, never falling back to gloo.  ``device="cpu"``:
-    gloo.  ``rank``, ``world_size`` and ``init_method`` default to
-    ``torchrun``'s environment (RANK, WORLD_SIZE, MASTER_ADDR / MASTER_PORT
-    through ``env://``)."""
+    gloo.  ``backend="gloo"`` with ``device="cuda"``: gloo ranks sharing
+    one card, every rank on ``cuda:0`` (NCCL cannot put two ranks on one
+    GPU); only when the caller names it.  ``rank``, ``world_size`` and
+    ``init_method`` default to ``torchrun``'s environment (RANK,
+    WORLD_SIZE, MASTER_ADDR / MASTER_PORT through ``env://``)."""
     kind = torch.device(device).type
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_distributed: no CUDA device for NCCL "
                                "(pass device='cpu' for gloo)")
-        local = int(os.environ.get("LOCAL_RANK", 0))
+        if backend not in (None, "nccl", "gloo"):
+            raise ValueError(f"init_distributed: backend {backend!r} for "
+                             f"cuda is 'nccl' or 'gloo'")
+        backend = backend or "nccl"
+        local = 0 if backend == "gloo" else int(os.environ.get("LOCAL_RANK",
+                                                               0))
         torch.cuda.set_device(local)
-        dev, backend = torch.device("cuda", local), "nccl"
+        dev = torch.device("cuda", local)
     elif kind == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"init_distributed: backend {backend!r} for "
+                             f"the CPU is 'gloo'")
         dev, backend = torch.device("cpu"), "gloo"
     else:
         raise ValueError(f"init_distributed: unsupported device {device!r}")

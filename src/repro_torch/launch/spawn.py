@@ -4,7 +4,9 @@ each returns.
 ``run_ranks("pkg.mod:fn", world, device=..., args=...)`` starts ``world``
 interpreters (``python -m repro_torch.launch.spawn``).  Each initialises
 the default process group through a ``FileStore`` in a fresh temporary
-directory (no port to pick; NCCL on ``cuda:rank``, gloo on the CPU), calls
+directory (no port to pick; NCCL on ``cuda:rank``, gloo on the CPU, or
+with ``backend="gloo"`` and ``device="cuda"`` gloo ranks sharing
+``cuda:0``; see :func:`~repro_torch.launch.mesh.init_distributed`), calls
 ``fn(*args)``, saves the result (nested lists / dicts of tensors, numbers
 and strings) and tears the group down.  A rank that fails or outlives
 ``timeout`` fails the caller: every rank is then killed and the error
@@ -24,7 +26,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
@@ -33,7 +35,8 @@ _SRC = str(Path(__file__).resolve().parents[2])
 
 def run_ranks(target: str, world: int, *, device: str = "cpu",
               args: Sequence[Any] = (), timeout: float = 120.0,
-              paths: Sequence[str] = (), env=None) -> List[Any]:
+              paths: Sequence[str] = (), env=None,
+              backend: Optional[str] = None) -> List[Any]:
     """``target`` ("module:function") on ranks 0 .. world - 1; returns the
     ranks' results in rank order.  ``args`` must be JSON-serialisable."""
     tmp = tempfile.mkdtemp(prefix="ranks_")
@@ -44,7 +47,7 @@ def run_ranks(target: str, world: int, *, device: str = "cpu",
     try:
         for r in range(world):
             spec = dict(target=target, rank=r, world=world, device=device,
-                        args=list(args), tmp=tmp)
+                        backend=backend, args=list(args), tmp=tmp)
             log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
             logs.append(log)
             procs.append(subprocess.Popen(
@@ -85,7 +88,7 @@ def run_ranks(target: str, world: int, *, device: str = "cpu",
 def _child(spec) -> None:
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed
-    init_distributed(spec["device"],
+    init_distributed(spec["device"], backend=spec["backend"],
                      init_method=f"file://{spec['tmp']}/rendezvous",
                      rank=spec["rank"], world_size=spec["world"])
     try:

@@ -5,13 +5,15 @@ initialises the process group from torchrun's environment (NCCL on
 ``cuda:LOCAL_RANK``; gloo with ``--device cpu``), builds the mesh of its
 ranks (``make_host_mesh()``, or ``make_production_mesh()`` under
 ``--production-mesh``, which needs a world of 256 ranks) and trains the
-fault-tolerant :class:`~repro_torch.train.trainer.Trainer` data-parallel
-over it.  Run alone, it trains on one device.  Restart the same command
-after a failure or preemption: ``--resume`` restores the newest complete
-checkpoint and re-shards it onto this run's ranks, whatever their number.
-``make_host_mesh()`` gives ``model = min(4, ranks)``: a tensor-parallel
-axis, which only ``--parallelism fsdp`` uses until ROADMAP 6c-ii
-(megatron raises).
+fault-tolerant :class:`~repro_torch.train.trainer.Trainer` over it.  Run
+alone, it trains on one device.  Restart the same command after a failure
+or preemption: ``--resume`` restores the newest complete checkpoint and
+re-shards it onto this run's ranks, whatever their number and mesh.
+``make_host_mesh()`` gives ``model = min(4, ranks)``: under the default
+``--parallelism megatron`` that axis carries tensor and expert
+parallelism (the reference's explicit blocks), under ``auto`` each model
+rank computes the whole model from gathered weights, and under ``fsdp`` it
+carries batch rows like the others.
 
 On the card, qwen2.5-3b, mamba2-1.3b or zamba2-1.2b at its published
 width and depth:
@@ -30,6 +32,8 @@ On the CPU (smoke-scale), on one process or four gloo ranks:
         --smoke --device cpu --steps 20 --batch 4 --seq 64
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch qwen2.5-3b --smoke --device cpu --parallelism fsdp --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen2.5-3b --smoke --device cpu --steps 20
 """
 
 from __future__ import annotations

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train_profile
         [--arch qwen2.5-3b --batch 2 --seq 2048 --remat block] [--layers N]
         [--grad-compress]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+        repro_torch.launch.train_profile --model 2 --backend gloo --layers 18
 
 Builds the port's ``Trainer`` for an architecture at its published width
 (fp32 master weights from ``--seed``), runs ``--warm`` steps, times
@@ -20,7 +22,11 @@ state does not fit the card whole (deepseek-v2-lite-16b: ``--layers 5``)
 can be profiled; the JSON line names the cut under ``reduced``.
 ``--grad-compress`` trains with the int8 compression of the gradients
 (on one device: ``Q(g + e)`` and the new error feedback per leaf) and
-also times that pass alone on one step's gradients.  The JSON line
+also times that pass alone on one step's gradients.  ``--model N`` traces
+a rank's step under tensor parallelism: run it under ``torchrun
+--nproc-per-node W`` (mesh (W / N, N), megatron), on W cards over NCCL or,
+with ``--backend gloo``, as W gloo ranks sharing one card (their step
+times then share it too); rank 0 prints.  The JSON line
 carries the caching allocator's retries (``num_alloc_retries``: each
 frees the cache and synchronises) and its reserved high-water mark.
 
@@ -32,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import time
 
@@ -69,9 +76,26 @@ def main(argv=None):
                     help="cut the depth to this many layers")
     ap.add_argument("--grad-compress", action="store_true",
                     help="int8 gradient compression with error feedback")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks (under torchrun)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="gloo: the torchrun ranks share cuda:0")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    mesh, rank = None, 0
+    if "WORLD_SIZE" in os.environ:          # under torchrun
+        init_distributed("cuda", backend=args.backend)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world % args.model:
+            raise SystemExit(f"train_profile: --model {args.model} does not "
+                             f"divide {world} ranks")
+        mesh = Mesh((world // args.model, args.model), ("data", "model"))
+    elif args.model > 1:
+        raise SystemExit(f"train_profile: --model {args.model} runs under "
+                         f"torchrun --nproc-per-node {args.model}")
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainHParams
@@ -95,7 +119,7 @@ def main(argv=None):
     hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=n,
                       remat=args.remat, grad_compress=args.grad_compress)
     tr = Trainer(cfg, hp, batch_per_step=args.batch, seq_len=args.seq,
-                 seed=args.seed)
+                 seed=args.seed, mesh=mesh, device=torch.cuda.current_device())
     torch.cuda.reset_peak_memory_stats()
     tr.run(args.warm, log_every=1)
     tr.start_step = args.warm
@@ -131,7 +155,9 @@ def main(argv=None):
         return t0.elapsed_time(t1)
 
     remat = {"none": False, "block": True}.get(args.remat, args.remat)
-    tr.lm.loss(tr.data.batch_at(n), remat=remat)[0].backward()
+    st = tr.step_fn
+    tr.lm.loss(st._rows(tr.data.batch_at(n)), remat=remat,
+               par=st.par)[0].backward()
     grads = {name: p.grad for name, p in tr.params.items()}
     norm_ms = event_ms(lambda: global_norm(grads.values()))
     compress_ms = None
@@ -143,7 +169,7 @@ def main(argv=None):
                 compressed_allreduce_flat(pad_to_block(g)[0], ef[name], None)
         compress_ms = event_ms(compress_all)
     mem = torch.cuda.memory_stats()
-    adamw_ms = event_ms(lambda: adamw_update(tr.params, grads, tr.opt, hp))
+    adamw_ms = event_ms(lambda: adamw_update(st.shards(), grads, tr.opt, hp))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -153,6 +179,8 @@ def main(argv=None):
         else torch.cuda.get_device_name(0),
         "arch": cfg.name, "reduced": reduced, "batch": args.batch,
         "seq": args.seq, "remat": args.remat,
+        "mesh": tr.mesh.shape, "backend": (dist.get_backend()
+                                           if mesh is not None else None),
         "grad_compress": args.grad_compress,
         "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
         "trace_step_ms": wall / per * 1e3,
@@ -171,7 +199,10 @@ def main(argv=None):
              "ms": us / per * 1e-3, "calls": c // per}
             for name, us, c in kernels[:15]],
     }
-    print(json.dumps(out))
+    if rank == 0:
+        print(json.dumps(out))
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

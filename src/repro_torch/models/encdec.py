@@ -79,24 +79,26 @@ class CrossDecoderParams(DecoderParams):
 
 
 def encoder_apply(cfg: ModelConfig, layers, enc_norm, src, *,
-                  remat=False):
+                  remat=False, par=None):
     """src [B, S, d] frame embeddings (projected) -> memory [B, S, d].
 
     ``layers``: the encoder's per-layer weight trees (serving:
     :meth:`DecoderParams.layer` of each layer; training:
     :meth:`DecoderParams.train_layers`), each layer recomputed in the
     backward unless ``remat`` is False or "none".  The flash calls count
-    under the ``encoder`` site."""
+    under the ``encoder`` site.  ``par``: a training forward's ranks (the
+    attention and SwiGLU run as explicit blocks under megatron over a
+    ``model`` axis, as the reference's)."""
     B, S, _ = src.shape
     positions = torch.arange(S, device=src.device)[None].expand(B, S)
 
     def layer(lp, x):
-        x = x + attn_block_prefill(cfg, lp["attn"],
-                                   rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   positions, causal=False,
-                                   site="encoder")[0]
+        x = x + attn_block_train(cfg, lp["attn"],
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                 positions, causal=False, site="encoder",
+                                 par=par)[0]
         return x + ffn_block(cfg, lp["mlp"],
-                             rms_norm(x, lp["ln2"], cfg.norm_eps))
+                             rms_norm(x, lp["ln2"], cfg.norm_eps), par)
 
     x = src
     on = layer_remat(remat)
@@ -117,11 +119,14 @@ def cross_attend(cp, h, ck, cv, site="cross_prefill"):
                                     causal=False, site=site), cp["wo"])
 
 
-def _cross_ffn(cfg: ModelConfig, lp, x, ck, cv, site):
-    """The layer's cross-attention and FFN, each with its residual."""
+def _cross_ffn(cfg: ModelConfig, lp, x, ck, cv, site, par=None):
+    """The layer's cross-attention and FFN, each with its residual (the
+    cross-attention runs whole on every model rank, as the reference's
+    GSPMD one; the FFN under ``par`` as :func:`ffn_block`'s)."""
     x = x + cross_attend(lp["cross"], rms_norm(x, lp["ln_cross"],
                                                cfg.norm_eps), ck, cv, site)
-    return x + ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                         par)
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: CrossDecoderParams, x,
@@ -144,20 +149,21 @@ def decoder_stack_prefill(cfg: ModelConfig, params: CrossDecoderParams, x,
 
 
 def decoder_stack_train(cfg: ModelConfig, layers, x, positions, memory, *,
-                        remat=True):
+                        remat=True, par=None):
     """The decoder's training forward over its per-layer trees
     (:meth:`CrossDecoderParams.train_layers`): causal self-attention,
     cross-attention to ``memory`` [B, S, d] (non-causal, all S rows), then
     SwiGLU; each layer recomputed in the backward unless ``remat`` is
     False or "none".  The cross-attention counts under the
-    ``cross_prefill`` site, the self-attention under none."""
+    ``cross_prefill`` site, the self-attention under none.  ``par`` as
+    :func:`encoder_apply`'s."""
 
     def layer(lp, x, memory):
         a = attn_block_train(cfg, lp["attn"],
                              rms_norm(x, lp["ln1"], cfg.norm_eps),
-                             positions)[0]
+                             positions, par=par)[0]
         ck, cv = cross_kv(lp["cross"], memory)
-        return _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill")
+        return _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill", par)
 
     on = layer_remat(remat)
     for lp in layers:

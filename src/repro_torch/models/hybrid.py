@@ -155,26 +155,28 @@ def _shared_block_prefill(cfg: ModelConfig, sp, x, positions, pools,
                                                   cfg.norm_eps))
 
 
-def _shared_block_train(cfg: ModelConfig, sp, x, positions):
+def _shared_block_train(cfg: ModelConfig, sp, x, positions, par=None):
     """The shared block's training forward (the reference's, without
-    pools)."""
+    pools; its attention and SwiGLU explicit blocks under ``par``)."""
     h = rms_norm(x, sp["ln1"], cfg.norm_eps)
-    x = x + attn_block_train(cfg, sp["attn"], h, positions)[0]
+    x = x + attn_block_train(cfg, sp["attn"], h, positions, par=par)[0]
     return x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
-                                                  cfg.norm_eps))
+                                                  cfg.norm_eps), par)
 
 
-def hybrid_stack_train(cfg: ModelConfig, tree, x, positions):
+def hybrid_stack_train(cfg: ModelConfig, tree, x, positions, par=None):
     """The hybrid stack's training forward over the weights of
     :meth:`HybridParams.train_tree`.  Nothing is recomputed in the
     backward: the reference's ``LM.loss`` passes no ``remat`` to its
     ``hybrid_stack_train``, whose Mamba-2 scans and shared block keep
-    every activation, and the port keeps that behaviour."""
+    every activation, and the port keeps that behaviour.  ``par``: a
+    training forward's ranks (the Mamba-2 layers run whole on every model
+    rank, their leaves gathered)."""
     groups, tail, sp = tree
     for group in groups:
         for lp, ln in group:
             x = x + mamba_block_train(cfg, lp, rms_norm(x, ln, cfg.norm_eps))
-        x = _shared_block_train(cfg, sp, x, positions)
+        x = _shared_block_train(cfg, sp, x, positions, par)
     for lp, ln in tail:
         x = x + mamba_block_train(cfg, lp, rms_norm(x, ln, cfg.norm_eps))
     return x

@@ -42,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.common import embed_init_, train_weight
+from repro_torch.models.common import ParallelCtx, embed_init_, train_weight
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.page_ops import PageCtx
 from repro_torch.models.transformer import (
@@ -50,6 +50,9 @@ from repro_torch.models.transformer import (
     decoder_stack_decode,
     decoder_stack_prefill,
     decoder_stack_train,
+    ffn_tp,
+    kv_sharded,
+    tp_geometry,
 )
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -134,6 +137,35 @@ class LM(nn.Module):
         self.decoder.init_(generator)
         return self
 
+    def model_local(self, name: str, par: ParallelCtx) -> bool:
+        """Whether the parameter ``name`` enters an explicit block of
+        ``par`` at its model shard (the reference's ``shard_map`` in_specs
+        that split it over ``model``); a ``model``-split leaf that does not
+        is gathered over ``model`` where it is cast (the layout's rule 3).
+        The explicit blocks: the GQA attention under a
+        :func:`~repro_torch.models.transformer.tp_geometry` (wq, wo, bq;
+        wk, wv, bk, bv when kv-sharded) in the decoder, the encoder and the
+        hybrid's shared block, the SwiGLU whose d_ff divides tp, and the
+        MoE block (experts and shared experts).  MLA, encdec's
+        cross-attention, Mamba-2 and the embeddings have none."""
+        if not par.explicit:
+            return False
+        keys = name.split(".")
+        leaf, cfg = keys[-1], self.cfg
+        if "moe" in keys:
+            return leaf in ("w_gate", "w_up", "w_down", "ws_gate", "ws_up",
+                            "ws_down")
+        if "mlp" in keys:
+            return ffn_tp(cfg, par)
+        if "attn" in keys and cfg.mla is None:
+            geo = tp_geometry(cfg, par.tp)
+            if geo is None:
+                return False
+            if leaf in ("wq", "wo", "bq"):
+                return True
+            return leaf in ("wk", "wv", "bk", "bv") and kv_sharded(cfg, geo)
+        return False
+
     # ------------------------------------------------------------- pools
 
     def kv_layers(self) -> int:
@@ -208,7 +240,7 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- train
 
-    def loss(self, batch, *, remat=True, dp_group=None):
+    def loss(self, batch, *, remat=True, par: Optional[ParallelCtx] = None):
         """The reference's training loss on ``batch["tokens"]`` [B, T] (vlm
         also takes ``batch["patch_embeds"]`` [B, P, d], encdec
         ``batch["src_embeds"]`` [B, S, d]): the weights cast to
@@ -222,12 +254,17 @@ class LM(nn.Module):
         load-balance losses (0 without MoE).  A MoE model's dense-FFN
         layers (``decoder_prefix``) run first, as the reference's.
 
-        Under data parallelism each rank passes its rows of the batch and
-        its data-parallel ``dp_group``: the MoE load-balance loss then
-        takes its expert loads over every rank's rows (:func:`moe_block`),
-        so that the ranks' mean loss and gradient are the whole batch's.
-        Weights the trainer shards (FSDP) are gathered where they are cast
-        (:func:`train_weight`)."""
+        Over ranks each passes its rows of the batch and its
+        :class:`~repro_torch.models.common.ParallelCtx`: the MoE
+        load-balance loss then takes its expert loads over every data
+        rank's rows (:func:`moe_block`), so that the ranks' mean loss and
+        gradient are the whole batch's, and under megatron with a ``model``
+        axis > 1 the attention, SwiGLU and MoE blocks run on this rank's
+        model shards (the reference's explicit blocks).  Weights the trainer
+        holds as shards but the forward needs whole (FSDP's; a
+        ``model``-split leaf outside those blocks) are gathered where they
+        are cast (:func:`train_weight`); the logits and the loss are then
+        computed whole on every model rank."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         dev = self.embed.device
@@ -247,24 +284,25 @@ class LM(nn.Module):
             memory = ed.encoder_apply(
                 cfg, self.encoder.train_layers(dtype),
                 train_weight(self.enc_norm, dtype),
-                self._frontend_train(batch["src_embeds"], dtype), remat=remat)
+                self._frontend_train(batch["src_embeds"], dtype), remat=remat,
+                par=par)
             x = ed.decoder_stack_train(cfg, self.decoder.train_layers(dtype),
-                                       x, positions, memory, remat=remat)
+                                       x, positions, memory, remat=remat,
+                                       par=par)
         elif cfg.family == "ssm":
             x = m2.ssm_stack_train(cfg, self.decoder.train_layers(dtype), x,
                                    remat=remat)
         elif cfg.family == "hybrid":
             x = hy.hybrid_stack_train(cfg, self.decoder.train_tree(dtype), x,
-                                      positions)
+                                      positions, par=par)
         else:
             if hasattr(self, "decoder_prefix"):
                 x, a0 = decoder_stack_train(
                     _dense_view(cfg), self.decoder_prefix.train_layers(dtype),
-                    x, positions, remat=remat)
+                    x, positions, remat=remat, par=par)
                 aux = aux + a0
             x, a1 = decoder_stack_train(cfg, self.decoder.train_layers(dtype),
-                                        x, positions, remat=remat,
-                                        dp_group=dp_group)
+                                        x, positions, remat=remat, par=par)
             aux = aux + a1
         x = x[:, n_prefix:]
         x = rms_norm(x, train_weight(self.final_norm, dtype), cfg.norm_eps)

@@ -29,17 +29,28 @@ two backward runs give the same bits on the card, with or without
 Under data parallelism (each rank holding its rows of the batch) the
 load-balance loss spans the whole batch, as the reference's shard_map path
 computes it (``E · Σ mean_dp(me) · mean_dp(fe)``): each rank all-reduces
-its expert loads ``fe`` (counts, no gradient) and returns
-``E · Σ me_r · fe_dp``, whose mean over the ranks, and its gradient's, are
-the reference's.  Capacity is per row, so it does not change.  The
-expert-parallel paths (training EP and serving 2-D EP) wait for ROADMAP
-6c-ii.
+its expert loads ``fe`` over its data group only (counts, no gradient)
+and returns ``E · Σ me_r · fe_dp``, whose mean over the ranks, and its
+gradient's, are the reference's.  Capacity is per row, so it does not
+change.
+
+Over a ``model`` axis of tp > 1 under megatron the block is the
+reference's training EP (``moe_block``'s ``shard_map``): a rank holds
+experts [e0, e0 + E / tp) (w_gate / w_up / w_down split on the expert
+dim), routes over all E with the replicated router (x and the router by
+copy-to-model), drops the entries bound for other ranks' experts as it
+drops those over capacity (exact zeros, so two backwards stay bitwise),
+and returns a partial y reduced over ``model``; the shared experts run as
+a TP SwiGLU with their own reduce.  Every model rank computes the same
+aux, whose gradient the copies' all-reduces would count tp times: it
+leaves the block through ``replicated_out``.  The serving 2-D EP waits
+for ROADMAP 6d.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,7 +58,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init_, empty_param
+from repro_torch.models.common import (
+    ParallelCtx,
+    dense_init_,
+    empty_param,
+    explicit,
+    merge_parts,
+)
 
 
 class MoEParams(nn.Module):
@@ -112,34 +129,41 @@ def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     return probs, gates, sel, pos, pos < C, C
 
 
-def _moe_routed(cfg: ModelConfig, p, x):
-    """Routed experts over x [G, S, d]: (y [G, S, d], me [E], fe [E])."""
+def _moe_routed(cfg: ModelConfig, p, x, e0: int = 0):
+    """Routed experts over x [G, S, d] with this rank's experts [e0, e0 +
+    E_local) (E_local: ``p["w_gate"]``'s first dim): (y [G, S, d], the
+    partial sum over the local experts; me [E], fe [E] over all E)."""
     mo = cfg.moe
     G, S, d = x.shape
     E, K = mo.n_experts, mo.top_k
+    E_local = p["w_gate"].shape[0]
     probs, gates, sel, pos, keep, C = route(cfg, p["router"], x)
     me = probs.mean(dim=(0, 1))
     fe = torch.bincount(sel.reshape(-1), minlength=E).float() / sel.numel()
 
-    # Dispatch into [G, E, C + 1, d]: slot C of each expert collects the
-    # dropped entries and is cut off before the experts run.  Kept slots
-    # are unique, so each receives exactly its token's row.
+    # Dispatch into [G, E_local, C + 1, d]: slot C collects the dropped
+    # entries (over capacity, or another rank's expert: those land in
+    # expert 0's) and is cut off before the experts run.  Kept slots are
+    # unique, so each receives exactly its token's row.
+    if E_local != E:
+        keep = keep & (sel >= e0) & (sel < e0 + E_local)
+        sel = torch.where(keep, sel - e0, 0)
     pos_k = torch.where(keep, pos, C)
     g_idx = torch.arange(G, device=x.device)[:, None, None]
-    slot = ((g_idx * E + sel) * (C + 1) + pos_k).reshape(-1)
+    slot = ((g_idx * E_local + sel) * (C + 1) + pos_k).reshape(-1)
     rows = (x[:, :, None, :] * keep[..., None].to(x.dtype)).reshape(-1, d)
-    xs = x.new_zeros((G * E * (C + 1), d)).index_copy_(0, slot, rows)
-    xs = xs.view(G, E, C + 1, d)[:, :, :C]
+    xs = x.new_zeros((G * E_local * (C + 1), d)).index_copy_(0, slot, rows)
+    xs = xs.view(G, E_local, C + 1, d)[:, :, :C]
 
     # Expert SwiGLU, one batched product per weight over the experts.
-    xe = xs.transpose(0, 1).reshape(E, G * C, d)
+    xe = xs.transpose(0, 1).reshape(E_local, G * C, d)
     h = torch.bmm(xe, p["w_gate"])
     u = torch.bmm(xe, p["w_up"])
     h = F.silu(h.float()).to(x.dtype) * u
-    ys = torch.bmm(h, p["w_down"]).view(E, G, C, d).transpose(0, 1)
+    ys = torch.bmm(h, p["w_down"]).view(E_local, G, C, d).transpose(0, 1)
 
     # Gather back; dropped entries read the zero slot C.
-    ys = torch.cat([ys, ys.new_zeros((G, E, 1, d))], dim=2)
+    ys = torch.cat([ys, ys.new_zeros((G, E_local, 1, d))], dim=2)
     out_k = ys.reshape(-1, d).index_select(0, slot).view(G, S, K, d)
     w = (gates * keep).to(x.dtype)
     y = torch.einsum("gskd,gsk->gsd", out_k, w)
@@ -154,18 +178,45 @@ def _moe_shared(p, x):
     return h @ p["ws_down"]
 
 
-def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x,
-              dp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss);
-    ``dp_group``: the data-parallel ranks that hold the batch's other rows,
-    whose expert loads the aux loss takes (None: this rank's rows are the
-    batch)."""
-    mo = cfg.moe
-    y, me, fe = _moe_routed(cfg, p, x)
-    if dp_group is not None:
-        dist.all_reduce(fe, group=dp_group)
-        fe = fe / dist.get_world_size(dp_group)
-    if mo.n_shared:
-        y = y + _moe_shared(p, x)
-    return y, mo.n_experts * torch.sum(me * fe)
+def moe_parts(cfg: ModelConfig, p: Dict[str, torch.Tensor], x,
+              par: Optional[ParallelCtx] = None
+              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """x [B, T, d] -> (the block's partial outputs: routed, then shared
+    experts; Switch load-balance aux loss).
 
+    ``par``: the ranks the forward runs over (None: one device): the aux
+    loss takes the expert loads of its data group's rows, and an explicit
+    ``par`` runs the training EP on this rank's experts (module
+    docstring), each partial output then pending its reduce over
+    ``model`` (:func:`moe_block`; ``decoder_stack_train``'s
+    ``save_collectives`` reduces them outside its checkpoint)."""
+    mo = cfg.moe
+    ep = explicit(par)
+    e0 = 0
+    if ep:
+        if mo.n_experts % par.tp:
+            raise ValueError(f"n_experts={mo.n_experts} not divisible by "
+                             f"model={par.tp}")
+        e0 = par.model_rank * (mo.n_experts // par.tp)
+        x = par.copy_to_model(x)
+        p = dict(p, router=par.copy_to_model(p["router"]))
+    y, me, fe = _moe_routed(cfg, p, x, e0)
+    group = None if par is None else par.dp_group
+    if group is not None:
+        dist.all_reduce(fe, group=group)
+        fe = fe / dist.get_world_size(group)
+    parts: List[torch.Tensor] = [y]
+    if mo.n_shared:
+        parts.append(_moe_shared(p, x))
+    aux = mo.n_experts * torch.sum(me * fe)
+    return parts, par.replicated_out(aux) if ep else aux
+
+
+def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x,
+              par: Optional[ParallelCtx] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss): the
+    partial outputs of :func:`moe_parts`, each reduced over ``model`` under
+    the training EP, summed."""
+    parts, aux = moe_parts(cfg, p, x, par)
+    return merge_parts(par, parts, explicit(par)), aux

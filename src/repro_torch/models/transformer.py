@@ -25,7 +25,13 @@ Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
     call runs its autograd function (the hand-written backward; MLA's at
     key width 192 and value width 128), with per-layer activation
     recomputation; MoE layers also return their load-balance aux loss,
-    summed over the stack (:func:`decoder_stack_train`).
+    summed over the stack (:func:`decoder_stack_train`).  Over a ``model``
+    axis > 1 under megatron (a :class:`~repro_torch.models.common.ParallelCtx`
+    that is ``explicit``) the attention and the SwiGLU run as the
+    reference's explicit ``shard_map`` blocks on this rank's model shards:
+    the Megatron attention over this rank's query heads
+    (:func:`tp_geometry`) and the column / row-parallel SwiGLU, each ending
+    in one reduce-from-model.
 
 Pools are updated in place.
 """
@@ -41,15 +47,19 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (
+    ParallelCtx,
     ckpt,
     dense_init_,
     empty_param,
+    explicit,
     layer_remat,
+    merge_parts,
     unbind_layers,
 )
 from repro_torch.models.layers import (
     apply_rope,
     gqa_qkv,
+    head_proj,
     out_proj,
     rms_norm,
     rope_angles,
@@ -61,7 +71,7 @@ from repro_torch.models.mla import (
     mla_block_prefill,
     mla_block_train,
 )
-from repro_torch.models.moe import MoEParams, moe_block
+from repro_torch.models.moe import MoEParams, moe_block, moe_parts
 from repro_torch.models.page_ops import (
     PageCtx,
     paged_attn_op,
@@ -253,9 +263,102 @@ def attn_block_prefill(cfg: ModelConfig, p, x, positions, causal=True,
     return out_proj(o, p["wo"]), k, v
 
 
-# The reference's ``attn_block_train`` without a cached prefix; under grad
-# mode its flash call runs the kernel's autograd function.
-attn_block_train = attn_block_prefill
+def tp_geometry(cfg: ModelConfig, tp: int):
+    """Static explicit-TP geometry at a ``model`` axis of ``tp``, or None if
+    this config can't use it (the reference's ``_tp_geometry``).
+
+    Each model shard owns H_loc consecutive query heads and the (static)
+    kv-head slice they attend to; returns (tp, H_loc, nkv_loc, kv_lo_of)
+    where kv_lo_of[s] is shard s's first kv head.  None when heads don't
+    divide, or a shard's q heads map to a non-uniform kv block (the
+    grouped attention inside the shard would be wrong).
+    """
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if H == 0 or H % tp or H % Hkv:
+        return None
+    H_loc, group = H // tp, H // Hkv
+    kv_lo, span = [], 0
+    for s in range(tp):
+        lo = (s * H_loc) // group
+        hi = (s * H_loc + H_loc - 1) // group
+        kv_lo.append(lo)
+        span = max(span, hi - lo + 1)
+    # Uniform grouped mapping inside the shard requires H_loc % span == 0
+    # and every local q head j hitting kv (lo + j // (H_loc // span)).
+    if H_loc % span:
+        return None
+    for s in range(tp):
+        for j in range(H_loc):
+            if (s * H_loc + j) // group != kv_lo[s] + j // (H_loc // span):
+                return None
+    return tp, H_loc, span, tuple(kv_lo)
+
+
+def kv_sharded(cfg: ModelConfig, geo) -> bool:
+    """Whether shard s's q heads attend exactly its 1 / tp of the kv heads:
+    then the kv projection is split too (the reference's ``kv_sharded``);
+    otherwise every shard computes k / v in full and slices its block."""
+    tp, _, nkv, kv_lo = geo
+    Hkv = cfg.n_kv_heads
+    return (Hkv % tp == 0 and nkv == Hkv // tp
+            and all(kv_lo[s] == s * (Hkv // tp) for s in range(tp)))
+
+
+def _attn_block_train_tp(cfg: ModelConfig, p, x, positions,
+                         par: ParallelCtx, geo, causal, site):
+    """The reference's ``_attn_block_train_tp`` on this rank's shard,
+    before its reduce: q and the output projection over this rank's H_loc
+    heads (wq, bq, wo local); k / v from the local kv projection when
+    :func:`kv_sharded`, else computed in full from the replicated kv
+    weights and sliced at this shard's kv block (made contiguous: the
+    flash kernel takes whole tensors).  x, the replicated kv weights and
+    q_norm / k_norm enter by copy-to-model.  Returns (partial out, k, v)."""
+    _, _, nkv, kv_lo = geo
+    sharded = kv_sharded(cfg, geo)
+
+    def kv_weight(name):
+        return p[name] if sharded else par.copy_to_model(p[name])
+
+    x = par.copy_to_model(x)
+    q = head_proj(x, p["wq"])
+    k = head_proj(x, kv_weight("wk"))
+    v = head_proj(x, kv_weight("wv"))
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + kv_weight("bk")
+        v = v + kv_weight("bv")
+    if cfg.qk_norm:
+        q = rms_norm(q, par.copy_to_model(p["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, par.copy_to_model(p["k_norm"]), cfg.norm_eps)
+    cos, sin = rope_angles(positions, q.shape[-1], cfg.rope_theta)
+    q = apply_rope(q, cos[..., :, None, :], sin[..., :, None, :])
+    k = apply_rope(k, cos[..., :, None, :], sin[..., :, None, :])
+    if sharded:
+        k_loc, v_loc = k, v
+    else:
+        lo = kv_lo[par.model_rank]
+        k_loc = k[:, :, lo:lo + nkv].contiguous()
+        v_loc = v[:, :, lo:lo + nkv].contiguous()
+    o = flash_attention(q, k_loc, v_loc, causal=causal, site=site)
+    return out_proj(o, p["wo"]), k, v
+
+
+def attn_block_train(cfg: ModelConfig, p, x, positions, causal=True,
+                     site=None, par: Optional[ParallelCtx] = None,
+                     reduce=True):
+    """The reference's ``attn_block_train`` without a cached prefix; under
+    grad mode its flash call runs the kernel's autograd function.  With an
+    explicit ``par`` and a :func:`tp_geometry`, the Megatron attention on
+    this rank's shards (:func:`_attn_block_train_tp`), whose output is
+    reduced over ``model`` unless ``reduce`` is False (then the caller
+    reduces it); otherwise :func:`attn_block_prefill` on whole weights."""
+    geo = tp_geometry(cfg, par.tp) if explicit(par) else None
+    if geo is None:
+        return attn_block_prefill(cfg, p, x, positions, causal=causal,
+                                  site=site)
+    y, k, v = _attn_block_train_tp(cfg, p, x, positions, par, geo, causal,
+                                   site)
+    return (par.reduce_from_model(y) if reduce else y), k, v
 
 
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
@@ -270,8 +373,21 @@ def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
     return y[:, None, :]
 
 
-def ffn_block(cfg: ModelConfig, p, x):
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+def ffn_tp(cfg: ModelConfig, par: Optional[ParallelCtx]) -> bool:
+    """Whether the SwiGLU runs tensor-parallel under ``par``."""
+    return explicit(par) and cfg.d_ff % par.tp == 0
+
+
+def ffn_block(cfg: ModelConfig, p, x, par: Optional[ParallelCtx] = None,
+              reduce=True):
+    """SwiGLU; under :func:`ffn_tp` the reference's explicit TP SwiGLU on
+    this rank's shards (w_gate / w_up column-parallel, w_down row-parallel,
+    x by copy-to-model), reduced over ``model`` unless ``reduce`` is
+    False."""
+    if not ffn_tp(cfg, par):
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    y = swiglu(par.copy_to_model(x), p["w_gate"], p["w_up"], p["w_down"])
+    return par.reduce_from_model(y) if reduce else y
 
 
 def layer_ffn(cfg: ModelConfig, lp, x):
@@ -283,31 +399,52 @@ def layer_ffn(cfg: ModelConfig, lp, x):
 
 # ------------------------------------------------------------------ stack
 
-def _attn_train(cfg: ModelConfig, lp, x, positions):
-    """The layer's attention block (MLA or GQA) on the residual stream x."""
+def _attn_train(cfg: ModelConfig, lp, x, positions, par=None, reduce=True):
+    """The layer's attention block (MLA or GQA) on the residual stream x;
+    unreduced with ``reduce`` False (see :func:`attn_block_train`)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    block = mla_block_train if cfg.mla is not None else attn_block_train
-    return block(cfg, lp["attn"], h, positions)[0]
+    if cfg.mla is not None:
+        return mla_block_train(cfg, lp["attn"], h, positions)[0]
+    return attn_block_train(cfg, lp["attn"], h, positions, par=par,
+                            reduce=reduce)[0]
 
 
-def _ffn_train(cfg: ModelConfig, lp, x, dp_group=None):
-    """The layer's FFN block on the residual stream x: (out, aux), the
-    routed experts' load-balance loss or, for SwiGLU, 0."""
+def _ffn_train(cfg: ModelConfig, lp, x, par=None):
+    """The layer's FFN block on the residual stream x, before its
+    reduces: (partial outputs, aux), the routed experts' load-balance loss
+    or, for SwiGLU, 0 (see :func:`_merge`)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        return moe_block(cfg, lp["moe"], h, dp_group)
-    return (ffn_block(cfg, lp["mlp"], h),
+        return moe_parts(cfg, lp["moe"], h, par)
+    return ([ffn_block(cfg, lp["mlp"], h, par, reduce=False)],
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _layer_train(cfg: ModelConfig, lp, x, positions, dp_group=None):
-    x = x + _attn_train(cfg, lp, x, positions)
-    f, aux = _ffn_train(cfg, lp, x, dp_group)
-    return x + f, aux
+def _merge(cfg: ModelConfig, par, parts):
+    """The FFN block's output from :func:`_ffn_train`'s partial outputs
+    (:func:`merge_parts`), reduced over ``model`` where the block ran
+    tensor- or expert-parallel."""
+    return merge_parts(par, parts, explicit(par) and (
+        cfg.moe is not None or ffn_tp(cfg, par)))
+
+
+def _attn_reduce(cfg: ModelConfig, par, y):
+    """The attention block's output from its partial (GQA under an
+    explicit geometry; MLA runs whole)."""
+    if cfg.mla is None and explicit(par) and tp_geometry(cfg, par.tp):
+        return par.reduce_from_model(y)
+    return y
+
+
+def _layer_train(cfg: ModelConfig, lp, x, positions, par=None):
+    x = x + _attn_train(cfg, lp, x, positions, par)
+    parts, aux = _ffn_train(cfg, lp, x, par)
+    return x + _merge(cfg, par, parts), aux
 
 
 def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
-                        x, positions, *, remat=True, dp_group=None):
+                        x, positions, *, remat=True,
+                        par: Optional[ParallelCtx] = None):
     """The stack's training forward (the reference's ``_layer_train`` per
     layer: MLA or GQA attention, routed experts or SwiGLU) over per-layer
     weight trees (:meth:`DecoderParams.train_layers`).  Returns (x, aux):
@@ -316,28 +453,32 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
 
     remat: False / "none" keeps every activation; True / "block" recomputes
     each layer in the backward from its input (``torch.utils.checkpoint``,
-    non-reentrant); "save_collectives" checkpoints the attention block and
-    the FFN block separately, keeping their boundaries (the layer's input
-    and the stream after the attention block, which carries its output):
-    the reference keeps the two blocks' outputs so that its recompute
-    skips their tensor-parallel all-reduces.  On one device there is no
-    all-reduce, and each block is recomputed with "block"'s arithmetic.
-    A MoE layer's recompute routes its tokens as its forward did: the
-    capacity follows the forward's token count, which it sees again.
-    ``dp_group``: the data-parallel ranks whose rows the MoE load-balance
-    loss spans (:func:`moe_block`); None on one rank.
+    non-reentrant), its reduces over ``model`` included; "save_collectives"
+    checkpoints the attention block and the FFN block separately, each
+    checkpoint ending before the block's reduce-from-model, whose output
+    is kept: the recompute re-runs only local math (the reference's
+    ``save_only_these_names("tp_psum")``).  Over ``model`` a layer and step
+    then runs 4 all-reduces (2 reduces forward, 2 copy-to-model
+    backward), and 6 under "block", whose recompute reduces again.  On one
+    device there is no all-reduce, and each block is recomputed with
+    "block"'s arithmetic.  A MoE layer's recompute routes its tokens as
+    its forward did: the capacity follows the forward's token count,
+    which it sees again.  ``par``: the ranks the forward runs over (the
+    MoE load-balance loss's data group, the ``model`` axis); None on one
+    rank.
     """
     layer_remat(remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params:
         if remat == "save_collectives":
-            x = x + ckpt(_attn_train, cfg, lp, x, positions)
-            f, a = ckpt(_ffn_train, cfg, lp, x, dp_group)
-            x = x + f
+            x = x + _attn_reduce(cfg, par, ckpt(_attn_train, cfg, lp, x,
+                                                positions, par, False))
+            parts, a = ckpt(_ffn_train, cfg, lp, x, par)
+            x = x + _merge(cfg, par, parts)
         elif remat in (True, "block"):
-            x, a = ckpt(_layer_train, cfg, lp, x, positions, dp_group)
+            x, a = ckpt(_layer_train, cfg, lp, x, positions, par)
         else:
-            x, a = _layer_train(cfg, lp, x, positions, dp_group)
+            x, a = _layer_train(cfg, lp, x, positions, par)
         aux = aux + a
     return x, aux
 

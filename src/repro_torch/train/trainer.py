@@ -1,5 +1,5 @@
 """Training step builder and fault-tolerant loop, on one device or over
-data-parallel ranks.
+ranks: data parallelism, and tensor / expert parallelism over ``model``.
 
 Counterpart of the reference's ``train/trainer.py`` over a
 :class:`~repro_torch.launch.mesh.Mesh` of ``torch.distributed`` ranks.
@@ -19,14 +19,24 @@ master weights, in the reference's order of operations:
     AdamW (:mod:`repro_torch.train.optimizer`) on this rank's shards.
 
 ``hp.parallelism``:
-  * ``megatron`` / ``auto`` with ``model`` = 1: data parallelism plus
-    ZeRO-1.  The f32 masters stay whole on every rank; each gradient is
-    reduce-scattered to its ``zero1_specs`` shard (all-reduced where that
-    leaves it whole), AdamW's moments live only as shards, the update runs
-    on the shard and the new params are all-gathered.  (The reference also
-    stores its f32 masters at the ZeRO-1 layout and gathers their bf16
-    copy once a step.)  ``model`` > 1 is tensor / expert parallelism and
-    raises: it waits for ROADMAP 6c-ii.
+  * ``megatron``: data parallelism over pod and data plus ZeRO-1, and over
+    a ``model`` axis > 1 the reference's explicit tensor / expert-parallel
+    blocks (:class:`~repro_torch.models.common.ParallelCtx`).  Each leaf
+    the reference splits over ``model`` (``param_specs``) is held as this
+    rank's model shard: the f32 master of that shard stays whole over the
+    data ranks, each gradient is reduce-scattered over the data group only
+    to its ``zero1_specs`` shard (all-reduced where that leaves it whole;
+    the ``model`` sums happened inside the blocks), AdamW's moments live
+    only as shards, the update runs on the shard and the new params are
+    all-gathered over data.  (The reference also stores its f32 masters at
+    the ZeRO-1 layout and gathers their bf16 copy once a step.)  A
+    ``model``-split leaf that no explicit block takes at its shard (MLA,
+    Mamba-2, the embeddings, encdec's cross-attention) is gathered over
+    ``model`` where the loss casts it (:mod:`repro_torch.train.layout`'s
+    three rules).  The grad norm sums every model shard's squares once.
+  * ``auto``: the same layouts with no explicit block: every
+    ``model``-split leaf is gathered and each model rank computes the
+    whole model (the reference leaves it to GSPMD).
   * ``fsdp``: every mesh axis carries batch rows; the f32 params, their
     gradients and the moments are all ``fsdp_specs`` shards.  The loss
     gathers each sharded weight where it casts it to the compute dtype
@@ -40,10 +50,12 @@ and ``fsdp`` (nothing to shard) as the reference runs them on its
 one-device host mesh.
 
 ``Trainer`` runs the loop with atomic checkpoints every ``ckpt_every``
-steps (each sharded leaf gathered to its full value, rank 0 writing), and
-``resume=True`` restoring the newest complete one onto this run's ranks,
-whatever the world size that wrote it.  SIGTERM on any rank finishes the
-current step on every rank, checkpoints and stops.
+steps (each sharded leaf gathered over both axes to its full value, rank 0
+writing), and ``resume=True`` restoring the newest complete one onto this
+run's ranks, whatever the (data, model) mesh that wrote it.  The error
+feedback of ``grad_compress`` is not saved, as in the reference: a resumed
+run restarts it at zero.  SIGTERM on any rank finishes the current step
+on every rank, checkpoints and stops.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from repro_torch.configs.base import ModelConfig, TrainHParams
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.sharding import fsdp_specs, param_specs, zero1_specs
+from repro_torch.models.common import ParallelCtx
 from repro_torch.models.lm import LM
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.grad_compress import (
@@ -70,20 +83,15 @@ from repro_torch.train.grad_compress import (
     pad_to_block,
     padded_size,
 )
-from repro_torch.train.layout import GatherFn, Placement, batch_axes
+from repro_torch.train.layout import GatherFn, Placement, batch_axes, chunk_of
 from repro_torch.train.optimizer import adamw_init, adamw_update
-
-_TP = ("tensor / expert parallelism over the 'model' axis (megatron or auto "
-       "with model > 1) waits for ROADMAP 6c-ii")
 
 
 def configure_parallelism(hp: TrainHParams, mesh) -> Tuple[str, ...]:
     """The mesh's batch axes under ``hp.parallelism`` (megatron / auto:
-    pod and data; fsdp: every axis); raises for tensor parallelism."""
-    axes = batch_axes(hp.parallelism, mesh)
-    if hp.parallelism != "fsdp" and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(f"{_TP} (mesh {mesh.shape})")
-    return axes
+    pod and data, ``model`` carrying tensor / expert parallelism; fsdp:
+    every axis)."""
+    return batch_axes(hp.parallelism, mesh)
 
 
 def batch_spec(mesh, hp: TrainHParams):
@@ -110,8 +118,8 @@ def _keep_local(store: Dict[str, torch.Tensor], name: str,
     store[name] = grad if name not in store else store[name].add_(grad)
 
 
-def _fsdp_gather(place: Placement, reduce, shard, dtype):
-    return GatherFn.apply(shard, dtype, place, reduce)
+def _gather(gather, reduce, shard, dtype):
+    return GatherFn.apply(shard, dtype, gather, reduce)
 
 
 class TrainStep:
@@ -119,14 +127,17 @@ class TrainStep:
     step on ``lm``'s master weights (see the module docstring).  ``batch``
     maps names to tensors or arrays with the global batch on dim 0
     (``tokens``, and vlm's ``patch_embeds`` or encdec's ``src_embeds``);
-    every rank passes the same batch and trains on its rows.  metrics hold
-    0-d tensors ``loss``, ``nll``, ``aux`` (means over the batch ranks),
-    ``grad_norm`` and ``lr``.
+    every rank passes the same batch and trains on its rows (the model
+    ranks of a data rank on the same ones).  metrics hold 0-d tensors
+    ``loss``, ``nll``, ``aux`` (means over the batch ranks), ``grad_norm``
+    and ``lr``.
 
     ``init_opt()`` makes the AdamW state at this rank's shards; ``shards()``
-    are this rank's shards of the master weights (views); ``places`` the
-    leaves' :class:`Placement`; ``ef`` the per-leaf error-feedback buffers
-    under ``grad_compress``.  Under fsdp the LM's sharded parameters are
+    are this rank's shards of the master weights (views); ``param_places``
+    and ``places`` the leaves' :class:`Placement` as held (the model
+    shard; fsdp's shard) and as the optimizer keeps them; ``par`` the
+    forward's :class:`ParallelCtx`; ``ef`` the per-leaf error-feedback
+    buffers under ``grad_compress``.  The LM's sharded parameters are
     replaced by their shards."""
 
     def __init__(self, lm: LM, hp: TrainHParams, mesh: Optional[Mesh] = None):
@@ -136,13 +147,12 @@ class TrainStep:
         batch = configure_parallelism(hp, self.mesh)
         if self.mesh.size > 1:
             self.mesh.device_mesh()     # raises without a group of its size
-        if dist.is_initialized() and dist.get_world_size() == self.mesh.size:
-            on_cuda = next(lm.parameters()).device.type == "cuda"
-            if on_cuda != (dist.get_backend() == "nccl"):
-                raise RuntimeError(
-                    f"{dist.get_backend()} process group for weights on "
-                    f"{next(lm.parameters()).device}: NCCL goes with cuda, "
-                    f"gloo with the CPU")
+        on_cuda = next(lm.parameters()).device.type == "cuda"
+        if (dist.is_initialized() and dist.get_world_size() == self.mesh.size
+                and dist.get_backend() == "nccl" and not on_cuda):
+            raise RuntimeError(f"NCCL process group for weights on "
+                               f"{next(lm.parameters()).device}: NCCL needs "
+                               f"them on cuda (gloo for the CPU)")
         rank = dist.get_rank() if self.mesh.size > 1 else 0
         self.D = math.prod(self.mesh.shape[a] for a in batch)
         coords = self.mesh.coords(rank)
@@ -150,29 +160,46 @@ class TrainStep:
         for a in batch:
             self.data_rank = self.data_rank * self.mesh.shape[a] + coords[a]
         self.group = self.mesh.group(batch)
+        model_axes = tuple(a for a in self.mesh.axis_names if a not in batch)
+        model_rank = 0
+        for a in model_axes:
+            model_rank = model_rank * self.mesh.shape[a] + coords[a]
+        self.par = ParallelCtx(
+            dp_group=self.group, model_group=self.mesh.group(model_axes),
+            tp=math.prod(self.mesh.shape[a] for a in model_axes),
+            model_rank=model_rank,
+            mode="auto" if hp.parallelism == "auto" else "megatron")
+        # The grad norm sums over every rank of the mesh.
+        self.norm_group = self.mesh.group(self.mesh.axis_names)
         self.remat = {"none": False, "block": True}.get(hp.remat, hp.remat)
         self.n_micro = hp.microbatch if hp.microbatch and hp.microbatch > 1 \
             else 1
         self.fsdp = hp.parallelism == "fsdp"
         params = dict(lm.named_parameters())
-        specs = state_specs(params, hp, self.mesh)[1]
-        self.places = {n: Placement(p.shape, specs[n], self.mesh, batch, rank)
+        pspecs, mspecs = state_specs(params, hp, self.mesh)
+        self.param_places = {n: Placement(p.shape, pspecs[n], self.mesh,
+                                          batch, rank)
+                             for n, p in params.items()}
+        self.places = {n: Placement(p.shape, mspecs[n], self.mesh, batch,
+                                    rank)
                        for n, p in params.items()}
         self.counted = {n for n, pl in self.places.items() if pl.counts}
+        self._local: Dict[str, torch.Tensor] = {}
+        self._shard_params()
+        self.params = dict(lm.named_parameters())
         self.ef = None
         if hp.grad_compress:
-            self.ef = {n: torch.zeros(padded_size(p.numel(), self.D),
-                                      dtype=torch.float32, device=p.device)
-                       for n, p in params.items()}
-        self._local: Dict[str, torch.Tensor] = {}
-        if self.fsdp:
-            self._shard_params()
-        self.params = dict(lm.named_parameters())
+            self.ef = {n: torch.zeros(
+                padded_size(math.prod(self.places[n].model_shape), self.D),
+                dtype=torch.float32, device=p.device)
+                for n, p in self.params.items()}
 
     def _shard_params(self) -> None:
-        """Replace each sharded parameter by its shard, which gathers the
-        whole weight in the loss (``fsdp_gather``)."""
-        for name, place in self.places.items():
+        """Replace each sharded parameter by the shard this rank holds:
+        fsdp's, which the loss gathers whole (``train_gather``); or its
+        model shard, gathered over ``model`` where no explicit block takes
+        it at its shard (the layout's rule 3)."""
+        for name, place in self.param_places.items():
             if not place.sharded:
                 continue
             owner, _, leaf = name.rpartition(".")
@@ -180,14 +207,26 @@ class TrainStep:
             full = getattr(mod, leaf)
             shard = nn.Parameter(place.take(full.detach()).clone(),
                                  requires_grad=full.requires_grad)
-            reduce = (functools.partial(_keep_local, self._local, name)
-                      if self.hp.grad_compress else place.reduce)
-            shard.fsdp_gather = functools.partial(_fsdp_gather, place, reduce)
+            if self.fsdp:
+                reduce = (functools.partial(_keep_local, self._local, name)
+                          if self.hp.grad_compress else place.reduce)
+                shard.train_gather = functools.partial(_gather, place.gather,
+                                                       reduce)
+            elif not self.lm.model_local(name, self.par):
+                shard.train_gather = functools.partial(
+                    _gather, place.gather, chunk_of(place))
             setattr(mod, leaf, shard)
+        for name in self.param_places:
+            if self.lm.model_local(name, self.par) \
+                    and self.param_places[name].model is None:
+                raise ValueError(f"{name} enters an explicit block at its "
+                                 f"model shard, but its spec does not split "
+                                 f"it over model={self.par.tp}")
 
     def shards(self) -> Dict[str, torch.Tensor]:
-        return {n: self.places[n].take(p.detach()) if not self.fsdp
-                else p.detach() for n, p in self.params.items()}
+        return {n: p.detach() if self.fsdp
+                else self.places[n].take_data(p.detach())
+                for n, p in self.params.items()}
 
     def init_opt(self):
         return adamw_init(self.shards())
@@ -208,12 +247,13 @@ class TrainStep:
                 for key, v in batch.items()}
 
     def _compress(self, name: str, g: torch.Tensor, place: Placement):
-        """The mean of every rank's ``g`` through the int8 ring; this rank's
+        """The mean of every batch rank's ``g`` (this rank's model shard's
+        gradient) through the int8 ring over the data group; this rank's
         shard of it, equal across the leaf's replicas."""
         flat, numel = pad_to_block(g, BLOCK * self.D)
         mean, self.ef[name] = compressed_allreduce_flat(flat, self.ef[name],
                                                         self.group)
-        shard = place.take(mean[:numel].view(place.shape))
+        shard = place.take_data(mean[:numel].view(place.model_shape))
         return place.agree(shard.contiguous())
 
     def _reduce_grads(self) -> Dict[str, torch.Tensor]:
@@ -240,11 +280,20 @@ class TrainStep:
 
     @torch.no_grad()
     def _gather_params(self) -> None:
-        """ZeRO-1: every rank's updated shard into the whole master."""
+        """ZeRO-1: every batch rank's updated shard into the whole master
+        of this rank's model shard."""
         for n, p in self.params.items():
             place = self.places[n]
-            if place.sharded:
-                p.copy_(place.gather(place.take(p.detach())))
+            if place.data is not None:
+                p.copy_(place.gather_data(place.take_data(p.detach())))
+
+    def _mean(self, *values):
+        """0-d tensors averaged over the batch ranks."""
+        if self.group is None:
+            return values
+        means = torch.stack(values)
+        dist.all_reduce(means, group=self.group)
+        return tuple(means.div_(self.D).unbind(0))
 
     def __call__(self, opt, batch):
         batch = self._rows({k: torch.as_tensor(v) for k, v in batch.items()})
@@ -256,25 +305,28 @@ class TrainStep:
             # Every key of the batch (tokens, patch_embeds, src_embeds) is
             # cut along dim 0, as the reference's _accum_grads does.
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, aux = self.lm.loss(micro, remat=self.remat,
-                                     dp_group=self.group)
+            loss, aux = self.lm.loss(micro, remat=self.remat, par=self.par)
             loss.backward()     # the f32 grads accumulate across micros
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
         grads = self._reduce_grads()
         _, opt, om = adamw_update(
             self.shards(), grads, opt, self.hp,
-            counted=self.counted if self.group is not None else None,
-            group=self.group)
+            counted=self.counted if self.norm_group is not None else None,
+            group=self.norm_group)
         del grads
         if not self.fsdp:
             self._gather_params()
-        loss, nll, a = lsum / self.n_micro, aux["nll"].detach(), \
-            aux["aux"].detach()
-        if self.group is not None:
-            means = torch.stack([loss, nll, a])
-            dist.all_reduce(means, group=self.group)
-            loss, nll, a = means.div_(self.D).unbind(0)
+        loss, nll, a = self._mean(lsum / self.n_micro, aux["nll"].detach(),
+                                  aux["aux"].detach())
         return opt, {"loss": loss, "nll": nll, "aux": a, **om}
+
+    @torch.no_grad()
+    def loss(self, batch) -> float:
+        """The current weights' loss on the global ``batch`` (no update):
+        the mean over the batch ranks of their rows' total loss."""
+        batch = self._rows({k: torch.as_tensor(v) for k, v in batch.items()})
+        return float(self._mean(self.lm.loss(batch, remat=False,
+                                             par=self.par)[0])[0])
 
 
 def make_train_step(lm: LM, hp: TrainHParams,
@@ -288,10 +340,11 @@ class Trainer:
     device), on ``device`` (``cuda`` unless the caller asks for the CPU;
     under a mesh, this rank's device).
 
-    Weights: ``params`` (a state_dict, e.g. ``bridge.params_from_jax`` of
-    the reference's ``LM.init``) or drawn from ``generator`` (default: a
-    generator on ``device`` seeded with ``seed``); every rank must start
-    from the same weights.  Data: ``SyntheticLM`` from ``seed`` drawing
+    Weights: ``params`` (a state_dict of full arrays, e.g.
+    ``bridge.params_from_jax`` of the reference's ``LM.init``) or drawn
+    from ``generator`` (default: a generator on ``device`` seeded with
+    ``seed``); every rank must start from the same weights, of which it
+    keeps its shards.  Data: ``SyntheticLM`` from ``seed`` drawing
     the global batch (its rank 0 stream, as the reference's), of which each
     batch rank trains on its rows: tokens only, so the families that also
     take frontend embeddings (vlm, encdec) train through
@@ -347,13 +400,14 @@ class Trainer:
         return {"params": self.params, "opt": self.opt}
 
     def _places(self) -> Dict[str, Placement]:
-        """Checkpoint path -> placement of every sharded leaf."""
+        """Checkpoint path -> placement of every leaf held as a shard."""
         out = {}
-        for n, place in self.step_fn.places.items():
+        st = self.step_fn
+        for n, place in st.places.items():
             if place.sharded:
                 out[f"opt/mu/{n}"] = out[f"opt/nu/{n}"] = place
-                if self.step_fn.fsdp:
-                    out[f"params/{n}"] = place
+            if st.param_places[n].sharded:
+                out[f"params/{n}"] = st.param_places[n]
         return out
 
     def _on_preempt(self, *_):

@@ -1431,6 +1431,44 @@ def test_cuda_flash_backward_is_deterministic(cuda_device, dtype, H, n_kv,
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_kv,T", [
+    (8, 1, 2048),     # qwen2.5-3b's tp = 2 shard (chip_smoke rows 7tp / 9tp)
+    (4, 1, 333),      # its tp = 4 shard
+    (24, 4, 333),     # dbrx-132b's tp = 2 shard
+])
+def test_cuda_flash_train_kernels_at_a_tensor_parallel_shard(cuda_device, H,
+                                                             n_kv, T):
+    """The training forward with lse and the backward at a shard's head
+    counts (H / tp query heads over its kv block), bf16, causal: o bit for
+    bit the serving call's, lse at 1e-4, o and the gradients at 2e-2 of
+    their plain versions' scale, two backward calls bitwise.  The kv block
+    a shard slices out of the whole k / v (made contiguous, as the
+    Megatron attention hands it over) gives the same bits as a kv tensor
+    of that block alone."""
+    q, k, v = _flash_case(cuda_device, 2, T, T, H, n_kv, 128, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(q.dtype)
+    o, lse = ops.flash_attention_lse(q, k, v, causal=True)
+    want_o, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True)
+    whole = torch.cat([k, torch.zeros_like(k)], dim=2)  # 2 n_kv heads
+    sliced = ops.flash_attention(q, whole[:, :, :n_kv].contiguous(),
+                                 torch.cat([v, v], dim=2)[:, :, :n_kv]
+                                 .contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=True))
+    assert torch.equal(sliced, o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=2e-2,
+                               atol=2e-2)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        _assert_scaled(g, w, 2e-2)
+
+
 def _mla_case(dev, B, Tq, Tk, H, n_kv, dtype, seed=37):
     """q [B, Tq, H, 192], k [B, Tk, n_kv, 192] and v [B, Tk, n_kv, 128]:
     MLA's expanded attention (nope 128 + rope 64 keys, 128-wide values)."""

@@ -374,13 +374,14 @@ def test_trainer_checkpoint_restart_bit_identical(tmp_path):
 
 
 def test_trainer_refuses_multi_device_features():
-    """Tensor parallelism (megatron with model > 1) raises, naming ROADMAP
-    6c-ii.  ``grad_compress`` and fsdp run on one device, as the
-    reference's Trainer runs them on its one-device host mesh: the first
-    three losses within 1e-4 relative of the reference's.  Without a card,
-    the default device raises."""
+    """A mesh with a ``model`` axis > 1 (tensor parallelism, megatron by
+    default) needs a process group of its size: without one it raises.
+    ``grad_compress`` and fsdp run on one device, as the reference's
+    Trainer runs them on its one-device host mesh: the first three losses
+    within 1e-4 relative of the reference's.  Without a card, the default
+    device raises."""
     jcfg, cfg = _cfgs("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="6c-ii"):
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(cfg, TrainHParams(), 2, 16, device="cpu",
                 mesh=Mesh((1, 2), ("data", "model")))
     jparams = _ref_params("qwen2.5-3b")

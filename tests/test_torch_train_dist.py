@@ -530,16 +530,15 @@ def test_sigterm_to_one_rank_stops_both_at_the_same_step(setup, ranks2):
 
 @pytest.mark.parametrize("parallelism", ["megatron", "auto"])
 def test_model_axis_over_one_raises_under_megatron(parallelism):
-    """Tensor / expert parallelism waits for ROADMAP 6c-ii; a mesh of
-    several ranks without a process group of its size raises."""
+    """A mesh of several ranks without a process group of its size raises,
+    with a ``model`` axis > 1 (tensor / expert parallelism, which trains
+    since it was ported: tests/test_torch_train_tp.py) as without one."""
     cfg = dataclasses.replace(get_smoke_config(QWEN), dtype="float32")
     hp = TrainHParams(**{**HP, "parallelism": parallelism})
-    with pytest.raises(NotImplementedError, match="6c-ii"):
-        make_train_step(LM(cfg, master=True), hp, Mesh((2, 2),
-                                                       ("data", "model")))
-    with pytest.raises(RuntimeError, match="process group"):
-        make_train_step(LM(cfg, master=True), hp, Mesh((2, 1),
-                                                       ("data", "model")))
+    for shape in ((2, 2), (2, 1)):
+        with pytest.raises(RuntimeError, match="process group"):
+            make_train_step(LM(cfg, master=True), hp,
+                            Mesh(shape, ("data", "model")))
 
 
 def test_batch_and_moment_specs_equal_the_references():

@@ -1,11 +1,13 @@
-"""Rank functions of the port's data-parallel tests.
+"""Rank functions of the port's data-, tensor- and expert-parallel tests.
 
 Each runs on every rank of a gloo group started by
 ``repro_torch.launch.spawn.run_ranks`` (see
-``tests/test_torch_train_dist.py``) and returns tensors, numbers and
-strings.  No JAX here: the ranks import only torch and the port.
+``tests/test_torch_train_dist.py`` and ``tests/test_torch_train_tp.py``)
+and returns tensors, numbers and strings.  No JAX here: the ranks import
+only torch and the port.
 """
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -97,10 +99,62 @@ class FirstGrads:
         self.module.adamw_update = self.update
 
 
+class ModelAllReduces:
+    """Counts, while active, the all-reduces issued over ``group``."""
+
+    def __init__(self, group):
+        self.group, self.n = group, 0
+
+    def __enter__(self):
+        self.saved = dist.all_reduce
+
+        def all_reduce(t, *a, group=None, **kw):
+            self.n += group is self.group
+            return self.saved(t, *a, group=group, **kw)
+        dist.all_reduce = all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_reduce = self.saved
+
+
+class RingInputs:
+    """Keeps, for the first step's compressed reduction of each leaf, the
+    ring's inputs (the local gradient, padded flat, and the error feedback
+    before it) and its output mean, while active."""
+
+    def __enter__(self):
+        from repro_torch.train import trainer
+        self.module, self.fn = trainer, trainer.compressed_allreduce_flat
+        self.seen = {}
+        self.name = None
+        step = trainer.TrainStep
+        self.step, self.compress = step, step._compress
+
+        def compress(st, name, g, place):
+            self.name = name
+            return self.compress(st, name, g, place)
+
+        def ring(flat, err, group):
+            g, e = flat.clone(), err.clone()
+            mean, new_err = self.fn(flat, err, group)
+            if self.name not in self.seen:
+                self.seen[self.name] = {"g": g, "e": e, "mean": mean.clone()}
+            return mean, new_err
+        step._compress = compress
+        trainer.compressed_allreduce_flat = ring
+        return self
+
+    def __exit__(self, *exc):
+        self.step._compress = self.compress
+        self.module.compressed_allreduce_flat = self.fn
+
+
 def _summary(tr, calls=None, grads=None):
     """The run's losses and the trainer's state as full arrays (shards
-    gathered), with each moment shard's size against its leaf's; the first
-    update's gradients, gathered, where ``grads`` kept them."""
+    gathered over every axis), with each moment shard's size against its
+    leaf's; the first update's gradients, gathered, where ``grads`` kept
+    them."""
     st = tr.step_fn
     out = {"loss": [r["loss"] for r in tr.log],
            "aux": [r["aux"] for r in tr.log],
@@ -109,10 +163,10 @@ def _summary(tr, calls=None, grads=None):
            "params": {}, "mu": {}, "nu": {}, "n": {}, "shard": {}}
     for name, p in tr.params.items():
         place = st.places[name]
-        full = place.gather(p.detach().contiguous()) if st.fsdp else p
+        full = st.param_places[name].gather(p.detach().contiguous())
         out["params"][name] = full.detach().clone()
-        out["mu"][name] = place.gather(tr.opt["mu"][name])
-        out["nu"][name] = place.gather(tr.opt["nu"][name])
+        out["mu"][name] = place.gather(tr.opt["mu"][name]).clone()
+        out["nu"][name] = place.gather(tr.opt["nu"][name]).clone()
         out["n"][name] = place.n
         out["shard"][name] = tr.opt["mu"][name].numel()
     if grads is not None:
@@ -127,6 +181,7 @@ def _summary(tr, calls=None, grads=None):
 def _trainer(spec, **kw):
     cfg = dataclasses.replace(get_smoke_config(spec["arch"]),
                               dtype="float32")
+    kw.setdefault("ckpt_dir", spec.get("ckpt_dir"))
     hp = TrainHParams(**{**HP, **spec.get("hp", {})})
     return Trainer(cfg, hp, spec.get("B", 4), spec.get("T", 32),
                    mesh=Mesh(spec["mesh"], ("data", "model")), device="cpu",
@@ -137,13 +192,51 @@ def _trainer(spec, **kw):
 def train(spec):
     """``spec["steps"]`` steps of a Trainer on ``spec["mesh"]``, keeping
     the first update's gradients; with ``count``, the collectives issued
-    during the steps."""
+    during the steps, the all-reduces over ``model`` among them
+    (``model_all_reduces``); with ``ring``, the compressed reduction's
+    inputs and outputs of the first step (``RingInputs``)."""
     torch.set_num_threads(1)
-    tr = _trainer(spec, ckpt_dir=spec.get("ckpt_dir"),
-                  resume=spec.get("resume", False))
-    with Collectives() as c, FirstGrads() as g:
+    tr = _trainer(spec, resume=spec.get("resume", False))
+    ring = RingInputs() if spec.get("ring") else contextlib.nullcontext()
+    with Collectives() as c, FirstGrads() as g, ModelAllReduces(
+            tr.step_fn.par.model_group) as m, ring:
         tr.run(spec["steps"], log_every=1)
-    return _summary(tr, c.calls if spec.get("count") else None, g.grads)
+    out = _summary(tr, c.calls if spec.get("count") else None, g.grads)
+    out["model_all_reduces"] = m.n
+    if spec.get("ring"):
+        out["ring"] = ring.seen
+    return out
+
+
+def train_batches(spec):
+    """``spec["steps"]`` steps of ``make_train_step`` over ``spec["mesh"]``
+    on batches that carry frontend embeddings (encdec's ``src_embeds``:
+    ``SyntheticLM``'s tokens and N(0, 1) frames from numpy seed [0, step],
+    as the reference's test draws them); the losses, grad norms and the
+    first update's gradients, gathered."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.lm import LM
+    from repro_torch.train.trainer import make_train_step
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(get_smoke_config(spec["arch"]),
+                              dtype="float32")
+    lm = LM(cfg, master=True)
+    lm.load_state_dict(torch.load(spec["params"], weights_only=True))
+    step = make_train_step(lm, TrainHParams(**{**HP, **spec.get("hp", {})}),
+                           Mesh(spec["mesh"], ("data", "model")))
+    opt, data = step.init_opt(), SyntheticLM(cfg.vocab_size, 32, 4, seed=0)
+    logs = []
+    with FirstGrads() as g:
+        for i in range(spec["steps"]):
+            batch = dict(data.batch_at(i))
+            batch["src_embeds"] = np.random.default_rng([0, i]).standard_normal(
+                (4, cfg.encdec.source_len, cfg.d_model), dtype=np.float32)
+            opt, m = step(opt, batch)
+            logs.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return {"loss": [r["loss"] for r in logs],
+            "grad_norm": [r["grad_norm"] for r in logs],
+            "grads": {n: step.places[n].gather(t)
+                      for n, t in g.grads.items()}}
 
 
 def train_and_resume(spec):
@@ -164,15 +257,18 @@ def train_and_resume(spec):
                         os.path.join(again, "step_00000002"))
     dist.barrier()
     second = _trainer(spec, ckpt_dir=again, resume=True)
+    ef = second.step_fn.ef
+    ef_zero = None if ef is None else all(not e.any() for e in ef.values())
     second.run(2, log_every=1)
-    return {"straight": straight, "resumed": _summary(second)}
+    return {"straight": straight, "resumed": _summary(second),
+            "ef_zero_at_resume": ef_zero}
 
 
 def restored(spec):
     """A Trainer resumed from ``ckpt_dir``'s newest checkpoint, before any
     step: its state gathered to full arrays."""
     torch.set_num_threads(1)
-    return _summary(_trainer(spec, ckpt_dir=spec["ckpt_dir"], resume=True))
+    return _summary(_trainer(spec, resume=True))
 
 
 def preempt(spec):
@@ -189,6 +285,20 @@ def preempt(spec):
     hist = tr.run(200, log_every=1)
     return {"stopped": hist[-1][0],
             "latest": ckpt.latest_step(spec["ckpt_dir"])}
+
+
+def launcher(spec):
+    """``launch/train.py``'s main on this group's ranks with its defaults
+    (megatron over ``make_host_mesh()``): the smoke qwen2.5-3b on the CPU
+    for ``spec["steps"]`` steps; the mesh and the logged losses."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    hist = launch.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                        "--steps", str(spec["steps"]), "--batch", "4",
+                        "--seq", "32"])
+    return {"mesh": make_host_mesh().shape, "loss": [l for _, l in hist],
+            "parallelism": TrainHParams().parallelism}
 
 
 def suite(specs):
