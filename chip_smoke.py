@@ -275,6 +275,26 @@ Phases (each synchronised; any failure exits non-zero):
    MoE models' CPU runs replaying the card's expert choices): losses
    within 1e-4; (c) (b)'s qwen2.5-3b step-2 checkpoint resumed on 2 gloo
    CPU ranks at (2, 1): the restored state bit for bit the saved arrays.
+10. serving over a mesh (``phase_serve_mesh``), in gloo ranks sharing
+   cuda:0 (every time printed is ranks time-sharing the card): (a)
+   qwen2.5-3b at its published width and depth, bf16, at SERVE_MESH (1, 2):
+   four 3000-4000-token prompts (every row's frames on both page ranks),
+   prefill and SERVE_STEPS decode steps fed the one-rank run's greedy
+   tokens, against that run in this process: logits within
+   MESH_LOGITS_TOL of their scale, one flash launch per layer at prefill
+   and one paged launch per layer and step on every rank, prefill and step
+   ms, peak GiB per rank; (b) deepseek-v2-lite at its published widths and
+   depth at MOE_SERVE_MESH (2, 2), the batch split over ``data``: the 2-D
+   EP (its decode's gather and dense-masked pass, its prefill's expert
+   gathers over ``data``) and MLA's decode over striped latent pools, as
+   (a); (c) the narrow f32 models of qwen2.5-3b, deepseek-v2-lite (its
+   prefill and latent pools: the MLA paged kernel takes bf16) and dbrx-132b
+   at (1, 2) and (2, 2) on the card's ranks and on gloo CPU ranks: logits
+   within 1e-4; (d) the dry run's lines for qwen2.5-3b train_4k and
+   decode_32k on the production 16 x 16 mesh.  Phase 3's
+   ``phase_mesh_kernels`` times the paged kernel over rank 0's stripe of
+   (a) and (b) and the flash kernel at (a)'s shard (8 query heads over 1
+   KV head).
 
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
@@ -288,8 +308,9 @@ from phase 9b; the entries of phases 9d-9g from the phase of their shape,
 seamless's three attentions by the site its wrappers counted
 (``train_entries``); the training ``.mla`` entries from phase 9i, the
 ``.moe`` entries none (``ZERO_LAUNCHES`` says why), the ``.tp`` entries
-from phase 9k (a)'s two ranks.  Of the serving phases only 4f is cut in
-depth; of the training phases 9e, 9i and 9k (a).
+from phase 9k (a)'s two ranks, the ``.mesh`` entries from phase 10's
+ranks ((a)'s flash and paged launches, (b)'s paged).  Of the serving
+phases only 4f is cut in depth; of the training phases 9e, 9i and 9k (a).
 """
 
 from __future__ import annotations
@@ -300,6 +321,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -362,6 +384,7 @@ PEAK_Q = 3.0
 MODES = ("sync", "async", "fused")
 SSM_MODES = ("sync", "async")
 REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention.py:106",
     "paged_attention.page": "src/repro/kernels/paged_attention.py:106",
     "paged_attention.frame": "src/repro/kernels/paged_attention.py:106",
     "paged_attention.fused": "src/repro/kernels/paged_attention.py:293",
@@ -378,6 +401,7 @@ REPLACES = {
                     "jax.value_and_grad (src/repro/train/trainer.py:155)",
 }
 SOURCES = {
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "paged_attention.page": "src/repro_torch/csrc/paged_attention.cu",
     "paged_attention.frame": "src/repro_torch/csrc/paged_attention.cu",
     "paged_attention.fused": "src/repro_torch/csrc/paged_attention.cu",
@@ -1302,9 +1326,10 @@ def phase_mla_kernels(results):
 
 
 def flash_entry(results, name, B, Tq, Tk, H, n_kv, dh, causal, randn,
-                n_sets=1, what=""):
-    """Flash attention at one shape of the path (q [B, Tq, H, dh] over k, v
-    [B, Tk, n_kv, dh], bf16; causal calls have Tq == Tk) against its plain
+                n_sets=1, what="", dh_v=None):
+    """Flash attention at one shape of the path (q [B, Tq, H, dh] over k
+    [B, Tk, n_kv, dh] and v [B, Tk, n_kv, dh_v] (default dh), bf16; causal
+    calls have Tq == Tk) against its plain
     version, with queries drawn at PEAK_Q times the unit scale so that each
     row's output is O(1) and ATTN_TOL judges it, timed beside its bound and
     beside
@@ -1316,8 +1341,9 @@ def flash_entry(results, name, B, Tq, Tk, H, n_kv, dh, causal, randn,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    dh_v = dh_v or dh
     q = randn(B, Tq, H, dh) * PEAK_Q
-    kvs = [(randn(B, Tk, n_kv, dh), randn(B, Tk, n_kv, dh))
+    kvs = [(randn(B, Tk, n_kv, dh), randn(B, Tk, n_kv, dh_v))
            for _ in range(n_sets)]
     k, v = kvs[0]
     got = ops.flash_attention(q, k, v, causal=causal)
@@ -1326,8 +1352,8 @@ def flash_entry(results, name, B, Tq, Tk, H, n_kv, dh, causal, randn,
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
     require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    b_ms, b_by = bound_ms(2 * (2 * B * Tq * H * dh + 2 * B * Tk * n_kv * dh),
-                          4 * B * H * dh * pairs)
+    b_ms, b_by = bound_ms(2 * (B * Tq * H + B * Tk * n_kv) * (dh + dh_v),
+                          2 * B * H * (dh + dh_v) * pairs)
     qt = q.transpose(1, 2).contiguous()
     kvt = [tuple(x.transpose(1, 2).contiguous() for x in kv) for kv in kvs]
     results[name] = dict(
@@ -1343,6 +1369,7 @@ def flash_entry(results, name, B, Tq, Tk, H, n_kv, dh, causal, randn,
             F.scaled_dot_product_attention, is_causal=causal,
             enable_gqa=True), [(qt, *kv) for kv in kvt])),
         shape=f"B={B} Tq={Tq} Tk={Tk} H={H} n_kv={n_kv} dh={dh} "
+              f"{f'dh_v={dh_v} ' if dh_v != dh else ''}"
               f"{'causal' if causal else 'non-causal'}")
     r = results[name]
     g = H // n_kv
@@ -4360,6 +4387,624 @@ def phase_train_tp(dev="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 10
+
+SERVE_MESH = (1, 2)          # phase 10 (a): (data, model)
+MOE_SERVE_MESH = (2, 2)      # phase 10 (b): the 2-D expert parallelism
+SERVE_LENGTHS = (3000, 3350, 3700, 4000)   # (a): 3-4 frames of 1024 tokens
+MOE_SERVE_LENGTHS = (1100, 1500, 2100, 2500)   # (b), (c): 2-3 frames
+SERVE_STEPS = 16             # (a), (b): decode steps
+NARROW_SERVE_STEPS = 4       # (c)
+SERVE_ARCHS = (ARCH, MLA_ARCH, MOE_ARCH)   # (c)
+# (a), (b): the mesh's bf16 logits against one rank's, of their scale.  A
+# model rank's attention and FFN outputs are bf16 partial products summed
+# across ranks where one rank rounds the whole product once, and the
+# vocabulary-split logits come from [d] x [V / tp] products: each layer
+# adds up to a bf16 ulp (2^-8) of its residual update in another place.
+# On the H100 the sound runs read 9.8e-3 (a) and 1.15e-2 (b) and the
+# negative controls 0.127 (a, "combine") and 0.0604 (b, "shared"): the
+# limit sits about halfway between them on a log scale, over 2x from
+# each.
+MESH_LOGITS_TOL = 2.5e-2
+# (a), (b): greedy tokens of the mesh's logits that may differ from one
+# rank's (bf16 near-ties of random weights' logits), of 68 a run.
+MESH_TOKEN_MISSES = 2
+# (a), (b): the negative control, a deliberate fault run for FAULT_STEPS
+# decode steps after the sound run from the pools as prefill left them: its
+# logits must sit beyond MESH_LOGITS_TOL, or the limit could not tell a
+# broken mesh path from a sound one.
+MESH_FAULTS = {"a": "combine", "b": "shared"}
+FAULT_STEPS = 2
+NARROW_SERVE_TOL = 1e-4      # (c): f32 card ranks against f32 CPU ranks
+
+_SEED_ONES = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm", "k_norm")
+_SEED_ZEROS = ("bq", "bk", "bv")
+_SEED_EMBEDS = ("embed", "unembed")
+
+
+def _draw(name, shape, gen, device):
+    """One layer slice of the leaf ``name`` in f32 (``seeded_weights``)."""
+    import torch
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _SEED_ONES:
+        return torch.ones(shape, device=device)
+    if leaf in _SEED_ZEROS:
+        return torch.zeros(shape, device=device)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if leaf in _SEED_EMBEDS:
+        return torch.nn.init.normal_(w, 0.0, 1.0, generator=gen).mul_(0.02)
+    experts = ".moe." in name and leaf in ("w_gate", "w_up", "w_down")
+    fan_in = shape[1] if experts else shape[0]
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return w.mul_(max(1.0, fan_in) ** -0.5)
+
+
+def seeded_weights(cfg, device, mesh=None, rank=0, seed=0):
+    """Phase 10's weights of ``cfg`` in ``cfg.dtype`` on ``device``: each
+    leaf's layer slice drawn from a generator of its own (seed, leaf,
+    layer): norms 1, biases 0, embeddings N(0, 1) x 0.02, the rest
+    truncated normal over the square root of the slice's fan-in (an
+    expert's d or fe, another weight's first dim, as ``init_weights``).
+    With ``mesh`` the rank's serving shard, cut from each drawn slice: the
+    same numbers as the whole model's, and no process holds more than its
+    shard and one slice."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import serving_placements
+    from repro_torch.models.lm import LM
+    meta = dict(LM(cfg, device="meta").named_parameters())
+    places = (serving_placements(cfg, meta, Mesh(mesh, ("data", "model")),
+                                 rank) if mesh else {})
+    dtype = getattr(torch, cfg.dtype)
+    out = {}
+    for i, (name, p) in enumerate(meta.items()):
+        place = places.get(name)
+        stacked = name.startswith("decoder")
+        t = torch.empty(place.take(p).shape if place else p.shape,
+                        dtype=dtype, device=device)
+        for l in range(p.shape[0]) if stacked else (None,):
+            gen = torch.Generator(device=device).manual_seed(
+                seed * 1_000_003 + i * 4099 + (0 if l is None else l + 1))
+            w = _draw(name, tuple(p.shape[1:] if stacked else p.shape), gen,
+                      device)
+            if place:
+                w = place.take(w[None])[0] if stacked else place.take(w)
+            (t[l] if stacked else t).copy_(w)
+        out[name] = t
+    return out
+
+
+def serve_tables(lengths, mesh, steps):
+    """The PageCtx fields (CPU tensors) of a prefill of ``lengths``' rows
+    and of ``steps`` decode steps over ``mesh`` ((data, model); (1, 1): one
+    rank), and the pages a rank's pool needs: one ``ShardedKVCache`` per
+    data cell, its rows' frames striped over ``model``."""
+    import torch
+    from repro_torch.configs.base import PoolGeometry
+    from repro_torch.serving.kv_cache import ShardedKVCache
+    geo = PoolGeometry()
+    D, M = mesh
+    frames = -(-(max(lengths) + steps) // (geo.frame_pages
+                                           * geo.page_tokens))
+    mpps = -(-frames // M) * geo.frame_pages
+    per = len(lengths) // D
+    pages = mpps * per
+    caches = [ShardedKVCache(geo, pages, M) for _ in range(D)]
+    for i, n in enumerate(lengths):
+        caches[i // per].allocate(i, n)
+
+    def pack():
+        parts = [caches[c].pack_ctx(list(range(c * per, (c + 1) * per)),
+                                    mpps) for c in range(D)]
+        return {k: torch.cat([getattr(p, k) for p in parts])
+                for k in ("tables", "ntok", "wpage", "wslot")}
+    out = {"pages": pages, "prefill": pack(), "decode": []}
+    for _ in range(steps):
+        for i in range(len(lengths)):
+            caches[i // per].append(i)
+        out["decode"].append(pack())
+    return out
+
+
+@contextlib.contextmanager
+def mesh_fault(kind):
+    """Phase 10's negative control: a deliberate fault in the mesh path
+    while the block runs.  ``combine``: each page rank normalises its own
+    stripe's partials (``combine_partials`` given no group), the decode
+    attention then misses the other stripes' pages; ``shared``: every data
+    rank adds the shared experts in the 2-D EP decode (the reference's
+    fault, ROADMAP Queue 3)."""
+    from repro_torch.models import moe, paged
+    if kind == "combine":
+        mod, name = paged, "combine_partials"
+        orig = paged.combine_partials
+
+        def faulty(o, m, l, group=None):
+            return orig(o, m, l, None)
+    else:
+        mod, name = moe, "_adds_shared"
+        orig = moe._adds_shared
+
+        def faulty(cfg, p, par, over_data):
+            return orig(cfg, p, par, False)
+    setattr(mod, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def _page_ctx(fields, dev):
+    from repro_torch.models.page_ops import PageCtx
+    return PageCtx(**{k: v.to(dev) for k, v in fields.items()})
+
+
+def serve_prompts(lengths, vocab, seed=10):
+    """[B, T] prompt tokens (right-padded with 0 to a page multiple)."""
+    import torch
+    T = -(-max(lengths) // 64) * 64
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lengths), T), np.int32)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(0, vocab, n)
+    return torch.from_numpy(toks)
+
+
+def _mesh2(mesh):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(mesh, ("data", "model"))
+
+
+def _serve_ctx(mesh):
+    """(this rank, its serving ParallelCtx) on ``mesh`` ((1, 1): rank 0,
+    None)."""
+    import torch.distributed as dist
+    from repro_torch.models.common import serving_ctx
+    if math.prod(mesh) == 1:
+        return 0, None
+    rank = dist.get_rank()
+    return rank, serving_ctx(_mesh2(mesh), rank)
+
+
+def serve_cfg(case):
+    """The model of a phase-10 case: (a) / (b) at the published widths and
+    depth or, rehearsed on the CPU, the smoke config; (c)
+    ``narrow_tp_config``'s f32 model."""
+    from repro_torch.configs import get_config, get_smoke_config
+    if case["part"] == "narrow":
+        return narrow_tp_config(case["arch"])
+    return (get_config if case["width"] == "full" else get_smoke_config)(
+        case["arch"])
+
+
+def serve_run(case):
+    """One phase-10 serving run on this process's rank of ``case["mesh"]``
+    (a (1, 1) mesh: this process, no group): the model's weights (this
+    rank's serving shard), its pools, a prefill of ``case["lengths"]``'
+    prompts and ``case["steps"]`` decode steps fed ``case["feed"]``'s
+    tokens (None: each step's greedy tokens); launch counters reset just
+    before the prefill and read after the last step.  Returns the logits of
+    every call (this rank's rows, f32 on the CPU), the tokens fed, the
+    prefill and step ms (host clock, synchronised), memory and launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import serving_lm, serving_shard
+    dev = case["device"]
+    cfg = serve_cfg(case)
+    mesh = tuple(case["mesh"])
+    rank, par = _serve_ctx(mesh)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    if case["part"] == "narrow":
+        w = narrow_dist_weights(cfg)
+        shards = serving_shard(cfg, w, _mesh2(mesh), rank) if par else w
+    else:
+        shards = seeded_weights(cfg, dev, mesh if par else None, rank)
+    lm = serving_lm(cfg, shards, dev)
+    del shards
+    lengths = case["lengths"]
+    tabs = serve_tables(lengths, mesh, case["steps"])
+    pool_dtype = torch.float32 if case["part"] == "narrow" else None
+    pools = [torch.zeros((s[0], tabs["pages"], *s[2:]),
+                         dtype=pool_dtype or dt, device=dev)
+             for s, dt in lm.pool_shapes(tabs["pages"], 64)]
+    t_init = time.perf_counter() - t0
+    tokens = serve_prompts(lengths, cfg.vocab_size).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits, pools, _ = lm.prefill({"tokens": tokens}, pools,
+                                  _page_ctx(tabs["prefill"], dev), lens - 1,
+                                  par=par)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    fault = case.get("fault")
+    snap = [p.clone() for p in pools] if fault else None
+    out, fed, step_ms = [logits.float().cpu()], [], []
+    for s in range(case["steps"]):
+        nxt = (case["feed"][s] if case.get("feed")
+               else logits.argmax(-1).tolist())
+        fed.append(nxt)
+        t0 = time.perf_counter()
+        logits, pools, _ = lm.decode_step(
+            torch.tensor(nxt, dtype=torch.int32, device=dev), lens + s,
+            pools, _page_ctx(tabs["decode"][s], dev), par=par)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    launches = read_counts()
+    res = {"logits": out, "fed": fed, "prefill_ms": prefill_ms,
+           "fault": fault,
+           "step_ms": step_ms, "t_init": t_init, "peak": peak_gib(dev),
+           "launches": launches, "rank": rank,
+           "weights_gib": sum(p.numel() * p.element_size()
+                              for p in lm.parameters()) / 2**30}
+    if case["part"] == "narrow":
+        res["k_pool"] = pools[0].cpu()
+    if fault:
+        res["fault_logits"] = []
+        with mesh_fault(fault):
+            for s in range(FAULT_STEPS):
+                logits, snap, _ = lm.decode_step(
+                    torch.tensor(fed[s], dtype=torch.int32, device=dev),
+                    lens + s, snap, _page_ctx(tabs["decode"][s], dev),
+                    par=par)
+                res["fault_logits"].append(logits.float().cpu())
+    return res
+
+
+def serve_mesh_rank(cases):
+    """Phase 10's work on one rank of a gloo group that ``run_ranks``
+    started: {name: ``serve_run(case)``} of each case in turn (the card's
+    ranks all on cuda:0)."""
+    import torch
+    if any(c["device"] == "cpu" for c in cases.values()):
+        torch.set_num_threads(1)
+    out = {}
+    for name, case in cases.items():
+        out[name] = serve_run(case)
+        gc.collect()
+        if case["device"] == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _global_rows(ranks, mesh, key, call, field="logits"):
+    """The global batch's logits (``field``) of ``call`` from the ranks of
+    ``mesh``: each data rank's rows from its model rank 0 (its model ranks
+    must agree to the bit)."""
+    import torch
+    D, M = mesh
+    for r, out in enumerate(ranks):
+        a, b = out[key][field][call], ranks[(r // M) * M][key][field][call]
+        require(torch.equal(a, b), f"phase 10 {key}: model ranks of data "
+                f"rank {r // M} disagree on call {call}'s {field}")
+    return torch.cat([ranks[d * M][key][field][call] for d in range(D)])
+
+
+def _scaled_gap(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_full_mesh(label, one, ranks, mesh, layers, dev):
+    """(a) / (b): the mesh's logits against one rank's (MESH_LOGITS_TOL of
+    the scale), launches per rank (a flash call per layer at prefill, a
+    paged call per layer and step), times and memory."""
+    steps = len(one["fed"])
+    gaps, agree, n = [], 0, 0
+    for call in range(1 + steps):
+        got = _global_rows(ranks, mesh, "full", call)
+        want = one["logits"][call]
+        require(bool(np.isfinite(got.numpy()).all()),
+                f"10 {label}: non-finite logits at call {call}")
+        gaps.append(_scaled_gap(got, want))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        n += want.shape[0]
+    worst = max(gaps)
+    require(worst <= MESH_LOGITS_TOL, f"10 {label}: logits {worst:.3g} of "
+            f"their scale off one rank's (limit {MESH_LOGITS_TOL}); per "
+            f"call {[round(g, 5) for g in gaps]}")
+    require(agree >= n - MESH_TOKEN_MISSES, f"10 {label}: greedy tokens "
+            f"agree with one rank's on {agree} of {n} (at most "
+            f"{MESH_TOKEN_MISSES} may differ)")
+    fault = ranks[0]["full"]["fault"]
+    faulty = max(_scaled_gap(_global_rows(ranks, mesh, "full", s,
+                                          "fault_logits"),
+                             one["logits"][1 + s])
+                 for s in range(FAULT_STEPS))
+    require(faulty > MESH_LOGITS_TOL, f"10 {label}: the {fault!r} fault's "
+            f"logits are {faulty:.3g} of their scale off one rank's, inside "
+            f"the limit {MESH_LOGITS_TOL}: the check cannot see it")
+    on_card = dev == "cuda"
+    for r, out in enumerate(ranks):
+        c = out["full"]["launches"]
+        want_flash = layers if on_card else 0
+        want_paged = layers * steps if on_card else 0
+        require(c["flash_attention"] == want_flash
+                and c["paged_attention.page"] == want_paged,
+                f"10 {label} rank {r}: launched flash "
+                f"{c['flash_attention']} and paged "
+                f"{c['paged_attention.page']} times, not {want_flash} and "
+                f"{want_paged}")
+    share = (", two gloo ranks time-sharing one card, not a TP speed"
+             if on_card else "")
+    print(f"[serve:mesh] {label}: one rank prefill "
+          f"{one['prefill_ms']:.1f} ms, step ms median "
+          f"{float(np.median(one['step_ms'])):.2f}, weights "
+          f"{one['weights_gib']:.2f} GiB, peak {one['peak']:.2f} GiB "
+          f"({SMI})")
+    for r, out in enumerate(ranks):
+        f = out["full"]
+        print(f"[serve:mesh] {label} mesh {mesh} rank {r}: prefill "
+              f"{f['prefill_ms']:.1f} ms, step ms median "
+              f"{float(np.median(f['step_ms'])):.2f} (min "
+              f"{min(f['step_ms']):.2f}){share}; weights "
+              f"{f['weights_gib']:.2f} GiB, peak {f['peak']:.2f} GiB, "
+              f"set-up {f['t_init']:.1f}s ({SMI})")
+    print(f"[serve:mesh] {label}: logits at {mesh} within {worst:.3g} of "
+          f"their scale of one rank's over the prefill and {steps} steps "
+          f"(limit {MESH_LOGITS_TOL}: bf16 partial sums); greedy tokens "
+          f"agree on {agree} of {n} (at most {MESH_TOKEN_MISSES} may "
+          f"differ); negative control, the {fault!r} fault over "
+          f"{FAULT_STEPS} decode steps: {faulty:.3g} of the scale off "
+          f"({faulty / MESH_LOGITS_TOL:.3g}x the limit)")
+    return {k: sum(out["full"]["launches"][k] for out in ranks)
+            for k in ("flash_attention", "paged_attention.page")}
+
+
+def check_narrow_mesh(mesh, card, cpu, dev):
+    """(c): each narrow f32 model's logits (and deepseek's latent pools)
+    on the card's ranks within NARROW_SERVE_TOL of the CPU ranks'."""
+    for arch in SERVE_ARCHS:
+        key = f"narrow:{arch}"
+        calls = len(card[0][key]["logits"])
+        worst = 0.0
+        for call in range(calls):
+            got = _global_rows(card, mesh, key, call)
+            want = _global_rows(cpu, mesh, key, call)
+            worst = max(worst, _scaled_gap(got, want))
+        extra = ""
+        if arch == MLA_ARCH:
+            pools = [_scaled_gap(a[key]["k_pool"], b[key]["k_pool"])
+                     for a, b in zip(card, cpu)]
+            worst = max([worst] + pools)
+            extra = " and latent pools (prefill only: the MLA paged kernel "\
+                    "takes bf16)"
+        require(worst <= NARROW_SERVE_TOL, f"10 (c) {arch} at {mesh}: "
+                f"{dev} ranks {worst:.3g} of the scale off the CPU ranks")
+        print(f"[serve:mesh:agreement] f32 {arch} at {mesh}: {dev} ranks' "
+              f"logits{extra} over {calls} calls within {worst:.3g} of the "
+              f"CPU ranks' (limit {NARROW_SERVE_TOL})")
+
+
+def phase_serve_mesh(dev="cuda"):
+    """Phase 10: serving over a mesh, in gloo ranks that ``run_ranks``
+    starts, sharing cuda:0 on the card (NCCL cannot put two ranks on one
+    GPU; every time printed is ranks time-sharing the card).  ``dev="cpu"``
+    rehearses it on gloo CPU ranks with the smoke configs in (a) and (b).
+
+    (a) qwen2.5-3b at its published width and depth, bf16, weights from
+        ``seeded_weights``, at SERVE_MESH: B = 4 prompts of SERVE_LENGTHS
+        tokens (3-4 frames: both page ranks hold pages of every row),
+        prefill then SERVE_STEPS decode steps fed the one-rank run's greedy
+        tokens; against the one-rank run in this process: logits within
+        MESH_LOGITS_TOL of their scale, greedy tokens but MESH_TOKEN_MISSES
+        the same, launches, prefill and step ms, peak GiB per rank; then the
+        negative control, FAULT_STEPS decode steps under ``mesh_fault``'s
+        "combine" fault, whose logits must lie beyond MESH_LOGITS_TOL;
+    (b) deepseek-v2-lite at its published widths at MOE_SERVE_MESH (the
+        2-D EP: 32 experts a data rank at a 704-wide hidden shard; MLA's
+        striped latent pools), at its published depth (27 layers: ~8 GiB
+        of weights a rank), B = 4 prompts of MOE_SERVE_LENGTHS tokens, as
+        (a), the negative control under the "shared" fault;
+    (c) the narrow f32 models of SERVE_ARCHS (``narrow_tp_config``) at
+        SERVE_MESH and MOE_SERVE_MESH on the card's ranks and on gloo CPU
+        ranks (run meanwhile, in a thread): logits within NARROW_SERVE_TOL
+        (deepseek's prefill with its latent pools: the MLA paged kernel
+        takes bf16 alone);
+    (d) one dry-run line each (``launch/dryrun.py``) for qwen2.5-3b
+        train_4k and decode_32k on the production 16 x 16 mesh.
+
+    Returns {kernel entry: launches over every rank}: flash at (a)'s
+    prefill (``flash_attention.mesh``) and at (b)'s
+    (``flash_attention.mla.mesh``), paged at (a)'s decode
+    (``paged_attention.mesh``) and at (b)'s (``paged_attention.mla.mesh``)."""
+    import threading
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.spawn import run_ranks
+    t_start = time.perf_counter()
+    width = "full" if dev == "cuda" else "smoke"
+    a = dict(part="full", arch=ARCH, width=width, device=dev,
+             lengths=SERVE_LENGTHS if dev == "cuda" else MOE_SERVE_LENGTHS,
+             steps=SERVE_STEPS if dev == "cuda" else 2)
+    b = dict(a, arch=MLA_ARCH, lengths=MOE_SERVE_LENGTHS)
+    steps_c = NARROW_SERVE_STEPS
+
+    def narrow(mesh, device):
+        return {f"narrow:{arch}": dict(
+            part="narrow", arch=arch, mesh=list(mesh), device=device,
+            lengths=MOE_SERVE_LENGTHS, steps=0 if arch == MLA_ARCH
+            else steps_c) for arch in SERVE_ARCHS}
+    run = functools.partial(
+        run_ranks, "chip_smoke:serve_mesh_rank", paths=[str(ROOT)],
+        timeout=600, backend="gloo", env=dict(
+            os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    cpu_runs, cpu_err = {}, []
+
+    def cpu_ranks():
+        try:
+            for mesh in (SERVE_MESH, MOE_SERVE_MESH):
+                cpu_runs[mesh] = run(math.prod(mesh), device="cpu",
+                                     args=[narrow(mesh, "cpu")])
+        except Exception as exc:     # re-raised in the main thread
+            cpu_err.append(exc)
+    # On the card (c)'s CPU ranks run alongside; a rehearsal on the CPU
+    # runs them first, one set of ranks at a time.
+    thread = threading.Thread(target=cpu_ranks)
+    (thread.start if dev == "cuda" else cpu_ranks)()
+    t0 = time.perf_counter()
+    try:
+        one_a = serve_run(dict(a, mesh=[1, 1]))
+        reset_peak(dev)
+        ranks_a = run(math.prod(SERVE_MESH), device=dev, args=[dict(
+            full=dict(a, mesh=list(SERVE_MESH), feed=one_a["fed"],
+                      fault=MESH_FAULTS["a"]),
+            **narrow(SERVE_MESH, dev))])
+        t_a = time.perf_counter()
+        one_b = serve_run(dict(b, mesh=[1, 1]))
+        reset_peak(dev)
+        ranks_b = run(math.prod(MOE_SERVE_MESH), device=dev, args=[dict(
+            full=dict(b, mesh=list(MOE_SERVE_MESH), feed=one_b["fed"],
+                      fault=MESH_FAULTS["b"]),
+            **narrow(MOE_SERVE_MESH, dev))])
+        t_b = time.perf_counter()
+    finally:
+        if thread.is_alive():
+            thread.join()
+    if cpu_err:
+        raise cpu_err[0]
+    cfg_a, cfg_b = serve_cfg(a), serve_cfg(b)
+    la = check_full_mesh(f"(a) {ARCH} ({width} width, {cfg_a.n_layers} "
+                         f"layers)", one_a, ranks_a, SERVE_MESH,
+                         cfg_a.n_layers, dev)
+    lb = check_full_mesh(f"(b) {MLA_ARCH} ({width} widths, "
+                         f"{cfg_b.n_layers} layers)", one_b, ranks_b,
+                         MOE_SERVE_MESH, cfg_b.n_layers, dev)
+    for mesh, ranks in ((SERVE_MESH, ranks_a), (MOE_SERVE_MESH, ranks_b)):
+        check_narrow_mesh(mesh, ranks, cpu_runs[mesh], dev)
+    # (d)
+    for shape in ("train_4k", "decode_32k"):
+        rec = dryrun.run_cell(ARCH, shape, False)
+        require(rec["per_device_bytes"]["total"] > 0
+                and rec["bottleneck"] in ("compute_s", "memory_s",
+                                          "collective_s"),
+                f"10 (d): dry-run record {rec}")
+        print(f"[serve:dryrun] {json.dumps(rec)}")
+    print(f"[serve:mesh] phase 10 took {time.perf_counter() - t_start:.1f}s: "
+          f"(a) {t_a - t0:.1f}s, (b) {t_b - t_a:.1f}s (each with its one-rank "
+          f"run and its ranks' process starts; (c)'s card ranks inside them, "
+          f"its CPU ranks {'alongside' if dev == 'cuda' else 'before'})")
+    return {"flash_attention.mesh": la["flash_attention"],
+            "paged_attention.mesh": la["paged_attention.page"],
+            "flash_attention.mla.mesh": lb["flash_attention"],
+            "paged_attention.mla.mesh": lb["paged_attention.page"]}
+
+
+def paged_mesh_entry(results, name, cfg, mesh, lengths, steps, what):
+    """The paged kernel at a mesh rank's shard: rank 0's rows and table
+    column of ``lengths``' last decode step over ``mesh``, every query
+    head, against its plain version, timed cycling over the model's layers'
+    pools (CUDA-graph replay) beside its bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tabs = serve_tables(lengths, mesh, steps)
+    last = tabs["decode"][-1]
+    B = len(lengths) // mesh[0]
+    tb = last["tables"][:B, 0].contiguous().to(dev)
+    nt = last["ntok"][:B, 0].contiguous().to(dev)
+    if cfg.mla is not None:
+        m = cfg.mla
+        H, n_kv = cfg.n_heads, 1
+        dk, dv = m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank
+        scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    else:
+        H, n_kv = cfg.n_heads, cfg.n_kv_heads
+        dk = dv = cfg.resolved_head_dim
+        scale = dk ** -0.5
+    L, NP = cfg.n_layers, tabs["pages"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q = randn(B, H, dk)
+    kall, vall = randn(L, NP, 64, n_kv, dk), randn(L, NP, 64, n_kv, dv)
+    o, m_, l = ops.paged_attention_kernel(q, kall[0], vall[0], tb, nt,
+                                          granularity="page", scale=scale)
+    o_r, m_r, l_r = ref.paged_attention_ref(q, kall[0], vall[0], tb, nt,
+                                            scale=scale)
+    torch.cuda.synchronize()
+    on = o / torch.clamp(l[..., None], min=1e-30)
+    on_r = o_r / torch.clamp(l_r[..., None], min=1e-30)
+    # The MLA shape runs the tensor-core partials kernel (P rounded to
+    # bf16): its output at the bf16 tolerance, as phase 3's rows 1m / 2m;
+    # m and l, and the CUDA-core kernel's output, at the f32 one.
+    torch.testing.assert_close(on, on_r, **(ATTN_TOL if cfg.mla is not None
+                                            else ML_TOL))
+    torch.testing.assert_close(m_, m_r, **ML_TOL)
+    torch.testing.assert_close(l, l_r, **ML_TOL)
+    tokens = int(nt.sum())
+    nbytes = (tokens * n_kv * (dk + dv) * 2 + q.numel() * 2
+              + 2 * tb.numel() * 4 + B * H * (dv + 2) * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * H * (dk + dv) * tokens)
+    layers = [(q, kall[i], vall[i], tb, nt) for i in range(L)]
+    results[name] = dict(
+        max_abs_err=float((on - on_r).abs().max()),
+        ms=graph_ms(cycling(functools.partial(
+            ops.paged_attention_kernel, granularity="page", scale=scale),
+            layers)),
+        plain_ms=eager_ms(cycling(functools.partial(
+            ref.paged_attention_ref, scale=scale), layers)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B={B} H={H} n_kv={n_kv} dk={dk} dv={dv} "
+              f"blocks={tb.shape[1]} tokens={tokens}")
+    r = results[name]
+    print(f"[kernel] {name} ({what}): max_abs_err {r['max_abs_err']:.3g} | "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.5f} ({b_by}) library_ms none | {r['shape']}")
+    del kall, vall
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_kernels(results):
+    """Phase 3 at phase 10's shard shapes: paged attention over rank 0's
+    stripe of (a) (``paged_attention.mesh``: qwen2.5-3b's 16 heads over 2
+    KV heads, every head on each page shard) and of (b)
+    (``paged_attention.mla.mesh``: a data rank's 2 rows over the latent
+    pools), and flash attention at (a)'s prefill on a model rank's 8 query
+    heads over its 1 KV head (``flash_attention.mesh``) and at (b)'s on a
+    data rank's 2 rows and a model rank's 8 heads, dh 192 / dh_v 128
+    (``flash_attention.mla.mesh``)."""
+    import torch
+    from repro_torch.configs import get_config
+    qwen = get_config(ARCH)
+    ds = get_config(MLA_ARCH)
+    paged_mesh_entry(results, "paged_attention.mesh", qwen, SERVE_MESH,
+                     SERVE_LENGTHS, SERVE_STEPS,
+                     f"qwen2.5-3b rank 0 of {SERVE_MESH}")
+    paged_mesh_entry(results, "paged_attention.mla.mesh", ds,
+                     MOE_SERVE_MESH, MOE_SERVE_LENGTHS, SERVE_STEPS,
+                     f"deepseek-v2-lite rank 0 of {MOE_SERVE_MESH}")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    T = serve_prompts(SERVE_LENGTHS, 2).shape[1]
+    tp = SERVE_MESH[1]
+    flash_entry(results, "flash_attention.mesh", len(SERVE_LENGTHS), T, T,
+                qwen.n_heads // tp, qwen.n_kv_heads // tp,
+                qwen.resolved_head_dim, True, randn,
+                what=f"qwen2.5-3b's prefill on a model rank of {SERVE_MESH}")
+    torch.cuda.empty_cache()
+    m = ds.mla
+    D, tp = MOE_SERVE_MESH
+    T = serve_prompts(MOE_SERVE_LENGTHS, 2).shape[1]
+    H = ds.n_heads // tp
+    flash_entry(results, "flash_attention.mla.mesh",
+                len(MOE_SERVE_LENGTHS) // D, T, T, H, H,
+                m.qk_nope_head_dim + m.qk_rope_head_dim, True, randn,
+                dh_v=m.v_head_dim,
+                what=f"deepseek-v2-lite's MLA prefill on rank 0 of "
+                     f"{MOE_SERVE_MESH}: a data rank's rows, a model rank's "
+                     f"heads")
+    torch.cuda.empty_cache()
+
+
 def entry_kernel(name):
     """The kernel of a kernels-line entry: ``paged_attention.page.g4d128``
     -> ``paged_attention.page``, ``flash_attention.encoder`` ->
@@ -4418,6 +5063,8 @@ def main() -> int:
     phase_train_families(counts)
     phase_train_dist()
     counts.update(phase_train_tp())
+    counts.update(phase_serve_mesh())
+    phase_mesh_kernels(results)
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

@@ -5,6 +5,9 @@
 ``np.asarray``, onto a ``state_dict`` for :class:`repro_torch.models.lm.LM`.
 Names join the tree's keys with dots; shapes are the reference's own.
 ``LM.load_state_dict`` then casts each tensor once into ``cfg.dtype``.
+``serving_shard_from_jax`` cuts one rank's serving shard of a mesh from
+the same tree (``launch/sharding.py::serving_shard``), for
+``serving_lm``.
 """
 
 from __future__ import annotations
@@ -25,3 +28,11 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
         else:
             out[name] = torch.from_numpy(np.array(val, copy=True))
     return out
+
+
+def serving_shard_from_jax(cfg, tree: Mapping, mesh, rank: int
+                           ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s serving shard over ``mesh`` of the reference's
+    parameter tree."""
+    from repro_torch.launch.sharding import serving_shard
+    return serving_shard(cfg, params_from_jax(tree), mesh, rank)

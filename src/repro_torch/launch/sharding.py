@@ -12,6 +12,12 @@ axis names or None, as a ``PartitionSpec``; ``()`` is replicated.  Every
 function here is pure: it reads a mesh's ``axis_names`` and ``shape`` and
 the leaves' shapes, and touches no process group.  ``params`` is a mapping
 from names to anything with a ``shape`` (tensors, meta tensors).
+
+:func:`serving_shard` cuts one rank's serving shard from whole parameters
+(``serving_param_specs`` applied through ``train/layout.py``'s
+:class:`~repro_torch.train.layout.Placement`, the 2-D expert layout where
+``models/moe.py::ep2d_geometry`` applies) and :func:`serving_lm` builds
+the LM that holds it; :func:`shard_shape` is a spec's per-rank shape.
 """
 
 from __future__ import annotations
@@ -179,3 +185,60 @@ def serving_param_specs(params: Mapping, mesh, ep2d: bool) -> Dict[str, Spec]:
             out[n] = _apply(_MOE_EXPERT_SERVING_RULES[leaf], tuple(p.shape),
                             mesh)
     return out
+
+
+# Serving's batch axes: the batch rows, and the 2-D EP's experts, split
+# over them; ``model`` carries TP, EP and the page stripes.
+SERVING_BATCH_AXES = ("pod", "data")
+
+
+def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The per-rank shape of a leaf of ``shape`` under ``spec`` (each dim
+    divided by the sizes of its axes: ``NamedSharding.shard_shape``)."""
+    out = []
+    for i, dim in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        out.append(dim // math.prod(mesh.shape[a] for a in axes))
+    return tuple(out)
+
+
+def serving_placements(cfg, params: Mapping, mesh, rank: int):
+    """{name: Placement} of rank ``rank``'s serving shard of ``params``
+    (TP rules, the 2-D EP layout for expert tensors when it applies)."""
+    from repro_torch.models.moe import ep2d_geometry
+    from repro_torch.train.layout import Placement
+    batch = tuple(a for a in mesh.axis_names if a in SERVING_BATCH_AXES)
+    specs = serving_param_specs(params, mesh,
+                                ep2d_geometry(cfg, mesh) is not None)
+    return {n: Placement(tuple(p.shape), specs[n], mesh, batch, rank)
+            for n, p in params.items()}
+
+
+def serving_shard(cfg, params: Mapping, mesh, rank: int) -> Dict:
+    """Rank ``rank``'s serving shard of whole ``params`` ({name: tensor}):
+    each leaf cut by :func:`serving_placements` (a contiguous copy)."""
+    places = serving_placements(cfg, params, mesh, rank)
+    return {n: places[n].take(p).contiguous().clone()
+            for n, p in params.items()}
+
+
+def serving_lm(cfg, shards: Mapping, device="cpu"):
+    """An LM of ``cfg`` that holds ``shards`` (:func:`serving_shard`'s
+    output, or any {name: tensor} at the shard shapes) as its weights, in
+    ``cfg.dtype`` on ``device``: built on the meta device, each weight
+    then replaced by its shard."""
+    import torch
+    from torch import nn
+    from repro_torch.models.lm import LM
+    lm = LM(cfg, device="meta")
+    dtype = getattr(torch, cfg.dtype)
+    names = dict(lm.named_parameters())
+    if set(names) != set(shards):
+        raise ValueError(f"shards miss {sorted(set(names) - set(shards))} "
+                         f"and add {sorted(set(shards) - set(names))}")
+    for name, t in shards.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(lm.get_submodule(owner), leaf, nn.Parameter(
+            t.to(device=device, dtype=dtype), requires_grad=False))
+    return lm

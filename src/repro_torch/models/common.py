@@ -8,11 +8,13 @@ instead of re-drawing them.  :func:`unbind_layers` gives training its
 per-layer weight trees (through :func:`train_weight`, which also gathers
 a weight the trainer holds as a shard), :func:`layer_remat` and
 :data:`ckpt` its per-layer activation recomputation, and
-:class:`ParallelCtx` the ranks a training forward runs over: its data
-group and, for tensor and expert parallelism, its ``model`` group with the
-three autograd functions the explicit blocks use (the port's explicit
-counterpart of the reference's ``batch_axes()`` / ``tp_mode()`` /
-``_ambient_mesh()`` globals).
+:class:`ParallelCtx` the ranks a forward runs over: its data group and,
+for tensor and expert parallelism, its ``model`` group with the three
+autograd functions the explicit blocks use, and for serving over a mesh
+its page group (the ranks a sequence's frames stripe over) and the data
+axis of the 2-D expert parallelism (the port's explicit counterpart of the
+reference's ``batch_axes()`` / ``tp_mode()`` / ``serving_mode()`` /
+``_ambient_mesh()`` globals; :func:`serving_ctx` builds one from a mesh).
 """
 
 from __future__ import annotations
@@ -167,26 +169,60 @@ class _ReplicatedOut(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """The ranks a training forward runs over.
+    """The ranks a forward runs over.
 
     ``dp_group``: the data-parallel ranks holding the batch's other rows
-    (None: this rank's rows are the batch); ``model_group``, ``tp`` and
-    ``model_rank``: the ``model`` axis (None, 1, 0 without one); ``mode``:
-    ``megatron`` runs the explicit blocks (Megatron attention, TP SwiGLU,
-    the MoE training EP) on this rank's model shards, ``auto`` none (every
-    ``model``-split leaf is gathered and each model rank computes the
-    whole layer).  A forward without a context is the one-device path."""
+    (None: this rank's rows are the batch), this rank ``dp_rank`` of
+    ``dp_size`` there; ``model_group``, ``tp`` and ``model_rank``: the
+    ``model`` axis (None, 1, 0 without one); ``mode``: ``megatron`` runs
+    the explicit blocks (Megatron attention, TP SwiGLU, the MoE training
+    EP) on this rank's model shards, ``auto`` none (every ``model``-split
+    leaf is gathered and each model rank computes the whole layer).  A
+    forward without a context is the one-device path.
+
+    Serving over a mesh (:func:`serving_ctx`) adds ``page_group``: the
+    ranks a sequence's frames stripe over (the reference's
+    ``PageCtx.page_axes``: ``model`` when the batch is split over the data
+    axes, every axis otherwise), this rank holding stripe ``page_rank`` of
+    ``page_shards`` (frame f on stripe f % page_shards, the
+    ``ShardedKVCache`` contract); ``batch_sharded``: whether the batch rows
+    are split over ``dp_group``; ``data_group`` / ``data_rank`` /
+    ``data_size``: the ``data`` axis, over which the 2-D expert parallelism
+    splits the experts, and ``expert_group`` the ranks of one (data, model)
+    grid, over which its decode sums."""
 
     dp_group: object = None
     model_group: object = None
     tp: int = 1
     model_rank: int = 0
     mode: str = "megatron"
+    dp_rank: int = 0
+    dp_size: int = 1
+    page_group: object = None
+    page_rank: int = 0
+    page_shards: int = 1
+    batch_sharded: bool = True
+    data_group: object = None
+    data_rank: int = 0
+    data_size: int = 1
+    expert_group: object = None
 
     @property
     def explicit(self) -> bool:
         """Whether the explicit tensor / expert-parallel blocks run."""
         return self.mode == "megatron" and self.tp > 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """The serving mesh's ``data`` and ``model`` sizes, as a mesh's
+        ``shape`` reads them (``moe.ep2d_geometry``)."""
+        return {"data": self.data_size, "model": self.tp}
+
+    @property
+    def ranks(self) -> int:
+        """Ranks of the serving mesh this context spans (1: one device)."""
+        return max(self.tp * self.dp_size, self.page_shards,
+                   self.tp * self.data_size)
 
     def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyToModel.apply(x, self.model_group)
@@ -196,6 +232,76 @@ class ParallelCtx:
 
     def replicated_out(self, x: torch.Tensor) -> torch.Tensor:
         return _ReplicatedOut.apply(x, self.tp)
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` all-gathered over ``model`` along ``dim`` (model rank j's
+        part j-th; no gradient: serving)."""
+        return gather_dim(x, dim, self.model_group, self.tp)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch ``x`` (dim 0): its data
+        rank's block when the batch is split, else all of them."""
+        if not self.batch_sharded or self.dp_size == 1:
+            return x
+        n = x.shape[0] // self.dp_size
+        return x[self.dp_rank * n:(self.dp_rank + 1) * n]
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """``x`` all-gathered over the ``n`` ranks of ``group`` along ``dim``,
+    group rank j's part j-th (``group`` None: ``x``)."""
+    if group is None or n == 1:
+        return x
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] * n, *moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def serving_ctx(mesh, rank: int, batch_sharded: bool = True
+                ) -> Optional[ParallelCtx]:
+    """The :class:`ParallelCtx` of rank ``rank`` serving over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh` of ``pod`` / ``data`` /
+    ``model`` axes over the initialised process group; None for a one-rank
+    mesh, the one-device path).  The batch is split over the data axes when
+    ``batch_sharded`` (the reference's decode_32k; each data rank's rows
+    have their pages striped over ``model``), else every rank sees every
+    row and the pages stripe over all axes (long_500k).  Every rank must
+    call it (the groups are made collectively), in the same order."""
+    if mesh.size == 1:
+        return None
+    coords = mesh.coords(rank)
+    names = mesh.axis_names
+    dp_axes = tuple(a for a in ("pod", "data") if a in names)
+    page_axes = (("model",) if "model" in names else ()) if batch_sharded \
+        else tuple(a for a in ("pod", "data", "model") if a in names)
+
+    def index(axes):
+        i, n = 0, 1
+        for a in axes:
+            i, n = i * mesh.shape[a] + coords[a], n * mesh.shape[a]
+        return i, n
+
+    dp_rank, dp_size = index(dp_axes) if batch_sharded else (0, 1)
+    page_rank, page_shards = index(page_axes)
+    data_rank, data_size = index(("data",) if "data" in names else ())
+    tp = mesh.shape.get("model", 1)
+    return ParallelCtx(
+        dp_group=mesh.group(dp_axes) if batch_sharded else None,
+        model_group=mesh.group(("model",) if "model" in names else ()),
+        tp=tp, model_rank=coords.get("model", 0), dp_rank=dp_rank,
+        dp_size=dp_size, page_group=mesh.group(page_axes),
+        page_rank=page_rank, page_shards=page_shards,
+        batch_sharded=batch_sharded,
+        data_group=mesh.group(("data",) if "data" in names else ()),
+        data_rank=data_rank, data_size=data_size,
+        expert_group=mesh.group(tuple(a for a in ("data", "model")
+                                      if a in names)))
+
+
+def on_mesh(par: Optional[ParallelCtx]) -> bool:
+    """Whether a serving forward runs over more than one rank."""
+    return par is not None and par.ranks > 1
 
 
 def explicit(par: Optional[ParallelCtx]) -> bool:

@@ -27,6 +27,16 @@ the reference's tree (``embed``, ``final_norm``, ``decoder.attn.wq``,
 ``prefill`` and ``decode_step`` return and take the reference's non-pool
 decode state (``{"ssm", "conv"}`` for the recurrent families, ``{"cross_k",
 "cross_v"}`` for encdec, ``{}`` for the other transformer families).
+
+Both serve over a mesh of ranks when given a serving
+:class:`~repro_torch.models.common.ParallelCtx` (``serving_ctx``): the LM
+then holds this rank's serving shard of every weight
+(``launch/sharding.py::serving_lm``) and its stripe of the pools; every
+rank passes the global batch and context and computes its own rows (all of
+them when the batch is not split); the embedding and the logits are split
+over ``model`` by vocabulary (a masked lookup summed over ``model``; the
+logits gathered).  The dense and moe families only: hybrid, ssm, encdec
+and vlm over a mesh are ROADMAP item 6d-ii.
 """
 
 from __future__ import annotations
@@ -42,7 +52,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.common import ParallelCtx, embed_init_, train_weight
+from repro_torch.models.common import (
+    ParallelCtx,
+    embed_init_,
+    on_mesh,
+    train_weight,
+)
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.page_ops import PageCtx
 from repro_torch.models.transformer import (
@@ -218,8 +233,15 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- heads
 
-    def _embed(self, tokens):
-        return self.embed[tokens.long()]
+    def _embed(self, tokens, par: Optional[ParallelCtx] = None):
+        V_loc = self.embed.shape[0]
+        if par is None or V_loc == self.cfg.vocab_size:
+            return self.embed[tokens.long()]
+        t = tokens.long() - par.model_rank * V_loc
+        inside = (t >= 0) & (t < V_loc)
+        x = self.embed[t.clamp(0, V_loc - 1)] * inside[..., None].to(
+            self.embed.dtype)
+        return par.reduce_from_model(x)
 
     def _frontend(self, embeds, like):
         """Frontend embeddings [B, P, d] projected into the model:
@@ -233,10 +255,25 @@ class LM(nn.Module):
         e = torch.as_tensor(embeds).to(self.embed.device, dtype)
         return e @ train_weight(self.frontend_proj, dtype)
 
-    def _logits(self, x):
+    def _logits(self, x, par: Optional[ParallelCtx] = None):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return x @ w
+        logits = x @ w
+        if par is not None and w.shape[1] < self.cfg.vocab_size:
+            logits = par.gather_model(logits, -1)
+        return logits
+
+    def _serving_par(self, par: Optional[ParallelCtx]
+                     ) -> Optional[ParallelCtx]:
+        """``par`` if it spans more than one rank (else None: the
+        one-device path), refusing the families without a mesh path."""
+        if not on_mesh(par):
+            return None
+        if self.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{self.cfg.family} over a mesh of {par.ranks} ranks: "
+                f"ROADMAP item 6d-ii")
+        return par
 
     # ------------------------------------------------------------- train
 
@@ -326,7 +363,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, pools, ctx: PageCtx,
                 last_pos: Optional[torch.Tensor] = None, prefix_kv=None,
-                prefix_len: int = 0):
+                prefix_len: int = 0, par: Optional[ParallelCtx] = None):
         """Full-sequence forward; writes K/V into the paged pools in place.
 
         ``batch["tokens"]`` [B, T] (right-padded to a page multiple);
@@ -345,8 +382,16 @@ class LM(nn.Module):
         ``tokens`` holds only the suffix: positions start at P, queries
         attend to the cached prefix K/V, and only the suffix pages are
         written to the pools.  ``last_pos`` stays an index into the suffix.
+
+        ``par``: a serving mesh (module docstring): ``batch``, ``ctx`` and
+        ``last_pos`` are global, ``pools`` this rank's, and the logits
+        those of this rank's rows.
         """
+        par = self._serving_par(par)
         tokens = batch["tokens"]
+        if par is not None:
+            tokens, ctx = par.rows(tokens), ctx.rows(par)
+            last_pos = None if last_pos is None else par.rows(last_pos)
         B, T = tokens.shape
         if prefix_len:
             if prefix_kv is None:
@@ -359,7 +404,7 @@ class LM(nn.Module):
                 raise NotImplementedError(
                     f"prefix-cache reuse unsupported for {self.cfg.family} "
                     f"/ mla")
-        x = self._embed(tokens)
+        x = self._embed(tokens, par)
         if self.cfg.family == "vlm":
             x = torch.cat([self._frontend(batch["patch_embeds"], x), x],
                           dim=1)
@@ -383,28 +428,33 @@ class LM(nn.Module):
                 self.cfg, self.decoder, x, positions, pools, ctx)
         else:
             x = self._stacks(decoder_stack_prefill, x, positions, pools, ctx,
-                             prefix_kv=prefix_kv, tok_offset=prefix_len)
+                             par, prefix_kv=prefix_kv, tok_offset=prefix_len)
         if last_pos is None:
             x_last = x[:, -1:, :]
         else:
             x_last = x[torch.arange(B, device=x.device),
                        n_prefix + last_pos.long()][:, None, :]
-        return self._logits(x_last)[:, 0], pools, state
+        return self._logits(x_last, par)[:, 0], pools, state
 
     # ------------------------------------------------------------- decode
 
     @torch.no_grad()
     def decode_step(self, tokens, pos, pools, ctx: PageCtx,
-                    state: Optional[Dict[str, torch.Tensor]] = None):
+                    state: Optional[Dict[str, torch.Tensor]] = None,
+                    par: Optional[ParallelCtx] = None):
         """tokens [B] int32, pos [B] current positions (0-based; vlm's count
         the patch positions); ``state`` the batch's stacked decode state
         (ssm/hybrid: recurrent; encdec: cross K/V).
 
         Writes this step's K/V into the pools in place.  Returns
-        (logits [B, V], pools, state').
+        (logits [B, V], pools, state').  ``par``: a serving mesh, as
+        :meth:`prefill`'s (the logits of this rank's rows).
         """
+        par = self._serving_par(par)
+        if par is not None:
+            tokens, pos, ctx = par.rows(tokens), par.rows(pos), ctx.rows(par)
         state = dict(state or {})
-        x = self._embed(tokens[:, None])
+        x = self._embed(tokens[:, None], par)
         if self.cfg.family == "encdec":
             x, pools = ed.decoder_stack_decode(
                 self.cfg, self.decoder, x, pos, pools, ctx,
@@ -417,20 +467,22 @@ class LM(nn.Module):
                 self.cfg, self.decoder, x, pos, pools, ctx, state["ssm"],
                 state["conv"])
         else:
-            x = self._stacks(decoder_stack_decode, x, pos, pools, ctx)
-        return self._logits(x)[:, 0], pools, state
+            x = self._stacks(decoder_stack_decode, x, pos, pools, ctx, par)
+        return self._logits(x, par)[:, 0], pools, state
 
-    def _stacks(self, stack, x, pos, pools, ctx: PageCtx, **kw):
+    def _stacks(self, stack, x, pos, pools, ctx: PageCtx,
+                par: Optional[ParallelCtx] = None, **kw):
         """Run ``stack`` (prefill or decode) over the dense-FFN prefix layers
         (``decoder_prefix``, pool slices [:fd]) and then the decoder
         (slices [fd:]); the pools are written in place."""
         fd = _first_dense(self.cfg)
         if not fd:
-            return stack(self.cfg, self.decoder, x, pos, pools, ctx, **kw)[0]
+            return stack(self.cfg, self.decoder, x, pos, pools, ctx, par=par,
+                         **kw)[0]
         kp, vp = pools
         for cfg, params, sl in ((_dense_view(self.cfg), self.decoder_prefix,
                                  slice(None, fd)),
                                 (self.cfg, self.decoder, slice(fd, None))):
             x = stack(cfg, params, x, pos, (kp[sl], vp[sl]),
-                      ctx.stage_at(sl), **kw)[0]
+                      ctx.stage_at(sl), par=par, **kw)[0]
         return x

@@ -14,18 +14,26 @@ paged-attention kernel scores the 576-wide query against the K pool and
 sums the V pool's latents (all query heads share the one latent head), and
 the latent-space output is up-projected through W_UV and ``wo`` after the
 combine, so no per-head K / V is ever materialised at decode.
+
+Serving over a mesh (a :class:`~repro_torch.models.common.ParallelCtx`)
+takes wq, W_UK, W_UV and ``wo`` at this rank's heads (split over
+``model``, the serving rules) and the latent projections whole: prefill
+attends over this rank's heads and reduces its output projection over
+``model``; decode gathers the absorbed query of every head over ``model``,
+runs the paged kernel over this rank's stripe of the latent pools for all
+of them, combines across the page group and up-projects its own heads.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init_, empty_param
+from repro_torch.models.common import ParallelCtx, dense_init_, empty_param
 from repro_torch.models.layers import apply_rope, rms_norm, rope_angles
 from repro_torch.models.page_ops import paged_attn_op
 
@@ -75,11 +83,26 @@ def _q_and_latent(cfg: ModelConfig, p, x, positions):
     return q_nope, q_rope, lat, k_rope
 
 
-def mla_block_prefill(cfg: ModelConfig, p, x, positions
+def _heads_split(cfg: ModelConfig, p) -> bool:
+    """Whether ``p`` holds this rank's heads of the query-side weights."""
+    return p["wq"].shape[-2] < cfg.n_heads
+
+
+def _reduce(cfg: ModelConfig, p, par: Optional[ParallelCtx], y):
+    """A head-split block's partial output summed over ``model``."""
+    if par is not None and _heads_split(cfg, p):
+        return par.reduce_from_model(y)
+    return y
+
+
+def mla_block_prefill(cfg: ModelConfig, p, x, positions,
+                      par: Optional[ParallelCtx] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expanded causal attention (the reference's ``mla_block_train``):
     x [B, T, d] -> (out [B, T, d], {"k": [B, T, 1, kv_lora + rope],
-    "v": [B, T, 1, kv_lora]}, the paged-cache payloads)."""
+    "v": [B, T, 1, kv_lora]}, the paged-cache payloads).  With ``par`` and
+    the heads split, over this rank's heads, the output reduced over
+    ``model``."""
     m = cfg.mla
     q_nope, q_rope, lat, k_rope = _q_and_latent(cfg, p, x, positions)
     B, T, H = q_nope.shape[:3]
@@ -95,7 +118,7 @@ def mla_block_prefill(cfg: ModelConfig, p, x, positions
     out = o.reshape(B, T, -1) @ wo.reshape(-1, wo.shape[-1])
     payload = {"k": torch.cat([lat, k_rope], dim=-1)[:, :, None, :],
                "v": lat[:, :, None, :]}
-    return out, payload
+    return _reduce(cfg, p, par, out), payload
 
 
 # The reference's ``mla_block_train``: under grad mode the flash call runs
@@ -104,22 +127,30 @@ def mla_block_prefill(cfg: ModelConfig, p, x, positions
 mla_block_train = mla_block_prefill
 
 
-def mla_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool, ctx):
+def mla_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool, ctx,
+                     par: Optional[ParallelCtx] = None):
     """Absorbed-form decode over the latent paged pools (written in place).
 
     x [B, 1, d], pos [B]; pools k [NP, ptok, 1, kv_lora + rope], v [NP,
-    ptok, 1, kv_lora].  Returns [B, 1, d]."""
+    ptok, 1, kv_lora] (with ``par``'s page shards this rank's stripe).
+    Returns [B, 1, d]."""
     m = cfg.mla
     q_nope, q_rope, lat, k_rope = _q_and_latent(cfg, p, x, pos[:, None])
     # Absorb W_UK into the query: scores against the latent directly.
     q_lat = torch.einsum("bhn,khn->bhk", q_nope[:, 0], p["w_uk"])
     q_eff = torch.cat([q_lat, q_rope[:, 0]], dim=-1)    # [B, H, lora + rope]
+    split = par is not None and _heads_split(cfg, p)
+    if split:
+        q_eff = par.gather_model(q_eff, 1)
     k_new = torch.cat([lat, k_rope], dim=-1)[:, 0, None, :]
     v_new = lat[:, 0, None, :]
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     o_lat = paged_attn_op(q_eff, k_new, v_new, k_pool, v_pool, ctx,
-                          scale=scale)
+                          scale=scale, par=par)
+    if split:
+        H_loc = p["wq"].shape[-2]
+        o_lat = o_lat[:, par.model_rank * H_loc:(par.model_rank + 1) * H_loc]
     o = torch.einsum("bhk,khv->bhv", o_lat.to(x.dtype), p["w_uv"])
     wo = p["wo"]
-    return (o.reshape(o.shape[0], -1) @ wo.reshape(-1, wo.shape[-1])
-            )[:, None, :]
+    y = o.reshape(o.shape[0], -1) @ wo.reshape(-1, wo.shape[-1])
+    return _reduce(cfg, p, par, y)[:, None, :]

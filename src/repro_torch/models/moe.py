@@ -43,8 +43,20 @@ drops those over capacity (exact zeros, so two backwards stay bitwise),
 and returns a partial y reduced over ``model``; the shared experts run as
 a TP SwiGLU with their own reduce.  Every model rank computes the same
 aux, whose gradient the copies' all-reduces would count tp times: it
-leaves the block through ``replicated_out``.  The serving 2-D EP waits
-for ROADMAP 6d.
+leaves the block through ``replicated_out``.
+
+Serving over a mesh with a ``data`` axis > 1 (:func:`ep2d_geometry`) runs
+the reference's 2-D expert parallelism (``_moe_block_serving``): the
+experts are split over ``data`` and their hidden dim over ``model``
+(``launch/sharding.py``'s serving rules).  Decode (T = 1) gathers every
+row of the batch, runs each row through this rank's experts at its hidden
+shard, dense-masked by the gates (at T = 1 no entry exceeds capacity, so
+this is the capacity dispatch's result), and sums over the (data, model)
+grid; the shared experts are added once, by the ranks of data rank 0 (the
+reference adds them on every data rank, ROADMAP Queue 3).  Prefill
+gathers the experts' weights over ``data`` and dispatches this rank's rows
+locally at its hidden shard, one sum over ``model``.  At a ``data`` axis
+of 1, serving takes the training EP above on this rank's own experts.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from repro_torch.models.common import (
     dense_init_,
     empty_param,
     explicit,
+    gather_dim,
     merge_parts,
 )
 
@@ -96,6 +109,23 @@ class MoEParams(nn.Module):
             in_axis = 1 if name in ("w_gate", "w_up", "w_down") else 0
             for l in range(p.shape[0]):
                 dense_init_(p[l], in_axis, gen)
+
+
+def ep2d_geometry(cfg: ModelConfig, mesh):
+    """2-D expert-parallel geometry for *serving*, or None (the
+    reference's ``ep2d_geometry``): experts over 'data', expert-hidden over
+    'model'.  ``mesh``: anything with a ``shape`` mapping of axis sizes (a
+    :class:`~repro_torch.launch.mesh.Mesh`, a serving
+    :class:`~repro_torch.models.common.ParallelCtx`).  Returns (E_loc,
+    fe_loc)."""
+    mo = cfg.moe
+    if mo is None or mesh is None:
+        return None
+    d_sz = mesh.shape.get("data", 1)
+    tp = mesh.shape.get("model", 1)
+    if d_sz <= 1 or mo.n_experts % d_sz or mo.d_expert % tp:
+        return None
+    return mo.n_experts // d_sz, mo.d_expert // tp
 
 
 def capacity(S: int, E: int, top_k: int, cf: float) -> int:
@@ -217,6 +247,71 @@ def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss): the
     partial outputs of :func:`moe_parts`, each reduced over ``model`` under
-    the training EP, summed."""
+    the training EP, summed; over a serving mesh with a 2-D geometry (a
+    ``data`` axis: only :func:`~repro_torch.models.common.serving_ctx`
+    sets one), the serving 2-D EP (aux 0, as the reference's decode; the
+    module docstring)."""
+    if par is not None and ep2d_geometry(cfg, par) is not None:
+        return _moe_block_serving(cfg, p, x, par)
     parts, aux = moe_parts(cfg, p, x, par)
     return merge_parts(par, parts, explicit(par)), aux
+
+
+def _adds_shared(cfg: ModelConfig, p, par: ParallelCtx, over_data: bool
+                 ) -> bool:
+    """Whether this rank adds the shared experts to its partial rows, so
+    that the sum counts them once: each model rank its hidden shard (or
+    model rank 0 alone when the hidden dim is not split), and, when the
+    sum also runs over ``data`` (``over_data``: decode), data rank 0
+    alone."""
+    mo = cfg.moe
+    if not mo.n_shared:
+        return False
+    split = p["ws_gate"].shape[-1] < mo.n_shared * mo.d_expert
+    return (split or par.model_rank == 0) and not (over_data
+                                                   and par.data_rank)
+
+
+def _moe_block_serving(cfg: ModelConfig, p, x, par: ParallelCtx):
+    """The serving 2-D EP over this rank's experts [e0, e0 + E_loc) at its
+    hidden shard (module docstring): decode at T = 1, prefill otherwise."""
+    mo = cfg.moe
+    E_loc, fe_loc = ep2d_geometry(cfg, par)
+    if p["w_gate"].shape[0] != E_loc or p["w_gate"].shape[-1] != fe_loc:
+        raise ValueError(f"expert weights {tuple(p['w_gate'].shape)} are not "
+                         f"the 2-D EP shard ({E_loc}, d, {fe_loc})")
+    if x.shape[1] == 1:
+        xg = x[:, 0, :]
+        if par.batch_sharded:
+            xg = gather_dim(xg, 0, par.dp_group, par.dp_size)
+        _probs, gates, sel, _pos, _keep, _C = route(cfg, p["router"],
+                                                    xg[None])
+        gate_full = torch.zeros((xg.shape[0], mo.n_experts),
+                                dtype=torch.float32, device=x.device)
+        gate_full.scatter_add_(1, sel[0], gates[0])
+        e0 = par.data_rank * E_loc
+        g_loc = gate_full[:, e0:e0 + E_loc].to(x.dtype)
+        # Dense-masked SwiGLU of every row over the resident experts.
+        h = torch.einsum("bd,edf->bef", xg, p["w_gate"])
+        u = torch.einsum("bd,edf->bef", xg, p["w_up"])
+        h = F.silu(h.float()).to(x.dtype) * u
+        ye = torch.einsum("bef,efd->bed", h, p["w_down"])
+        y = torch.einsum("bed,be->bd", ye, g_loc)
+        if _adds_shared(cfg, p, par, over_data=True):
+            y = y + _moe_shared(p, xg)
+        if par.expert_group is not None:
+            y = y.contiguous()
+            dist.all_reduce(y, group=par.expert_group)
+        if par.batch_sharded:
+            y = par.rows(y)
+        return y[:, None, :], torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+    pl = dict(p)
+    for name in ("w_gate", "w_up", "w_down"):
+        pl[name] = gather_dim(p[name], 0, par.data_group, par.data_size)
+    y, me, fe = _moe_routed(cfg, pl, x, 0)
+    if _adds_shared(cfg, p, par, over_data=False):
+        y = y + _moe_shared(p, x)
+    if par.model_group is not None:
+        y = par.reduce_from_model(y)
+    return y, mo.n_experts * torch.sum(me * fe)

@@ -1,6 +1,9 @@
 """Paged KV-cache: the model-side consumer of Mosaic page tables.
 
-Counterpart of the reference's ``models/paged.py`` on the mesh-free path.
+Counterpart of the reference's ``models/paged.py``: the writers, the
+plain partial attention and :func:`combine_partials`, whose combine across
+page shards runs over a process group (the reference's ``pmax`` / ``psum``
+over mesh axes).
 
 Layout (per layer):
   k_pool / v_pool : [num_pages, page_tokens, n_kv, head_dim]
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 NEG_INF = -1e30
@@ -172,6 +176,19 @@ def paged_attention_local(
     return o.reshape(B, H, dh_v), m.reshape(B, H), l.reshape(B, H)
 
 
-def combine_partials(o, m, l):
-    """Normalize one shard's (o, m, l) partials (no mesh axes to combine)."""
+def combine_partials(o, m, l, group=None):
+    """Flash-combine the (o, m, l) partials of the ranks of ``group`` (the
+    page shards a sequence stripes over) and normalise: the reference's
+    ``combine_partials`` over mesh axes.  m takes a MAX all-reduce; l and o,
+    each rescaled by exp(m - m_g), one packed SUM all-reduce.  A rank
+    without valid tokens for a row holds m = -1e30, l = 0, o = 0 and adds
+    exact zeros.  ``group`` None: this rank's partials are the whole."""
+    if group is not None:
+        m_g = m.contiguous().clone()
+        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+        corr = torch.exp(m - m_g)
+        packed = torch.cat([(l * corr)[..., None], o * corr[..., None]],
+                           dim=-1).contiguous()
+        dist.all_reduce(packed, group=group)
+        l, o = packed[..., 0], packed[..., 1:]
     return o / torch.clamp(l[..., None], min=1e-30)

@@ -33,6 +33,19 @@ Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
     (:func:`tp_geometry`) and the column / row-parallel SwiGLU, each ending
     in one reduce-from-model.
 
+Serving over a mesh (a ``par`` from
+:func:`~repro_torch.models.common.serving_ctx`, the reference's mesh
+branches) runs on this rank's serving shard of the weights
+(``launch/sharding.py``'s ``serving_param_specs``) and its stripe of the
+pools: prefill through the Megatron attention and TP SwiGLU above on the
+whole prompt (no row blocks: a mesh has no prefix cache), the K / V
+gathered over ``model`` where the block split them and written into this
+rank's pages; decode with q gathered over ``model`` (the paged kernel
+needs every head on every page shard), the partials combined across the
+page group, the output projection over this rank's heads reduced over
+``model``; MoE layers through the serving 2-D EP
+(:mod:`repro_torch.models.moe`).
+
 Pools are updated in place.
 """
 
@@ -54,6 +67,7 @@ from repro_torch.models.common import (
     explicit,
     layer_remat,
     merge_parts,
+    on_mesh,
     unbind_layers,
 )
 from repro_torch.models.layers import (
@@ -361,15 +375,42 @@ def attn_block_train(cfg: ModelConfig, p, x, positions, causal=True,
     return (par.reduce_from_model(y) if reduce else y), k, v
 
 
+def serving_geometry(cfg: ModelConfig, par: Optional[ParallelCtx]):
+    """The explicit-TP geometry a serving mesh runs the GQA attention at
+    (None: no ``model`` axis > 1); raises where the heads do not split
+    (the reference's GSPMD fallback has no explicit counterpart)."""
+    if not explicit(par):
+        return None
+    geo = tp_geometry(cfg, par.tp)
+    if geo is None:
+        raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} heads over "
+                                  f"{cfg.n_kv_heads} KV heads have no "
+                                  f"explicit split over model={par.tp}")
+    return geo
+
+
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
-                      ctx: PageCtx):
-    """x [B,1,d], pos [B] -> [B,1,d]; writes this token's K/V in place."""
+                      ctx: PageCtx, par: Optional[ParallelCtx] = None):
+    """x [B,1,d], pos [B] -> [B,1,d]; writes this token's K/V in place.
+    Over a serving mesh (``par``): q, k, v from this rank's head shards,
+    gathered over ``model``; the paged attention over this rank's stripe;
+    the output projection over its heads, reduced over ``model``."""
     q, k, v = _project_qkv(cfg, p, x, pos[:, None])
     dh = cfg.resolved_head_dim
+    geo = serving_geometry(cfg, par)
+    if geo is not None:
+        q = par.gather_model(q, 2)
+        if kv_sharded(cfg, geo):
+            k, v = par.gather_model(k, 2), par.gather_model(v, 2)
     o = paged_attn_op(q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool, ctx,
-                      scale=dh ** -0.5)
+                      scale=dh ** -0.5, par=par)
     B = o.shape[0]
+    if geo is not None:
+        H_loc = geo[1]
+        o = o[:, par.model_rank * H_loc:(par.model_rank + 1) * H_loc]
     y = o.reshape(B, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    if geo is not None:
+        y = par.reduce_from_model(y)
     return y[:, None, :]
 
 
@@ -390,11 +431,12 @@ def ffn_block(cfg: ModelConfig, p, x, par: Optional[ParallelCtx] = None,
     return par.reduce_from_model(y) if reduce else y
 
 
-def layer_ffn(cfg: ModelConfig, lp, x):
-    """The layer's FFN on normed rows: routed experts or SwiGLU."""
+def layer_ffn(cfg: ModelConfig, lp, x, par: Optional[ParallelCtx] = None):
+    """The layer's serving FFN on normed rows: routed experts or SwiGLU;
+    over a serving mesh (``par``) the serving MoE or the TP SwiGLU."""
     if cfg.moe is not None:
-        return moe_block(cfg, lp["moe"], x)[0]
-    return ffn_block(cfg, lp["mlp"], x)
+        return moe_block(cfg, lp["moe"], x, par)[0]
+    return ffn_block(cfg, lp["mlp"], x, par)
 
 
 # ------------------------------------------------------------------ stack
@@ -485,12 +527,19 @@ def decoder_stack_train(cfg: ModelConfig, params: Sequence[Dict[str, object]],
 
 def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
                           positions, pools, ctx: PageCtx, prefix_kv=None,
-                          tok_offset: int = 0):
+                          tok_offset: int = 0,
+                          par: Optional[ParallelCtx] = None):
     """pools: (k_pool [L,...], v_pool [L,...]), written in place.
 
     ``prefix_kv``: layer-stacked cached-prefix K/V ([L, B, P, Hkv, dh]
     pair) for suffix-only prefill; each layer attends over its slice, and
-    ``tok_offset`` (= P) keeps the cached pages out of the pool write."""
+    ``tok_offset`` (= P) keeps the cached pages out of the pool write.
+    ``par``: a serving mesh (module docstring; no cached prefix there)."""
+    if on_mesh(par):
+        if prefix_kv is not None or tok_offset:
+            raise NotImplementedError("a cached prefix has no mesh path")
+        return _stack_prefill_mesh(cfg, params, x, positions, pools, ctx,
+                                   par)
     if cfg.moe is not None or cfg.mla is not None:
         return _stack_prefill_whole(cfg, params, x, positions, pools, ctx)
     k_pools, v_pools = pools
@@ -527,16 +576,47 @@ def _stack_prefill_whole(cfg: ModelConfig, params: DecoderParams, x,
     return x, pools
 
 
+def _stack_prefill_mesh(cfg: ModelConfig, params: DecoderParams, x,
+                        positions, pools, ctx: PageCtx, par: ParallelCtx):
+    """Prefill over a serving mesh: each layer over the whole prompt of
+    this rank's rows (the reference's ``attn_block_train`` under a mesh:
+    the Megatron attention, or MLA over this rank's heads), the K / V (or
+    latents) written into this rank's stripe, the serving FFN."""
+    k_pools, v_pools = pools
+    geo = serving_geometry(cfg, par) if cfg.mla is None else None
+    for l in range(params.n_layers):
+        lp = params.layer(l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            a, lat = mla_block_prefill(cfg, lp["attn"], h, positions, par)
+            k, v = lat["k"], lat["v"]
+        else:
+            a, k, v = attn_block_train(cfg, lp["attn"], h, positions,
+                                       par=par)
+            if geo is not None and kv_sharded(cfg, geo):
+                k, v = par.gather_model(k, 2), par.gather_model(v, 2)
+        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx, par=par)
+        x = x + a
+        x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), par)
+    return x, pools
+
+
 def decoder_stack_decode(cfg: ModelConfig, params: DecoderParams, x, pos,
-                         pools, ctx: PageCtx):
+                         pools, ctx: PageCtx,
+                         par: Optional[ParallelCtx] = None):
+    """One decode token per row through every layer; ``par``: a serving
+    mesh (module docstring)."""
     k_pools, v_pools = pools
     for l in range(params.n_layers):
         lp = params.layer(l)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        block = mla_block_decode if cfg.mla is not None else \
-            attn_block_decode
         # Staged pages arrive layer-stacked; each layer reads its slice.
-        x = x + block(cfg, lp["attn"], h, pos, k_pools[l], v_pools[l],
-                      ctx.stage_at(l))
-        x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        if cfg.mla is not None:
+            a = mla_block_decode(cfg, lp["attn"], h, pos, k_pools[l],
+                                 v_pools[l], ctx.stage_at(l), par)
+        else:
+            a = attn_block_decode(cfg, lp["attn"], h, pos, k_pools[l],
+                                  v_pools[l], ctx.stage_at(l), par)
+        x = x + a
+        x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), par)
     return x, pools

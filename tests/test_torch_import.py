@@ -171,3 +171,31 @@ def test_port_sources_never_import_jax_or_reference():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+_MESH = r"""
+import sys
+sys.modules["jax"] = None
+import repro_torch.launch.specs, repro_torch.launch.dryrun
+from repro_torch.launch.specs import GEO, ServePlan, build_cell, serve_plan
+from repro_torch.launch.sharding import serving_lm, serving_shard, shard_shape
+from repro_torch.models.common import ParallelCtx, serving_ctx
+from repro_torch.models.moe import ep2d_geometry
+from repro_torch.models.paged import combine_partials
+from repro_torch.bridge import serving_shard_from_jax
+assert GEO.page_tokens == 64 and GEO.frame_pages == 16
+print("BAD", sorted(m for m in sys.modules
+                    if m == "repro" or m.startswith("repro.")
+                    or (m.startswith("jax") and sys.modules[m] is not None)))
+"""
+
+
+def test_serving_mesh_and_dry_run_import_without_jax():
+    """The serving-over-a-mesh slice's modules (``launch/specs.py``,
+    ``launch/dryrun.py``, the serving shard and context, the 2-D EP
+    geometry, the cross-rank combine), imported by name."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _MESH], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "BAD []", out.stdout

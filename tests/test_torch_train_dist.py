@@ -230,6 +230,8 @@ def ranks4(setup):
         "fsdp": ("train_and_resume", _spec(
             setup, QWEN, (2, 2), hp=dict(parallelism="fsdp"),
             ckpt_dir=str(d / "fsdp4"))),
+        "fsdp_step": ("train", _spec(setup, QWEN, (2, 2), steps=1,
+                                     hp=dict(parallelism="fsdp"))),
     })
 
 
@@ -572,6 +574,45 @@ def test_batch_and_moment_specs_equal_the_references():
                 assert params == sharding.param_specs(named, mesh)
     finally:
         j_trainer.configure_parallelism(JHP())
+
+
+# Runs with no checkpoint inside: name -> (world, its case there, mesh,
+# arch, hp overrides).
+SENT = {"megatron1": (1, "megatron", (1, 1), QWEN, {}),
+        "megatron4": (4, "megatron", (4, 1), QWEN, {}),
+        "fsdp": (4, "fsdp_step", (2, 2), QWEN, {"parallelism": "fsdp"}),
+        "deepseek": (2, "deepseek", (2, 1), DEEPSEEK, {}),
+        "compress": (4, "compress", (4, 1), QWEN, {"grad_compress": True})}
+
+
+@pytest.mark.parametrize("name", sorted(SENT))
+def test_dry_run_counts_the_bytes_a_data_parallel_step_sends(name, request):
+    """``launch/dryrun.collective_bytes`` at the run's own cfg, batch (4 x
+    32), mesh and hparams equals, by kind, the bytes each rank's
+    collectives sent per step (``torch_dist_cases.Collectives``): ZeRO-1's
+    reduce-scatters and gathers, FSDP's gathers and reduce-scatters, the
+    MoE loads' all-reduce; null under ``grad_compress`` (its int8 ring is
+    not counted), whose run still sends; nothing on one rank."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    world, key, shape, arch, hp = SENT[name]
+    want = dryrun.collective_bytes(
+        dataclasses.replace(get_smoke_config(arch), dtype="float32"),
+        ShapeConfig("train", 32, 4, "train"),
+        Mesh(shape, ("data", "model")),
+        {"kind": "train", "hp": TrainHParams(**{**HP, **hp})})
+    for r, out in enumerate(request.getfixturevalue(f"ranks{world}")):
+        got = out[key]["sent"]
+        if want is None:
+            assert got["total"] > 0
+            continue
+        n = out[key]["step"] - out[key]["start"]
+        assert set(got) <= set(want), (r, got)
+        for kind, nbytes in want.items():
+            assert got.get(kind, 0.0) / n == pytest.approx(
+                nbytes, rel=1e-12), (r, kind, got, want)
+    if world == 1:
+        assert want["total"] == 0
 
 
 # ---------------------------------------------------------------- chip

@@ -512,6 +512,41 @@ def test_all_reduces_over_model_a_layer_and_step(remat, per_layer, ranks4):
         assert out[remat]["model_all_reduces"] == per_layer * L
 
 
+# Runs with no checkpoint inside: name -> (mesh, arch, hp overrides).
+SENT = {"block": ((2, 2), QWEN, {"remat": "block"}),
+        "save_collectives": ((2, 2), QWEN, {"remat": "save_collectives"}),
+        "plain22": ((2, 2), QWEN, {}),
+        **{name: ((1, 2), arch, hp) for name, (arch, hp) in PAIR.items()}}
+
+
+@pytest.mark.parametrize("name", sorted(SENT))
+def test_dry_run_counts_the_bytes_a_training_step_sends(name, request):
+    """``launch/dryrun.collective_bytes`` at the run's own cfg, batch (4 x
+    32), mesh and hparams equals, by kind, the bytes each rank's
+    collectives sent per step (``torch_dist_cases.Collectives`` over the
+    run's steps); null for the families it does not count (zamba2,
+    mamba2), whose runs still send."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh as TMesh
+    shape, arch, hp = SENT[name]
+    runs = request.getfixturevalue(f"ranks{int(np.prod(shape))}")
+    want = dryrun.collective_bytes(
+        _f32(get_smoke_config(arch)), ShapeConfig("train", 32, 4, "train"),
+        TMesh(shape, ("data", "model")),
+        {"kind": "train", "hp": TrainHParams(**{**HP, **hp})})
+    for r, out in enumerate(runs):
+        got = out[name]["sent"]
+        if want is None:
+            assert got["total"] > 0
+            continue
+        n = out[name]["step"] - out[name]["start"]
+        assert set(got) <= set(want), (r, got)
+        for kind, nbytes in want.items():
+            assert got.get(kind, 0.0) / n == pytest.approx(
+                nbytes, rel=1e-12), (r, kind, got, want)
+
+
 # ---------------------------------------------------------------- ckpt
 
 

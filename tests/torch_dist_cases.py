@@ -44,7 +44,9 @@ def ring(path):
 
 
 class Collectives:
-    """Counts the collectives issued while active: (op, dtype, numel)."""
+    """Counts the collectives issued while active: (op, dtype, numel of
+    the first tensor argument, ranks n of the group; a point-to-point op
+    n = 2)."""
 
     OPS = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
            "broadcast")
@@ -61,7 +63,7 @@ class Collectives:
         def p2p(ops):
             for o in ops:
                 self.calls.append((o.op.__name__, str(o.tensor.dtype),
-                                   o.tensor.numel()))
+                                   o.tensor.numel(), 2))
             return self.saved["batch_isend_irecv"](ops)
         dist.batch_isend_irecv = p2p
         return self
@@ -70,13 +72,36 @@ class Collectives:
         fn = self.saved[op]
 
         def wrapped(t, *a, **kw):
-            self.calls.append((op, str(t.dtype), t.numel()))
+            self.calls.append((op, str(t.dtype), t.numel(),
+                               dist.get_world_size(kw.get("group"))))
             return fn(t, *a, **kw)
         return wrapped
 
     def __exit__(self, *exc):
         for op, fn in self.saved.items():
             setattr(dist, op, fn)
+
+    def sent(self):
+        """{kind: bytes this rank sent} and their total, as a ring moves
+        them over a group of n ranks (``launch/dryrun.py``'s convention):
+        (n - 1) / n of a gathered output or a scattered input (n times the
+        recorded output shard), 2 (n - 1) / n of an all-reduced tensor; a
+        broadcast or a send counts its whole tensor."""
+        kinds = {"all_reduce": "all_reduce",
+                 "all_gather_into_tensor": "all_gather",
+                 "reduce_scatter_tensor": "reduce_scatter",
+                 "broadcast": "broadcast", "isend": "p2p"}
+        out = {}
+        for op, dtype, numel, n in self.calls:
+            if op not in kinds or n == 1:
+                continue
+            nbytes = numel * getattr(torch, dtype.split(".")[-1]).itemsize
+            f = {"all_reduce": 2 * (n - 1) / n,
+                 "all_gather_into_tensor": (n - 1) / n,
+                 "reduce_scatter_tensor": n - 1}.get(op, 1)
+            out[kinds[op]] = out.get(kinds[op], 0.0) + nbytes * f
+        out["total"] = sum(out.values())
+        return out
 
 
 class FirstGrads:
@@ -193,7 +218,8 @@ def train(spec):
     """``spec["steps"]`` steps of a Trainer on ``spec["mesh"]``, keeping
     the first update's gradients; with ``count``, the collectives issued
     during the steps, the all-reduces over ``model`` among them
-    (``model_all_reduces``); with ``ring``, the compressed reduction's
+    (``model_all_reduces``) and the bytes they send (``sent``); with
+    ``ring``, the compressed reduction's
     inputs and outputs of the first step (``RingInputs``)."""
     torch.set_num_threads(1)
     tr = _trainer(spec, resume=spec.get("resume", False))
@@ -203,6 +229,7 @@ def train(spec):
         tr.run(spec["steps"], log_every=1)
     out = _summary(tr, c.calls if spec.get("count") else None, g.grads)
     out["model_all_reduces"] = m.n
+    out["sent"] = c.sent()
     if spec.get("ring"):
         out["ring"] = ring.seen
     return out
