@@ -4394,8 +4394,10 @@ MOE_SERVE_MESH = (2, 2)      # phase 10 (b): the 2-D expert parallelism
 SERVE_LENGTHS = (3000, 3350, 3700, 4000)   # (a): 3-4 frames of 1024 tokens
 MOE_SERVE_LENGTHS = (1100, 1500, 2100, 2500)   # (b), (c): 2-3 frames
 SERVE_STEPS = 16             # (a), (b): decode steps
-NARROW_SERVE_STEPS = 4       # (c)
+NARROW_SERVE_STEPS = 4       # (c), (g)
 SERVE_ARCHS = (ARCH, MLA_ARCH, MOE_ARCH)   # (c)
+# (g): the hybrid, ssm, encdec and vlm families' narrow models.
+FAMILY_SERVE_ARCHS = (HYBRID_ARCH, SSM_ARCH, ENCDEC_ARCH, VLM_ARCH)
 # (a), (b): the mesh's bf16 logits against one rank's, of their scale.  A
 # model rank's attention and FFN outputs are bf16 partial products summed
 # across ranks where one rank rounds the whole product once, and the
@@ -4406,19 +4408,38 @@ SERVE_ARCHS = (ARCH, MLA_ARCH, MOE_ARCH)   # (c)
 # limit sits about halfway between them on a log scale, over 2x from
 # each.
 MESH_LOGITS_TOL = 2.5e-2
+# (e): a Mamba-2 stack with random weights amplifies rounding more than
+# an attention stack (tests/torch_mamba_sensitivity.py, f32 on the CPU,
+# these weights: a change of 2.3e-7 of the embedding moves the logits of
+# zamba2 at 12 of 38 layers by 1.3e-5 of their scale in the reference and
+# 1.7e-5 in the port, 56x and 71x; qwen2.5-3b's at 4 layers 5.9x and
+# 2.9x), so bf16 alone moves zamba2's logits by more than
+# MESH_LOGITS_TOL: on the H100 one rank's bf16 run lies 0.101 of the
+# scale off its f32 twin.  (e) is therefore held in f32: the mesh's f32
+# logits against one rank's f32 run within MAMBA_MESH_F32_TOL, and the
+# "ssm_norm" fault beyond it.  On the H100 the sound run reads 1.49e-4
+# and the fault 0.194: the limit sits halfway between them on a log
+# scale, over 30x from each.  (e)'s bf16 mesh run, the main path, is a
+# sanity check: no further from one rank's bf16 run than that run lies
+# from f32.
+MAMBA_MESH_F32_TOL = 5e-3
 # (a), (b): greedy tokens of the mesh's logits that may differ from one
 # rank's (bf16 near-ties of random weights' logits), of 68 a run.
 MESH_TOKEN_MISSES = 2
-# (a), (b): the negative control, a deliberate fault run for FAULT_STEPS
-# decode steps after the sound run from the pools as prefill left them: its
-# logits must sit beyond MESH_LOGITS_TOL, or the limit could not tell a
-# broken mesh path from a sound one.
-MESH_FAULTS = {"a": "combine", "b": "shared"}
+# (a), (b), (e), (f): the negative control, a deliberate fault run for
+# FAULT_STEPS decode steps after the sound run from the pools as prefill
+# left them: its logits must sit beyond the run's limit and
+# MESH_LOGITS_TOL, or the limit could not tell a broken mesh path from a
+# sound one.  (e)'s runs in f32 (MAMBA_MESH_F32_TOL).
+MESH_FAULTS = {"a": "combine", "b": "shared", "e32": "ssm_norm",
+               "f": "cross"}
 FAULT_STEPS = 2
 NARROW_SERVE_TOL = 1e-4      # (c): f32 card ranks against f32 CPU ranks
 
-_SEED_ONES = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm", "k_norm")
-_SEED_ZEROS = ("bq", "bk", "bv")
+_SEED_ONES = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm", "k_norm",
+              "ln", "mamba_ln", "tail_ln", "ln_cross", "enc_norm", "norm_w",
+              "D")
+_SEED_ZEROS = ("bq", "bk", "bv", "conv_b", "dt_bias")
 _SEED_EMBEDS = ("embed", "unembed")
 
 
@@ -4430,6 +4451,9 @@ def _draw(name, shape, gen, device):
         return torch.ones(shape, device=device)
     if leaf in _SEED_ZEROS:
         return torch.zeros(shape, device=device)
+    if leaf == "A_log":        # init_mamba_params: decay rates 1 .. 16
+        return torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                        device=device))
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if leaf in _SEED_EMBEDS:
         return torch.nn.init.normal_(w, 0.0, 1.0, generator=gen).mul_(0.02)
@@ -4439,15 +4463,30 @@ def _draw(name, shape, gen, device):
     return w.mul_(max(1.0, fan_in) ** -0.5)
 
 
+def _layer_axes(cfg, name):
+    """The layer axes of the leaf ``name``: the hybrid's grouped Mamba-2
+    leaves two ([G, period]), its shared block none, every other leaf of a
+    stack (``decoder.*``, ``decoder_prefix.*``, ``encoder.*``) one, the
+    rest none."""
+    if not name.startswith(("decoder.", "decoder_prefix.", "encoder.")) \
+            or name.startswith("decoder.shared."):
+        return 0
+    if cfg.family == "hybrid" and name.startswith(("decoder.mamba.",
+                                                   "decoder.mamba_ln")):
+        return 2
+    return 1
+
+
 def seeded_weights(cfg, device, mesh=None, rank=0, seed=0):
     """Phase 10's weights of ``cfg`` in ``cfg.dtype`` on ``device``: each
     leaf's layer slice drawn from a generator of its own (seed, leaf,
-    layer): norms 1, biases 0, embeddings N(0, 1) x 0.02, the rest
-    truncated normal over the square root of the slice's fan-in (an
-    expert's d or fe, another weight's first dim, as ``init_weights``).
-    With ``mesh`` the rank's serving shard, cut from each drawn slice: the
-    same numbers as the whole model's, and no process holds more than its
-    shard and one slice."""
+    layer): norms 1, biases 0, embeddings N(0, 1) x 0.02, the Mamba-2
+    scalars as ``init_weights`` (A_log log 1 .. 16, D 1, dt_bias and conv_b
+    0), the rest truncated normal over the square root of the slice's
+    fan-in (an expert's d or fe, another weight's first dim, as
+    ``init_weights``).  With ``mesh`` the rank's serving shard, cut from
+    each drawn slice: the same numbers as the whole model's, and no
+    process holds more than its shard and one slice."""
     import torch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.sharding import serving_placements
@@ -4459,17 +4498,17 @@ def seeded_weights(cfg, device, mesh=None, rank=0, seed=0):
     out = {}
     for i, (name, p) in enumerate(meta.items()):
         place = places.get(name)
-        stacked = name.startswith("decoder")
+        n = _layer_axes(cfg, name)
         t = torch.empty(place.take(p).shape if place else p.shape,
                         dtype=dtype, device=device)
-        for l in range(p.shape[0]) if stacked else (None,):
+        flat = t.view(-1, *t.shape[n:]) if n else t[None]
+        for l in range(math.prod(p.shape[:n])):
             gen = torch.Generator(device=device).manual_seed(
-                seed * 1_000_003 + i * 4099 + (0 if l is None else l + 1))
-            w = _draw(name, tuple(p.shape[1:] if stacked else p.shape), gen,
-                      device)
+                seed * 1_000_003 + i * 4099 + (l + 1 if n else 0))
+            w = _draw(name, tuple(p.shape[n:]), gen, device)
             if place:
-                w = place.take(w[None])[0] if stacked else place.take(w)
-            (t[l] if stacked else t).copy_(w)
+                w = place.take(w.view((1,) * n + w.shape))[(0,) * n]
+            flat[l].copy_(w)
         out[name] = t
     return out
 
@@ -4513,20 +4552,29 @@ def mesh_fault(kind):
     stripe's partials (``combine_partials`` given no group), the decode
     attention then misses the other stripes' pages; ``shared``: every data
     rank adds the shared experts in the 2-D EP decode (the reference's
-    fault, ROADMAP Queue 3)."""
-    from repro_torch.models import moe, paged
+    fault, ROADMAP Queue 3); ``ssm_norm``: the Mamba-2 gated norm sums its
+    squares over the rank's heads only (no sum over ``model``); ``cross``:
+    the cross-attention's partial outputs are not summed over ``model``."""
+    from repro_torch.models import encdec, mamba2, moe, paged
     if kind == "combine":
         mod, name = paged, "combine_partials"
         orig = paged.combine_partials
 
         def faulty(o, m, l, group=None):
             return orig(o, m, l, None)
-    else:
+    elif kind == "shared":
         mod, name = moe, "_adds_shared"
         orig = moe._adds_shared
 
         def faulty(cfg, p, par, over_data):
             return orig(cfg, p, par, False)
+    else:
+        mod, name = {"ssm_norm": (mamba2, "_sum_sq_over_model"),
+                     "cross": (encdec, "_reduce_cross")}[kind]
+        orig = getattr(mod, name)
+
+        def faulty(par, t):
+            return t
     setattr(mod, name, faulty)
     try:
         yield
@@ -4550,6 +4598,25 @@ def serve_prompts(lengths, vocab, seed=10):
     return torch.from_numpy(toks)
 
 
+def serve_batch(cfg, lengths, dev, seed=10):
+    """The prefill batch of ``lengths``' prompts (global rows): the tokens
+    and, for vlm, ``frontend_tokens`` patch embeddings, for encdec
+    ``source_len`` source frames, N(0, 1) from a numpy seed in
+    ``cfg.dtype``."""
+    import torch
+    batch = {"tokens": serve_prompts(lengths, cfg.vocab_size, seed).to(dev)}
+    rng = np.random.default_rng(seed + 1)
+    dtype = getattr(torch, cfg.dtype)
+    for key, n in (("patch_embeds", cfg.frontend_tokens
+                    if cfg.family == "vlm" else 0),
+                   ("src_embeds", cfg.encdec.source_len
+                    if cfg.family == "encdec" else 0)):
+        if n:
+            batch[key] = torch.from_numpy(rng.standard_normal(
+                (len(lengths), n, cfg.d_model), np.float32)).to(dev, dtype)
+    return batch
+
+
 def _mesh2(mesh):
     from repro_torch.launch.mesh import Mesh
     return Mesh(mesh, ("data", "model"))
@@ -4567,14 +4634,27 @@ def _serve_ctx(mesh):
 
 
 def serve_cfg(case):
-    """The model of a phase-10 case: (a) / (b) at the published widths and
-    depth or, rehearsed on the CPU, the smoke config; (c)
+    """The model of a phase-10 case: (a), (b), (e), (f) at the published
+    widths and depth or, rehearsed on the CPU, the smoke config, in
+    ``case["dtype"]`` where given (the f32 twin of (e) and (f)); (c), (g)
     ``narrow_tp_config``'s f32 model."""
     from repro_torch.configs import get_config, get_smoke_config
     if case["part"] == "narrow":
         return narrow_tp_config(case["arch"])
-    return (get_config if case["width"] == "full" else get_smoke_config)(
+    cfg = (get_config if case["width"] == "full" else get_smoke_config)(
         case["arch"])
+    return dataclasses.replace(cfg, dtype=case.get("dtype", cfg.dtype))
+
+
+def greedy_tokens(logits, par):
+    """The batch's greedy tokens (a list, every row) from this rank's
+    logits: over a batch split across data ranks, every data rank's rows
+    gathered, since ``decode_step`` takes the global batch's tokens."""
+    from repro_torch.models.common import gather_dim
+    nxt = logits.argmax(-1)
+    if par is not None and par.batch_sharded and par.dp_size > 1:
+        nxt = gather_dim(nxt.contiguous(), 0, par.dp_group, par.dp_size)
+    return nxt.tolist()
 
 
 def serve_run(case):
@@ -4582,10 +4662,11 @@ def serve_run(case):
     (a (1, 1) mesh: this process, no group): the model's weights (this
     rank's serving shard), its pools, a prefill of ``case["lengths"]``'
     prompts and ``case["steps"]`` decode steps fed ``case["feed"]``'s
-    tokens (None: each step's greedy tokens); launch counters reset just
-    before the prefill and read after the last step.  Returns the logits of
-    every call (this rank's rows, f32 on the CPU), the tokens fed, the
-    prefill and step ms (host clock, synchronised), memory and launches."""
+    tokens (None: each step's greedy tokens), the decode state carried
+    from call to call; launch counters reset just before the prefill and
+    read after the last step.  Returns the logits of every call (this
+    rank's rows, f32 on the CPU), the tokens fed, the prefill and step ms
+    (host clock, synchronised), memory and launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.sharding import serving_lm, serving_shard
@@ -4603,34 +4684,39 @@ def serve_run(case):
     lm = serving_lm(cfg, shards, dev)
     del shards
     lengths = case["lengths"]
-    tabs = serve_tables(lengths, mesh, case["steps"])
+    # vlm's pools hold the patch positions in front of each prompt.
+    n_pre = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    tabs = serve_tables([n + n_pre for n in lengths], mesh, case["steps"])
     pool_dtype = torch.float32 if case["part"] == "narrow" else None
     pools = [torch.zeros((s[0], tabs["pages"], *s[2:]),
                          dtype=pool_dtype or dt, device=dev)
-             for s, dt in lm.pool_shapes(tabs["pages"], 64)]
+             for s, dt in lm.pool_shapes(tabs["pages"], 64) or ()] or None
     t_init = time.perf_counter() - t0
-    tokens = serve_prompts(lengths, cfg.vocab_size).to(dev)
+    batch = serve_batch(cfg, lengths, dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     ops.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    logits, pools, _ = lm.prefill({"tokens": tokens}, pools,
-                                  _page_ctx(tabs["prefill"], dev), lens - 1,
-                                  par=par)
+    logits, pools, state = lm.prefill(batch, pools,
+                                      _page_ctx(tabs["prefill"], dev),
+                                      lens - 1, par=par)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    del batch
     fault = case.get("fault")
-    snap = [p.clone() for p in pools] if fault else None
+    snap = ([p.clone() for p in pools or ()],
+            {k: v.clone() for k, v in state.items()}) if fault else None
     out, fed, step_ms = [logits.float().cpu()], [], []
     for s in range(case["steps"]):
         nxt = (case["feed"][s] if case.get("feed")
-               else logits.argmax(-1).tolist())
+               else greedy_tokens(logits, par))
         fed.append(nxt)
         t0 = time.perf_counter()
-        logits, pools, _ = lm.decode_step(
-            torch.tensor(nxt, dtype=torch.int32, device=dev), lens + s,
-            pools, _page_ctx(tabs["decode"][s], dev), par=par)
+        logits, pools, state = lm.decode_step(
+            torch.tensor(nxt, dtype=torch.int32, device=dev),
+            lens + n_pre + s, pools, _page_ctx(tabs["decode"][s], dev),
+            state, par=par)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         out.append(logits.float().cpu())
@@ -4641,16 +4727,18 @@ def serve_run(case):
            "launches": launches, "rank": rank,
            "weights_gib": sum(p.numel() * p.element_size()
                               for p in lm.parameters()) / 2**30}
-    if case["part"] == "narrow":
+    if case["part"] == "narrow" and pools:
         res["k_pool"] = pools[0].cpu()
     if fault:
         res["fault_logits"] = []
+        pools, state = snap
+        del snap
         with mesh_fault(fault):
             for s in range(FAULT_STEPS):
-                logits, snap, _ = lm.decode_step(
+                logits, pools, state = lm.decode_step(
                     torch.tensor(fed[s], dtype=torch.int32, device=dev),
-                    lens + s, snap, _page_ctx(tabs["decode"][s], dev),
-                    par=par)
+                    lens + n_pre + s, pools or None,
+                    _page_ctx(tabs["decode"][s], dev), state, par=par)
                 res["fault_logits"].append(logits.float().cpu())
     return res
 
@@ -4688,46 +4776,83 @@ def _scaled_gap(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def check_full_mesh(label, one, ranks, mesh, layers, dev):
-    """(a) / (b): the mesh's logits against one rank's (MESH_LOGITS_TOL of
-    the scale), launches per rank (a flash call per layer at prefill, a
-    paged call per layer and step), times and memory."""
-    steps = len(one["fed"])
+def full_launches(cfg, steps):
+    """The launches each rank of (a), (b), (e), (f) makes in a prefill and
+    ``steps`` decode steps: a flash call per attention layer at prefill
+    and a paged call per layer and step; the hybrid's attention is its
+    shared block's G invocations, after an SSD scan per Mamba-2 layer at
+    prefill; encdec's flash also runs its encoder's layers, and its
+    cross-attention per decoder layer at prefill and at every step."""
+    from repro_torch.models.lm import LM
+    L = LM(cfg, device="meta").kv_layers()
+    out = {"flash_attention": L, "paged_attention.page": L * steps}
+    if cfg.family == "hybrid":
+        out["ssd_scan"] = cfg.n_layers
+    if cfg.family == "encdec":
+        enc = cfg.encdec.enc_layers
+        out.update({"flash_attention": enc + L * (2 + steps),
+                    "flash_attention.encoder": enc,
+                    "flash_attention.cross_prefill": L,
+                    "flash_attention.cross_decode": L * steps})
+    return out
+
+
+def _agreement(label, run, want):
+    """(each call's gap of the scale, greedy tokens that agree, tokens) of
+    ``run``'s logits (a list per call) against ``want``'s."""
     gaps, agree, n = [], 0, 0
-    for call in range(1 + steps):
-        got = _global_rows(ranks, mesh, "full", call)
-        want = one["logits"][call]
+    for call, (got, ref) in enumerate(zip(run, want["logits"])):
         require(bool(np.isfinite(got.numpy()).all()),
                 f"10 {label}: non-finite logits at call {call}")
-        gaps.append(_scaled_gap(got, want))
-        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
-        n += want.shape[0]
+        gaps.append(_scaled_gap(got, ref))
+        agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+        n += ref.shape[0]
+    return gaps, agree, n
+
+
+def check_full_mesh(label, one, ranks, mesh, cfg, dev, key="full",
+                    limit=MESH_LOGITS_TOL, misses=MESH_TOKEN_MISSES,
+                    why="bf16 partial sums"):
+    """(a), (b), (e), (f): the mesh's logits against one rank's, launches
+    per rank (:func:`full_launches`), times and memory.  The logits must
+    lie within ``limit`` of their scale and all but ``misses`` greedy
+    tokens agree (``why`` says what sets the limit); the run's negative
+    control, where it has one, beyond both ``limit`` and MESH_LOGITS_TOL.
+    Returns each launch count summed over the ranks."""
+    steps = len(one["fed"])
+    mesh_run = [_global_rows(ranks, mesh, key, call)
+                for call in range(1 + steps)]
+    gaps, agree, n = _agreement(label, mesh_run, one)
     worst = max(gaps)
-    require(worst <= MESH_LOGITS_TOL, f"10 {label}: logits {worst:.3g} of "
-            f"their scale off one rank's (limit {MESH_LOGITS_TOL}); per "
-            f"call {[round(g, 5) for g in gaps]}")
-    require(agree >= n - MESH_TOKEN_MISSES, f"10 {label}: greedy tokens "
-            f"agree with one rank's on {agree} of {n} (at most "
-            f"{MESH_TOKEN_MISSES} may differ)")
-    fault = ranks[0]["full"]["fault"]
-    faulty = max(_scaled_gap(_global_rows(ranks, mesh, "full", s,
-                                          "fault_logits"),
-                             one["logits"][1 + s])
-                 for s in range(FAULT_STEPS))
-    require(faulty > MESH_LOGITS_TOL, f"10 {label}: the {fault!r} fault's "
-            f"logits are {faulty:.3g} of their scale off one rank's, inside "
-            f"the limit {MESH_LOGITS_TOL}: the check cannot see it")
+    require(worst <= limit, f"10 {label}: logits {worst:.3g} of their "
+            f"scale off one rank's (limit {limit:.3g}: {why}); per call "
+            f"{[round(g, 5) for g in gaps]}")
+    require(agree >= n - misses, f"10 {label}: greedy tokens agree with "
+            f"one rank's on {agree} of {n} (at most {misses} may differ: "
+            f"{why})")
+    fault = ranks[0][key]["fault"]
+    control = "no negative control"
+    if fault:
+        faulty = max(_scaled_gap(_global_rows(ranks, mesh, key, s,
+                                              "fault_logits"),
+                                 one["logits"][1 + s])
+                     for s in range(FAULT_STEPS))
+        bar = max(limit, MESH_LOGITS_TOL)
+        require(faulty > bar, f"10 {label}: the {fault!r} fault's logits "
+                f"are {faulty:.3g} of their scale off one rank's, inside "
+                f"{bar:.3g}: the check cannot see it")
+        control = (f"negative control, the {fault!r} fault over "
+                   f"{FAULT_STEPS} decode steps: {faulty:.3g} of the scale "
+                   f"off ({faulty / limit:.3g}x the limit, "
+                   f"{faulty / MESH_LOGITS_TOL:.3g}x MESH_LOGITS_TOL)")
     on_card = dev == "cuda"
+    want = {k: n if on_card else 0
+            for k, n in full_launches(cfg, steps).items()}
     for r, out in enumerate(ranks):
-        c = out["full"]["launches"]
-        want_flash = layers if on_card else 0
-        want_paged = layers * steps if on_card else 0
-        require(c["flash_attention"] == want_flash
-                and c["paged_attention.page"] == want_paged,
-                f"10 {label} rank {r}: launched flash "
-                f"{c['flash_attention']} and paged "
-                f"{c['paged_attention.page']} times, not {want_flash} and "
-                f"{want_paged}")
+        c = out[key]["launches"]
+        got = {k: c.get(k, 0) for k in want}
+        require(got == want, f"10 {label} rank {r}: launched {got}, not "
+                f"{want}")
     share = (", two gloo ranks time-sharing one card, not a TP speed"
              if on_card else "")
     print(f"[serve:mesh] {label}: one rank prefill "
@@ -4736,7 +4861,7 @@ def check_full_mesh(label, one, ranks, mesh, layers, dev):
           f"{one['weights_gib']:.2f} GiB, peak {one['peak']:.2f} GiB "
           f"({SMI})")
     for r, out in enumerate(ranks):
-        f = out["full"]
+        f = out[key]
         print(f"[serve:mesh] {label} mesh {mesh} rank {r}: prefill "
               f"{f['prefill_ms']:.1f} ms, step ms median "
               f"{float(np.median(f['step_ms'])):.2f} (min "
@@ -4745,19 +4870,17 @@ def check_full_mesh(label, one, ranks, mesh, layers, dev):
               f"set-up {f['t_init']:.1f}s ({SMI})")
     print(f"[serve:mesh] {label}: logits at {mesh} within {worst:.3g} of "
           f"their scale of one rank's over the prefill and {steps} steps "
-          f"(limit {MESH_LOGITS_TOL}: bf16 partial sums); greedy tokens "
-          f"agree on {agree} of {n} (at most {MESH_TOKEN_MISSES} may "
-          f"differ); negative control, the {fault!r} fault over "
-          f"{FAULT_STEPS} decode steps: {faulty:.3g} of the scale off "
-          f"({faulty / MESH_LOGITS_TOL:.3g}x the limit)")
-    return {k: sum(out["full"]["launches"][k] for out in ranks)
-            for k in ("flash_attention", "paged_attention.page")}
+          f"(limit {limit:.3g}: {why}); greedy tokens agree on {agree} of "
+          f"{n} (at most {misses} may differ); {control}")
+    return {k: sum(out[key]["launches"].get(k, 0) for out in ranks)
+            for k in want}
 
 
 def check_narrow_mesh(mesh, card, cpu, dev):
-    """(c): each narrow f32 model's logits (and deepseek's latent pools)
-    on the card's ranks within NARROW_SERVE_TOL of the CPU ranks'."""
-    for arch in SERVE_ARCHS:
+    """(c), (g): each narrow f32 model's logits (and deepseek's latent
+    pools) on the card's ranks within NARROW_SERVE_TOL of the CPU
+    ranks'."""
+    for arch in SERVE_ARCHS + FAMILY_SERVE_ARCHS:
         key = f"narrow:{arch}"
         calls = len(card[0][key]["logits"])
         worst = 0.0
@@ -4772,7 +4895,8 @@ def check_narrow_mesh(mesh, card, cpu, dev):
             worst = max([worst] + pools)
             extra = " and latent pools (prefill only: the MLA paged kernel "\
                     "takes bf16)"
-        require(worst <= NARROW_SERVE_TOL, f"10 (c) {arch} at {mesh}: "
+        part = "(c)" if arch in SERVE_ARCHS else "(g)"
+        require(worst <= NARROW_SERVE_TOL, f"10 {part} {arch} at {mesh}: "
                 f"{dev} ranks {worst:.3g} of the scale off the CPU ranks")
         print(f"[serve:mesh:agreement] f32 {arch} at {mesh}: {dev} ranks' "
               f"logits{extra} over {calls} calls within {worst:.3g} of the "
@@ -4783,7 +4907,8 @@ def phase_serve_mesh(dev="cuda"):
     """Phase 10: serving over a mesh, in gloo ranks that ``run_ranks``
     starts, sharing cuda:0 on the card (NCCL cannot put two ranks on one
     GPU; every time printed is ranks time-sharing the card).  ``dev="cpu"``
-    rehearses it on gloo CPU ranks with the smoke configs in (a) and (b).
+    rehearses it on gloo CPU ranks with the smoke configs in (a), (b), (e)
+    and (f).
 
     (a) qwen2.5-3b at its published width and depth, bf16, weights from
         ``seeded_weights``, at SERVE_MESH: B = 4 prompts of SERVE_LENGTHS
@@ -4805,14 +4930,41 @@ def phase_serve_mesh(dev="cuda"):
         (deepseek's prefill with its latent pools: the MLA paged kernel
         takes bf16 alone);
     (d) one dry-run line each (``launch/dryrun.py``) for qwen2.5-3b
-        train_4k and decode_32k on the production 16 x 16 mesh.
+        train_4k and decode_32k on the production 16 x 16 mesh;
+    (e) zamba2-1.2b at its published width and depth (38 Mamba-2 layers,
+        the shared block at 6 invocations), bf16, at SERVE_MESH, B = 4
+        prompts of MOE_SERVE_LENGTHS tokens, as (a): the Mamba-2 layers on
+        a rank's 32 of 64 heads, the shared block on its 16 of 32 heads
+        over its stripe of the invocation-stacked pools.  Its rounding is
+        amplified (MAMBA_MESH_F32_TOL's note), so the same model runs in
+        f32 too, on one rank and on the mesh: the f32 mesh within
+        MAMBA_MESH_F32_TOL of the f32 rank and its negative control, the
+        "ssm_norm" fault, beyond it; the bf16 mesh no further from the
+        bf16 rank than that lies from f32;
+    (f) seamless-m4t-large-v2 at its published widths and depth (24 + 24
+        layers), bf16, at SERVE_MESH, the same prompts over 4096 source
+        frames each, as (a): the encoder and the cross-attention at a
+        rank's 8 of 16 heads; the negative control under the "cross"
+        fault;
+    (g) the narrow f32 models of FAMILY_SERVE_ARCHS (mamba2, zamba2,
+        seamless, llava), as (c).
 
-    Returns {kernel entry: launches over every rank}: flash at (a)'s
-    prefill (``flash_attention.mesh``) and at (b)'s
+    (a), (e) and (f)'s mesh runs share one start of SERVE_MESH's ranks,
+    with (c) and (g)'s card cases.
+
+    Returns {kernel entry: launches over every rank} of the bf16 runs:
+    flash at (a)'s prefill (``flash_attention.mesh``) and at (b)'s
     (``flash_attention.mla.mesh``), paged at (a)'s decode
-    (``paged_attention.mesh``) and at (b)'s (``paged_attention.mla.mesh``)."""
+    (``paged_attention.mesh``) and at (b)'s (``paged_attention.mla.mesh``);
+    (e)'s SSD scan at prefill (``ssd_scan.mesh``), its shared block's
+    flash at prefill (``flash_attention.hybrid.mesh``) and paged at decode
+    (``paged_attention.hybrid.mesh``); (f)'s flash at its encoder
+    (``flash_attention.encoder.mesh``), decoder self-attention
+    (``flash_attention.decoder.mesh``), cross-attention at prefill
+    (``flash_attention.cross_prefill.mesh``) and at decode
+    (``flash_attention.cross_decode.mesh``), and its decoder's paged
+    attention (``paged_attention.encdec.mesh``)."""
     import threading
-    import torch
     from repro_torch.launch import dryrun
     from repro_torch.launch.spawn import run_ranks
     t_start = time.perf_counter()
@@ -4821,13 +4973,15 @@ def phase_serve_mesh(dev="cuda"):
              lengths=SERVE_LENGTHS if dev == "cuda" else MOE_SERVE_LENGTHS,
              steps=SERVE_STEPS if dev == "cuda" else 2)
     b = dict(a, arch=MLA_ARCH, lengths=MOE_SERVE_LENGTHS)
+    e = dict(b, arch=HYBRID_ARCH)
+    f = dict(b, arch=ENCDEC_ARCH)
     steps_c = NARROW_SERVE_STEPS
 
     def narrow(mesh, device):
         return {f"narrow:{arch}": dict(
             part="narrow", arch=arch, mesh=list(mesh), device=device,
             lengths=MOE_SERVE_LENGTHS, steps=0 if arch == MLA_ARCH
-            else steps_c) for arch in SERVE_ARCHS}
+            else steps_c) for arch in SERVE_ARCHS + FAMILY_SERVE_ARCHS}
     run = functools.partial(
         run_ranks, "chip_smoke:serve_mesh_rank", paths=[str(ROOT)],
         timeout=600, backend="gloo", env=dict(
@@ -4847,18 +5001,24 @@ def phase_serve_mesh(dev="cuda"):
     (thread.start if dev == "cuda" else cpu_ranks)()
     t0 = time.perf_counter()
     try:
-        one_a = serve_run(dict(a, mesh=[1, 1]))
+        one = {k: serve_run(dict(c, mesh=[1, 1]))
+               for k, c in (("a", a), ("e", e), ("f", f))}
+        e32 = dict(e, dtype="float32", feed=one["e"]["fed"])
+        one["e32"] = serve_run(dict(e32, mesh=[1, 1]))
+        t_one = time.perf_counter()
         reset_peak(dev)
         ranks_a = run(math.prod(SERVE_MESH), device=dev, args=[dict(
-            full=dict(a, mesh=list(SERVE_MESH), feed=one_a["fed"],
-                      fault=MESH_FAULTS["a"]),
+            **{f"full_{k}": dict(c, mesh=list(SERVE_MESH),
+                                 feed=one[k]["fed"],
+                                 fault=MESH_FAULTS.get(k))
+               for k, c in (("a", a), ("e", e), ("e32", e32), ("f", f))},
             **narrow(SERVE_MESH, dev))])
         t_a = time.perf_counter()
         one_b = serve_run(dict(b, mesh=[1, 1]))
         reset_peak(dev)
         ranks_b = run(math.prod(MOE_SERVE_MESH), device=dev, args=[dict(
-            full=dict(b, mesh=list(MOE_SERVE_MESH), feed=one_b["fed"],
-                      fault=MESH_FAULTS["b"]),
+            full_b=dict(b, mesh=list(MOE_SERVE_MESH), feed=one_b["fed"],
+                        fault=MESH_FAULTS["b"]),
             **narrow(MOE_SERVE_MESH, dev))])
         t_b = time.perf_counter()
     finally:
@@ -4866,13 +5026,27 @@ def phase_serve_mesh(dev="cuda"):
             thread.join()
     if cpu_err:
         raise cpu_err[0]
-    cfg_a, cfg_b = serve_cfg(a), serve_cfg(b)
-    la = check_full_mesh(f"(a) {ARCH} ({width} width, {cfg_a.n_layers} "
-                         f"layers)", one_a, ranks_a, SERVE_MESH,
-                         cfg_a.n_layers, dev)
-    lb = check_full_mesh(f"(b) {MLA_ARCH} ({width} widths, "
-                         f"{cfg_b.n_layers} layers)", one_b, ranks_b,
-                         MOE_SERVE_MESH, cfg_b.n_layers, dev)
+    one["b"] = one_b
+    # (e) in bf16, the sanity check: one rank's own distance from f32.
+    f_gaps, f_agree, n = _agreement("(e)", one["e"]["logits"], one["e32"])
+    floor = dict(limit=max(MESH_LOGITS_TOL, max(f_gaps)),
+                 misses=max(MESH_TOKEN_MISSES, n - f_agree),
+                 why=f"a sanity check: one rank's bf16 run lies "
+                     f"{max(f_gaps):.3g} of the scale off its f32 twin, with "
+                     f"{n - f_agree} of {n} greedy tokens different")
+    counts = {}
+    for k, c, mesh, ranks, what, lim in (
+            ("a", a, SERVE_MESH, ranks_a, "width", {}),
+            ("b", b, MOE_SERVE_MESH, ranks_b, "widths", {}),
+            ("e", e, SERVE_MESH, ranks_a, "width, bf16", floor),
+            ("e32", e32, SERVE_MESH, ranks_a, "width, f32", dict(
+                limit=MAMBA_MESH_F32_TOL, why="f32 partial sums through "
+                "an amplifying Mamba-2 stack")),
+            ("f", f, SERVE_MESH, ranks_a, "widths", {})):
+        cfg = serve_cfg(c)
+        counts[k] = check_full_mesh(
+            f"({k[0]}) {c['arch']} ({width} {what}, {cfg.n_layers} layers)",
+            one[k], ranks, mesh, cfg, dev, key=f"full_{k}", **lim)
     for mesh, ranks in ((SERVE_MESH, ranks_a), (MOE_SERVE_MESH, ranks_b)):
         check_narrow_mesh(mesh, ranks, cpu_runs[mesh], dev)
     # (d)
@@ -4884,20 +5058,38 @@ def phase_serve_mesh(dev="cuda"):
                 f"10 (d): dry-run record {rec}")
         print(f"[serve:dryrun] {json.dumps(rec)}")
     print(f"[serve:mesh] phase 10 took {time.perf_counter() - t_start:.1f}s: "
-          f"(a) {t_a - t0:.1f}s, (b) {t_b - t_a:.1f}s (each with its one-rank "
-          f"run and its ranks' process starts; (c)'s card ranks inside them, "
-          f"its CPU ranks {'alongside' if dev == 'cuda' else 'before'})")
-    return {"flash_attention.mesh": la["flash_attention"],
-            "paged_attention.mesh": la["paged_attention.page"],
-            "flash_attention.mla.mesh": lb["flash_attention"],
-            "paged_attention.mla.mesh": lb["paged_attention.page"]}
+          f"one-rank runs of (a), (e), (f) and (e)'s f32 twin "
+          f"{t_one - t0:.1f}s, their ranks "
+          f"{t_a - t_one:.1f}s, (b) {t_b - t_a:.1f}s (each with its ranks' "
+          f"process starts; (c) and (g)'s card ranks inside them, their CPU "
+          f"ranks {'alongside' if dev == 'cuda' else 'before'})")
+    enc, cross_p, cross_d = (counts["f"][f"flash_attention.{site}"]
+                             for site in ("encoder", "cross_prefill",
+                                          "cross_decode"))
+    return {"flash_attention.mesh": counts["a"]["flash_attention"],
+            "paged_attention.mesh": counts["a"]["paged_attention.page"],
+            "flash_attention.mla.mesh": counts["b"]["flash_attention"],
+            "paged_attention.mla.mesh": counts["b"]["paged_attention.page"],
+            "ssd_scan.mesh": counts["e"]["ssd_scan"],
+            "flash_attention.hybrid.mesh": counts["e"]["flash_attention"],
+            "paged_attention.hybrid.mesh":
+                counts["e"]["paged_attention.page"],
+            "flash_attention.encoder.mesh": enc,
+            "flash_attention.decoder.mesh":
+                counts["f"]["flash_attention"] - enc - cross_p - cross_d,
+            "flash_attention.cross_prefill.mesh": cross_p,
+            "flash_attention.cross_decode.mesh": cross_d,
+            "paged_attention.encdec.mesh":
+                counts["f"]["paged_attention.page"]}
 
 
-def paged_mesh_entry(results, name, cfg, mesh, lengths, steps, what):
+def paged_mesh_entry(results, name, cfg, mesh, lengths, steps, what,
+                     layers=None):
     """The paged kernel at a mesh rank's shard: rank 0's rows and table
     column of ``lengths``' last decode step over ``mesh``, every query
-    head, against its plain version, timed cycling over the model's layers'
-    pools (CUDA-graph replay) beside its bound."""
+    head, against its plain version, timed cycling over the model's
+    ``layers`` (default its layers) pools (CUDA-graph replay) beside its
+    bound."""
     import torch
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
@@ -4916,7 +5108,7 @@ def paged_mesh_entry(results, name, cfg, mesh, lengths, steps, what):
         H, n_kv = cfg.n_heads, cfg.n_kv_heads
         dk = dv = cfg.resolved_head_dim
         scale = dk ** -0.5
-    L, NP = cfg.n_layers, tabs["pages"]
+    L, NP = layers or cfg.n_layers, tabs["pages"]
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
@@ -4960,19 +5152,84 @@ def paged_mesh_entry(results, name, cfg, mesh, lengths, steps, what):
     torch.cuda.empty_cache()
 
 
+def ssd_mesh_entry(results, name, cfg, mesh, lengths, what):
+    """The SSD scan at a mesh rank's heads: (e)'s prefill call of one
+    Mamba-2 layer on model rank 0 (B = every row, T the padded prompt, nh
+    / tp heads, its one B / C group), bf16 inputs drawn as phase 3's,
+    against its plain version, timed beside its bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.mamba2 import dims
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    _d_in, nh_all, _cd = dims(cfg)
+    B, T = len(lengths) // mesh[0], serve_prompts(lengths, 2).shape[1]
+    nh, hd = nh_all // mesh[1], cfg.ssm.head_dim
+    N, G, Q = cfg.ssm.d_state, cfg.ssm.n_groups, min(cfg.ssm.chunk, T)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(B, T, nh, hd).to(torch.bfloat16)
+    dt = torch.rand((B, T, nh), generator=gen, device=dev) * 0.19 + 0.01
+    A = -torch.linspace(1.0, 16.0, nh_all, device=dev)[:nh]
+    Bm, Cm = (randn(B, T, G, N).to(torch.bfloat16) for _ in range(2))
+    args = (x, dt, A, Bm, Cm)
+    y, h = ops.ssd_scan(*args, chunk=Q)
+    y_r, h_r = ref.ssd_scan_ref(*args, chunk=Q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_r, **SSD_TOL)
+    torch.testing.assert_close(h, h_r, **SSD_TOL)
+    require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+            f"{name}: non-finite")
+    shape = (B, T, nh, hd, N, Q, False, G)
+    b_ms, b_by = ssd_bound(*shape)
+    results[name] = dict(
+        max_abs_err=max(float((y - y_r).abs().max()),
+                        float((h - h_r).abs().max())),
+        ms=graph_ms(lambda: ops.ssd_scan(*args, chunk=Q)),
+        plain_ms=eager_ms(lambda: ref.ssd_scan_ref(*args, chunk=Q),
+                          iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="B={} T={} nh={} hd={} N={} Q={} h0={} G={} bf16".format(
+            *shape))
+    r = results[name]
+    print(f"[kernel] {name} ({what}): max_abs_err {r['max_abs_err']:.3g} | "
+          f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.5f} ({b_by}) library_ms none (no single PyTorch "
+          f"call computes an SSD scan) | {r['shape']}")
+    del x, Bm, Cm, y, y_r
+    torch.cuda.empty_cache()
+
+
 def phase_mesh_kernels(results):
     """Phase 3 at phase 10's shard shapes: paged attention over rank 0's
     stripe of (a) (``paged_attention.mesh``: qwen2.5-3b's 16 heads over 2
-    KV heads, every head on each page shard) and of (b)
+    KV heads, every head on each page shard), of (b)
     (``paged_attention.mla.mesh``: a data rank's 2 rows over the latent
-    pools), and flash attention at (a)'s prefill on a model rank's 8 query
-    heads over its 1 KV head (``flash_attention.mesh``) and at (b)'s on a
-    data rank's 2 rows and a model rank's 8 heads, dh 192 / dh_v 128
-    (``flash_attention.mla.mesh``)."""
+    pools), of (e) (``paged_attention.hybrid.mesh``: zamba2's shared
+    block, 32 heads over 32 KV heads, over its 6 invocations' pools) and
+    of (f) (``paged_attention.encdec.mesh``: seamless's decoder, 16 heads
+    over 16 KV heads, over its 24 layers' pools); flash attention at (a)'s
+    prefill on a model rank's 8 query heads over its 1 KV head
+    (``flash_attention.mesh``), at (b)'s on a data rank's 2 rows and a
+    model rank's 8 heads, dh 192 / dh_v 128 (``flash_attention.mla.mesh``),
+    at (e)'s shared block on a model rank's 16 of 32 heads
+    (``flash_attention.hybrid.mesh``), and at (f)'s four sites on a model
+    rank's 8 of 16 heads: the encoder over 4096 frames, non-causal
+    (``flash_attention.encoder.mesh``), the decoder's causal
+    self-attention (``flash_attention.decoder.mesh``), the cross-attention
+    at prefill (``flash_attention.cross_prefill.mesh``) and at decode,
+    one query a row cycling the 24 layers' cross K/V
+    (``flash_attention.cross_decode.mesh``); and the SSD scan at (e)'s
+    prefill on a model rank's 32 of 64 heads (``ssd_scan.mesh``).  Every
+    entry holds the kernel against its plain version."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import n_invocations
     qwen = get_config(ARCH)
     ds = get_config(MLA_ARCH)
+    zamba = get_config(HYBRID_ARCH)
+    seamless = get_config(ENCDEC_ARCH)
     paged_mesh_entry(results, "paged_attention.mesh", qwen, SERVE_MESH,
                      SERVE_LENGTHS, SERVE_STEPS,
                      f"qwen2.5-3b rank 0 of {SERVE_MESH}")
@@ -5003,6 +5260,40 @@ def phase_mesh_kernels(results):
                      f"{MOE_SERVE_MESH}: a data rank's rows, a model rank's "
                      f"heads")
     torch.cuda.empty_cache()
+    tp = SERVE_MESH[1]
+    ssd_mesh_entry(results, "ssd_scan.mesh", zamba, SERVE_MESH,
+                   MOE_SERVE_LENGTHS,
+                   f"zamba2-1.2b's prefill on a model rank of {SERVE_MESH}")
+    paged_mesh_entry(results, "paged_attention.hybrid.mesh", zamba,
+                     SERVE_MESH, MOE_SERVE_LENGTHS, SERVE_STEPS,
+                     f"zamba2-1.2b's shared block, rank 0 of {SERVE_MESH}",
+                     layers=n_invocations(zamba))
+    B, T = len(MOE_SERVE_LENGTHS), serve_prompts(MOE_SERVE_LENGTHS, 2).shape[1]
+    flash_entry(results, "flash_attention.hybrid.mesh", B, T, T,
+                zamba.n_heads // tp, zamba.n_kv_heads // tp,
+                zamba.resolved_head_dim, True, randn,
+                what=f"zamba2-1.2b's shared block at prefill on a model rank "
+                     f"of {SERVE_MESH}")
+    torch.cuda.empty_cache()
+    dec = seamless.encdec.dec_layers
+    paged_mesh_entry(results, "paged_attention.encdec.mesh", seamless,
+                     SERVE_MESH, MOE_SERVE_LENGTHS, SERVE_STEPS,
+                     f"seamless-m4t's decoder, rank 0 of {SERVE_MESH}",
+                     layers=dec)
+    S = seamless.encdec.source_len
+    H, n_kv = seamless.n_heads // tp, seamless.n_kv_heads // tp
+    dh = seamless.resolved_head_dim
+    on_rank = f"on a model rank of {SERVE_MESH}"
+    for name, Tq, Tk, causal, n_sets, what in (
+            ("encoder", S, S, False, 1, "encoder"),
+            ("decoder", T, T, True, 1, "decoder self-attention at prefill"),
+            ("cross_prefill", T, S, False, 1, "cross-attention at prefill"),
+            ("cross_decode", 1, S, False, dec,
+             "cross-attention at decode")):
+        flash_entry(results, f"flash_attention.{name}.mesh", B, Tq, Tk, H,
+                    n_kv, dh, causal, randn, n_sets=n_sets,
+                    what=f"seamless-m4t's {what} {on_rank}")
+        torch.cuda.empty_cache()
 
 
 def entry_kernel(name):

@@ -24,9 +24,8 @@ one JSON line (also appended to ``--out``) with
     counted from the port's layout (:func:`collective_bytes`; a ring moves
     (n - 1) / n of a gathered or scattered tensor and 2 (n - 1) / n of an
     all-reduced one over n ranks); null where the port does not count
-    them (the families without a serving mesh path, ROADMAP 6d-ii, the
-    training of hybrid, ssm, encdec and vlm, and ``grad_compress``'s int8
-    ring);
+    them (the training of hybrid, ssm, encdec and vlm, and
+    ``grad_compress``'s int8 ring);
   * the three roofline terms at the H100 SXM5 datasheet figures:
     989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 450 GB/s per direction of
     NVLink (fourth generation), and the largest of them.
@@ -187,10 +186,23 @@ def _stacks(cfg: ModelConfig):
     return out + [(cfg, cfg.n_layers - fd)]
 
 
+def _attention_stacks(cfg: ModelConfig):
+    """(layer config, layers) of the paged attention blocks a serving step
+    runs: the decoder's (:func:`_stacks`), the hybrid's shared-block
+    invocations, encdec's decoder layers, none for ssm."""
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [(cfg, cfg.n_layers // cfg.hybrid.period)]
+    if cfg.family == "encdec":
+        return [(cfg, cfg.encdec.dec_layers)]
+    return _stacks(cfg)
+
+
 def _serving_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, plan,
                          add: Callable) -> None:
     """The serving paths' collectives (``models/{lm,transformer,mla,moe,
-    page_ops}.py`` over a serving ``ParallelCtx``)."""
+    mamba2,hybrid,encdec,page_ops}.py`` over a serving ``ParallelCtx``)."""
     from repro_torch.models.moe import ep2d_geometry
     from repro_torch.models.transformer import kv_sharded, tp_geometry
     tp = mesh.shape.get("model", 1)
@@ -199,14 +211,28 @@ def _serving_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, plan,
     B = shape.global_batch
     B_loc = B // dp if plan.batch_sharded else B
     decode = shape.kind == "decode"
-    rows = B_loc * (1 if decode else shape.seq_len)
+    tokens = B_loc * (1 if decode else shape.seq_len)
+    # vlm's prefill runs the patch embeddings in front of the tokens.
+    rows = tokens + (B_loc * cfg.frontend_tokens
+                     if cfg.family == "vlm" and not decode else 0)
     d, V, H = cfg.d_model, cfg.vocab_size, cfg.n_heads
     E = DTYPE_BYTES[cfg.dtype]
     act = rows * d * E
     if tp > 1 and V % tp == 0:
-        add("all_reduce", act, tp)                       # embedding
+        add("all_reduce", tokens * d * E, tp)            # embedding
         add("all_gather", B_loc * V * E, tp)          # logits
-    for lcfg, n in _stacks(cfg):
+    if cfg.family in ("ssm", "hybrid") and tp > 1:
+        # Each Mamba-2 layer: the gated norm's f32 sum of squares, w_out.
+        add("all_reduce", rows * F32, tp, cfg.n_layers)
+        add("all_reduce", act, tp, cfg.n_layers)
+    geo = tp_geometry(cfg, tp) if tp > 1 and H else None
+    if cfg.family == "encdec" and geo is not None:
+        if not decode:        # the encoder: attention and SwiGLU reduces
+            src = B_loc * cfg.encdec.source_len * d * E
+            add("all_reduce", src, tp, cfg.encdec.enc_layers * (
+                2 if cfg.d_ff % tp == 0 else 1))
+        add("all_reduce", act, tp, cfg.encdec.dec_layers)   # cross-attn
+    for lcfg, n in _attention_stacks(cfg):
         if lcfg.mla is not None:
             m = lcfg.mla
             split = tp > 1 and H % tp == 0
@@ -345,11 +371,9 @@ def collective_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, cell
     read), by kind, or None where the port does not count them (module
     docstring).  Activations and weights move in ``cfg.dtype``, gradients,
     moments and the attention combine's partials in f32."""
-    if cfg.family not in ("dense", "moe"):
-        return None
     add = _Sent()
     if cell["kind"] == "train":
-        if cell["hp"].grad_compress:
+        if cfg.family not in ("dense", "moe") or cell["hp"].grad_compress:
             return None
         _train_collectives(cfg, shape, mesh, cell["hp"], add)
     else:

@@ -16,8 +16,9 @@ from names to anything with a ``shape`` (tensors, meta tensors).
 :func:`serving_shard` cuts one rank's serving shard from whole parameters
 (``serving_param_specs`` applied through ``train/layout.py``'s
 :class:`~repro_torch.train.layout.Placement`, the 2-D expert layout where
-``models/moe.py::ep2d_geometry`` applies) and :func:`serving_lm` builds
-the LM that holds it; :func:`shard_shape` is a spec's per-rank shape.
+``models/moe.py::ep2d_geometry`` applies, and the Mamba-2 leaves cut by
+heads, :class:`HeadCut`) and :func:`serving_lm` builds the LM that holds
+it; :func:`shard_shape` is a spec's per-rank shape.
 """
 
 from __future__ import annotations
@@ -203,15 +204,62 @@ def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+class HeadCut:
+    """A Mamba-2 leaf's serving placement: the ranges of one dim
+    (``models/mamba2.py::head_ranges``) holding model rank ``rank``'s
+    heads.  The reference's rule cuts these leaves contiguously, which
+    would give one rank all of ``w_in``'s ``z`` columns and part of its
+    ``x``; a spec cannot say this cut, so :meth:`take` and
+    :attr:`shard_shape` do."""
+
+    def __init__(self, shape, dim: int, ranges):
+        self.shape = tuple(shape)
+        self.dim = dim % len(self.shape)
+        self.ranges = tuple(ranges)
+
+    @property
+    def shard_shape(self) -> Tuple[int, ...]:
+        out = list(self.shape)
+        out[self.dim] = sum(hi - lo for lo, hi in self.ranges)
+        return tuple(out)
+
+    def take(self, full):
+        """This rank's shard of ``full`` (extra leading dims allowed: the
+        ranges index ``full``'s dim counted from the end)."""
+        dim = self.dim - len(self.shape)
+        parts = [full.narrow(dim, lo, hi - lo) for lo, hi in self.ranges]
+        if len(parts) == 1:
+            return parts[0]
+        import torch
+        return torch.cat(parts, dim=dim)
+
+
+def head_cut(cfg, name: str, shape, mesh, rank: int) -> Optional[HeadCut]:
+    """The :class:`HeadCut` of the Mamba-2 leaf ``name`` on ``rank`` of
+    ``mesh``, or None (not a Mamba-2 leaf, or a ``model`` axis of 1).
+    Raises where the heads cannot split over ``model``
+    (``models/mamba2.py::heads_split``)."""
+    from repro_torch.models.mamba2 import head_ranges, heads_split
+    leaf, keys = _leaf_name(name)
+    tp = mesh.shape.get("model", 1)
+    if cfg.ssm is None or not ({"mamba", "tail"} & set(keys)) \
+            or not heads_split(cfg, tp):
+        return None
+    cut = head_ranges(cfg, leaf, tp, mesh.coords(rank).get("model", 0))
+    return None if cut is None else HeadCut(shape, *cut)
+
+
 def serving_placements(cfg, params: Mapping, mesh, rank: int):
     """{name: Placement} of rank ``rank``'s serving shard of ``params``
-    (TP rules, the 2-D EP layout for expert tensors when it applies)."""
+    (TP rules, the 2-D EP layout for expert tensors when it applies; a
+    :class:`HeadCut` for the Mamba-2 leaves)."""
     from repro_torch.models.moe import ep2d_geometry
     from repro_torch.train.layout import Placement
     batch = tuple(a for a in mesh.axis_names if a in SERVING_BATCH_AXES)
     specs = serving_param_specs(params, mesh,
                                 ep2d_geometry(cfg, mesh) is not None)
-    return {n: Placement(tuple(p.shape), specs[n], mesh, batch, rank)
+    return {n: head_cut(cfg, n, tuple(p.shape), mesh, rank)
+            or Placement(tuple(p.shape), specs[n], mesh, batch, rank)
             for n, p in params.items()}
 
 

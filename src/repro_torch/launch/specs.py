@@ -18,7 +18,11 @@ tensors at the 2-D expert layout where ``models/moe.py::ep2d_geometry``
 applies; training's are the port's fp32 masters at its ``state_specs``
 (megatron / auto keep them at the model shard, ZeRO-1 shards the moments;
 fsdp shards both), with its error-feedback buffers under ``grad_compress``
-(one per leaf and rank, at the model shard).
+(one per leaf and rank, at the model shard).  A serving Mamba-2 leaf is cut
+by heads (``launch/sharding.py::HeadCut``), which no spec says: its
+:class:`Input` carries the rank's shape beside the reference's spec, and
+so does the rank's ``conv`` decode state; its ``ssm`` state splits its
+heads over ``model``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.configs.base import (
 from repro_torch.launch.sharding import (
     SERVING_BATCH_AXES,
     Spec,
+    head_cut,
     serving_param_specs,
     shard_shape,
 )
@@ -49,13 +54,18 @@ GEO = PoolGeometry(page_tokens=64, frame_pages=16, headroom=1.25)
 
 @dataclasses.dataclass(frozen=True)
 class Input:
-    """One input of a cell: its global ``shape``, ``dtype`` and ``spec``."""
+    """One input of a cell: its global ``shape``, ``dtype`` and ``spec``;
+    ``rank_shape`` a rank's shape where the port's cut is not the spec's
+    (the Mamba-2 head cut), else None."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
     spec: Spec = ()
+    rank_shape: Optional[Tuple[int, ...]] = None
 
     def shard_shape(self, mesh) -> Tuple[int, ...]:
+        if self.rank_shape is not None:
+            return self.rank_shape
         return shard_shape(self.shape, self.spec, mesh)
 
     def rank_bytes(self, mesh) -> int:
@@ -142,19 +152,30 @@ def _ctx_inputs(B: int, plan: ServePlan, bs) -> Dict[str, Input]:
 
 def _state_inputs(lm, mesh, B: int, bs) -> Dict[str, Input]:
     """Decode state (the reference's ``_state_shardings``): SSM states over
-    the batch; encdec's cross K/V over the batch and, where they divide,
+    the batch, and over a ``model`` axis > 1 (the Mamba-2 blocks on a
+    rank's heads: ``models/mamba2.py::heads_split``) ``ssm``'s heads over
+    ``model`` and
+    ``conv`` at the rank's channels (the reference keeps both whole over
+    ``model``); encdec's cross K/V over the batch and, where they divide,
     the KV heads over ``model``."""
     cfg = lm.cfg
     src = cfg.encdec.source_len if cfg.encdec else 0
+    tp = mesh.shape.get("model", 1)
     out = {}
     for k, (shape, dtype) in lm.init_state_shapes(B, src_len=src).items():
+        rank_shape = None
         if k in ("ssm", "conv"):
             spec = (None, bs, *([None] * (len(shape) - 2)))
+            cut = head_cut(cfg, "decoder.mamba.conv_b", shape[-1:], mesh, 0)
+            if cut is not None and k == "ssm":
+                spec = (None, bs, "model", None, None)
+            elif cut is not None:
+                rank_shape = (*shard_shape(shape[:-1], spec, mesh),
+                              *cut.shard_shape)
         else:
-            kv = ("model" if shape[3] % mesh.shape.get("model", 1) == 0
-                  else None)
+            kv = "model" if shape[3] % tp == 0 else None
             spec = (None, bs, None, kv, None)
-        out[f"state.{k}"] = Input(tuple(shape), dtype, spec)
+        out[f"state.{k}"] = Input(tuple(shape), dtype, spec, rank_shape)
     return out
 
 
@@ -208,9 +229,12 @@ def build_cell(arch: str, shape_name: str, mesh,
     params = dict(lm.named_parameters())
     specs = serving_param_specs(params, mesh,
                                 ep2d_geometry(cfg, mesh) is not None)
-    inputs = {f"params.{n}": Input(
-        tuple(p.shape), torch.bfloat16 if p.dtype.is_floating_point
-        else p.dtype, specs[n]) for n, p in params.items()}
+    inputs = {}
+    for n, p in params.items():
+        cut = head_cut(cfg, n, tuple(p.shape), mesh, 0)
+        inputs[f"params.{n}"] = Input(
+            tuple(p.shape), torch.bfloat16 if p.dtype.is_floating_point
+            else p.dtype, specs[n], cut and cut.shard_shape)
     dp = tuple(a for a in mesh.axis_names if a in SERVING_BATCH_AXES)
     bs = _axes(dp)
     plan = serve_plan(shape, mesh)

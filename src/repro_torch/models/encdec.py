@@ -32,26 +32,42 @@ differentiated wrapper, which counts them under ``flash_attention.train``
 and ``flash_attention_bwd``, the encoder's and the cross-attention's
 (site ``cross_prefill``: the decoder's rows over the whole memory) also
 by site.
+
+Over a serving mesh (``par``; the LM holds the rank's serving shard) the
+encoder runs the explicit TP attention (flash non-causal at H / tp heads)
+and SwiGLU; the cross K/V are the rank's KV heads where n_kv divides by
+tp (the weights' rule), else whole, and they are the rank's ``cross_k`` /
+``cross_v`` state; the cross-attention runs at the rank's query heads
+over its KV block, then the row-parallel ``wo`` reduced over ``model``;
+the decoder's self-attention runs as the dense stack's over a mesh
+(striped pools, the cross-rank combine at decode).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import ckpt, empty_param, layer_remat
+from repro_torch.models.common import (
+    ParallelCtx,
+    ckpt,
+    empty_param,
+    layer_remat,
+)
 from repro_torch.models.layers import head_proj, out_proj, rms_norm
 from repro_torch.models.page_ops import PageCtx, prefill_write_op
 from repro_torch.models.transformer import (
     AttnParams,
     DecoderParams,
     attn_block_decode,
-    attn_block_prefill,
     attn_block_train,
     ffn_block,
+    kv_sharded,
+    serving_attn_prefill,
+    serving_geometry,
 )
 
 
@@ -86,9 +102,9 @@ def encoder_apply(cfg: ModelConfig, layers, enc_norm, src, *,
     :meth:`DecoderParams.layer` of each layer; training:
     :meth:`DecoderParams.train_layers`), each layer recomputed in the
     backward unless ``remat`` is False or "none".  The flash calls count
-    under the ``encoder`` site.  ``par``: a training forward's ranks (the
-    attention and SwiGLU run as explicit blocks under megatron over a
-    ``model`` axis, as the reference's)."""
+    under the ``encoder`` site.  ``par``: a training forward's or a
+    serving mesh's ranks (the attention and SwiGLU run as explicit blocks
+    under megatron over a ``model`` axis, as the reference's)."""
     B, S, _ = src.shape
     positions = torch.arange(S, device=src.device)[None].expand(B, S)
 
@@ -113,36 +129,62 @@ def cross_kv(cp, memory):
     return head_proj(memory, cp["wk"]), head_proj(memory, cp["wv"])
 
 
-def cross_attend(cp, h, ck, cv, site="cross_prefill"):
-    """h [B, T, d] queries against one layer's cross K/V, non-causal."""
-    return out_proj(flash_attention(head_proj(h, cp["wq"]), ck, cv,
-                                    causal=False, site=site), cp["wo"])
+def _reduce_cross(par: ParallelCtx, y):
+    """The cross-attention's partial outputs summed over ``model``
+    (chip_smoke.py's ``cross`` fault replaces it by the rank's own)."""
+    return par.reduce_from_model(y)
 
 
-def _cross_ffn(cfg: ModelConfig, lp, x, ck, cv, site, par=None):
+def cross_attend(cp, h, ck, cv, site="cross_prefill", *,
+                 cfg: Optional[ModelConfig] = None,
+                 par: Optional[ParallelCtx] = None):
+    """h [B, T, d] queries against one layer's cross K/V, non-causal.
+    ``par``: a serving mesh, ``cp`` the rank's query heads (``par``'s
+    geometry of ``cfg``), which attend to the rank's KV block (``ck`` /
+    ``cv`` the rank's KV heads, or whole ones sliced) before the
+    row-parallel ``wo`` is reduced over ``model``.  None: whole weights
+    (one device; training, which gathers the cross weights as the
+    reference's GSPMD)."""
+    q = head_proj(h, cp["wq"])
+    geo = serving_geometry(cfg, par) if par is not None else None
+    if geo is not None and not kv_sharded(cfg, geo):
+        lo, nkv = geo[3][par.model_rank], geo[2]
+        ck = ck[:, :, lo:lo + nkv].contiguous()
+        cv = cv[:, :, lo:lo + nkv].contiguous()
+    y = out_proj(flash_attention(q, ck, cv, causal=False, site=site),
+                 cp["wo"])
+    return y if geo is None else _reduce_cross(par, y)
+
+
+def _cross_ffn(cfg: ModelConfig, lp, x, ck, cv, site, par=None,
+               cross_par=None):
     """The layer's cross-attention and FFN, each with its residual (the
-    cross-attention runs whole on every model rank, as the reference's
-    GSPMD one; the FFN under ``par`` as :func:`ffn_block`'s)."""
-    x = x + cross_attend(lp["cross"], rms_norm(x, lp["ln_cross"],
-                                               cfg.norm_eps), ck, cv, site)
+    cross-attention under ``cross_par`` as :func:`cross_attend`'s; the FFN
+    under ``par`` as :func:`ffn_block`'s)."""
+    x = x + cross_attend(lp["cross"],
+                         rms_norm(x, lp["ln_cross"], cfg.norm_eps), ck, cv,
+                         site, cfg=cfg, par=cross_par)
     return x + ffn_block(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
                          par)
 
 
 def decoder_stack_prefill(cfg: ModelConfig, params: CrossDecoderParams, x,
-                          positions, memory, pools, ctx: PageCtx):
+                          positions, memory, pools, ctx: PageCtx,
+                          par: Optional[ParallelCtx] = None):
     """Writes each layer's self-attention K/V into its pool slice in place.
-    Returns (x, pools, (cross_k, cross_v) [L, B, S, n_kv, dh])."""
+    Returns (x, pools, (cross_k, cross_v) [L, B, S, n_kv, dh]).  ``par``:
+    a serving mesh (module docstring; this rank's stripe of the pools, its
+    KV heads of the cross K/V)."""
     k_pools, v_pools = pools
     cks, cvs = [], []
     for l in range(params.n_layers):
         lp = params.layer(l)
-        a, k, v = attn_block_prefill(cfg, lp["attn"],
-                                     rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                     positions)
-        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx)
+        a, k, v = serving_attn_prefill(cfg, lp["attn"],
+                                       rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                       positions, par)
+        prefill_write_op(k, v, k_pools[l], v_pools[l], ctx, par=par)
         ck, cv = cross_kv(lp["cross"], memory)
-        x = _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill")
+        x = _cross_ffn(cfg, lp, x + a, ck, cv, "cross_prefill", par, par)
         cks.append(ck)
         cvs.append(cv)
     return x, pools, (torch.stack(cks), torch.stack(cvs))
@@ -172,9 +214,11 @@ def decoder_stack_train(cfg: ModelConfig, layers, x, positions, memory, *,
 
 
 def decoder_stack_decode(cfg: ModelConfig, params: CrossDecoderParams, x,
-                         pos, pools, ctx: PageCtx, cross):
+                         pos, pools, ctx: PageCtx, cross,
+                         par: Optional[ParallelCtx] = None):
     """x [B, 1, d]; ``cross`` = (cross_k, cross_v) [L, B, S, n_kv, dh].
-    Writes this token's K/V into the pools in place."""
+    Writes this token's K/V into the pools in place; ``par`` as
+    :func:`decoder_stack_prefill`'s."""
     k_pools, v_pools = pools
     cks, cvs = cross
     for l in range(params.n_layers):
@@ -182,6 +226,8 @@ def decoder_stack_decode(cfg: ModelConfig, params: CrossDecoderParams, x,
         # Staged pages arrive layer-stacked; each layer reads its slice.
         x = x + attn_block_decode(cfg, lp["attn"],
                                   rms_norm(x, lp["ln1"], cfg.norm_eps), pos,
-                                  k_pools[l], v_pools[l], ctx.stage_at(l))
-        x = _cross_ffn(cfg, lp, x, cks[l], cvs[l], "cross_decode")
+                                  k_pools[l], v_pools[l], ctx.stage_at(l),
+                                  par)
+        x = _cross_ffn(cfg, lp, x, cks[l], cvs[l], "cross_decode", par,
+                       par)
     return x, pools

@@ -17,17 +17,28 @@ hands each invocation its own slice of the layer-stacked stage.  The
 reference's hybrid decode hands every invocation the whole stack
 (``repro/models/hybrid.py:168-169``) and so fails once a fused step stages
 pages; the port slices per invocation, as its dense stack does per layer.
+
+Over a serving mesh (``par``) the Mamba-2 layers run on the rank's heads
+(:mod:`repro_torch.models.mamba2`) and the shared block through the dense
+mesh path: its attention and SwiGLU at the rank's heads and hidden shard,
+its K/V written into the rank's stripe of pool slice g at prefill, its
+decode attention over that stripe with the cross-rank combine.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import empty_param, train_weight, unbind_layers
+from repro_torch.models.common import (
+    ParallelCtx,
+    empty_param,
+    train_weight,
+    unbind_layers,
+)
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba2 import (
     MambaParams,
@@ -39,9 +50,9 @@ from repro_torch.models.transformer import (
     AttnParams,
     FFNParams,
     attn_block_decode,
-    attn_block_prefill,
     attn_block_train,
     ffn_block,
+    serving_attn_prefill,
 )
 
 
@@ -145,14 +156,16 @@ class HybridParams(nn.Module):
 
 
 def _shared_block_prefill(cfg: ModelConfig, sp, x, positions, pools,
-                          ctx: PageCtx, g: int):
-    """The shared block at invocation ``g``: its K/V go to pool slice g."""
+                          ctx: PageCtx, g: int,
+                          par: Optional[ParallelCtx] = None):
+    """The shared block at invocation ``g``: its K/V go to pool slice g
+    (over a mesh: this rank's stripe of it)."""
     h = rms_norm(x, sp["ln1"], cfg.norm_eps)
-    a, k, v = attn_block_prefill(cfg, sp["attn"], h, positions)
-    prefill_write_op(k, v, pools[0][g], pools[1][g], ctx)
+    a, k, v = serving_attn_prefill(cfg, sp["attn"], h, positions, par)
+    prefill_write_op(k, v, pools[0][g], pools[1][g], ctx, par=par)
     x = x + a
     return x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
-                                                  cfg.norm_eps))
+                                                  cfg.norm_eps), par)
 
 
 def _shared_block_train(cfg: ModelConfig, sp, x, positions, par=None):
@@ -183,16 +196,19 @@ def hybrid_stack_train(cfg: ModelConfig, tree, x, positions, par=None):
 
 
 def hybrid_stack_prefill(cfg: ModelConfig, params: HybridParams, x,
-                         positions, pools, ctx: PageCtx):
+                         positions, pools, ctx: PageCtx,
+                         par: Optional[ParallelCtx] = None):
     """Returns (x, pools, ssm_states [L,B,nh,hd,N], conv_states
-    [L,B,K-1,cd]); the pools are written in place."""
+    [L,B,K-1,cd]); the pools are written in place.  ``par``: a serving
+    mesh (module docstring)."""
     groups, tail = params.mamba_layers()
     sp = params.shared_tree()
     hs, convs = [], []
 
     def mamba(x, lp, ln):
         y, (h, conv) = mamba_block_train(
-            cfg, lp, rms_norm(x, ln, cfg.norm_eps), return_state=True)
+            cfg, lp, rms_norm(x, ln, cfg.norm_eps), return_state=True,
+            par=par)
         hs.append(h)
         convs.append(conv)
         return x + y
@@ -200,19 +216,21 @@ def hybrid_stack_prefill(cfg: ModelConfig, params: HybridParams, x,
     for g, group in enumerate(groups):
         for lp, ln in group:
             x = mamba(x, lp, ln)
-        x = _shared_block_prefill(cfg, sp, x, positions, pools, ctx, g)
+        x = _shared_block_prefill(cfg, sp, x, positions, pools, ctx, g, par)
     for lp, ln in tail:
         x = mamba(x, lp, ln)
     return x, pools, torch.stack(hs), torch.stack(convs)
 
 
 def hybrid_stack_decode(cfg: ModelConfig, params: HybridParams, x, pos,
-                        pools, ctx: PageCtx, ssm_state, conv_state):
+                        pools, ctx: PageCtx, ssm_state, conv_state,
+                        par: Optional[ParallelCtx] = None):
     """Decode: recurrent Mamba-2 updates plus paged shared-block attention.
 
     ssm_state [L, B, nh, hd, N]; conv_state [L, B, d_conv-1, conv_dim];
     pools (k [G, NP, ...], v [G, NP, ...]), written in place.  Returns
-    (x, pools, ssm_state', conv_state')."""
+    (x, pools, ssm_state', conv_state').  ``par``: a serving mesh (module
+    docstring; the states are the rank's heads and channels)."""
     groups, tail = params.mamba_layers()
     sp = params.shared_tree()
     k_pools, v_pools = pools
@@ -222,7 +240,7 @@ def hybrid_stack_decode(cfg: ModelConfig, params: HybridParams, x, pos,
         l = len(hs)
         y, h, conv = mamba_block_decode(
             cfg, lp, rms_norm(x, ln, cfg.norm_eps), ssm_state[l],
-            conv_state[l])
+            conv_state[l], par)
         hs.append(h)
         convs.append(conv)
         return x + y
@@ -233,9 +251,9 @@ def hybrid_stack_decode(cfg: ModelConfig, params: HybridParams, x, pos,
         h = rms_norm(x, sp["ln1"], cfg.norm_eps)
         # Staged pages arrive invocation-stacked; each reads its slice.
         x = x + attn_block_decode(cfg, sp["attn"], h, pos, k_pools[g],
-                                  v_pools[g], ctx.stage_at(g))
+                                  v_pools[g], ctx.stage_at(g), par)
         x = x + ffn_block(cfg, sp["mlp"], rms_norm(x, sp["ln2"],
-                                                   cfg.norm_eps))
+                                                   cfg.norm_eps), par)
     for lp, ln in tail:
         x = mamba(x, lp, ln)
     return x, pools, torch.stack(hs), torch.stack(convs)

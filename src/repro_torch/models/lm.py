@@ -29,14 +29,16 @@ decode state (``{"ssm", "conv"}`` for the recurrent families, ``{"cross_k",
 "cross_v"}`` for encdec, ``{}`` for the other transformer families).
 
 Both serve over a mesh of ranks when given a serving
-:class:`~repro_torch.models.common.ParallelCtx` (``serving_ctx``): the LM
-then holds this rank's serving shard of every weight
-(``launch/sharding.py::serving_lm``) and its stripe of the pools; every
-rank passes the global batch and context and computes its own rows (all of
-them when the batch is not split); the embedding and the logits are split
-over ``model`` by vocabulary (a masked lookup summed over ``model``; the
-logits gathered).  The dense and moe families only: hybrid, ssm, encdec
-and vlm over a mesh are ROADMAP item 6d-ii.
+:class:`~repro_torch.models.common.ParallelCtx` (``serving_ctx``), every
+family: the LM then holds this rank's serving shard of every weight
+(``launch/sharding.py::serving_lm``), its stripe of the pools and its
+decode state (its rows; the recurrent families' heads and conv channels,
+encdec's KV heads of the cross K/V where they divide); every rank passes
+the global batch (vlm's ``patch_embeds`` and encdec's ``src_embeds``
+included) and context and computes its own rows (all of them when the
+batch is not split); the embedding and the logits are split over
+``model`` by vocabulary (a masked lookup summed over ``model``; the
+logits gathered).  ``frontend_proj`` stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -219,16 +221,20 @@ class LM(nn.Module):
         families' ``ssm`` [L, B, nh, hd, N] (f32) and ``conv``
         [L, B, d_conv-1, conv_dim], encdec's ``cross_k`` / ``cross_v``
         [Ld, B, src_len, n_kv, dh] (``cfg.dtype``); empty for the other
-        families."""
+        families.  The heads, conv channels and KV heads are those of the
+        weights this LM holds: a serving rank's shard gives the rank's."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         if cfg.family == "encdec":
-            shape = (cfg.encdec.dec_layers, batch, src_len, cfg.n_kv_heads,
-                     cfg.resolved_head_dim)
+            shape = (cfg.encdec.dec_layers, batch, src_len,
+                     self.decoder.cross.wk.shape[-2], cfg.resolved_head_dim)
             return {"cross_k": (shape, dtype), "cross_v": (shape, dtype)}
         if cfg.family not in ("ssm", "hybrid"):
             return {}
-        s_shape, c_shape = m2.state_shapes(cfg, cfg.n_layers, batch)
+        mp = self.decoder.mamba
+        s_shape, c_shape = m2.state_shapes(cfg, cfg.n_layers, batch,
+                                           mp.A_log.shape[-1],
+                                           mp.conv_b.shape[-1])
         return {"ssm": (s_shape, torch.float32), "conv": (c_shape, dtype)}
 
     # ------------------------------------------------------------- heads
@@ -266,13 +272,12 @@ class LM(nn.Module):
     def _serving_par(self, par: Optional[ParallelCtx]
                      ) -> Optional[ParallelCtx]:
         """``par`` if it spans more than one rank (else None: the
-        one-device path), refusing the families without a mesh path."""
+        one-device path).  Raises where its ``model`` axis cannot split
+        the Mamba-2 blocks by heads (``mamba2.heads_split``)."""
         if not on_mesh(par):
             return None
-        if self.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{self.cfg.family} over a mesh of {par.ranks} ranks: "
-                f"ROADMAP item 6d-ii")
+        if self.cfg.ssm is not None:
+            m2.heads_split(self.cfg, par.tp)
         return par
 
     # ------------------------------------------------------------- train
@@ -384,14 +389,15 @@ class LM(nn.Module):
         written to the pools.  ``last_pos`` stays an index into the suffix.
 
         ``par``: a serving mesh (module docstring): ``batch``, ``ctx`` and
-        ``last_pos`` are global, ``pools`` this rank's, and the logits
-        those of this rank's rows.
+        ``last_pos`` are global, ``pools`` this rank's, and the logits and
+        the state those of this rank's rows.
         """
         par = self._serving_par(par)
         tokens = batch["tokens"]
+        rows = (lambda t: t) if par is None else par.rows
         if par is not None:
-            tokens, ctx = par.rows(tokens), ctx.rows(par)
-            last_pos = None if last_pos is None else par.rows(last_pos)
+            tokens, ctx = rows(tokens), ctx.rows(par)
+            last_pos = None if last_pos is None else rows(last_pos)
         B, T = tokens.shape
         if prefix_len:
             if prefix_kv is None:
@@ -406,8 +412,8 @@ class LM(nn.Module):
                     f"/ mla")
         x = self._embed(tokens, par)
         if self.cfg.family == "vlm":
-            x = torch.cat([self._frontend(batch["patch_embeds"], x), x],
-                          dim=1)
+            x = torch.cat([self._frontend(rows(batch["patch_embeds"]), x),
+                           x], dim=1)
         n_prefix, Tx = x.shape[1] - T, x.shape[1]
         positions = (prefix_len + torch.arange(Tx, device=x.device))[
             None].expand(B, Tx)
@@ -416,16 +422,16 @@ class LM(nn.Module):
             memory = ed.encoder_apply(
                 self.cfg, map(self.encoder.layer,
                               range(self.encoder.n_layers)), self.enc_norm,
-                self._frontend(batch["src_embeds"], x))
+                self._frontend(rows(batch["src_embeds"]), x), par=par)
             x, pools, (state["cross_k"], state["cross_v"]) = \
                 ed.decoder_stack_prefill(self.cfg, self.decoder, x,
-                                         positions, memory, pools, ctx)
+                                         positions, memory, pools, ctx, par)
         elif self.cfg.family == "ssm":
             x, state["ssm"], state["conv"] = m2.ssm_stack_prefill(
-                self.cfg, self.decoder, x)
+                self.cfg, self.decoder, x, par)
         elif self.cfg.family == "hybrid":
             x, pools, state["ssm"], state["conv"] = hy.hybrid_stack_prefill(
-                self.cfg, self.decoder, x, positions, pools, ctx)
+                self.cfg, self.decoder, x, positions, pools, ctx, par)
         else:
             x = self._stacks(decoder_stack_prefill, x, positions, pools, ctx,
                              par, prefix_kv=prefix_kv, tok_offset=prefix_len)
@@ -448,7 +454,9 @@ class LM(nn.Module):
 
         Writes this step's K/V into the pools in place.  Returns
         (logits [B, V], pools, state').  ``par``: a serving mesh, as
-        :meth:`prefill`'s (the logits of this rank's rows).
+        :meth:`prefill`'s: ``tokens``, ``pos`` and ``ctx`` global,
+        ``pools`` and ``state`` this rank's (as its prefill returned
+        them), the logits those of its rows.
         """
         par = self._serving_par(par)
         if par is not None:
@@ -458,14 +466,14 @@ class LM(nn.Module):
         if self.cfg.family == "encdec":
             x, pools = ed.decoder_stack_decode(
                 self.cfg, self.decoder, x, pos, pools, ctx,
-                (state["cross_k"], state["cross_v"]))
+                (state["cross_k"], state["cross_v"]), par)
         elif self.cfg.family == "ssm":
             x, state["ssm"], state["conv"] = m2.ssm_stack_decode(
-                self.cfg, self.decoder, x, state["ssm"], state["conv"])
+                self.cfg, self.decoder, x, state["ssm"], state["conv"], par)
         elif self.cfg.family == "hybrid":
             x, pools, state["ssm"], state["conv"] = hy.hybrid_stack_decode(
                 self.cfg, self.decoder, x, pos, pools, ctx, state["ssm"],
-                state["conv"])
+                state["conv"], par)
         else:
             x = self._stacks(decoder_stack_decode, x, pos, pools, ctx, par)
         return self._logits(x, par)[:, 0], pools, state

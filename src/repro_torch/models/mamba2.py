@@ -9,11 +9,24 @@ version on CPU tensors).  Decode is the O(1) recurrent update in plain
 torch ops, as the reference's is plain ``jnp``.  Weights stay stacked over
 leading layer axes in the reference's shapes (``w_in [L, d, proj]``, ...);
 the reference's ``lax.scan`` over layers is a Python loop.
+
+Serving over a mesh (a serving :class:`~repro_torch.models.common.
+ParallelCtx` whose ``model`` axis :func:`heads_split` cuts) runs each block
+on the rank's heads: the LM holds the leaves' head cut
+(:func:`head_ranges`: the rank's ``z``, ``x`` and ``dt`` columns of
+``w_in``, ``B`` and ``C`` whole when there is one group, its channels of
+``conv_w`` / ``conv_b``, its heads' ``A_log`` / ``D`` / ``dt_bias``, its
+slice of ``norm_w`` and its rows of ``w_out``), the SSD scan runs at
+nh / tp heads, the gated RMSNorm sums its squares over ``model`` before it
+divides (it normalises the whole d_inner), and the row-parallel ``w_out``
+ends in one reduce over ``model``.  A rank's decode state is its heads'
+``ssm`` and its channels' ``conv``.  The reference's GSPMD keeps these
+leaves cut contiguously, which no head-local computation can use.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,9 +35,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.common import (
+    ParallelCtx,
     ckpt,
     dense_init_,
     empty_param,
+    explicit,
     layer_remat,
     unbind_layers,
 )
@@ -40,12 +55,63 @@ def dims(cfg: ModelConfig):
     return d_in, nh, conv_dim
 
 
-def state_shapes(cfg: ModelConfig, L: int, B: int):
-    """(ssm_state, conv_state) shapes for a stacked L-layer SSM."""
+def state_shapes(cfg: ModelConfig, L: int, B: int, nh: int, conv_dim: int):
+    """(ssm_state, conv_state) shapes for a stacked L-layer SSM at ``nh``
+    heads and ``conv_dim`` conv channels (the whole block's, or a serving
+    rank's)."""
     s = cfg.ssm
-    _d_in, nh, conv_dim = dims(cfg)
     return ((L, B, nh, s.head_dim, s.d_state),
             (L, B, s.d_conv - 1, conv_dim))
+
+
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a serving mesh's ``model`` axis of ``tp`` runs the Mamba-2
+    blocks on each rank's heads: whenever tp > 1.  Raises ValueError where
+    a rank has no share to run: the heads do not divide by tp, or the B / C
+    groups are neither one (whole on every rank) nor a multiple of tp (the
+    rank's groups, which its heads read)."""
+    if tp <= 1:
+        return False
+    _d_in, nh, _cd = dims(cfg)
+    G = cfg.ssm.n_groups
+    if nh % tp or (G > 1 and G % tp):
+        raise ValueError(f"a model axis of {tp} cannot split the Mamba-2 "
+                         f"blocks' {nh} heads in {G} groups by heads")
+    return True
+
+
+def head_ranges(cfg: ModelConfig, leaf: str, tp: int, rank: int
+                ) -> Optional[Tuple[int, List[Tuple[int, int]]]]:
+    """The serving cut of the Mamba-2 leaf ``leaf`` on model rank ``rank``
+    of ``tp`` (:func:`heads_split` holds): (dim, [(lo, hi), ...]), the
+    ranges of ``dim`` whose concatenation is the rank's shard, or None for
+    a leaf of another name.  ``w_in``'s projection is ``z | x | B | C |
+    dt`` and the conv channels ``x | B | C``."""
+    s = cfg.ssm
+    d_in, nh, _cd = dims(cfg)
+    G, N = s.n_groups, s.d_state
+    gn = G * N
+    dl, hl = d_in // tp, nh // tp
+    g0, gl = (rank * (G // tp), G // tp) if G > 1 else (0, 1)
+    chans = (rank * dl, (rank + 1) * dl)
+    heads = (rank * hl, (rank + 1) * hl)
+
+    def at(r, by):
+        return r[0] + by, r[1] + by
+    groups = (g0 * N, (g0 + gl) * N)
+    xbc = [chans, at(groups, d_in), at(groups, d_in + gn)]
+    cuts = {"w_in": (-1, [chans, *(at(r, d_in) for r in xbc),
+                          at(heads, 2 * d_in + 2 * gn)]),
+            "conv_w": (-1, xbc), "conv_b": (-1, xbc),
+            "A_log": (-1, [heads]), "D": (-1, [heads]),
+            "dt_bias": (-1, [heads]), "norm_w": (-1, [chans]),
+            "w_out": (-2, [chans])}
+    return cuts.get(leaf)
+
+
+def mesh_heads(cfg: ModelConfig, par: Optional[ParallelCtx]) -> bool:
+    """Whether the blocks run on this rank's heads under ``par``."""
+    return explicit(par) and heads_split(cfg, par.tp)
 
 
 class MambaParams(nn.Module):
@@ -122,14 +188,45 @@ def _causal_conv(u, w, b):
     return out + b
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt):
-    s = cfg.ssm
-    d_in, _nh, _ = dims(cfg)
-    gn = s.n_groups * s.d_state
+def _local_dims(cfg: ModelConfig, p):
+    """(d_inner, heads, conv channels, groups) of the block whose weights
+    ``p`` holds: the whole block's, or a serving rank's head cut."""
+    d_in, nh, cd = (p["norm_w"].shape[-1], p["A_log"].shape[-1],
+                    p["conv_b"].shape[-1])
+    return d_in, nh, cd, (cd - d_in) // (2 * cfg.ssm.d_state)
+
+
+def _split_proj(d_in: int, gn: int, zxbcdt):
     z = zxbcdt[..., :d_in]
     xBC = zxbcdt[..., d_in: 2 * d_in + 2 * gn]
     dt = zxbcdt[..., 2 * d_in + 2 * gn:]
     return z, xBC, dt
+
+
+def _sum_sq_over_model(par: ParallelCtx, ss):
+    """The gated norm's sum of squares over every model rank's heads
+    (chip_smoke.py's ``ssm_norm`` fault replaces it by the rank's own)."""
+    return par.reduce_from_model(ss)
+
+
+def _gated_norm(cfg: ModelConfig, p, y, z, par):
+    """``rms_norm(y * silu(z), norm_w)`` over the whole d_inner; on a
+    rank's heads the f32 sum of squares [..., 1] is summed over ``model``
+    before it divides."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    if not mesh_heads(cfg, par):
+        return rms_norm(g, p["norm_w"], cfg.norm_eps)
+    g32 = g.float()
+    ss = _sum_sq_over_model(par, g32.square().sum(dim=-1, keepdim=True))
+    var = ss / (g.shape[-1] * par.tp)
+    return (g32 * torch.rsqrt(var + cfg.norm_eps)).to(g.dtype) * p["norm_w"]
+
+
+def _out(cfg: ModelConfig, p, y, par):
+    """The row-parallel ``w_out``, reduced over ``model`` on a rank's
+    heads."""
+    out = y @ p["w_out"]
+    return par.reduce_from_model(out) if mesh_heads(cfg, par) else out
 
 
 def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int, h0=None):
@@ -143,14 +240,17 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int, h0=None):
 
 
 def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
-                      return_state: bool = False):
+                      return_state: bool = False,
+                      par: Optional[ParallelCtx] = None):
     """x [B,T,d] -> y [B,T,d] (+ (h_final, conv_tail) with
-    ``return_state``: the prefill path)."""
+    ``return_state``: the prefill path).  ``par``: a serving mesh, ``p``
+    this rank's head cut (module docstring; h_final and conv_tail are the
+    rank's heads and channels)."""
     s = cfg.ssm
-    d_in, nh, conv_dim = dims(cfg)
+    d_in, nh, conv_dim, G = _local_dims(cfg, p)
     Bsz, T = x.shape[:2]
     zxbcdt = x @ p["w_in"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    z, xBC, dt = _split_proj(d_in, G * s.d_state, zxbcdt)
     xBC_pre = xBC                                          # pre-conv (cache)
     if conv0 is not None:
         xBC_in = torch.cat([conv0, xBC], dim=1)
@@ -159,10 +259,10 @@ def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
     else:
         xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xBC = F.silu(xBC.float()).to(x.dtype)
-    gn = s.n_groups * s.d_state
+    gn = G * s.d_state
     xp = xBC[..., :d_in]
-    Bg = xBC[..., d_in: d_in + gn].reshape(Bsz, T, s.n_groups, s.d_state)
-    Cg = xBC[..., d_in + gn:].reshape(Bsz, T, s.n_groups, s.d_state)
+    Bg = xBC[..., d_in: d_in + gn].reshape(Bsz, T, G, s.d_state)
+    Cg = xBC[..., d_in + gn:].reshape(Bsz, T, G, s.d_state)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     xh = xp.reshape(Bsz, T, nh, s.head_dim)
@@ -180,9 +280,7 @@ def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
         xh = xh[:, :T]
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(Bsz, T, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"],
-                 cfg.norm_eps)
-    out = y @ p["w_out"]
+    out = _out(cfg, p, _gated_norm(cfg, p, y, z, par), par)
     if return_state:
         ctx = (torch.zeros((Bsz, s.d_conv - 1, conv_dim), dtype=x.dtype,
                            device=x.device) if conv0 is None else conv0)
@@ -191,27 +289,28 @@ def mamba_block_train(cfg: ModelConfig, p, x, *, h0=None, conv0=None,
     return out
 
 
-def mamba_block_decode(cfg: ModelConfig, p, x, h, conv_cache):
+def mamba_block_decode(cfg: ModelConfig, p, x, h, conv_cache,
+                       par: Optional[ParallelCtx] = None):
     """One-token recurrent update.
 
     x [B,1,d]; h [B,nh,hd,N] f32; conv_cache [B,d_conv-1,conv_dim]
-    -> (y [B,1,d], h', conv_cache')
-    """
+    -> (y [B,1,d], h', conv_cache').  ``par``: a serving mesh, ``p`` this
+    rank's head cut, ``h`` and ``conv_cache`` its heads and channels."""
     s = cfg.ssm
-    d_in, nh, _conv_dim = dims(cfg)
+    d_in, nh, _conv_dim, G = _local_dims(cfg, p)
     zxbcdt = x @ p["w_in"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    z, xBC, dt = _split_proj(d_in, G * s.d_state, zxbcdt)
     window = torch.cat([conv_cache, xBC], dim=1)           # [B,d_conv,cd]
     conv_out = (window * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
     conv_cache = window[:, 1:]
     xBC1 = F.silu(conv_out.float()).to(x.dtype)
-    gn = s.n_groups * s.d_state
+    gn = G * s.d_state
     xp = xBC1[..., :d_in]
-    Bg = xBC1[..., d_in: d_in + gn].reshape(-1, s.n_groups, s.d_state)
-    Cg = xBC1[..., d_in + gn:].reshape(-1, s.n_groups, s.d_state)
+    Bg = xBC1[..., d_in: d_in + gn].reshape(-1, G, s.d_state)
+    Cg = xBC1[..., d_in + gn:].reshape(-1, G, s.d_state)
     dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
-    hpg = nh // s.n_groups
+    hpg = nh // G
     Bh = torch.repeat_interleave(Bg, hpg, dim=1)           # [B,nh,N]
     Ch = torch.repeat_interleave(Cg, hpg, dim=1)
     xh = xp.reshape(-1, nh, s.head_dim).float()
@@ -221,9 +320,7 @@ def mamba_block_decode(cfg: ModelConfig, p, x, h, conv_cache):
     y = torch.einsum("bhn,bhpn->bhp", Ch.float(), h)
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(-1, 1, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"],
-                 cfg.norm_eps)
-    return y @ p["w_out"], h, conv_cache
+    return _out(cfg, p, _gated_norm(cfg, p, y, z, par), par), h, conv_cache
 
 
 # ------------------------------------------------------------------ stack
@@ -247,13 +344,17 @@ def ssm_stack_train(cfg: ModelConfig, layers, x, *, remat=True):
     return x
 
 
-def ssm_stack_prefill(cfg: ModelConfig, params: SSMStackParams, x):
-    """Returns (x, ssm_states [L,B,nh,hd,N], conv_states [L,B,K-1,cd])."""
+def ssm_stack_prefill(cfg: ModelConfig, params: SSMStackParams, x,
+                      par: Optional[ParallelCtx] = None):
+    """Returns (x, ssm_states [L,B,nh,hd,N], conv_states [L,B,K-1,cd]);
+    ``par``: a serving mesh (module docstring; the rank's heads and
+    channels of the states)."""
     hs, convs = [], []
     for l in range(params.n_layers):
         y, (h, conv) = mamba_block_train(
             cfg, params.mamba.layer(l),
-            rms_norm(x, params.ln[l], cfg.norm_eps), return_state=True)
+            rms_norm(x, params.ln[l], cfg.norm_eps), return_state=True,
+            par=par)
         x = x + y
         hs.append(h)
         convs.append(conv)
@@ -261,15 +362,16 @@ def ssm_stack_prefill(cfg: ModelConfig, params: SSMStackParams, x):
 
 
 def ssm_stack_decode(cfg: ModelConfig, params: SSMStackParams, x,
-                     ssm_state, conv_state):
+                     ssm_state, conv_state,
+                     par: Optional[ParallelCtx] = None):
     """One token through every layer; returns (x, ssm_states',
-    conv_states')."""
+    conv_states'); ``par`` as :func:`ssm_stack_prefill`'s."""
     hs, convs = [], []
     for l in range(params.n_layers):
         y, h, conv = mamba_block_decode(
             cfg, params.mamba.layer(l),
             rms_norm(x, params.ln[l], cfg.norm_eps), ssm_state[l],
-            conv_state[l])
+            conv_state[l], par)
         x = x + y
         hs.append(h)
         convs.append(conv)

@@ -389,6 +389,20 @@ def serving_geometry(cfg: ModelConfig, par: Optional[ParallelCtx]):
     return geo
 
 
+def serving_attn_prefill(cfg: ModelConfig, p, x, positions,
+                         par: Optional[ParallelCtx]):
+    """A GQA block's prefill attention and the K / V its pools take: on
+    one device :func:`attn_block_prefill`; over a serving mesh the
+    Megatron attention on this rank's heads (reduced over ``model``), its
+    K / V gathered over ``model`` where the block split them (every page
+    shard stores every KV head).  Returns (out, k, v)."""
+    geo = serving_geometry(cfg, par)
+    a, k, v = attn_block_train(cfg, p, x, positions, par=par)
+    if geo is not None and kv_sharded(cfg, geo):
+        k, v = par.gather_model(k, 2), par.gather_model(v, 2)
+    return a, k, v
+
+
 def attn_block_decode(cfg: ModelConfig, p, x, pos, k_pool, v_pool,
                       ctx: PageCtx, par: Optional[ParallelCtx] = None):
     """x [B,1,d], pos [B] -> [B,1,d]; writes this token's K/V in place.
@@ -583,7 +597,6 @@ def _stack_prefill_mesh(cfg: ModelConfig, params: DecoderParams, x,
     the Megatron attention, or MLA over this rank's heads), the K / V (or
     latents) written into this rank's stripe, the serving FFN."""
     k_pools, v_pools = pools
-    geo = serving_geometry(cfg, par) if cfg.mla is None else None
     for l in range(params.n_layers):
         lp = params.layer(l)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -591,10 +604,8 @@ def _stack_prefill_mesh(cfg: ModelConfig, params: DecoderParams, x,
             a, lat = mla_block_prefill(cfg, lp["attn"], h, positions, par)
             k, v = lat["k"], lat["v"]
         else:
-            a, k, v = attn_block_train(cfg, lp["attn"], h, positions,
-                                       par=par)
-            if geo is not None and kv_sharded(cfg, geo):
-                k, v = par.gather_model(k, 2), par.gather_model(v, 2)
+            a, k, v = serving_attn_prefill(cfg, lp["attn"], h, positions,
+                                           par)
         prefill_write_op(k, v, k_pools[l], v_pools[l], ctx, par=par)
         x = x + a
         x = x + layer_ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), par)

@@ -26,8 +26,6 @@ reference's (two packages' f32 products); the MoE blocks within 1e-6.
 
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -40,7 +38,6 @@ import torch
 from repro.configs import get_smoke_config as j_smoke
 from repro.models.lm import LM as JLM
 from repro_torch.bridge import params_from_jax, serving_shard_from_jax
-from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.spawn import run_ranks
 from repro_torch.models.common import ParallelCtx, serving_ctx
@@ -52,10 +49,11 @@ TESTS = str(ROOT / "tests")
 sys.path.insert(0, TESTS)
 try:
     import torch_serve_cases as cases
+    from torch_reference_run import WAIT_SECONDS as TIMEOUT
+    from torch_reference_run import ReferenceRun
 finally:
     sys.path.remove(TESTS)
 
-TIMEOUT = 150
 MOE = ("deepseek-v2-lite-16b", "dbrx-132b")
 
 # The reference on 4 forced host devices: every op case under each mesh,
@@ -185,32 +183,16 @@ def setup(tmp_path_factory):
                                    JLM(cfg).init(jax.random.PRNGKey(0)))
         paths[arch] = str(d / f"{arch}.pt")
         torch.save(params_from_jax(trees[arch]), paths[arch])
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
-                         "--xla_backend_optimization_level=0 "
-                         "--xla_llvm_disable_expensive_passes=true")
-    log = open(d / "reference.log", "w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, inputs, str(d / "ref.npz"),
-         json.dumps(cases.LM_ARCHS)],
-        env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+    ref = ReferenceRun(_REFERENCE, [inputs, d / "ref.npz",
+                                    json.dumps(cases.LM_ARCHS)], d)
     yield types.SimpleNamespace(dir=d, inputs=inputs, params=paths,
-                                trees=trees, proc=proc, log=log)
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait()
-    log.close()
+                                trees=trees, ref=ref)
+    ref.close()
 
 
 @pytest.fixture(scope="module")
 def reference(setup, ranks):
-    try:
-        setup.proc.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        setup.proc.kill()
-        pytest.fail(f"the reference's run outlived {TIMEOUT}s")
-    setup.log.seek(0)
-    assert setup.proc.returncode == 0, setup.log.read()[-4000:]
+    setup.ref.wait()
     return dict(np.load(setup.dir / "ref.npz"))
 
 
@@ -422,21 +404,6 @@ def test_one_rank_path_is_unchanged(setup):
         cases._ctx(data, "one.prefill"), torch.tensor(cases.LENGTHS) - 1,
         par=ParallelCtx())
     assert torch.equal(logits, a["logits"][0])
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-1.3b",
-                                  "seamless-m4t-large-v2",
-                                  "llava-next-mistral-7b"])
-def test_other_families_refuse_a_mesh(arch):
-    """hybrid, ssm, encdec and vlm have no serving path over a mesh yet
-    (ROADMAP 6d-ii): a context of more than one rank is refused before any
-    collective."""
-    lm = LM(get_smoke_config(arch), device="meta")
-    par = ParallelCtx(tp=2)
-    with pytest.raises(NotImplementedError, match="6d-ii"):
-        lm.decode_step(torch.zeros(1, dtype=torch.int32),
-                       torch.zeros(1, dtype=torch.int32), None, None,
-                       par=par)
 
 
 def test_fused_staging_has_no_mesh_path():

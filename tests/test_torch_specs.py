@@ -28,7 +28,11 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import LM
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 120
+sys.path.insert(0, str(ROOT / "tests"))
+try:
+    from torch_reference_run import WAIT_SECONDS as TIMEOUT
+finally:
+    sys.path.remove(str(ROOT / "tests"))
 # (arch, shape, multi_pod): the cells of tests/test_dryrun.py, the 2-D EP's
 # decode of both MoE models, the long-context shape, and a multi-pod one.
 CELLS = [("qwen2.5-3b", "train_4k", False), ("qwen2.5-3b", "decode_32k", False),
@@ -199,9 +203,12 @@ def test_dry_run_covers_every_cell_without_jax():
         assert rec["capacity_source"].startswith("NVIDIA H100 SXM5")
         assert rec["fits"] == (mem["total"] <= rec["capacity_bytes"])
         assert rec["compute_s"] > 0 and rec["memory_s"] > 0
+        # Serving is counted for every family; training for dense and moe
+        # without grad_compress (ROADMAP Queue 1).
         counted = rec["collective_bytes_per_chip"] is not None
-        assert counted == (get_config(rec["arch"]).family in ("dense", "moe")
-                           and not rec["grad_compress"])
+        assert counted == (not rec["shape"].startswith("train") or (
+            get_config(rec["arch"]).family in ("dense", "moe")
+            and not rec["grad_compress"]))
         assert (rec["collective_s"] is None) == (not counted)
     qwen = {(r["shape"], r["mesh"]): r for r in recs
             if r["arch"] == "qwen2.5-3b"}
@@ -212,12 +219,48 @@ def test_dry_run_covers_every_cell_without_jax():
     assert train["all_reduce"] > 0 and train["reduce_scatter"] > 0
 
 
+@pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", "decode_32k"),
+                                        ("zamba2-1.2b", "prefill_32k"),
+                                        ("zamba2-1.2b", "long_500k")])
+def test_build_cell_cuts_mamba_leaves_and_state_by_heads(arch, shape):
+    """A serving cell's Mamba-2 leaves hold the rank's heads
+    (``sharding.head_cut``, which no spec says): every leaf's per-rank
+    shape is what ``serving_placements`` cuts, ``w_in`` with the rank's
+    z, x and dt columns and B, C whole; the decode state's ``ssm`` splits
+    its heads over ``model`` and ``conv`` holds the rank's channels."""
+    from repro_torch.launch.sharding import serving_placements
+    from repro_torch.models.mamba2 import dims
+    mesh = _mesh(False)
+    tp = mesh.shape["model"]
+    cfg = get_config(arch)
+    cell = specs.build_cell(arch, shape, mesh)
+    params = dict(LM(cfg, device="meta").named_parameters())
+    places = serving_placements(cfg, params, mesh, 0)
+    d_in, nh, cd = dims(cfg)
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    for name, p in params.items():
+        got = cell["inputs"][f"params.{name}"].shard_shape(mesh)
+        assert got == tuple(places[name].take(p).shape), name
+        if name.endswith(".w_in"):
+            assert got[-1] == 2 * d_in // tp + 2 * gn + nh // tp
+    if SHAPES[shape].kind == "decode":
+        B = SHAPES[shape].global_batch // (
+            mesh.shape["data"] if cell["plan"].batch_sharded else 1)
+        ssm = cell["inputs"]["state.ssm"].shard_shape(mesh)
+        conv = cell["inputs"]["state.conv"].shard_shape(mesh)
+        assert ssm == (cfg.n_layers, B, nh // tp, cfg.ssm.head_dim,
+                       cfg.ssm.d_state)
+        assert conv == (cfg.n_layers, B, cfg.ssm.d_conv - 1,
+                        d_in // tp + 2 * gn)
+
+
 def test_chip_smoke_phase_10_rehearsed_on_the_cpu():
     """chip_smoke.py's phase 10 with the card's ranks on gloo CPU ranks
-    and the smoke configs in (a) and (b): the mesh's logits within its
-    bf16 tolerance of one rank's and its negative controls beyond it, the
-    narrow f32 models' ranks against CPU ranks, the dry-run lines; no
-    kernel launches on the CPU."""
+    and the smoke configs in (a), (b), (e) and (f): the mesh's logits
+    within their limits of one rank's ((e) in f32 and, as a sanity check,
+    bf16) and the negative controls beyond them, the narrow f32 models'
+    ranks of (c) and (g) against CPU ranks, the dry-run lines; every
+    kernels-line entry of the phase, with no launch on the CPU."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -225,4 +268,11 @@ def test_chip_smoke_phase_10_rehearsed_on_the_cpu():
         sys.path.remove(str(ROOT))
     assert chip_smoke.phase_serve_mesh("cpu") == {
         "flash_attention.mesh": 0, "paged_attention.mesh": 0,
-        "flash_attention.mla.mesh": 0, "paged_attention.mla.mesh": 0}
+        "flash_attention.mla.mesh": 0, "paged_attention.mla.mesh": 0,
+        "ssd_scan.mesh": 0, "flash_attention.hybrid.mesh": 0,
+        "paged_attention.hybrid.mesh": 0,
+        "flash_attention.encoder.mesh": 0,
+        "flash_attention.decoder.mesh": 0,
+        "flash_attention.cross_prefill.mesh": 0,
+        "flash_attention.cross_decode.mesh": 0,
+        "paged_attention.encdec.mesh": 0}

@@ -22,8 +22,6 @@ gradients); resumes bitwise.
 
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -54,7 +52,12 @@ QWEN, DEEPSEEK = "qwen2.5-3b", "deepseek-v2-lite-16b"
 HP = dict(lr=1e-3, warmup_steps=2, total_steps=50, microbatch=0,
           remat="none", grad_compress=False)
 RING_N = 3 * 4 * gc.BLOCK           # three blocks per chunk on 4 ranks
-TIMEOUT = 120
+sys.path.insert(0, TESTS)
+try:
+    from torch_reference_run import WAIT_SECONDS as TIMEOUT
+    from torch_reference_run import ReferenceRun
+finally:
+    sys.path.remove(TESTS)
 
 # The reference on 4 forced host devices: the ring with each device's own
 # input (in_specs=P("data")), the Trainer on the port's mesh shapes, and
@@ -178,30 +181,17 @@ def setup(tmp_path_factory):
         np.savez(d / f"ring{D}.npz",
                  **{k: rings[f"{k}{D}"] for k in ("x", "g", "e")})
     np.savez(d / "rings.npz", **rings)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    log = open(d / "reference.log", "w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, str(d / "rings.npz"), str(d),
-         json.dumps({k: v for k, v in HP.items() if k != "grad_compress"})],
-        env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
-    yield types.SimpleNamespace(dir=d, params=paths, rings=rings, proc=proc,
-                                log=log)
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait()
-    log.close()
+    ref = ReferenceRun(_REFERENCE, [
+        d / "rings.npz", d,
+        json.dumps({k: v for k, v in HP.items() if k != "grad_compress"})],
+        d, fast=False)
+    yield types.SimpleNamespace(dir=d, params=paths, rings=rings, ref=ref)
+    ref.close()
 
 
 @pytest.fixture(scope="module")
 def reference(setup):
-    try:
-        setup.proc.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        setup.proc.kill()
-        pytest.fail(f"the reference's run outlived {TIMEOUT}s")
-    setup.log.seek(0)
-    assert setup.proc.returncode == 0, setup.log.read()[-4000:]
+    setup.ref.wait()
     with open(setup.dir / "ref.json") as f:
         out = json.load(f)
     out["arrays"] = dict(np.load(setup.dir / "ref_arrays.npz"))

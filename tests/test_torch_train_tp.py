@@ -21,8 +21,6 @@ sum the same f32 terms in another order); the int8 ring at its 1e-6
 
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -59,7 +57,12 @@ ENCDEC = "seamless-m4t-large-v2"
 ARCHS = sorted({QWEN, ENCDEC, *(a for a, _ in PAIR.values())})
 HP = dict(lr=1e-3, warmup_steps=2, total_steps=50, microbatch=0,
           remat="none", grad_compress=False)
-TIMEOUT = 150
+sys.path.insert(0, TESTS)
+try:
+    from torch_reference_run import WAIT_SECONDS as TIMEOUT
+    from torch_reference_run import ReferenceRun
+finally:
+    sys.path.remove(TESTS)
 
 # The reference on 4 forced host devices: its Trainer on the port's mesh
 # shapes (3 steps each), seamless through make_train_step on batches with
@@ -209,35 +212,19 @@ def setup(tmp_path_factory):
             jax.random.PRNGKey(0)))
         paths[arch] = str(d / f"{arch}.pt")
         torch.save(params_from_jax(jp), paths[arch])
-    # The backend's optimisation level 0 compiles the reference's ~15 steps
-    # in about 60 % of the time; its losses move by ~2e-7 relative, far
-    # inside this file's 1e-4 gate.
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
-                         "--xla_backend_optimization_level=0 "
-                         "--xla_llvm_disable_expensive_passes=true")
-    log = open(d / "reference.log", "w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, str(d),
-         json.dumps({k: v for k, v in HP.items() if k != "grad_compress"}),
-         json.dumps(PAIR)],
-        env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
-    yield types.SimpleNamespace(dir=d, params=paths, proc=proc, log=log)
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait()
-    log.close()
+    # At the backend's optimisation level 0 (torch_reference_run.XLA_FAST)
+    # the reference's losses move by ~2e-7 relative, far inside this
+    # file's 1e-4 gate.
+    ref = ReferenceRun(_REFERENCE, [
+        d, json.dumps({k: v for k, v in HP.items() if k != "grad_compress"}),
+        json.dumps(PAIR)], d)
+    yield types.SimpleNamespace(dir=d, params=paths, ref=ref)
+    ref.close()
 
 
 @pytest.fixture(scope="module")
 def reference(setup):
-    try:
-        setup.proc.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        setup.proc.kill()
-        pytest.fail(f"the reference's run outlived {TIMEOUT}s")
-    setup.log.seek(0)
-    assert setup.proc.returncode == 0, setup.log.read()[-4000:]
+    setup.ref.wait()
     with open(setup.dir / "ref.json") as f:
         return json.load(f)
 

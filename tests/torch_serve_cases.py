@@ -1,11 +1,12 @@
 """Rank functions and inputs of the port's serving-over-a-mesh tests.
 
-``tests/test_torch_serve_mesh.py`` writes every case's inputs once
-(:func:`write_inputs`: tables from the port's ``ShardedKVCache``, values
-from numpy seeds) into one ``.npz`` beside a JSON description; the
+``tests/test_torch_serve_mesh.py`` and
+``tests/test_torch_serve_mesh_families.py`` write every case's inputs
+once (:func:`write_inputs`: tables from the port's ``ShardedKVCache``,
+values from numpy seeds) into one ``.npz`` beside a JSON description; the
 reference's process and the port's ranks (``launch/spawn.run_ranks``,
-:func:`suite`) read them.  No JAX here: the ranks import only torch and
-the port.
+:func:`suite`, :func:`family_suite`) read them.  No JAX here: the ranks
+import only torch and the port.
 """
 
 import dataclasses
@@ -33,6 +34,7 @@ GEO = PoolGeometry(page_tokens=8, frame_pages=4)
 PAGES_PER_RANK = 32
 LENGTHS = (40, 72, 24, 100)       # prompt tokens of the four rows
 T_PAD = 104                       # the longest, padded to a page multiple
+BLOCK_T = 40                      # a Mamba-2 block case's prefill length
 DECODE_STEPS = 2
 # name -> (mesh shape, batch split over the data axes)
 MESHES = {"12": ((1, 2), True), "22": ((2, 2), True),
@@ -41,16 +43,25 @@ MESHES = {"12": ((1, 2), True), "22": ((2, 2), True),
 # deepseek's latent pools (kv_lora 32 + rope 8 over one KV head).
 OP_SHAPES = {"gqa": (4, 2, 16, 16), "mla": (4, 1, 40, 32)}
 LM_ARCHS = ("qwen2.5-3b", "qwen3-8b", "deepseek-v2-lite-16b", "dbrx-132b")
+# The hybrid, ssm, encdec and vlm families (their smoke configs in f32).
+FAMILY_ARCHS = ("zamba2-1.2b", "mamba2-1.3b", "seamless-m4t-large-v2",
+                "llava-next-mistral-7b")
+VLM = "llava-next-mistral-7b"
 
 
 def f32_smoke(arch):
     return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
-def tables_for(mesh_name):
-    """The prefill and per-step decode tables of LENGTHS' four rows as the
-    reference's PageCtx takes them ([B, S, mpps]): one ShardedKVCache per
-    data cell (the batch split over ``data``: a cell's rows' frames
+def prefix_tokens(arch):
+    """Positions in front of the prompt's tokens: vlm's patch embeddings."""
+    return f32_smoke(arch).frontend_tokens if arch == VLM else 0
+
+
+def tables_for(mesh_name, lengths=LENGTHS):
+    """The prefill and per-step decode tables of ``lengths``' four rows as
+    the reference's PageCtx takes them ([B, S, mpps]): one ShardedKVCache
+    per data cell (the batch split over ``data``: a cell's rows' frames
     striped over ``model``; unsplit: one cache over every rank), each
     shard a rank's PAGES_PER_RANK pages.  ``mesh_name`` None: the one-rank
     layout (S = 1)."""
@@ -60,13 +71,13 @@ def tables_for(mesh_name):
         (D, M), split = MESHES[mesh_name]
         cells, S = (D, M) if split else (1, D * M)
     ftok = GEO.frame_pages * GEO.page_tokens
-    frames = -(-(max(LENGTHS) + DECODE_STEPS) // ftok)
+    frames = -(-(max(lengths) + DECODE_STEPS) // ftok)
     mpps = -(-frames // S) * GEO.frame_pages
     caches = [ShardedKVCache(GEO, pages_on_rank(mesh_name), S)
               for _ in range(cells)]
-    per = len(LENGTHS) // cells
+    per = len(lengths) // cells
     rows = [list(range(c * per, (c + 1) * per)) for c in range(cells)]
-    for i, n in enumerate(LENGTHS):
+    for i, n in enumerate(lengths):
         caches[i // per].allocate(i, n)
 
     def pack():
@@ -75,7 +86,7 @@ def tables_for(mesh_name):
                 for k in ("tables", "ntok", "wpage", "wslot")}
     out = {"prefill": pack(), "decode": []}
     for _ in range(DECODE_STEPS):
-        for i in range(len(LENGTHS)):
+        for i in range(len(lengths)):
             caches[i // per].append(i)
         out["decode"].append(pack())
     return out
@@ -87,14 +98,16 @@ def write_inputs(path):
                                                  GEO.frame_pages],
                         "pages_per_rank": PAGES_PER_RANK,
                         "lengths": LENGTHS, "t_pad": T_PAD}
+    vlm_lengths = tuple(n + prefix_tokens(VLM) for n in LENGTHS)
     for name in (None, *MESHES):
-        t = tables_for(name)
-        key = name or "one"
-        for k, v in t["prefill"].items():
-            arrays[f"{key}.prefill.{k}"] = v
-        for s, step in enumerate(t["decode"]):
-            for k, v in step.items():
-                arrays[f"{key}.decode{s}.{k}"] = v
+        for pre, lengths in (("", LENGTHS), ("vlm.", vlm_lengths)):
+            t = tables_for(name, lengths)
+            key = pre + (name or "one")
+            for k, v in t["prefill"].items():
+                arrays[f"{key}.prefill.{k}"] = v
+            for s, step in enumerate(t["decode"]):
+                for k, v in step.items():
+                    arrays[f"{key}.decode{s}.{k}"] = v
     rng = np.random.default_rng(0)
     B = len(LENGTHS)
     for op, (H, n_kv, dk, dv) in OP_SHAPES.items():
@@ -111,6 +124,15 @@ def write_inputs(path):
         for T in (1, 8):
             arrays[f"moe.{arch}.x{T}"] = rng.standard_normal(
                 (B, T, f32_smoke(arch).d_model), np.float32)
+    # The families' frontends and a Mamba-2 block's inputs.
+    B, d = len(LENGTHS), f32_smoke(VLM).d_model
+    arrays["fam.patch_embeds"] = rng.standard_normal(
+        (B, prefix_tokens(VLM), d), np.float32)
+    enc = f32_smoke("seamless-m4t-large-v2")
+    arrays["fam.src_embeds"] = rng.standard_normal(
+        (B, enc.encdec.source_len, enc.d_model), np.float32)
+    arrays["block.x"] = rng.standard_normal((B, BLOCK_T, d), np.float32)
+    arrays["block.x1"] = rng.standard_normal((B, 1, d), np.float32)
     np.savez(path, **arrays)
     with open(str(path) + ".json", "w") as f:
         json.dump(meta, f)
@@ -229,4 +251,107 @@ def suite(path, mesh_name, params):
         out["lm"][arch] = run_lm(data, arch, w, mesh_name, par)
         if arch in ("deepseek-v2-lite-16b", "dbrx-132b"):
             out["moe"][arch] = run_moe(data, arch, w, mesh_name, par)
+    return out
+
+
+# ------------------------------------------------------- hybrid ssm encdec vlm
+
+
+def family_batch(data, arch):
+    """The prefill batch of ``arch``: the tokens, and vlm's patch / encdec's
+    source embeddings (global rows)."""
+    batch = {"tokens": torch.from_numpy(data["lm.tokens0"])}
+    if arch == VLM:
+        batch["patch_embeds"] = torch.from_numpy(data["fam.patch_embeds"])
+    if f32_smoke(arch).family == "encdec":
+        batch["src_embeds"] = torch.from_numpy(data["fam.src_embeds"])
+    return batch
+
+
+def run_family(data, arch, params, mesh_name, par):
+    """:func:`run_lm` for a family of FAMILY_ARCHS: prefill of the four
+    prompts (vlm's behind its patch embeddings, encdec's over its source
+    frames), then DECODE_STEPS decode steps.  Returns the logits of each
+    call, this rank's pools, its decode state after the prefill and after
+    the last step, and the bytes its collectives sent."""
+    from repro_torch.models.lm import LM
+    cfg = f32_smoke(arch)
+    key = ("vlm." if arch == VLM else "") + (mesh_name or "one")
+    if par is None:
+        lm = LM(cfg)
+        lm.load_state_dict(params)
+    else:
+        mesh = Mesh(MESHES[mesh_name][0], ("data", "model"))
+        lm = serving_lm(cfg, serving_shard(cfg, params, mesh,
+                                           dist.get_rank()))
+    npages = pages_on_rank(mesh_name)
+    shapes = lm.pool_shapes(npages, GEO.page_tokens)
+    pools = None if shapes is None else [
+        torch.zeros((s[0], npages, *s[2:]), dtype=torch.float32)
+        for s, _dt in shapes]
+    last = torch.tensor(LENGTHS) - 1
+    with Collectives() as sent_prefill:
+        logits, pools, state = lm.prefill(
+            family_batch(data, arch), pools, _ctx(data, f"{key}.prefill"),
+            last, par=par)
+    out, sent = [logits], {"prefill": sent_prefill.sent()}
+    states = [dict(state)]
+    for s in range(DECODE_STEPS):
+        pos = torch.tensor(LENGTHS) + prefix_tokens(arch) + s
+        with Collectives() as sent_step:
+            logits, pools, state = lm.decode_step(
+                torch.from_numpy(data[f"lm.tokens{s + 1}"]), pos, pools,
+                _ctx(data, f"{key}.decode{s}"), state, par=par)
+        sent.setdefault("decode", sent_step.sent())
+        out.append(logits)
+    states.append(dict(state))
+    return {"logits": out, "k_pool": None if pools is None else pools[0],
+            "states": states, "sent": sent}
+
+
+def mamba_layer(params, prefix="decoder.mamba."):
+    """Layer 0 of the stack's Mamba-2 weights (whole), as the blocks take
+    them."""
+    return {n[len(prefix):]: t[0] for n, t in params.items()
+            if n.startswith(prefix)}
+
+
+def run_blocks(data, params, tp):
+    """``mamba_block_train(return_state=True)`` over BLOCK_T tokens, then
+    ``mamba_block_decode`` of one token from that state, on layer 0 of the
+    smoke mamba2's weights at this rank's heads of a (1, ``tp``) mesh
+    (``tp`` 1: the whole block, no context): (y, h, conv) of each."""
+    from repro_torch.launch.sharding import head_cut
+    from repro_torch.models.mamba2 import mamba_block_decode, mamba_block_train
+    cfg = f32_smoke("mamba2-1.3b")
+    p = mamba_layer(params)
+    par = None
+    if tp > 1:
+        mesh = Mesh((1, tp), ("data", "model"))
+        par = serving_ctx(mesh, dist.get_rank())
+        p = {n: head_cut(cfg, f"mamba.{n}", t.shape, mesh,
+                         dist.get_rank()).take(t).contiguous()
+             for n, t in p.items()}
+    x = torch.from_numpy(data["block.x"])
+    y, (h, conv) = mamba_block_train(cfg, p, x, return_state=True, par=par)
+    y1, h1, conv1 = mamba_block_decode(
+        cfg, p, torch.from_numpy(data["block.x1"]), h, conv, par)
+    return {"train": (y, h, conv), "decode": (y1, h1, conv1)}
+
+
+def family_suite(path, mesh_name, params):
+    """Every family case at ``mesh_name`` on this rank: the four families'
+    LMs (weights from ``params[arch]``) and, on a split mesh, the Mamba-2
+    block cases at a model axis of the world's size."""
+    torch.set_num_threads(1)
+    data = dict(np.load(path))
+    mesh = Mesh(MESHES[mesh_name][0], ("data", "model"))
+    par = serving_ctx(mesh, dist.get_rank(), MESHES[mesh_name][1])
+    out = {arch: run_family(data, arch, torch.load(params[arch],
+                                                   weights_only=True),
+                            mesh_name, par)
+           for arch in FAMILY_ARCHS}
+    if MESHES[mesh_name][1]:
+        w = torch.load(params["mamba2-1.3b"], weights_only=True)
+        out["blocks"] = run_blocks(data, w, dist.get_world_size())
     return out
