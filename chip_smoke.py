@@ -255,7 +255,9 @@ Phases (each synchronised; any failure exits non-zero):
    ``grad_compress`` and under fsdp on the card's rank and on a gloo CPU
    rank (losses within 1e-4); the card rank's step-2 checkpoint resumed
    on 2 gloo CPU ranks (the restored state bit for bit the saved arrays,
-   the next losses within 1e-4 of the CPU rank's).  No kernels-line
+   each rank holding half the f32 master elements of every leaf that
+   ``zero1_specs`` splits over data, both counts printed, the next losses
+   within 1e-4 of the CPU rank's).  No kernels-line
    entry: 9j adds no kernel and counts no launch;
    9k. tensor and expert parallelism over a ``model`` axis of 2, in gloo
    ranks sharing cuda:0 (NCCL cannot put two ranks on one GPU; their step
@@ -296,6 +298,24 @@ Phases (each synchronised; any failure exits non-zero):
    (a) and (b) and the flash kernel at (a)'s shard (8 query heads over 1
    KV head).
 
+11. the port's examples as a user runs them (``phase_examples``):
+   ``torch_quickstart.py`` and ``torch_long_context.py --ctx 4096``
+   (invariants, mosaic's 0-copy coalescing, page-granular faults moving
+   fewer bytes than frame-granular ones); ``torch_serve_multitenant.py
+   --device cuda`` on README's command lines and the plain ``--requests
+   12``, the paging line with ``--translation radix``, one after the
+   other in one process
+   (``EXAMPLE_SERVE``; outputs identical across managers; wall seconds
+   and tok/s); and ``torch_train_lm.py --device cuda`` at its demo-100m
+   default: 80 steps, then, in a process of its own, 80 steps resumed from
+   that run's step-50 checkpoint, whose losses after step 50 must be the
+   first run's bit for bit (step ms and tokens/s printed).  Then
+   ``phase_example_kernels`` holds every kernel the examples launched
+   against its plain version at the examples' shapes: the serving
+   example's (head dim 16, 512-byte pages; ``.smoke`` entries) and the
+   training example's (demo-100m's attention, 8 query heads over 4 KV
+   heads of 64; ``.example`` entries).
+
 Ends with the script's total time, a JSON line of per-kernel numbers and,
 last, the ok line.  Launches of an entry: those of its kernel at the
 entry's shapes in the serving runs (``family_entries``): ``.mla`` from
@@ -309,8 +329,11 @@ seamless's three attentions by the site its wrappers counted
 (``train_entries``); the training ``.mla`` entries from phase 9i, the
 ``.moe`` entries none (``ZERO_LAUNCHES`` says why), the ``.tp`` entries
 from phase 9k (a)'s two ranks, the ``.mesh`` entries from phase 10's
-ranks ((a)'s flash and paged launches, (b)'s paged).  Of the serving
-phases only 4f is cut in depth; of the training phases 9e, 9i and 9k (a).
+ranks ((a)'s flash and paged launches, (b)'s paged), the ``.smoke``
+entries from phase 11's serving runs (a kernel they did not launch has
+none) and the ``.example`` entries from its two training runs.  Of the
+serving phases only 4f is cut in depth; of the training phases 9e, 9i and
+9k (a).
 """
 
 from __future__ import annotations
@@ -794,75 +817,7 @@ def phase_kernels(cfg, results):
     # Copies on the engine's stacked pools [L, NP, ptok, n_kv, dh].
     pool = randn(L, NP, ptok, n_kv, dh)
     check_copies(pool, rng, randn, "qwen2.5-3b")
-    n_pages = 13                  # a 768-token prompt + 64 new tokens
-    perm = rng.permutation(NP)
-    page_bytes = ptok * n_kv * dh * 2
-    n_valid = n_pages - 1         # every timed set has one hole
-    # Timed calls cycle over disjoint page sets covering the whole pool
-    # (94 MB, beyond the 50 MB L2), as evictions and faults find it cold.
-    idx_sets = [perm[i * n_pages:(i + 1) * n_pages].astype(np.int32)
-                for i in range(NP // n_pages)]
-    for s_ in idx_sets:
-        s_[3] = -1
-    idx_sets = [t(s_) for s_ in idx_sets]
-    b_ms, b_by = bound_ms(2 * L * n_pages * page_bytes)
-    results["page_gather"] = dict(
-        max_abs_err=0.0,
-        ms=graph_ms(cycling(ops.page_gather, [(pool, i) for i in idx_sets])),
-        plain_ms=eager_ms(cycling(ref.page_gather_ref,
-                                  [(pool, i) for i in idx_sets])),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=graph_ms(cycling(
-            torch.index_select, [(pool, 1, i.clamp(min=0))
-                                 for i in idx_sets])),
-        shape=f"L={L} n={n_pages} page={page_bytes}B")
-
-    a, b_ = pool.clone(), pool.clone()
-    page_sets = [randn(L, n_pages, ptok, n_kv, dh) for _ in idx_sets]
-    keep_col = torch.arange(n_pages, device=dev) != 3
-    b_ms, b_by = bound_ms(2 * L * n_valid * page_bytes)
-    results["page_scatter"] = dict(
-        max_abs_err=0.0,
-        ms=graph_ms(cycling(ops.page_scatter,
-                            [(a, i, pg) for i, pg in zip(idx_sets,
-                                                         page_sets)])),
-        plain_ms=eager_ms(cycling(ref.page_scatter_ref,
-                                  [(b_, i, pg) for i, pg in zip(idx_sets,
-                                                                page_sets)])),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=graph_ms(cycling(
-            a.index_copy_, [(1, i[keep_col].long(),
-                             pg[:, keep_col].contiguous())
-                            for i, pg in zip(idx_sets, page_sets)])),
-        shape=f"L={L} n={n_pages} ({n_valid} valid) page={page_bytes}B")
-
-    n_copy, n_ok = 4, 2           # every timed plan has two holes
-    pairs = []
-    for i in range(NP // (2 * n_copy)):
-        chunk = perm[i * 2 * n_copy:(i + 1) * 2 * n_copy].astype(np.int32)
-        s_, d_ = chunk[:n_copy].copy(), chunk[n_copy:].copy()
-        s_[1] = d_[2] = -1
-        pairs.append((t(s_), t(d_)))
-    ok_col = torch.tensor([0, 3], device=dev)
-
-    def lib_compact(s_, d_):
-        a[:, d_] = a[:, s_]
-    b_ms, b_by = bound_ms(2 * L * n_ok * page_bytes)
-    results["page_compact"] = dict(
-        max_abs_err=0.0,
-        ms=graph_ms(cycling(ops.page_compact, [(a, s_, d_)
-                                               for s_, d_ in pairs])),
-        plain_ms=eager_ms(cycling(ref.page_compact_ref,
-                                  [(b_, s_, d_) for s_, d_ in pairs])),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=graph_ms(cycling(lib_compact, [
-            (s_[ok_col].long(), d_[ok_col].long()) for s_, d_ in pairs])),
-        shape=f"L={L} n={n_copy} ({n_ok} valid) page={page_bytes}B")
-    for name in ("page_gather", "page_scatter", "page_compact"):
-        r = results[name]
-        print(f"[kernel] {name}: exact | kernel_ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} library_ms "
-              f"{r['library_ms']:.4f} | {r['shape']}")
+    copy_entries(results, pool, rng, randn)
     torch.cuda.synchronize()
 
 
@@ -1047,6 +1002,91 @@ def flash_tiles(H, n_kv, T):
     bq = 64 // g
     return (f"tiles 64 rows ({g} heads x {bq} positions) x 64 keys, "
             f"mma.sync m16n8k16 bf16, grid {-(-T // bq)}x{n_kv}x1")
+
+
+def copy_entries(results, pool, rng, randn, suffix="", n_pages=13):
+    """page_gather, page_scatter and page_compact on the stacked pool
+    ``pool`` [L, NP, ptok, n_kv, dh] (bf16), timed beside their bounds,
+    plain versions and library calls: entries ``<kernel><suffix>``.  The
+    gathers and scatters take ``n_pages`` pages with a hole (13: a
+    768-token prompt + 64 new tokens at 64-token pages), compactions 4
+    copies with two holes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = pool.device
+    L, NP, ptok, n_kv, dh = pool.shape
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    perm = rng.permutation(NP)
+    page_bytes = ptok * n_kv * dh * 2
+    n_valid = n_pages - 1         # every timed set has one hole
+    # Timed calls cycle over disjoint page sets covering the whole pool
+    # (qwen2.5-3b's: 94 MB, beyond the 50 MB L2), as evictions and faults
+    # find it cold.
+    idx_sets = [perm[i * n_pages:(i + 1) * n_pages].astype(np.int32)
+                for i in range(NP // n_pages)]
+    for s_ in idx_sets:
+        s_[3] = -1
+    idx_sets = [t(s_) for s_ in idx_sets]
+    b_ms, b_by = bound_ms(2 * L * n_pages * page_bytes)
+    results["page_gather" + suffix] = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(cycling(ops.page_gather, [(pool, i) for i in idx_sets])),
+        plain_ms=eager_ms(cycling(ref.page_gather_ref,
+                                  [(pool, i) for i in idx_sets])),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(cycling(
+            torch.index_select, [(pool, 1, i.clamp(min=0))
+                                 for i in idx_sets])),
+        shape=f"L={L} n={n_pages} page={page_bytes}B")
+
+    a, b_ = pool.clone(), pool.clone()
+    page_sets = [randn(L, n_pages, ptok, n_kv, dh) for _ in idx_sets]
+    keep_col = torch.arange(n_pages, device=dev) != 3
+    b_ms, b_by = bound_ms(2 * L * n_valid * page_bytes)
+    results["page_scatter" + suffix] = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(cycling(ops.page_scatter,
+                            [(a, i, pg) for i, pg in zip(idx_sets,
+                                                         page_sets)])),
+        plain_ms=eager_ms(cycling(ref.page_scatter_ref,
+                                  [(b_, i, pg) for i, pg in zip(idx_sets,
+                                                                page_sets)])),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(cycling(
+            a.index_copy_, [(1, i[keep_col].long(),
+                             pg[:, keep_col].contiguous())
+                            for i, pg in zip(idx_sets, page_sets)])),
+        shape=f"L={L} n={n_pages} ({n_valid} valid) page={page_bytes}B")
+
+    n_copy, n_ok = 4, 2           # every timed plan has two holes
+    pairs = []
+    for i in range(NP // (2 * n_copy)):
+        chunk = perm[i * 2 * n_copy:(i + 1) * 2 * n_copy].astype(np.int32)
+        s_, d_ = chunk[:n_copy].copy(), chunk[n_copy:].copy()
+        s_[1] = d_[2] = -1
+        pairs.append((t(s_), t(d_)))
+    ok_col = torch.tensor([0, 3], device=dev)
+
+    def lib_compact(s_, d_):
+        a[:, d_] = a[:, s_]
+    b_ms, b_by = bound_ms(2 * L * n_ok * page_bytes)
+    results["page_compact" + suffix] = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(cycling(ops.page_compact, [(a, s_, d_)
+                                               for s_, d_ in pairs])),
+        plain_ms=eager_ms(cycling(ref.page_compact_ref,
+                                  [(b_, s_, d_) for s_, d_ in pairs])),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(cycling(lib_compact, [
+            (s_[ok_col].long(), d_[ok_col].long()) for s_, d_ in pairs])),
+        shape=f"L={L} n={n_copy} ({n_ok} valid) page={page_bytes}B")
+    for name in ("page_gather", "page_scatter", "page_compact"):
+        r = results[name + suffix]
+        print(f"[kernel] {name}{suffix}: exact | kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+              f"library_ms {r['library_ms']:.4f} | {r['shape']}")
 
 
 def check_copies(pool, rng, randn, label):
@@ -3890,8 +3930,14 @@ def dist_rank(case):
     st = tr.step_fn
     state = {"start": tr.start_step,
              "sharded": sum(p.sharded for p in st.places.values()),
-             "params": {n: t.detach().clone()
-                        for n, t in tr.params.items()}}
+             "params": {n: st.param_places[n].gather(t.detach().contiguous())
+                        for n, t in tr.params.items()},
+             # f32 master elements this rank holds, of data-split leaves
+             # and of the whole model: (held, full, data ranks) per leaf
+             "masters": {n: (t.numel(), math.prod(st.param_places[n].shape),
+                             st.param_places[n].data.n
+                             if st.param_places[n].data else 1)
+                         for n, t in tr.params.items()}}
     for part in ("mu", "nu"):
         state[part] = {n: st.places[n].gather(t)
                        for n, t in tr.opt[part].items()}
@@ -3920,8 +3966,9 @@ def phase_train_dist(dev="cuda"):
     (b) the narrow f32 model under megatron + ``grad_compress`` and under
         fsdp, on ``dev``'s rank and on a gloo rank: losses within 1e-4;
     (c) ``dev``'s world-1 step-2 checkpoint of (b) resumed on 2 gloo ranks:
-        the restored state bit for bit the saved arrays, the next losses
-        within 1e-4 of (b)'s CPU run."""
+        the restored state bit for bit the saved arrays, each rank holding
+        half the f32 master elements of every data-split leaf (ZeRO-1),
+        the next losses within 1e-4 of (b)'s CPU run."""
     import tempfile
     import torch
     from repro_torch.launch.spawn import run_ranks
@@ -3998,6 +4045,20 @@ def phase_train_dist(dev="cuda"):
                     require(np.array_equal(t.numpy(), saved[prefix + n]),
                             f"9j (c): rank {r}'s restored {prefix}{n} "
                             f"differs from the saved array")
+            # ZeRO-1 keeps each f32 master at its data shard: half of every
+            # leaf that zero1_specs splits over the 2 data ranks.
+            split = {n: m for n, m in got["masters"].items() if m[2] > 1}
+            require(split and all(m[2] == 2 and 2 * m[0] == m[1]
+                                  for m in split.values()),
+                    f"9j (c): rank {r} does not hold half of each "
+                    f"data-split f32 master: {split}")
+            held = sum(m[0] for m in split.values())
+            whole = sum(m[1] for m in split.values())
+            print(f"[train:dist:zero1] rank {r}: {len(split)} of "
+                  f"{len(got['masters'])} leaves split over data, "
+                  f"{held} of their {whole} f32 master elements held; "
+                  f"{sum(m[0] for m in got['masters'].values())} of the "
+                  f"model's {sum(m[1] for m in got['masters'].values())}")
             want = on_cpu["megatron"][2:]
             require(all(abs(x - y) <= 1e-4 * abs(y)
                         for x, y in zip(got["losses"], want)),
@@ -5296,6 +5357,363 @@ def phase_mesh_kernels(results):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 11
+
+# The serving example's command lines on the card (README's, and the plain
+# ``--requests 12``; the radix meter on the paging line), run one after
+# the other in one process, and the smoke-size line of the CPU rehearsal.
+EXAMPLE_SERVE = (
+    ("--requests", "12"),
+    ("--requests", "12", "--oversubscribe", "2", "--translation", "radix"),
+    ("--requests", "12", "--shared-prefix", "40"),
+    ("--requests", "12", "--shared-prefix", "40", "--engines", "2"),
+    ("--requests", "12", "--shared-prefix", "40", "--engines", "2",
+     "--capacity-frames", "4"),
+)
+EXAMPLE_SERVE_CPU = (("--requests", "4", "--oversubscribe", "2",
+                      "--shared-prefix", "40", "--engines", "2",
+                      "--translation", "radix"),)
+# The training example's runs: its own demo-100m default (batch 8 x 256)
+# on the card, the --tiny model at 2 x 16 in the rehearsal.  (i) 80 steps in
+# directory A (a checkpoint at step 50); (ii) 80 steps --resume in B, which
+# holds a copy of A's step-50 checkpoint.  The example sets the schedule's
+# total_steps to --steps, as the reference's does, so a run resumed from
+# the checkpoint of a run given other --steps (say a 60-step run's) follows
+# no uninterrupted run's learning rates: no such run is made.
+EXAMPLE_TRAIN = {"cuda": (), "cpu": ("--tiny", "--batch", "2", "--seq", "16")}
+EXAMPLE_TRAIN_RUNS = (("a", 80, False), ("b", 80, True))
+# Runs an example as ``python examples/<script> ARGS`` does (runpy, as
+# __main__), once for each argument list of the JSON list argv[3], in one
+# process (torch's import and the card's set-up paid once), each run's
+# stdout after a line starting RUN_MARK.  Writes into the JSON file argv[1]
+# a record per run: its wall seconds, its kernel launches (serving's
+# ``ops.launch_counts()`` and training's ``ops.train_launch_counts()``,
+# reset before the run) and, for the training example, Trainer.run's
+# seconds and its log (every logged loss at full precision).
+RUN_MARK = "### example run:"
+_RECORDER = r"""
+import json, runpy, sys, time
+from repro_torch.kernels import ops
+from repro_torch.train.trainer import Trainer
+out, script, runs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+run, recs = Trainer.run, []
+
+
+def timed(self, n_steps, log_every=10):
+    t0 = time.perf_counter()
+    hist = run(self, n_steps, log_every)
+    recs[-1].update(seconds=time.perf_counter() - t0, steps=n_steps,
+                    start=self.start_step, log=self.log,
+                    tokens=self.data.batch * self.data.seq_len)
+    return hist
+
+
+Trainer.run = timed
+for args in runs:
+    print(@MARK@, *args, flush=True)
+    recs.append({})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sys.argv = [script, *args]
+    runpy.run_path(script, run_name="__main__")
+    recs[-1].update(wall=time.perf_counter() - t0,
+                    launches=ops.launch_counts(),
+                    train_launches=ops.train_launch_counts())
+with open(out, "w") as f:
+    json.dump(recs, f)
+""".replace("@MARK@", repr(RUN_MARK))
+# The serving example's kernels at its shapes (the smoke qwen2.5-3b: 4
+# query heads over 2 KV heads of 16, bf16; PoolGeometry(8, 4); max_seq 128;
+# max_batch 4): entries ``<kernel>.smoke``, their launches those of phase
+# 11's serving runs.  The prefill takes one request's prompt, the shared
+# 40-token prefix and up to 104 tokens, page-padded.
+EXAMPLE_HEADS = (4, 2, 16)               # H, n_kv, dh
+EXAMPLE_PREFILL_T = 144
+EXAMPLE_PAGES, EXAMPLE_PTOK, EXAMPLE_LAYERS = 64, 8, 2
+
+
+def run_example(args, dev, label):
+    """``python examples/<args...>`` from the checkout's root with
+    ``PYTHONPATH=src``: its stdout, after its exit code 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if dev == "cpu":    # the plain versions on smoke-size tensors
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"11 {label}: exit {out.returncode}: {out.stdout[-1500:]}"
+            f"{out.stderr[-3000:]}")
+    return out.stdout, wall
+
+
+def record_example(script, runs, dev, label, rec_path):
+    """``script`` run once for each argument list of ``runs`` in one
+    process (:data:`_RECORDER`): each run's stdout and record."""
+    text, _ = run_example(["-c", _RECORDER, str(rec_path), script,
+                           json.dumps([list(r) for r in runs])], dev, label)
+    recs = json.loads(Path(rec_path).read_text())
+    outs = [part.split("\n", 1)[1] if "\n" in part else ""
+            for part in text.split(RUN_MARK)[1:]]
+    require(len(outs) == len(recs) == len(runs),
+            f"11 {label}: {len(outs)} outputs and {len(recs)} records of "
+            f"{len(runs)} runs")
+    for rec, out in zip(recs, outs):
+        rec["text"] = out
+    return recs
+
+
+def phase_examples(dev="cuda"):
+    """Phase 11: the port's examples as a user runs them
+    (``sys.executable`` on ``examples/torch_*.py`` with ``PYTHONPATH=src``;
+    a non-zero exit fails the run):
+
+    * ``torch_quickstart.py`` and ``torch_long_context.py --ctx 4096``
+      (host-side), each its own process: the invariants hold, mosaic
+      coalesces with 0 copies, and page-granular faults move fewer bytes
+      than frame-granular ones;
+    * ``torch_serve_multitenant.py --device <dev>`` on each of
+      :data:`EXAMPLE_SERVE`'s command lines (the rehearsal:
+      :data:`EXAMPLE_SERVE_CPU`'s), one after another in one process:
+      outputs identical across managers, each run's wall seconds and its
+      managers' tok/s printed, the kernel launches of every run summed (on
+      the card the flash and page kernels must have launched);
+    * ``torch_train_lm.py --device <dev>`` at its own demo-100m (the
+      rehearsal: ``--tiny`` at 2 x 16), :data:`EXAMPLE_TRAIN_RUNS`, each
+      its own process: (i) 80 steps in a directory A; (ii) 80 ``--resume``
+      from a copy of A's step-50 checkpoint, which must print ``resuming
+      from step 50`` and log after step 50 the losses run (i) logs at the
+      same steps, bit for bit; run (i)'s last logged loss below its first;
+      step ms and tokens/s of run (i); the training kernels' launches of
+      both runs summed (on the card the flash forward with lse and the
+      flash backward must have launched, and no serving kernel).
+
+    Returns the resume's start step, the number of losses compared, the
+    serving runs' launches and the training runs'."""
+    import tempfile
+    t_phase = time.perf_counter()
+    text, _ = run_example(["examples/torch_quickstart.py"], dev, "quickstart")
+    require("  invariants: OK" in text.splitlines(),
+            f"11 quickstart: no 'invariants: OK': {text}")
+    coalesce = [l for l in text.splitlines()
+                if l.startswith("  mosaic coalesce ops:")]
+    require(len(coalesce) == 1 and " with 0 copies " in coalesce[0],
+            f"11 quickstart: mosaic's coalescing made copies: {coalesce}")
+    text, _ = run_example(["examples/torch_long_context.py", "--ctx", "4096"],
+                          dev, "long_context")
+    moved = {}
+    for line in text.splitlines():
+        for gran in ("page", "frame"):
+            if line.startswith(f"[{gran:5}-granular faults]"):
+                moved[gran] = float(line.split("bytes_in=")[1].split()[0])
+    require(set(moved) == {"page", "frame"}
+            and moved["page"] < moved["frame"],
+            f"11 long_context: page-granular faults moved {moved.get('page')}"
+            f" MB, not fewer than frame-granular's {moved.get('frame')}")
+    print(f"[example] quickstart: invariants OK, {coalesce[0].strip()}; "
+          f"long_context --ctx 4096: page-granular {moved['page']:.2f} MB "
+          f"vs frame-granular {moved['frame']:.2f} MB")
+    tmp = Path(tempfile.mkdtemp(prefix="example_"))
+    try:
+        cmds = EXAMPLE_SERVE if dev == "cuda" else EXAMPLE_SERVE_CPU
+        t0 = time.perf_counter()
+        serves = record_example(
+            "examples/torch_serve_multitenant.py",
+            [(*cmd, "--device", dev) for cmd in cmds], dev, "serve",
+            tmp / "serve.json")
+        serve_wall = time.perf_counter() - t0
+        launches = {}
+        for cmd, rec in zip(cmds, serves):
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            require(not any(rec["train_launches"].values()),
+                    f"11 serve {' '.join(cmd)}: training kernels launched: "
+                    f"{rec['train_launches']}")
+            lines = rec["text"].splitlines()
+            require("application-transparency: outputs identical across "
+                    "managers = True" in lines,
+                    f"11 serve {' '.join(cmd)}: outputs differ across "
+                    f"managers")
+            rates = {}
+            for line in lines:
+                for kind in ("mosaic", "gpu-mmu"):
+                    if line.startswith(f"[{kind:8}]"):
+                        rates[kind] = line.split(" tok/s (")[0].split("|")[-1]
+                        require(f" tok/s ({dev}) " in line,
+                                f"11 serve: {kind}'s tok/s not on {dev}: "
+                                f"{line}")
+            require(len(rates) == 2, f"11 serve {' '.join(cmd)}: no "
+                    f"per-manager lines: {rec['text'][-2000:]}")
+            if "--translation" in cmd:
+                require(any("translation[radix]" in l for l in lines),
+                        f"11 serve {' '.join(cmd)}: no translation line")
+            print(f"[example] serve {' '.join(cmd)} --device {dev}: exit 0, "
+                  f"{rec['wall']:.1f}s wall (both managers); tok/s mosaic "
+                  f"{rates['mosaic'].strip()}, gpu-mmu "
+                  f"{rates['gpu-mmu'].strip()} ({dev}); tokens identical "
+                  f"across managers ({SMI})")
+        print(f"[example] serve: {len(cmds)} command lines in one process, "
+              f"{serve_wall:.1f}s wall with its start; kernel launches over "
+              f"the runs {launches}")
+        # On the CPU the wrappers run their plain versions and count nothing.
+        require(dev == "cpu" or (launches["flash_attention"] > 0
+                                 and launches["paged_attention.page"] > 0),
+                f"11 serve: a kernel of the example's path never launched: "
+                f"{launches}")
+        recs = []
+        for d, steps, resume in EXAMPLE_TRAIN_RUNS:
+            if resume:
+                step50 = tmp / "a" / "step_00000050"
+                shutil.copytree(step50, tmp / d / step50.name)
+            args = ("--steps", str(steps), "--ckpt-dir", str(tmp / d),
+                    "--device", dev, *EXAMPLE_TRAIN[dev],
+                    *(("--resume",) if resume else ()))
+            rec, = record_example("examples/torch_train_lm.py", [args], dev,
+                                  "train " + " ".join(args),
+                                  tmp / f"train{len(recs)}.json")
+            require(not any(rec["launches"].values()),
+                    f"11 train {' '.join(args)}: serving kernels launched: "
+                    f"{rec['launches']}")
+            rec["loss"] = {r["step"]: r["loss"] for r in rec["log"]}
+            recs.append(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, again = recs
+    train_launches = {k: first["train_launches"][k] + n
+                      for k, n in again["train_launches"].items()}
+    require(dev == "cpu" or (train_launches["flash_attention.train"] > 0
+                             and train_launches["flash_attention_bwd"] > 0),
+            f"11 train: a training kernel never launched: {train_launches}")
+    require(train_launches["ssd_scan_bwd"] == 0,
+            f"11 train: the dense model launched the SSD backward")
+    require("resuming from step 50" in again["text"].splitlines(),
+            f"11 train: run (ii) did not resume from step 50: "
+            f"{again['text'][-1500:]}")
+    require(again["start"] == 50, f"11 train: start {again['start']}")
+    shared = [k for k in again["loss"] if k in first["loss"]]
+    require(len(shared) >= 3 and all(again["loss"][k] == first["loss"][k]
+                                     for k in shared),
+            f"11 train: the resumed run's losses {again['loss']} are not "
+            f"run (i)'s {first['loss']} at the same steps bit for bit")
+    losses = [r["loss"] for r in first["log"]]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"11 train: run (i)'s losses did not fall: {losses}")
+    steady = (first["seconds"] * 1e3 - first["log"][0]["ms"]) \
+        / (first["steps"] - 1)
+    model = first["text"].splitlines()[0]
+    print(f"[example] train_lm {model[len('model: '):]} on {dev}, "
+          f"{first['tokens']} tokens a step: run (i) {first['steps']} "
+          f"steps in {first['seconds']:.1f}s ({first['wall']:.1f}s with the "
+          f"example's set-up), step 1 {first['log'][0]['ms']:.1f} ms, "
+          f"steps 2-{first['steps']} {steady:.2f} ms a step "
+          f"({first['tokens'] / steady * 1e3:.0f} tokens/s); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; run (ii), resumed at "
+          f"step 50, at steps {shared} bit for bit run (i)'s; training "
+          f"kernel launches over both runs {train_launches} ({SMI})")
+    print(f"[example] phase 11 took {time.perf_counter() - t_phase:.1f}s "
+          f"({SMI})")
+    return {"resumed": again["start"], "same_losses": len(shared),
+            "launches": launches, "train_launches": train_launches}
+
+
+# demo-100m's attention in training (examples/torch_train_lm.py): a
+# microbatch of 4 rows (batch 8 over 2 microbatches) x 256 positions, 8
+# query heads over 4 KV heads of 64, causal, bf16 (entries ``.example``).
+EXAMPLE_TRAIN_SHAPE = ("example", "demo-100m's training attention, one "
+                       "microbatch", 4, 256, 256, 8, 4, 64, True)
+
+
+def phase_example_kernels(results, launched):
+    """Phase 3 at the examples' shapes, each kernel against its plain
+    version, for every kernel phase 11's runs launched (``launched``:
+    phase_examples' result): at the serving example's (:data:`EXAMPLE_HEADS`,
+    bf16), flash attention on one page-padded prefill
+    (``flash_attention.smoke``: the CUDA-core path at head dim 16),
+    page-granular paged attention at B = 1, 4 over a pool of 8-token pages
+    with holes and partial last pages, 16 blocks a row
+    (``paged_attention.page.smoke``, timed at B = 4 cycling the example's
+    2 layers' pools) and the page copies on the example's 2-layer pool of
+    512-byte pages (``page_gather.smoke`` ...); at the training example's
+    (:data:`EXAMPLE_TRAIN_SHAPE`), the flash forward with lse and the
+    backward (``flash_attention.train.example``,
+    ``flash_attention_bwd.example``).  Returns the entries' launches."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    H, n_kv, dh = EXAMPLE_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    T = EXAMPLE_PREFILL_T
+    flash_entry(results, "flash_attention.smoke", 1, T, T, H, n_kv, dh,
+                True, randn, what="the serving example's prefill: smoke "
+                                  "qwen2.5-3b, one page-padded prompt")
+    rng = np.random.default_rng(29)
+    L, NP, ptok = EXAMPLE_LAYERS, EXAMPLE_PAGES, EXAMPLE_PTOK
+    n_blocks = 128 // ptok
+    kall, vall = randn(L, NP, ptok, n_kv, dh), randn(L, NP, ptok, n_kv, dh)
+    scale = dh ** -0.5
+    name = "paged_attention.page.smoke"
+    errs = []
+    for B in (1, MAX_BATCH):
+        q = randn(B, H, dh)
+        tb, nt = (torch.from_numpy(a).cuda() for a in _tables(
+            rng, B, n_blocks, NP, ptok))
+        o, m, l = ops.paged_attention_kernel(q, kall[0], vall[0], tb, nt,
+                                             granularity="page", scale=scale)
+        o_r, m_r, l_r = ref.paged_attention_ref(q, kall[0], vall[0], tb, nt,
+                                                scale=scale)
+        torch.cuda.synchronize()
+        on = o / torch.clamp(l[..., None], min=1e-30)
+        on_r = o_r / torch.clamp(l_r[..., None], min=1e-30)
+        for a, b in ((on, on_r), (m, m_r), (l, l_r)):
+            torch.testing.assert_close(a, b, **ML_TOL)
+        require(bool(torch.isfinite(on).all()), f"{name}: non-finite")
+        errs.append(float((on - on_r).abs().max()))
+    layers = [(q, kall[i], vall[i], tb, nt) for i in range(L)]
+    tokens = int(nt.sum())
+    b_ms, b_by = bound_ms(2 * tokens * n_kv * dh * 2 + q.numel() * 2
+                          + 2 * tb.numel() * 4 + MAX_BATCH * H * (dh + 2) * 4,
+                          4 * H * dh * tokens)
+    results[name] = dict(
+        max_abs_err=max(errs),
+        ms=graph_ms(cycling(functools.partial(
+            ops.paged_attention_kernel, granularity="page", scale=scale),
+            layers)),
+        plain_ms=eager_ms(cycling(functools.partial(
+            ref.paged_attention_ref, scale=scale), layers)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B={MAX_BATCH} H={H} n_kv={n_kv} dh={dh} blocks={n_blocks} "
+              f"of {ptok} tokens, tokens={tokens}")
+    r = results[name]
+    print(f"[kernel] {name} (the serving example's decode): max_abs_err "
+          f"{r['max_abs_err']:.3g} | kernel_ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} ({b_by}) "
+          f"library_ms none (no single PyTorch call computes paged "
+          f"attention) | {r['shape']}")
+    # The example's pools [L, NP, 8 tokens, 2 KV heads, 16]: 512-byte pages.
+    pool = randn(L, NP, ptok, n_kv, dh)
+    check_copies(pool, rng, randn, "the serving example's pool")
+    copy_entries(results, pool, rng, randn, ".smoke")
+    del kall, vall, pool
+    flash_train_entry(results, *EXAMPLE_TRAIN_SHAPE)
+    served = {f"{k}.smoke": n for k, n in launched["launches"].items() if n}
+    counts = {**served,
+              "flash_attention.train.example":
+                  launched["train_launches"]["flash_attention.train"],
+              "flash_attention_bwd.example":
+                  launched["train_launches"]["flash_attention_bwd"]}
+    require(all(k in results for k in counts), f"11: the examples launched "
+            f"kernels no entry holds at their shapes: "
+            f"{sorted(k for k in counts if k not in results)}")
+    for k in [k for k in results if k.endswith(".smoke")
+              and k not in counts]:
+        del results[k]          # held exactly, but not on phase 11's path
+    return counts
+
+
 def entry_kernel(name):
     """The kernel of a kernels-line entry: ``paged_attention.page.g4d128``
     -> ``paged_attention.page``, ``flash_attention.encoder`` ->
@@ -5312,50 +5730,75 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
+    last = [t_start]
+
+    def lap(label):
+        """Prints the seconds since the previous lap: where the run's
+        time goes, against its limit."""
+        now = time.perf_counter()
+        print(f"[phase] {label}: {now - last[0]:.1f}s", flush=True)
+        last[0] = now
     phase_env()
     phase_build()
+    lap("1-2 environment and build")
     results = {}
     phase_kernels(cfg, results)
     phase_mla_kernels(results)
     phase_ssd_kernel(results)
     phase_family_kernels(results)
+    lap("3 kernels")
     counts, params = phase_main_path(cfg)
+    lap("4 main path")
     torch.cuda.empty_cache()
     phase_prefix(cfg, params)
+    lap("4b prefix cache")
     for arch, modes, n in ((HYBRID_ARCH, MODES, 8),
                            (SSM_ARCH, SSM_MODES, SSM_REQUESTS)):
         for k, n_launch in phase_stream(get_config(arch), modes, n).items():
             counts[k] = counts.get(k, 0) + n_launch
+    lap("4c-4d hybrid and ssm")
     phase_small_agreement(cfg)
     phase_transparency(cfg, params)
+    lap("5-7 agreement, transparency, paging")
     del params                  # phase 4's copy of qwen2.5-3b leaves the card
     torch.cuda.empty_cache()
     for phase in (phase_cluster, phase_translation):
         for k, n_launch in phase(cfg).items():
             counts[k] = counts.get(k, 0) + n_launch
     phase_cluster_agreement(cfg)
+    lap("8 cluster")
     mla_counts = phase_mla_serving()
     dbrx = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     for k, n_launch in phase_stream(dbrx, ("sync",), MOE_REQUESTS).items():
         counts[k] = counts.get(k, 0) + n_launch
     for k, n_launch in mla_counts.items():
         counts[f"{k}.mla"] = n_launch
+    lap("4e-4f moe")
     tagged, rest = family_entries(phase_vlm(), phase_encdec(),
                                   phase_dense_archs())
     counts.update(tagged)
     for k, n_launch in rest.items():
         counts[k] = counts.get(k, 0) + n_launch
+    lap("4g-4i vlm, encdec, dense")
     phase_train_kernels(results)
     phase_family_train_kernels(results)
     phase_moe_train_kernels(results)
     phase_tp_kernels(results)
+    lap("9a training kernels")
     counts.update(phase_train(cfg))
     phase_train_agreement()
+    lap("9b-9c training")
     phase_train_families(counts)
+    lap("9d-9i families' training")
     phase_train_dist()
+    lap("9j data parallelism")
     counts.update(phase_train_tp())
+    lap("9k tensor parallelism")
     counts.update(phase_serve_mesh())
     phase_mesh_kernels(results)
+    lap("10 serving over a mesh")
+    counts.update(phase_example_kernels(results, phase_examples()))
+    lap("11 examples")
     line = [dict(name=name, route="cuda",
                  source=SOURCES[entry_kernel(name)],
                  replaces=REPLACES[entry_kernel(name)],

@@ -35,8 +35,9 @@
 //
 // CUDA-core path (f32 inputs, which must match their plain version at 2e-5
 // and would not in TF32, and bf16 head dims the tensor-core path does not
-// take): 256 threads, each owning a 4 x 4 block of a tile's scores and a
-// 4-row x dh_v/16-column block of the output, f32 FMAs over f32 tiles.
+// take, the smoke configs' 16 among them): 256 threads, each owning a 4 x 4
+// block of a tile's scores and a 4-row x dh_v/16-column block of the
+// output, f32 FMAs over f32 tiles.
 //
 // Bitwise contract (the prefix cache relies on it): a row's result does not
 // depend on Tq, q_offset's split between prefix and suffix, or which other
@@ -113,8 +114,10 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // ------------------------------------------------------- CUDA-core path
 
-// Keys DH wide, values DV wide; NC2 = DV / 32: each thread owns output
-// columns 32 * c + 2 * tx + {0, 1}.
+// Keys DH wide, values DV wide.  Each thread owns CPT consecutive output
+// columns of each of NCH chunks 16 * CPT wide: for DV a multiple of 32,
+// columns 32 * c + 2 * tx + {0, 1}; at DV = 16 (the smoke configs' width)
+// column tx.
 template <int DH, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
@@ -124,7 +127,9 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        int n_kv, int q_offset, int causal, int is_f32,
                        float scale) {
   constexpr int dh = DH;
-  constexpr int NC2 = DV / 32;
+  constexpr int CPT = DV % 32 == 0 ? 2 : 1;
+  constexpr int NCH = DV / (16 * CPT);
+  static_assert(NCH * 16 * CPT == DV, "DV is 16 or a multiple of 32");
   extern __shared__ float smem[];
   float* q_s = smem;                  // [dh][kRows], pre-scaled
   float* k_s = q_s + dh * kRows;      // [dh][kKeys]
@@ -172,13 +177,13 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
     rvalid[a] = r / bq < g && r % bq < n_pos;
     rpos[a] = q_offset + pos0 + r % bq;
   }
-  float m[4], l[4], acc[4][2 * NC2];
+  float m[4], l[4], acc[4][CPT * NCH];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = kNegInf;
     l[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2 * NC2; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < CPT * NCH; ++c) acc[a][c] = 0.f;
   }
 
   const int kvl = kv_len != nullptr ? min(kv_len[b], Tk) : Tk;
@@ -265,7 +270,7 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
       l[a] = l[a] * alpha + psum;
       m[a] = m_new;
 #pragma unroll
-      for (int c = 0; c < 2 * NC2; ++c) acc[a][c] *= alpha;
+      for (int c = 0; c < CPT * NCH; ++c) acc[a][c] *= alpha;
     }
 #pragma unroll
     for (int bb = 0; bb < 4; ++bb)
@@ -277,14 +282,23 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int kk = 0; kk < kKeys; ++kk) {
       const float4 pa = p4[kk * (kRows / 4) + ty];
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float2* vrow = reinterpret_cast<const float2*>(v_s + kk * DV);
+      if constexpr (CPT == 2) {
+        const float2* vrow = reinterpret_cast<const float2*>(v_s + kk * DV);
 #pragma unroll
-      for (int c = 0; c < NC2; ++c) {
-        const float2 vv = vrow[c * 16 + tx];
+        for (int c = 0; c < NCH; ++c) {
+          const float2 vv = vrow[c * 16 + tx];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          acc[a][2 * c] = fmaf(pv[a], vv.x, acc[a][2 * c]);
-          acc[a][2 * c + 1] = fmaf(pv[a], vv.y, acc[a][2 * c + 1]);
+          for (int a = 0; a < 4; ++a) {
+            acc[a][2 * c] = fmaf(pv[a], vv.x, acc[a][2 * c]);
+            acc[a][2 * c + 1] = fmaf(pv[a], vv.y, acc[a][2 * c + 1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const float vv = v_s[kk * DV + c * 16 + tx];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pv[a], vv, acc[a][c]);
         }
       }
     }
@@ -298,17 +312,26 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        + (size_t)(kvh * g + r / bq) * DV;
     const float den = fmaxf(l[a], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC2; ++c) {
-      const int col = c * 32 + 2 * tx;
-      const float x0 = acc[a][2 * c] / den;
-      const float x1 = acc[a][2 * c + 1] / den;
-      if (f32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(o) + off + col) =
-            make_float2(x0, x1);
+    for (int c = 0; c < NCH; ++c) {
+      if constexpr (CPT == 2) {
+        const int col = c * 32 + 2 * tx;
+        const float x0 = acc[a][2 * c] / den;
+        const float x1 = acc[a][2 * c + 1] / den;
+        if (f32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(o) + off + col) =
+              make_float2(x0, x1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(o) + off + col) =
+              __floats2bfloat162_rn(x0, x1);
+        }
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(
-            static_cast<__nv_bfloat16*>(o) + off + col) =
-            __floats2bfloat162_rn(x0, x1);
+        const int col = c * 16 + tx;
+        const float x = acc[a][c] / den;
+        if (f32)
+          static_cast<float*>(o)[off + col] = x;
+        else
+          static_cast<__nv_bfloat16*>(o)[off + col] = __float2bfloat16_rn(x);
       }
     }
     if (lse != nullptr && tx == 0)
@@ -665,7 +688,8 @@ extern "C" {
 // q [B, Tq, H, dh], k [B, Tk, n_kv, dh], v [B, Tk, n_kv, dh_v], o [B, Tq,
 // H, dh_v], all bf16 (is_f32 = 0) or all f32; lse f32 [B, H, Tq] or null
 // (written when given); kv_len int32 [B] or null;
-// dh_v = dh a multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA);
+// dh_v = dh 16 or a multiple of 32 up to 256, or dh 192 with dh_v 128
+// (MLA);
 // H / n_kv at most 64.  bf16 at dh = dh_v 32, 64, 96 or 128 and at dh 192 /
 // dh_v 128 runs the tensor-core path, the rest the CUDA-core path.  Returns
 // the launch's cudaError_t (0 on success).
@@ -692,8 +716,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   case D * 1024 + DV:                                                        \
     return (int)launch<D, DV>(q, k, v, o, lse, kv_len, B, Tq, Tk, H, n_kv,   \
                               q_offset, causal, is_f32, scale, s);
-    CASE(32, 32) CASE(64, 64) CASE(96, 96) CASE(128, 128) CASE(160, 160)
-    CASE(192, 192) CASE(224, 224) CASE(256, 256) CASE(192, 128)
+    CASE(16, 16) CASE(32, 32) CASE(64, 64) CASE(96, 96) CASE(128, 128)
+    CASE(160, 160) CASE(192, 192) CASE(224, 224) CASE(256, 256)
+    CASE(192, 128)
 #undef CASE
     default:
       return (int)cudaErrorInvalidValue;

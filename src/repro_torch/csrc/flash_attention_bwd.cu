@@ -1336,9 +1336,9 @@ extern "C" {
 // q, dq [B, Tq, H, dh]; o, dout [B, Tq, H, dh_v]; k, dk [B, Tk, n_kv, dh];
 // v, dv [B, Tk, n_kv, dh_v]; all bf16 (is_f32 = 0) or all f32,
 // contiguous; lse f32 [B, H, Tq] from the forward; D f32 [B, H, Tq]
-// scratch, written here.  Queries at positions 0 .. Tq - 1; dh_v = dh a
-// multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA); H / n_kv at
-// most 64.  On `stream`: bf16 at dh = dh_v 32, 64, 96 and 128 and at dh
+// scratch, written here.  Queries at positions 0 .. Tq - 1; dh_v = dh 16
+// or a multiple of 32 up to 256, or dh 192 with dh_v 128 (MLA); H / n_kv
+// at most 64.  On `stream`: bf16 at dh = dh_v 32, 64, 96 and 128 and at dh
 // 192 / dh_v 128 is two launches (dQ, which also writes D, then dK / dV in
 // clusters), the rest three (D, dK / dV, dQ).  Returns the first
 // cudaError_t (0 on success).
@@ -1367,8 +1367,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)launch_cc<D_, DV_>(q, k, v, o, dout, lse, D, dq, dk, dv, B,  \
                                    Tq, Tk, H, n_kv, causal, is_f32, scale,   \
                                    s);
-    CC(32, 32) CC(64, 64) CC(96, 96) CC(128, 128) CC(160, 160) CC(192, 192)
-    CC(224, 224) CC(256, 256) CC(192, 128)
+    CC(16, 16) CC(32, 32) CC(64, 64) CC(96, 96) CC(128, 128) CC(160, 160)
+    CC(192, 192) CC(224, 224) CC(256, 256) CC(192, 128)
 #undef CC
     default:
       return (int)cudaErrorInvalidValue;

@@ -133,8 +133,9 @@ size_t partial_smem_bytes(int g, int dh, size_t elem) {
          + 2 * (size_t)kSpan * sizeof(int);
 }
 
-// NC = dh / 32: lane owns head dims lane + 32 c, c < NC.
-template <typename T, bool kFused, int NC>
+// NC = ceil(DH / 32): lane owns head dims lane + 32 c < DH, c < NC (at
+// DH = 16, the smoke configs' width, lanes 16-31 own none and add zeros).
+template <typename T, bool kFused, int DH>
 __global__ void __launch_bounds__(kThreads)
 paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
                      const T* __restrict__ pool_k,
@@ -147,7 +148,8 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
                      float* __restrict__ part_o, float* __restrict__ part_m,
                      float* __restrict__ part_l, int H, int n_kv, int nblk,
                      int tokens_per_block, float scale) {
-  constexpr int dh = NC * 32;
+  constexpr int dh = DH;
+  constexpr int NC = (DH + 31) / 32;
   constexpr int HB = 4;                  // query heads per register pass
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
   constexpr int VPR = dh / kVec;         // 16-byte copies per row
@@ -162,6 +164,8 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  // Whether head dim cc * 32 + lane exists (always, for DH % 32 == 0).
+  auto owns = [&](int cc) { return DH % 32 == 0 || cc * 32 + lane < DH; };
 
   T* kv_s = reinterpret_cast<T*>(smem_raw);     // [kBufs][2][kChunk][dh]
   float* q_s = reinterpret_cast<float*>(kv_s + 2 * kBufs * kChunk * dh);
@@ -272,8 +276,8 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
       for (int hh = 0; hh < HB; ++hh)
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc)
-          qr[hh][cc] =
-              hb + hh < g ? q_s[(hb + hh) * dh + cc * 32 + lane] : 0.f;
+          qr[hh][cc] = hb + hh < g && owns(cc)
+                           ? q_s[(hb + hh) * dh + cc * 32 + lane] : 0.f;
       // Scores of this warp's positions; -inf where there is no token.
       float s[kPerWarp][HB];
 #pragma unroll
@@ -283,7 +287,7 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
           float kv[NC];
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc)
-            kv[cc] = to_float(kr[cc * 32 + lane]);
+            kv[cc] = owns(cc) ? to_float(kr[cc * 32 + lane]) : 0.f;
 #pragma unroll
           for (int hh = 0; hh < HB; ++hh) {
             if (hb + hh >= g) {    // past the group (g < HB): no work
@@ -322,7 +326,8 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
         const float l_new = l_s[st] * alpha[hh] + psum;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc)
-          acc[hh][cc] = o_s[st * dh + cc * 32 + lane] * alpha[hh];
+          acc[hh][cc] = owns(cc) ? o_s[st * dh + cc * 32 + lane] * alpha[hh]
+                                 : 0.f;
         __syncwarp();
         if (lane == 0 && hb + hh < g) {
           m_s[st] = m_new;
@@ -335,7 +340,8 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
         const T* vr = vs + (warp + kWarps * i) * dh;
         float vv[NC];
 #pragma unroll
-        for (int cc = 0; cc < NC; ++cc) vv[cc] = to_float(vr[cc * 32 + lane]);
+        for (int cc = 0; cc < NC; ++cc)
+          vv[cc] = owns(cc) ? to_float(vr[cc * 32 + lane]) : 0.f;
 #pragma unroll
         for (int hh = 0; hh < HB; ++hh) {
           if (hb + hh >= g) continue;
@@ -350,7 +356,7 @@ paged_partial_kernel(const void* __restrict__ q, int q_is_f32,
         const int st = warp * g + hb + hh;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc)
-          o_s[st * dh + cc * 32 + lane] = acc[hh][cc];
+          if (owns(cc)) o_s[st * dh + cc * 32 + lane] = acc[hh][cc];
       }
     }
     __syncthreads();               // buffer buf is consumed
@@ -705,7 +711,9 @@ __global__ void paged_combine_kernel(const float* __restrict__ part_o,
 cudaError_t combine(float* o, float* m, float* l, const float* scratch,
                     int B, int H, int dh, int nsplit, cudaStream_t stream) {
   const size_t parts = (size_t)B * H * nsplit;
-  paged_combine_kernel<<<B * H, dh, 2 * nsplit * sizeof(float), stream>>>(
+  // At least a warp: the max's shuffles take every lane (dh may be 16).
+  paged_combine_kernel<<<B * H, dh < 32 ? 32 : dh,
+                         2 * nsplit * sizeof(float), stream>>>(
       scratch, scratch + parts * dh, scratch + parts * (dh + 1), o, m, l,
       nsplit, dh);
   return cudaGetLastError();
@@ -715,8 +723,8 @@ int splits(int nblk, int tokens_per_block) {
   return (int)(((long long)nblk * tokens_per_block + kSpan - 1) / kSpan);
 }
 
-template <typename T, bool kFused, int NC>
-cudaError_t launch_nc(const void* q, int q_is_f32, const void* pool_k,
+template <typename T, bool kFused, int DH>
+cudaError_t launch_dh(const void* q, int q_is_f32, const void* pool_k,
                       const void* pool_v,
                       const void* stage_k, const void* stage_v,
                       const int* tables, const int* slots, const int* ntok,
@@ -724,13 +732,13 @@ cudaError_t launch_nc(const void* q, int q_is_f32, const void* pool_k,
                       int tokens_per_block, float scale, int nsplit,
                       cudaStream_t stream) {
   const int g = H / n_kv;
-  const size_t smem = partial_smem_bytes(g, NC * 32, sizeof(T));
+  const size_t smem = partial_smem_bytes(g, DH, sizeof(T));
   // Raised once per instantiation, to the card's opt-in maximum less the
   // kernel's static shared memory, so that a later launch inside a
   // CUDA-graph capture makes no attribute call.
   static bool smem_raised = false;
   if (smem > 48 * 1024 && !smem_raised) {
-    const auto kernel = paged_partial_kernel<T, kFused, NC>;
+    const auto kernel = paged_partial_kernel<T, kFused, DH>;
     int dev = 0, optin = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaGetDevice(&dev);
@@ -747,10 +755,10 @@ cudaError_t launch_nc(const void* q, int q_is_f32, const void* pool_k,
   }
   const size_t parts = (size_t)B * H * nsplit;
   float* part_o = scratch;
-  float* part_m = part_o + parts * NC * 32;
+  float* part_m = part_o + parts * DH;
   float* part_l = part_m + parts;
   const dim3 grid(nsplit, n_kv, B);
-  paged_partial_kernel<T, kFused, NC><<<grid, kThreads, smem, stream>>>(
+  paged_partial_kernel<T, kFused, DH><<<grid, kThreads, smem, stream>>>(
       q, q_is_f32, static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), static_cast<const T*>(stage_k),
       static_cast<const T*>(stage_v), tables,
@@ -773,12 +781,12 @@ cudaError_t launch(const void* q, int q_is_f32, const void* pool_k,
     switch (dh) {
 #define CASE(D)                                                              \
   case D:                                                                    \
-    err = launch_nc<T, kFused, D / 32>(                                      \
+    err = launch_dh<T, kFused, D>(                                           \
         q, q_is_f32, pool_k, pool_v, stage_k, stage_v, tables, slots, ntok,  \
         scratch, B, H, n_kv, nblk, tokens_per_block, scale, nsplit, stream); \
     break;
-      CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
-      CASE(256)
+      CASE(16) CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192)
+      CASE(224) CASE(256)
 #undef CASE
       default:
         break;
@@ -799,8 +807,8 @@ int paged_attention_split_tokens() { return kSpan; }
 // [rows, n_kv, dh_v] bf16 (kv_is_f32 = 0) or f32; tables / ntok int32
 // [B, nblk]; outputs o [B, H, dh_v], m / l [B, H] f32; scratch f32 of
 // B * H * nsplit * (dh_v + 2) floats, nsplit = ceil(nblk * tokens_per_block
-// / paged_attention_split_tokens()).  dh_v = dh (a multiple of 32 up to
-// 256), or MLA's dh 576 / dh_v 512 with bf16 q and pools.  Returns the
+// / paged_attention_split_tokens()).  dh_v = dh (16, or a multiple of 32
+// up to 256), or MLA's dh 576 / dh_v 512 with bf16 q and pools.  Returns the
 // first failing launch's cudaError_t (0 on success).
 int paged_attention_fwd(const void* q, int q_is_f32, const void* pool_k,
                         const void* pool_v, const int* tables, const int* ntok,

@@ -13,8 +13,8 @@ so a suffix call reproduces the full call's rows bit for bit.  Values may
 be narrower than keys: MLA's expanded prefill has key width 192 and value
 width 128 (:data:`HEAD_DIMS`).  bf16 inputs at head dims 32, 64, 96 and
 128 and at MLA's 192 / 128 run on the tensor cores (``mma.sync``, f32
-accumulate); f32 inputs and the other head dims run the CUDA-core path of
-the same source.
+accumulate); f32 inputs and the other head dims (the smoke configs' 16
+among them) run the CUDA-core path of the same source.
 
 For CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); for CUDA tensors it
@@ -53,9 +53,11 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# (key width, value width) pairs the kernel takes: equal widths in multiples
-# of 32 up to 256, and MLA's expanded prefill (nope 128 + rope 64, v 128).
-HEAD_DIMS = tuple((d, d) for d in range(32, 257, 32)) + ((192, 128),)
+# (key width, value width) pairs the kernels take: the smoke configs' 16,
+# equal widths in multiples of 32 up to 256, and MLA's expanded prefill
+# (nope 128 + rope 64, v 128).
+HEAD_DIMS = ((16, 16),) + tuple((d, d) for d in range(32, 257, 32)) \
+    + ((192, 128),)
 MAX_GROUP = 64          # query heads per KV head the kernel's CTA can hold
 SITES = ("encoder", "cross_prefill", "cross_decode")
 
@@ -233,7 +235,7 @@ def _check_inputs(q, k, v, kv_len, q_offset) -> None:
                          f"{tuple(q.shape)}")
     if (dh, v.shape[-1]) not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} (value {v.shape[-1]}) unsupported: "
-                         f"equal multiples of 32 up to 256, or 192 / 128")
+                         f"{HEAD_DIMS}")
     if H % n_kv or H // n_kv > MAX_GROUP:
         raise ValueError(f"{H} query heads do not group over {n_kv} KV "
                          f"heads in groups of at most {MAX_GROUP}")

@@ -43,7 +43,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = tuple(range(32, 257, 32))   # key = value widths, any dtype
+# Key = value widths, any dtype: multiples of 32 up to 256, and the smoke
+# configs' 16.
+HEAD_DIMS = (16,) + tuple(range(32, 257, 32))
 MLA_DIMS = (576, 512)   # (key, value) widths of MLA's latent pools, bf16
 SPLIT_TOKENS = 64       # table token positions per split (csrc kSpan)
 
@@ -135,8 +137,8 @@ def _check_inputs(q, pool_k, pool_v, tables, ntok, fp: int, *,
                          f"{MLA_DIMS[0]} / {MLA_DIMS[1]} (MLA, page and "
                          f"frame) is ported")
     elif dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} unsupported: multiples of 32 up "
-                         f"to 256, or {MLA_DIMS[0]} / {MLA_DIMS[1]}")
+        raise ValueError(f"head dim {dh} unsupported: {HEAD_DIMS}, or "
+                         f"{MLA_DIMS[0]} / {MLA_DIMS[1]}")
     if H % n_kv:
         raise ValueError(f"{H} query heads do not group over {n_kv} KV heads")
     if NP % fp:

@@ -13,7 +13,9 @@ one JSON line (also appended to ``--out``) with
 
   * ``per_device_bytes``: one rank's bytes of every input part (params,
     optimizer state, error feedback, gradients, batch, pools, page tables,
-    decode state) and their sum; activations are not counted (null);
+    decode state) and their sum; activations are not counted (null: the
+    reference reads them from XLA's ``memory_analysis()``, which has no
+    PyTorch counterpart);
   * ``fits``: whether that sum fits one card: the card's
     ``torch.cuda.get_device_properties(0).total_memory`` when one is
     visible, else 80 GB (NVIDIA H100 SXM5 datasheet);
@@ -23,9 +25,8 @@ one JSON line (also appended to ``--out``) with
   * ``collective_bytes_per_chip``: the bytes a rank sends per step,
     counted from the port's layout (:func:`collective_bytes`; a ring moves
     (n - 1) / n of a gathered or scattered tensor and 2 (n - 1) / n of an
-    all-reduced one over n ranks); null where the port does not count
-    them (the training of hybrid, ssm, encdec and vlm, and
-    ``grad_compress``'s int8 ring);
+    all-reduced one over n ranks; ``grad_compress``'s ring hops as
+    ``p2p``, each its whole int8 chunk and f32 scales), for every cell;
   * the three roofline terms at the H100 SXM5 datasheet figures:
     989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 450 GB/s per direction of
     NVLink (fourth generation), and the largest of them.
@@ -37,7 +38,7 @@ import argparse
 import json
 import math
 import sys
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import (
@@ -159,7 +160,14 @@ def memory_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh
 
 
 class _Sent:
-    """Bytes a rank sends, by collective kind (ring algorithms)."""
+    """Bytes a rank sends, by collective kind: ring algorithms for the
+    collectives; a point-to-point send (``p2p``) and a broadcast count
+    their whole tensor (a broadcast's root's)."""
+
+    FACTOR = {"all_reduce": lambda n: 2 * (n - 1) / n,
+              "all_gather": lambda n: (n - 1) / n,
+              "reduce_scatter": lambda n: (n - 1) / n,
+              "p2p": lambda n: 1, "broadcast": lambda n: 1}
 
     def __init__(self):
         self.kinds = {"all_reduce": 0.0, "all_gather": 0.0,
@@ -168,10 +176,10 @@ class _Sent:
     def __call__(self, kind: str, nbytes: float, n: int, times=1) -> None:
         """``times`` collectives of ``kind`` over ``n`` ranks, each of a
         tensor of ``nbytes`` (the gathered output, the scattered input, the
-        all-reduced tensor)."""
+        all-reduced tensor, the sent or broadcast tensor)."""
         if n > 1:
-            self.kinds[kind] += times * nbytes * (n - 1) / n * (
-                2 if kind == "all_reduce" else 1)
+            self.kinds[kind] = self.kinds.get(kind, 0.0) \
+                + times * nbytes * self.FACTOR[kind](n)
 
     def result(self) -> Dict[str, float]:
         return dict(self.kinds, total=sum(self.kinds.values()))
@@ -277,104 +285,154 @@ def _serving_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, plan,
                 add("all_reduce", mo.n_experts * F32, dp, n)
 
 
+def _train_stacks(cfg: ModelConfig, shape: ShapeConfig, D: int, remat):
+    """(layer config, layers, rows, recomputed) of each stack of explicit
+    blocks a training step runs (``LM.loss``): rows over all microbatches
+    of this batch rank; ``recomputed`` whether a layer's backward runs its
+    forward again, its reduces included.  The decoder of dense, moe and
+    vlm (:func:`_stacks`; vlm's rows also carry the patch embeddings),
+    recomputed under "block"; the hybrid's shared block once per
+    invocation, never recomputed; encdec's encoder over the source frames
+    and its decoder, each layer recomputed under any remat; none for
+    ssm."""
+    from repro_torch.models.common import layer_remat
+    B = shape.global_batch // D
+    rows = B * shape.seq_len
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [(cfg, cfg.n_layers // cfg.hybrid.period, rows, False)]
+    if cfg.family == "encdec":
+        on = layer_remat(remat)
+        return [(cfg, cfg.encdec.enc_layers, B * cfg.encdec.source_len, on),
+                (cfg, cfg.encdec.dec_layers, rows, on)]
+    if cfg.family == "vlm":
+        rows += B * cfg.frontend_tokens
+    return [(lcfg, n, rows, remat in (True, "block"))
+            for lcfg, n in _stacks(cfg)]
+
+
+def _block_collectives(stacks, E: int, tp: int, D: int, micro: int,
+                       add: Callable) -> None:
+    """The explicit blocks' all-reduces over ``model`` (and the MoE loads'
+    over the batch ranks) of :func:`_train_stacks`' stacks: per layer the
+    GQA attention's and the SwiGLU's (or the MoE block's) forward reduce,
+    again in a recompute, and the copy-to-model backward of the block
+    input; per layer and microbatch the copy-to-model backward of each
+    weight replicated into a block (k / v projections that the model axis
+    does not split, qwen3's q_norm / k_norm, the router)."""
+    from repro_torch.models.transformer import kv_sharded, tp_geometry
+    for lcfg, n, rows, recomputed in stacks:
+        act = rows * lcfg.d_model * E
+        fwd = 2 if recomputed else 1
+        if lcfg.mla is None:
+            geo = tp_geometry(lcfg, tp)
+            if geo is not None:
+                add("all_reduce", act, tp, n * (fwd + 1))
+                copies = []
+                if not kv_sharded(lcfg, geo):
+                    w = lcfg.d_model * lcfg.n_kv_heads \
+                        * lcfg.resolved_head_dim
+                    copies += [w, w]
+                    if lcfg.qkv_bias:
+                        b = lcfg.n_kv_heads * lcfg.resolved_head_dim
+                        copies += [b, b]
+                if lcfg.qk_norm:
+                    copies += [lcfg.resolved_head_dim] * 2
+                for c in copies:
+                    add("all_reduce", c * E, tp, n * micro)
+        mo = lcfg.moe
+        if mo is None:
+            if lcfg.d_ff % tp == 0:
+                add("all_reduce", act, tp, n * (fwd + 1))
+            continue
+        parts = 2 if mo.n_shared else 1
+        add("all_reduce", act, tp, n * (fwd * parts + 1))
+        add("all_reduce", lcfg.d_model * mo.n_experts * E, tp,
+            n * micro)                                   # the router
+        add("all_reduce", mo.n_experts * F32, D, n * micro * fwd)
+
+
 def _train_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
                        hp: TrainHParams, add: Callable) -> None:
     """The training step's collectives (``train/trainer.py`` and the
-    explicit blocks of ``models/{transformer,moe}.py``): per microbatch
-    the blocks' all-reduces over ``model`` (forward reduces, the
-    copy-to-model backward of the block input and of the replicated
-    weights inside a block; "block" remat reduces again in its recompute)
-    and the gathers of ``model``-split leaves outside the blocks; per step
-    the gradients' reduction over the batch axes (ZeRO-1: reduce-scatter,
-    then the updated masters' all-gather; fsdp: the gathers in
-    ``cfg.dtype`` and f32 reduce-scatters of every microbatch), the grad
-    norm's, the step's means of its loss, nll and aux over the batch
-    ranks, and ``Trainer.run``'s preemption flag."""
+    explicit blocks of ``models/{transformer,moe,hybrid,encdec}.py``): per
+    microbatch the blocks' all-reduces (:func:`_block_collectives`) and the
+    gathers of ``model``-split leaves outside the blocks (MLA, Mamba-2,
+    the embeddings, encdec's cross-attention; every such leaf under auto);
+    per step, per leaf, the gradient's reduction over the batch axes:
+    ZeRO-1's reduce-scatter of the f32 model-shard gradient and the
+    all-gather of the next step's cast copy in ``cfg.dtype`` (an
+    all-reduce where the leaf is not split over data); fsdp's gathers in
+    ``cfg.dtype`` and f32 reduce-scatters of every microbatch; under
+    ``grad_compress`` the int8 ring instead of the f32 reduction (2 (D -
+    1) hops over the data group, each sending an int8 chunk of the leaf's
+    model-shard gradient padded to ``grad_compress.padded_size`` and its
+    f32 block scales, then the broadcast that makes a leaf's shard agree
+    across its batch replicas); then the grad norm's all-reduce, the
+    step's means of its loss, nll and aux over the batch ranks, and
+    ``Trainer.run``'s preemption flag."""
     from repro_torch.models.common import ParallelCtx
     from repro_torch.models.lm import LM
-    from repro_torch.models.transformer import kv_sharded, tp_geometry
+    from repro_torch.train.grad_compress import BLOCK, padded_size
     from repro_torch.train.layout import Placement, batch_axes
     from repro_torch.train.trainer import state_specs
     batch = batch_axes(hp.parallelism, mesh)
     D = math.prod(mesh.shape[a] for a in batch)
     tp = math.prod(mesh.shape[a] for a in mesh.axis_names if a not in batch)
     micro = hp.microbatch if hp.microbatch and hp.microbatch > 1 else 1
-    rows = shape.global_batch // D * shape.seq_len     # over all micros
     E = DTYPE_BYTES[cfg.dtype]
-    act = rows * cfg.d_model * E
-    explicit = hp.parallelism == "megatron" and tp > 1
-    fwd = 2 if hp.remat in (True, "block") else 1      # recompute reduces
-    if explicit:
-        for lcfg, n in _stacks(cfg):
-            if lcfg.mla is None:
-                geo = tp_geometry(lcfg, tp)
-                if geo is not None:
-                    add("all_reduce", act, tp, n * (fwd + 1))
-                    copies = []
-                    if not kv_sharded(lcfg, geo):
-                        w = lcfg.d_model * lcfg.n_kv_heads \
-                            * lcfg.resolved_head_dim
-                        copies += [w, w]
-                        if lcfg.qkv_bias:
-                            b = lcfg.n_kv_heads * lcfg.resolved_head_dim
-                            copies += [b, b]
-                    if lcfg.qk_norm:
-                        copies += [lcfg.resolved_head_dim] * 2
-                    for c in copies:
-                        add("all_reduce", c * E, tp, n * micro)
-            mo = lcfg.moe
-            if mo is None:
-                if lcfg.d_ff % tp == 0:
-                    add("all_reduce", act, tp, n * (fwd + 1))
-                continue
-            parts = 2 if mo.n_shared else 1
-            add("all_reduce", act, tp, n * (fwd * parts + 1))
-            add("all_reduce", lcfg.d_model * mo.n_experts * E, tp,
-                n * micro)                               # the router
-            add("all_reduce", mo.n_experts * F32, D, n * micro * fwd)
+    if hp.parallelism == "megatron" and tp > 1:
+        _block_collectives(_train_stacks(cfg, shape, D, hp.remat), E, tp,
+                           D, micro, add)
     elif cfg.moe is not None:
         n = cfg.n_layers - cfg.moe.first_dense
+        fwd = 2 if hp.remat in (True, "block") else 1
         add("all_reduce", cfg.moe.n_experts * F32, D, n * micro * fwd)
     lm = LM(cfg, device="meta", master=True)
     params = dict(lm.named_parameters())
-    pspec, mspec = state_specs(params, hp, mesh)
+    pspec, _ = state_specs(params, hp, mesh)
     par = ParallelCtx(tp=tp, mode="auto" if hp.parallelism == "auto"
                       else "megatron")
+    fsdp = hp.parallelism == "fsdp"
     for name, p in params.items():
         full = math.prod(p.shape)
-        pplace = Placement(p.shape, pspec[name], mesh, batch, 0)
-        mplace = Placement(p.shape, mspec[name], mesh, batch, 0)
-        shard = math.prod(pplace.model_shape)
-        if hp.parallelism == "fsdp":
-            if pplace.sharded:
-                add("all_gather", full * E, pplace.n, micro)
-                add("reduce_scatter", full * F32, pplace.n, micro)
-            else:
-                add("all_reduce", full * F32, D)
-            continue
-        if pplace.model is not None and not lm.model_local(name, par):
-            add("all_gather", full * E, pplace.model.n, micro)
-        if mplace.data is not None:
-            add("reduce_scatter", shard * F32, mplace.data.n)
-            add("all_gather", shard * F32, mplace.data.n)
-        else:
-            add("all_reduce", shard * F32, D)
+        place = Placement(p.shape, pspec[name], mesh, batch, 0)
+        shard = math.prod(place.model_shape)            # the model shard
+        held = shard // (place.data.n if place.data else 1)
+        reps = math.prod(mesh.shape[a] for a in place.replica_axes)
+        if fsdp and place.sharded:
+            add("all_gather", full * E, place.n, micro)
+            if not hp.grad_compress:    # GatherFn's backward: place.reduce
+                add("reduce_scatter", full * F32, place.n, micro)
+                add("all_reduce", held * F32, reps, micro)
+                continue
+        elif place.model is not None and not lm.model_local(name, par):
+            add("all_gather", full * E, place.model.n, micro)
+        if not fsdp and place.data is not None:
+            add("all_gather", shard * E, place.data.n)  # the cast copy
+        if hp.grad_compress:
+            chunk = padded_size(shard, D) // D
+            add("p2p", chunk + chunk // BLOCK * F32, D, 2 * (D - 1))
+            add("broadcast", held * F32, reps)          # place.agree
+        else:                                           # place.reduce
+            if place.data is not None:
+                add("reduce_scatter", shard * F32, place.data.n)
+            add("all_reduce", held * F32, reps)
     add("all_reduce", F32, mesh.size)                   # the grad norm
     add("all_reduce", 3 * F32, D)             # the loss, nll and aux means
     add("all_reduce", 8, mesh.size)   # Trainer.run's preemption flag (int64)
 
 
 def collective_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, cell
-                     ) -> Optional[Dict[str, float]]:
+                     ) -> Dict[str, float]:
     """Bytes a rank sends in one step of ``cell`` (:func:`~repro_torch.
     launch.specs.build_cell`'s; only its ``kind``, ``hp`` and ``plan`` are
-    read), by kind, or None where the port does not count them (module
-    docstring).  Activations and weights move in ``cfg.dtype``, gradients,
-    moments and the attention combine's partials in f32."""
+    read), by kind.  Activations and weights move in ``cfg.dtype``,
+    gradients, moments and the attention combine's partials in f32, the
+    compressed gradient as int8 chunks with f32 block scales."""
     add = _Sent()
     if cell["kind"] == "train":
-        if cfg.family not in ("dense", "moe") or cell["hp"].grad_compress:
-            return None
         _train_collectives(cfg, shape, mesh, cell["hp"], add)
     else:
         _serving_collectives(cfg, shape, mesh, cell["plan"], add)
@@ -398,15 +456,34 @@ def capacity() -> tuple:
 PARTS = {"tokens": "batch", "pos": "batch", "last_pos": "batch"}
 
 
+def _grad_bytes(cell, mesh) -> int:
+    """One rank's f32 gradient bytes in a training step: at the fsdp shard
+    (each microbatch's gradient is reduce-scattered there); under megatron
+    and auto at the model shard, where the step sums the microbatches
+    before reducing them over the data ranks to the ZeRO-1 shard."""
+    from repro_torch.train.layout import Placement, batch_axes
+    hp = cell["hp"]
+    batch = batch_axes(hp.parallelism, mesh)
+    total = 0
+    for name, inp in cell["inputs"].items():
+        if not name.startswith("params."):
+            continue
+        shape = inp.shard_shape(mesh) if hp.parallelism == "fsdp" \
+            else Placement(inp.shape, inp.spec, mesh, batch, 0).model_shape
+        total += F32 * math.prod(shape)
+    return total
+
+
 def per_device_bytes(cell, mesh) -> Dict[str, object]:
     """One rank's bytes of each input part of ``cell`` and their sum;
-    training also holds a gradient of every parameter at its shard (f32)."""
+    training also holds a gradient of every parameter
+    (:func:`_grad_bytes`)."""
     parts: Dict[str, int] = {}
     for name, inp in cell["inputs"].items():
         part = PARTS.get(name, name.split(".")[0])
         parts[part] = parts.get(part, 0) + inp.rank_bytes(mesh)
     if cell["kind"] == "train":
-        parts["grads"] = parts["params"]
+        parts["grads"] = _grad_bytes(cell, mesh)
     return {"parts": parts, "total": sum(parts.values()),
             "activations": None}
 
@@ -442,9 +519,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     coll = collective_bytes(cfg, shape, mesh, cell)
     terms = {"compute_s": model_flops / (n * PEAK_FLOPS),
              "memory_s": hbm / HBM_BW,
-             "collective_s": None if coll is None
-             else coll["total"] / LINK_BW}
-    known = {k: v for k, v in terms.items() if v is not None}
+             "collective_s": coll["total"] / LINK_BW}
     rec = {
         "arch": arch, "shape": shape_name,
         "mesh": "x".join(map(str, mesh.shape.values())),
@@ -455,7 +530,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "capacity_source": source, "fits": mem["total"] <= cap,
         "model_flops": model_flops, "hbm_bytes_per_chip": hbm,
         "collective_bytes_per_chip": coll, **terms,
-        "bottleneck": max(known, key=known.get),
+        "bottleneck": max(terms, key=terms.get),
         "roofline_source": f"{DATASHEET}: {PEAK_FLOPS / 1e12:g} TFLOP/s "
                            f"dense bf16, {HBM_BW / 1e12:g} TB/s HBM3, "
                            f"{LINK_BW / 1e9:g} GB/s NVLink per direction",

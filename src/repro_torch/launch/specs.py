@@ -16,10 +16,11 @@ shape), so ``S`` and ``mpps`` are mesh-dependent.  Serving parameters are
 bf16 at the tensor-parallel rules, replicated over ``data``, the expert
 tensors at the 2-D expert layout where ``models/moe.py::ep2d_geometry``
 applies; training's are the port's fp32 masters at its ``state_specs``
-(megatron / auto keep them at the model shard, ZeRO-1 shards the moments;
-fsdp shards both), with its error-feedback buffers under ``grad_compress``
-(one per leaf and rank, at the model shard).  A serving Mamba-2 leaf is cut
-by heads (``launch/sharding.py::HeadCut``), which no spec says: its
+(megatron / auto keep them and the moments at the ZeRO-1 shard, fsdp at
+its shard, as the reference), with its error-feedback buffers under
+``grad_compress`` (one per leaf and rank, at the model shard).  A serving
+Mamba-2 leaf is cut by heads (``launch/sharding.py::HeadCut``), which no
+spec says: its
 :class:`Input` carries the rank's shape beside the reference's spec, and
 so does the rank's ``conv`` decode state; its ``ssm`` state splits its
 heads over ``model``.

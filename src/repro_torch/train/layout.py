@@ -40,6 +40,10 @@ autograd functions):
 :class:`GatherFn` is also FSDP's weight gather: forward all-gathers the
 shards in the compute dtype, backward reduce-scatters the f32 gradient
 (there every rank holds other batch rows, so the gradients are partial).
+:class:`GatherFn` also carries ZeRO-1's masters: a master held at its
+data shard enters the forward as the step's cast copy, already gathered
+over data (its ``copy``), and its gradient is kept at the model shard for
+the step's reduce-scatter.
 """
 
 from __future__ import annotations
@@ -179,11 +183,14 @@ class Placement:
         """The model shard from every batch rank's ``shard``."""
         return shard if self.data is None else self.data.gather(shard)
 
+    def gather_model(self, mshard: torch.Tensor) -> torch.Tensor:
+        """The full leaf from every model rank's model shard ``mshard``."""
+        return mshard if self.model is None else self.model.gather(mshard)
+
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
         """The full leaf from every rank's ``shard`` (all-gathers over the
         batch split, then the model split)."""
-        m = self.gather_data(shard)
-        return m if self.model is None else self.model.gather(m)
+        return self.gather_model(self.gather_data(shard))
 
     def reduce(self, g: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the sum over the batch ranks of their
@@ -207,24 +214,27 @@ class Placement:
 
 class GatherFn(torch.autograd.Function):
     """The gather of a sharded f32 master weight: forward casts the shard
-    to ``dtype`` and all-gathers it with ``gather`` (the whole weight, in
-    the compute dtype); backward hands the f32 gradient of the whole weight
-    to ``reduce``, whose result (the shard's gradient, or None when the
-    caller keeps the whole gradient itself) becomes the shard's.  FSDP
-    passes its placement's ``gather`` / ``reduce``; a model-split leaf
-    outside the explicit blocks its model split's gather and
-    :func:`chunk_of` (rule 3 of the module docstring)."""
+    to ``dtype`` (or takes ``copy``, the shard already cast and gathered by
+    the caller) and gathers it with ``gather`` (the whole weight, in the
+    compute dtype); backward hands the f32 gradient of the whole weight to
+    ``reduce``, whose result (the shard's gradient, or None when the caller
+    keeps the gradient itself) becomes the shard's.  FSDP passes its
+    placement's ``gather`` / ``reduce``; a model-split leaf outside the
+    explicit blocks its model split's gather and :func:`chunk_of` (rule 3
+    of the module docstring); a ZeRO-1 master its step's copy, gathered
+    over data once a step."""
 
     @staticmethod
     def forward(ctx, shard, dtype,
                 gather: Callable[[torch.Tensor], torch.Tensor],
-                reduce: Callable[[torch.Tensor], Optional[torch.Tensor]]):
+                reduce: Callable[[torch.Tensor], Optional[torch.Tensor]],
+                copy: Optional[torch.Tensor]):
         ctx.reduce = reduce
-        return gather(shard.detach().to(dtype))
+        return gather(shard.detach().to(dtype) if copy is None else copy)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.reduce(grad.float()), None, None, None
+        return ctx.reduce(grad.float()), None, None, None, None
 
 
 def chunk_of(place: Placement):

@@ -21,19 +21,22 @@ master weights, in the reference's order of operations:
 ``hp.parallelism``:
   * ``megatron``: data parallelism over pod and data plus ZeRO-1, and over
     a ``model`` axis > 1 the reference's explicit tensor / expert-parallel
-    blocks (:class:`~repro_torch.models.common.ParallelCtx`).  Each leaf
-    the reference splits over ``model`` (``param_specs``) is held as this
-    rank's model shard: the f32 master of that shard stays whole over the
-    data ranks, each gradient is reduce-scattered over the data group only
-    to its ``zero1_specs`` shard (all-reduced where that leaves it whole;
-    the ``model`` sums happened inside the blocks), AdamW's moments live
-    only as shards, the update runs on the shard and the new params are
-    all-gathered over data.  (The reference also stores its f32 masters at
-    the ZeRO-1 layout and gathers their bf16 copy once a step.)  A
-    ``model``-split leaf that no explicit block takes at its shard (MLA,
-    Mamba-2, the embeddings, encdec's cross-attention) is gathered over
-    ``model`` where the loss casts it (:mod:`repro_torch.train.layout`'s
-    three rules).  The grad norm sums every model shard's squares once.
+    blocks (:class:`~repro_torch.models.common.ParallelCtx`).  Every leaf
+    is held at the reference's ZeRO-1 layout (``zero1_specs``): its
+    ``model`` split (``param_specs``), cut further over the data ranks
+    where a dim divides, so a rank keeps 1 / D of such a leaf's f32 master
+    and of its moments.  Once a step the master shard is cast to
+    ``cfg.dtype`` and that copy is all-gathered over data to the model
+    shard (:meth:`TrainStep._cast_copy`; the reference's one gather
+    outside the layer scan), which the forward reads; the f32 gradient of
+    the model shard, summed over the microbatches, is reduce-scattered
+    over the data group to the ZeRO-1 shard (all-reduced where the leaf
+    is not split over data; the ``model`` sums happened inside the
+    blocks), and AdamW updates the shard.  A ``model``-split leaf that no
+    explicit block takes at its shard (MLA, Mamba-2, the embeddings,
+    encdec's cross-attention) is also gathered over ``model`` where the
+    loss casts it (:mod:`repro_torch.train.layout`'s three rules).  The
+    grad norm sums every shard's squares once.
   * ``auto``: the same layouts with no explicit block: every
     ``model``-split leaf is gathered and each model rank computes the
     whole model (the reference leaves it to GSPMD).
@@ -73,7 +76,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, TrainHParams
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.sharding import fsdp_specs, param_specs, zero1_specs
+from repro_torch.launch.sharding import fsdp_specs, zero1_specs
 from repro_torch.models.common import ParallelCtx
 from repro_torch.models.lm import LM
 from repro_torch.train import checkpoint as ckpt
@@ -83,7 +86,12 @@ from repro_torch.train.grad_compress import (
     pad_to_block,
     padded_size,
 )
-from repro_torch.train.layout import GatherFn, Placement, batch_axes, chunk_of
+from repro_torch.train.layout import (
+    GatherFn,
+    Placement,
+    batch_axes,
+    chunk_of,
+)
 from repro_torch.train.optimizer import adamw_init, adamw_update
 
 
@@ -102,13 +110,14 @@ def batch_spec(mesh, hp: TrainHParams):
 
 
 def state_specs(params: Mapping, hp: TrainHParams, mesh):
-    """(param specs, optimizer-moment specs) for the chosen parallelism:
-    fsdp shards both; ZeRO-1 keeps the params at their tensor-parallel
-    specs and shards the moments."""
+    """(param specs, optimizer-moment specs) for the chosen parallelism,
+    the reference's: fsdp shards both over every axis; megatron and auto
+    keep both at the ZeRO-1 layout."""
     if hp.parallelism == "fsdp":
         f = fsdp_specs(params, mesh)
         return f, f
-    return param_specs(params, mesh), zero1_specs(params, mesh)
+    z = zero1_specs(params, mesh)
+    return z, z
 
 
 def _keep_local(store: Dict[str, torch.Tensor], name: str,
@@ -119,7 +128,11 @@ def _keep_local(store: Dict[str, torch.Tensor], name: str,
 
 
 def _gather(gather, reduce, shard, dtype):
-    return GatherFn.apply(shard, dtype, gather, reduce)
+    return GatherFn.apply(shard, dtype, gather, reduce, None)
+
+
+def _as_view(x: torch.Tensor) -> torch.Tensor:
+    return x.view_as(x)
 
 
 class TrainStep:
@@ -134,11 +147,11 @@ class TrainStep:
 
     ``init_opt()`` makes the AdamW state at this rank's shards; ``shards()``
     are this rank's shards of the master weights (views); ``param_places``
-    and ``places`` the leaves' :class:`Placement` as held (the model
-    shard; fsdp's shard) and as the optimizer keeps them; ``par`` the
-    forward's :class:`ParallelCtx`; ``ef`` the per-leaf error-feedback
-    buffers under ``grad_compress``.  The LM's sharded parameters are
-    replaced by their shards."""
+    and ``places`` the leaves' :class:`Placement` as held and as the
+    optimizer keeps them (both ZeRO-1's or fsdp's); ``par`` the forward's
+    :class:`ParallelCtx`; ``ef`` the per-leaf error-feedback buffers under
+    ``grad_compress``.  The LM's sharded parameters are replaced by their
+    shards."""
 
     def __init__(self, lm: LM, hp: TrainHParams, mesh: Optional[Mesh] = None):
         self.lm, self.hp = lm, hp
@@ -185,6 +198,7 @@ class TrainStep:
                        for n, p in params.items()}
         self.counted = {n for n, pl in self.places.items() if pl.counts}
         self._local: Dict[str, torch.Tensor] = {}
+        self._copies: Dict[str, torch.Tensor] = {}
         self._shard_params()
         self.params = dict(lm.named_parameters())
         self.ef = None
@@ -197,8 +211,10 @@ class TrainStep:
     def _shard_params(self) -> None:
         """Replace each sharded parameter by the shard this rank holds:
         fsdp's, which the loss gathers whole (``train_gather``); or its
-        model shard, gathered over ``model`` where no explicit block takes
-        it at its shard (the layout's rule 3)."""
+        ZeRO-1 shard, which the loss reads as the step's cast copy
+        (:meth:`_cast_copy`), or, where it is not split over data, its
+        model shard; either gathered over ``model`` where no explicit block
+        takes it at its shard (the layout's rule 3)."""
         for name, place in self.param_places.items():
             if not place.sharded:
                 continue
@@ -207,12 +223,17 @@ class TrainStep:
             full = getattr(mod, leaf)
             shard = nn.Parameter(place.take(full.detach()).clone(),
                                  requires_grad=full.requires_grad)
+            outside = place.model is not None \
+                and not self.lm.model_local(name, self.par)
             if self.fsdp:
                 reduce = (functools.partial(_keep_local, self._local, name)
                           if self.hp.grad_compress else place.reduce)
                 shard.train_gather = functools.partial(_gather, place.gather,
                                                        reduce)
-            elif not self.lm.model_local(name, self.par):
+            elif place.data is not None:
+                shard.train_gather = functools.partial(
+                    self._cast_copy, name, place, outside)
+            elif outside:
                 shard.train_gather = functools.partial(
                     _gather, place.gather, chunk_of(place))
             setattr(mod, leaf, shard)
@@ -224,9 +245,39 @@ class TrainStep:
                                  f"it over model={self.par.tp}")
 
     def shards(self) -> Dict[str, torch.Tensor]:
-        return {n: p.detach() if self.fsdp
-                else self.places[n].take_data(p.detach())
-                for n, p in self.params.items()}
+        return {n: p.detach() for n, p in self.params.items()}
+
+    def _cast_copy(self, name: str, place: Placement, outside: bool,
+                   shard: torch.Tensor, dtype) -> torch.Tensor:
+        """``train_gather`` of a master held at its ZeRO-1 shard: the
+        step's copy of it in ``dtype`` gathered over data to the model
+        shard (:meth:`_gather_copies`; made here, and not kept, outside a
+        step), gathered over ``model`` too where ``outside`` the explicit
+        blocks; its gradient is kept whole at the model shard for
+        :meth:`_reduce_grads`."""
+        copy = self._copies.get(name)
+        if copy is None:
+            copy = place.gather_data(shard.detach().to(dtype))
+        keep = functools.partial(_keep_local, self._local, name)
+        if outside:
+            chunk = chunk_of(place)
+            return GatherFn.apply(shard, dtype, place.gather_model,
+                                  lambda g: keep(chunk(g)), copy)
+        return GatherFn.apply(shard, dtype, _as_view, keep, copy)
+
+    @torch.no_grad()
+    def _gather_copies(self) -> None:
+        """Once a step, before the forward: every ZeRO-1 shard cast to the
+        compute dtype and all-gathered over the data ranks (the reference
+        pins its cast params to the tensor-parallel layout, one gather
+        outside the layer scan)."""
+        if self.fsdp:
+            return
+        dtype = getattr(torch, self.lm.cfg.dtype)
+        for n, p in self.params.items():
+            place = self.param_places[n]
+            if place.data is not None:
+                self._copies[n] = place.gather_data(p.detach().to(dtype))
 
     def init_opt(self):
         return adamw_init(self.shards())
@@ -278,15 +329,6 @@ class TrainStep:
             grads[n] = g
         return grads
 
-    @torch.no_grad()
-    def _gather_params(self) -> None:
-        """ZeRO-1: every batch rank's updated shard into the whole master
-        of this rank's model shard."""
-        for n, p in self.params.items():
-            place = self.places[n]
-            if place.data is not None:
-                p.copy_(place.gather_data(place.take_data(p.detach())))
-
     def _mean(self, *values):
         """0-d tensors averaged over the batch ranks."""
         if self.group is None:
@@ -300,6 +342,7 @@ class TrainStep:
         mb = batch["tokens"].shape[0] // self.n_micro
         for p in self.params.values():
             p.grad = None
+        self._gather_copies()
         lsum = None
         for i in range(self.n_micro):
             # Every key of the batch (tokens, patch_embeds, src_embeds) is
@@ -308,14 +351,13 @@ class TrainStep:
             loss, aux = self.lm.loss(micro, remat=self.remat, par=self.par)
             loss.backward()     # the f32 grads accumulate across micros
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
+        self._copies.clear()
         grads = self._reduce_grads()
         _, opt, om = adamw_update(
             self.shards(), grads, opt, self.hp,
             counted=self.counted if self.norm_group is not None else None,
             group=self.norm_group)
         del grads
-        if not self.fsdp:
-            self._gather_params()
         loss, nll, a = self._mean(lsum / self.n_micro, aux["nll"].detach(),
                                   aux["aux"].detach())
         return opt, {"loss": loss, "nll": nll, "aux": a, **om}
@@ -325,8 +367,12 @@ class TrainStep:
         """The current weights' loss on the global ``batch`` (no update):
         the mean over the batch ranks of their rows' total loss."""
         batch = self._rows({k: torch.as_tensor(v) for k, v in batch.items()})
-        return float(self._mean(self.lm.loss(batch, remat=False,
-                                             par=self.par)[0])[0])
+        self._gather_copies()
+        try:
+            loss = self.lm.loss(batch, remat=False, par=self.par)[0]
+        finally:
+            self._copies.clear()
+        return float(self._mean(loss)[0])
 
 
 def make_train_step(lm: LM, hp: TrainHParams,

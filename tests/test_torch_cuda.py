@@ -56,6 +56,7 @@ def cuda_device():
 @pytest.mark.parametrize("H,n_kv,dh", [
     (16, 2, 128),     # qwen2.5-3b
     (4, 4, 32),       # MHA, smallest head dim
+    (4, 2, 16),       # the smoke configs (the examples): head dim 16
     (32, 2, 64),      # 16 query heads per KV head: 4 per warp
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
     (48, 8, 128),     # dbrx-132b: 6 query heads per KV head
@@ -358,6 +359,7 @@ def _fused_case(dev, H, n_kv, dh, dtype, frac, *, garbage=True, seed=21):
 @pytest.mark.parametrize("H,n_kv,dh", [
     (16, 2, 128),     # qwen2.5-3b
     (4, 4, 32),       # MHA, smallest head dim
+    (4, 2, 16),       # the smoke configs (the examples): head dim 16
     (32, 2, 64),      # 16 query heads per KV head
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
 ])
@@ -436,6 +438,7 @@ def _flash_case(dev, B, Tq, Tk, H, n_kv, dh, dtype, seed=31):
 @pytest.mark.parametrize("H,n_kv,dh", [
     (16, 2, 128),     # qwen2.5-3b
     (4, 4, 32),       # MHA, smallest head dim
+    (4, 2, 16),       # the smoke configs (the examples): head dim 16
     (32, 2, 64),      # 16 query heads per KV head
     (8, 1, 256),      # largest head dim: > 48 KB of shared memory
     (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
@@ -1328,6 +1331,7 @@ def test_cuda_cluster_agreement_with_the_cpu(cuda_device):
 TRAIN_SHAPES = [
     (16, 2, 128),     # qwen2.5-3b
     (4, 4, 32),       # MHA, smallest head dim (the narrow config's)
+    (4, 2, 16),       # the smoke configs (the examples' --tiny): CUDA cores
     (32, 2, 64),      # 16 query heads per KV head
     (6, 2, 96),       # 3 query heads per KV head: rows that do not tile
     (48, 8, 128),     # 6 query heads per KV head

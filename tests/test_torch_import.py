@@ -199,3 +199,29 @@ def test_serving_mesh_and_dry_run_import_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "BAD []", out.stdout
+
+
+_EXAMPLES = r"""
+import importlib.util, sys
+sys.modules["jax"] = None
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(name,
+                                                  f"examples/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("BAD", sorted(m for m in sys.modules
+                    if m == "repro" or m.startswith("repro.")
+                    or (m.startswith("jax") and sys.modules[m] is not None)))
+"""
+
+
+def test_port_examples_import_without_jax_or_reference():
+    """The port's four examples (``examples/torch_*.py``) load with JAX
+    blocked and load no ``repro`` module."""
+    names = [f"torch_{n}" for n in ("quickstart", "long_context",
+                                    "serve_multitenant", "train_lm")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES, *names],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("BAD []"), out.stdout

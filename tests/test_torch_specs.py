@@ -23,7 +23,7 @@ from repro.launch import specs as j_specs
 from repro.models.lm import LM as JLM
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES, TrainHParams
-from repro_torch.launch import specs
+from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import LM
 
@@ -42,15 +42,13 @@ CELLS = [("qwen2.5-3b", "train_4k", False), ("qwen2.5-3b", "decode_32k", False),
 
 # The reference's build_cell on the production meshes (the first 256
 # devices for one pod): every argument's global shape, dtype and
-# NamedSharding.shard_shape by name; for a training cell also its params at
-# its param_specs (the port keeps fp32 masters at the model shard).
+# NamedSharding.shard_shape by name.
 _REFERENCE = r"""
 import json, sys
 import numpy as np
 import jax
-from jax.sharding import Mesh, NamedSharding
+from jax.sharding import Mesh
 from repro.configs.base import TrainHParams
-from repro.launch.sharding import param_specs
 from repro.launch.specs import build_cell
 
 cells = json.loads(sys.argv[1])
@@ -85,14 +83,6 @@ for arch, shape, multi in cells:
                 name = "pools." + ("k", "v")[path[0].idx]
             rec[name] = [list(a.shape), str(a.dtype),
                          list(s.shard_shape(a.shape))]
-    if cell["kind"] == "train":
-        ps = param_specs(cell["args"][0], mesh)
-        for (path, a), spec in zip(
-                jax.tree_util.tree_flatten_with_path(cell["args"][0])[0],
-                jax.tree.leaves(ps, is_leaf=lambda x: hasattr(x, "_partitions")
-                                or type(x).__name__ == "PartitionSpec")):
-            rec["model_shard." + name_of(path)] = list(
-                NamedSharding(mesh, spec).shard_shape(a.shape))
     out[f"{arch}|{shape}|{multi}"] = rec
 print(json.dumps(out))
 """
@@ -152,24 +142,19 @@ def _dtype(t):
 def test_build_cell_shards_equal_the_references(arch, shape, multi,
                                                 reference):
     """Every input of the cell: its global shape, dtype and per-rank shape
-    equal the reference's ``in_shardings``' ``shard_shape``.  A training
-    cell's parameters are the one difference the port makes on purpose
-    (ROADMAP 6c-iii): its ZeRO-1 keeps the fp32 masters whole over the
-    data ranks, at the reference's ``param_specs`` shard, where the
-    reference shards them like the moments."""
+    equal the reference's ``in_shardings``' ``shard_shape``, a training
+    cell's f32 masters included (both packages keep them at the ZeRO-1
+    shard, like the moments)."""
     mesh = _mesh(multi)
     hp = TrainHParams(remat="block") if shape == "train_4k" else None
     cell = specs.build_cell(arch, shape, mesh, hp)
     ref = reference[f"{arch}|{shape}|{multi}"]
-    names = {n for n in ref if not n.startswith("model_shard.")}
-    assert set(cell["inputs"]) == names
-    for name in names:
+    assert set(cell["inputs"]) == set(ref)
+    for name in ref:
         inp = cell["inputs"][name]
         gshape, dtype, rshape = ref[name]
         assert list(inp.shape) == gshape, name
         assert _dtype(inp.dtype) == dtype, name
-        if cell["kind"] == "train" and name.startswith("params."):
-            rshape = ref["model_shard." + name[len("params."):]]
         assert list(inp.shard_shape(mesh)) == rshape, (name, inp.spec)
 
 
@@ -203,13 +188,12 @@ def test_dry_run_covers_every_cell_without_jax():
         assert rec["capacity_source"].startswith("NVIDIA H100 SXM5")
         assert rec["fits"] == (mem["total"] <= rec["capacity_bytes"])
         assert rec["compute_s"] > 0 and rec["memory_s"] > 0
-        # Serving is counted for every family; training for dense and moe
-        # without grad_compress (ROADMAP Queue 1).
-        counted = rec["collective_bytes_per_chip"] is not None
-        assert counted == (not rec["shape"].startswith("train") or (
-            get_config(rec["arch"]).family in ("dense", "moe")
-            and not rec["grad_compress"]))
-        assert (rec["collective_s"] is None) == (not counted)
+        # Every cell's collectives are counted, serving and training, every
+        # family.
+        coll = rec["collective_bytes_per_chip"]
+        assert coll["total"] == sum(v for k, v in coll.items()
+                                    if k != "total") > 0
+        assert rec["collective_s"] == coll["total"] / dryrun.LINK_BW
     qwen = {(r["shape"], r["mesh"]): r for r in recs
             if r["arch"] == "qwen2.5-3b"}
     # Serving decode over a 16-way page stripe combines partials; training

@@ -53,8 +53,8 @@ PAIR = {"auto": (QWEN, {"parallelism": "auto"}),
         "deepseek": ("deepseek-v2-lite-16b", {}),
         "zamba2": ("zamba2-1.2b", {}), "mamba2": ("mamba2-1.3b", {})}
 EP_FAULT = ("dbrx", "deepseek")
-ENCDEC = "seamless-m4t-large-v2"
-ARCHS = sorted({QWEN, ENCDEC, *(a for a, _ in PAIR.values())})
+ENCDEC, VLM = "seamless-m4t-large-v2", "llava-next-mistral-7b"
+ARCHS = sorted({QWEN, ENCDEC, VLM, *(a for a, _ in PAIR.values())})
 HP = dict(lr=1e-3, warmup_steps=2, total_steps=50, microbatch=0,
           remat="none", grad_compress=False)
 sys.path.insert(0, TESTS)
@@ -275,6 +275,7 @@ def ranks2(setup, ranks4):
         "reshard12": ("restored", _spec(setup, QWEN, (2, 1),
                                         ckpt_dir=str(d / "tp12"))),
         "seamless": ("train_batches", _spec(setup, ENCDEC, (1, 2), steps=3)),
+        "llava": ("train_batches", _spec(setup, VLM, (1, 2), steps=3)),
         "compress_resume": ("train_and_resume", _spec(
             setup, QWEN, (2, 1), hp=dict(grad_compress=True),
             ckpt_dir=str(d / "compress21"))),
@@ -411,6 +412,59 @@ def test_seamless_at_one_by_two(setup, ranks2, reference):
         _check_run(out["seamless"], reference["seamless"], one)
 
 
+def test_llava_at_one_by_two_matches_one_device(setup, ranks2):
+    """llava-next (vlm: the decoder's attention and SwiGLU explicit over
+    the patch embeddings and the tokens, ``frontend_proj`` and the
+    embeddings gathered) through ``make_train_step`` on batches with
+    patch embeddings: losses, grad norms and the first mean gradient
+    within 1e-6 of the port's one-device step (the reference's vlm
+    training is held on one device in tests/test_torch_train_families.py)."""
+    sys.path.insert(0, TESTS)
+    try:
+        import torch_dist_cases as cases
+    finally:
+        sys.path.remove(TESTS)
+    one = cases.train_batches(_spec(setup, VLM, (1, 1), steps=3))
+    for out in ranks2:
+        _check_run(out["llava"], one, one)
+
+
+def test_masters_live_at_the_zero1_shard(setup, ranks2, ranks4):
+    """Each rank holds its ZeRO-1 shard of every f32 master, as the
+    reference's ``state_specs``: 1 / D of a leaf that ``zero1_specs``
+    splits over the D data ranks (at (2, 2): half of the model shard), the
+    moments' shard; and the dry run's ``params`` bytes of the same cfg,
+    mesh and hparams are what the rank holds."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import Mesh as TMesh
+    cases = [(ranks4, "plain22", (2, 2), QWEN, {}),
+             (ranks4, "compress22", (2, 2), QWEN, {"grad_compress": True}),
+             (ranks2, "reshard12", (2, 1), QWEN, {}),
+             (ranks2, "zamba2", (1, 2), "zamba2-1.2b", {})]
+    for runs, key, shape, arch, hp in cases:
+        cfg = _f32(get_smoke_config(arch))
+        mesh = TMesh(shape, ("data", "model"))
+        real = specs.get_config
+        specs.get_config = lambda name: cfg
+        try:
+            cell = specs.build_cell(arch, "train_4k", mesh,
+                                    TrainHParams(**{**HP, **hp}))
+        finally:
+            specs.get_config = real
+        want = dryrun.per_device_bytes(cell, mesh)["parts"]["params"]
+        for out in runs:
+            run = out[key]
+            split = {n for n, d in run["data_n"].items() if d > 1}
+            assert bool(split) == (shape[0] > 1), key
+            for n, held in run["master"].items():
+                full = run["params"][n].numel()
+                assert held == run["shard"][n], (key, n)
+                assert held * run["n"][n] == full, (key, n)
+                if n in split:
+                    assert run["data_n"][n] == shape[0], (key, n)
+            assert 4 * sum(run["master"].values()) == want, key
+
+
 def test_reference_blocks_give_its_one_device_gradients(reference):
     """The reference's Megatron attention and TP SwiGLU (shard_map with
     check_vma=False) at (1, 2) give each leaf's gradient within 1e-6 of its
@@ -499,11 +553,18 @@ def test_all_reduces_over_model_a_layer_and_step(remat, per_layer, ranks4):
         assert out[remat]["model_all_reduces"] == per_layer * L
 
 
-# Runs with no checkpoint inside: name -> (mesh, arch, hp overrides).
+# Runs and their steps' collectives: name -> (mesh, arch, hp overrides);
+# compress_resume's first run, whose checkpoints' gathers are not counted.
 SENT = {"block": ((2, 2), QWEN, {"remat": "block"}),
         "save_collectives": ((2, 2), QWEN, {"remat": "save_collectives"}),
         "plain22": ((2, 2), QWEN, {}),
+        "compress22": ((2, 2), QWEN, {"grad_compress": True}),
+        "compress_resume": ((2, 1), QWEN, {"grad_compress": True}),
+        "seamless": ((1, 2), ENCDEC, {}), "llava": ((1, 2), VLM, {}),
         **{name: ((1, 2), arch, hp) for name, (arch, hp) in PAIR.items()}}
+# Runs of make_train_step outside Trainer.run, which sends no preemption
+# flag (an int64 all-reduced over the mesh each step).
+NO_FLAG = ("seamless", "llava")
 
 
 @pytest.mark.parametrize("name", sorted(SENT))
@@ -511,8 +572,12 @@ def test_dry_run_counts_the_bytes_a_training_step_sends(name, request):
     """``launch/dryrun.collective_bytes`` at the run's own cfg, batch (4 x
     32), mesh and hparams equals, by kind, the bytes each rank's
     collectives sent per step (``torch_dist_cases.Collectives`` over the
-    run's steps); null for the families it does not count (zamba2,
-    mamba2), whose runs still send."""
+    run's steps), every family: the explicit blocks' all-reduces (the
+    hybrid's shared block once per invocation, encdec's encoder and
+    decoder, vlm's decoder over the patch rows), the gathers of the leaves
+    outside them (Mamba-2, the cross-attention, the embeddings), ZeRO-1's
+    reduce-scatters and cast-copy gathers, and ``grad_compress``'s int8
+    ring hops (``p2p``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh as TMesh
@@ -522,12 +587,16 @@ def test_dry_run_counts_the_bytes_a_training_step_sends(name, request):
         _f32(get_smoke_config(arch)), ShapeConfig("train", 32, 4, "train"),
         TMesh(shape, ("data", "model")),
         {"kind": "train", "hp": TrainHParams(**{**HP, **hp})})
+    if name in NO_FLAG:
+        n = int(np.prod(shape))
+        want["all_reduce"] -= 8 * 2 * (n - 1) / n
+        want["total"] -= 8 * 2 * (n - 1) / n
+    assert ("p2p" in want) == hp.get("grad_compress", False)
     for r, out in enumerate(runs):
-        got = out[name]["sent"]
-        if want is None:
-            assert got["total"] > 0
-            continue
-        n = out[name]["step"] - out[name]["start"]
+        run = out[name]["straight"] if name == "compress_resume" \
+            else out[name]
+        got = run["sent"]
+        n = run["step"] - run["start"]
         assert set(got) <= set(want), (r, got)
         for kind, nbytes in want.items():
             assert got.get(kind, 0.0) / n == pytest.approx(

@@ -81,6 +81,15 @@ class Collectives:
         for op, fn in self.saved.items():
             setattr(dist, op, fn)
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Records nothing inside (a checkpoint's gathers)."""
+        calls, self.calls = self.calls, []
+        try:
+            yield
+        finally:
+            self.calls = calls
+
     def sent(self):
         """{kind: bytes this rank sent} and their total, as a ring moves
         them over a group of n ranks (``launch/dryrun.py``'s convention):
@@ -185,7 +194,8 @@ def _summary(tr, calls=None, grads=None):
            "aux": [r["aux"] for r in tr.log],
            "grad_norm": [r["grad_norm"] for r in tr.log],
            "start": tr.start_step, "step": int(tr.opt["step"]),
-           "params": {}, "mu": {}, "nu": {}, "n": {}, "shard": {}}
+           "params": {}, "mu": {}, "nu": {}, "n": {}, "shard": {},
+           "master": {}, "data_n": {}}
     for name, p in tr.params.items():
         place = st.places[name]
         full = st.param_places[name].gather(p.detach().contiguous())
@@ -194,6 +204,8 @@ def _summary(tr, calls=None, grads=None):
         out["nu"][name] = place.gather(tr.opt["nu"][name]).clone()
         out["n"][name] = place.n
         out["shard"][name] = tr.opt["mu"][name].numel()
+        out["master"][name] = p.numel()
+        out["data_n"][name] = place.data.n if place.data else 1
     if grads is not None:
         out["grads"] = {n: st.places[n].gather(g) for n, g in grads.items()}
     if st.ef is not None:
@@ -235,12 +247,24 @@ def train(spec):
     return out
 
 
+def frontend_batch(cfg, data, i):
+    """Step ``i``'s batch of 4 rows with frontend embeddings:
+    ``SyntheticLM``'s tokens and N(0, 1) frames from numpy seed [0, i]
+    (encdec's ``src_embeds`` over its source frames, as the reference's
+    test draws them; vlm's ``patch_embeds`` over its frontend tokens)."""
+    batch = dict(data.batch_at(i))
+    key, n = (("src_embeds", cfg.encdec.source_len) if cfg.encdec
+              else ("patch_embeds", cfg.frontend_tokens))
+    batch[key] = np.random.default_rng([0, i]).standard_normal(
+        (4, n, cfg.d_model), dtype=np.float32)
+    return batch
+
+
 def train_batches(spec):
     """``spec["steps"]`` steps of ``make_train_step`` over ``spec["mesh"]``
-    on batches that carry frontend embeddings (encdec's ``src_embeds``:
-    ``SyntheticLM``'s tokens and N(0, 1) frames from numpy seed [0, step],
-    as the reference's test draws them); the losses, grad norms and the
-    first update's gradients, gathered."""
+    on batches that carry frontend embeddings (:func:`frontend_batch`);
+    the losses, grad norms and the first update's gradients, gathered, and
+    the bytes the steps' collectives sent (``sent``)."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.lm import LM
     from repro_torch.train.trainer import make_train_step
@@ -253,29 +277,35 @@ def train_batches(spec):
                            Mesh(spec["mesh"], ("data", "model")))
     opt, data = step.init_opt(), SyntheticLM(cfg.vocab_size, 32, 4, seed=0)
     logs = []
-    with FirstGrads() as g:
+    with Collectives() as c, FirstGrads() as g:
         for i in range(spec["steps"]):
-            batch = dict(data.batch_at(i))
-            batch["src_embeds"] = np.random.default_rng([0, i]).standard_normal(
-                (4, cfg.encdec.source_len, cfg.d_model), dtype=np.float32)
-            opt, m = step(opt, batch)
+            opt, m = step(opt, frontend_batch(cfg, data, i))
             logs.append({k: float(m[k]) for k in ("loss", "grad_norm")})
     return {"loss": [r["loss"] for r in logs],
             "grad_norm": [r["grad_norm"] for r in logs],
             "grads": {n: step.places[n].gather(t)
-                      for n, t in g.grads.items()}}
+                      for n, t in g.grads.items()},
+            "sent": c.sent(), "start": 0, "step": spec["steps"]}
 
 
 def train_and_resume(spec):
     """4 steps with a checkpoint every 2 into ``ckpt_dir``; then a fresh
     Trainer resumed from a copy of the step-2 checkpoint runs steps 3-4.
-    Returns both summaries."""
+    Returns both summaries; the first's ``sent``, the bytes its steps'
+    collectives sent (its checkpoints' gathers not counted)."""
     torch.set_num_threads(1)
     d = spec["ckpt_dir"]
     first = _trainer(dict(spec, ckpt_every=2), ckpt_dir=d)
-    with FirstGrads() as g:
+    with Collectives() as c, FirstGrads() as g:
+        save = first.save
+
+        def quiet_save(step):
+            with c.paused():
+                save(step)
+        first.save = quiet_save
         first.run(4, log_every=1)
     straight = _summary(first, grads=g.grads)
+    straight["sent"] = c.sent()
     del first
     again = d + ".resume"
     if dist.get_rank() == 0:
