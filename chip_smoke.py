@@ -159,7 +159,17 @@ Phases (each synchronised; any failure exits non-zero):
    launches accounted for per layer; qwen3-8b (qk-norm) also cut to 2
    layers on the card against the CPU.
 9. training (after every serving phase, with their weights gone):
-   9a. the training kernels at qwen2.5-3b's training shape (B = 2, T =
+   9a. first the optimizer-step kernels (``phase_optim_kernels``): how the
+   card's eager chain divides a CUDA tensor by a CPU scalar (it must be
+   x * (1.0f / c), the form both kernels reproduce); the fused AdamW
+   update (``adamw``) and the error-feedback quantiser of
+   ``grad_compress`` (``grad_quant``), each bit for bit its plain version
+   on the card at odd sizes (one 256-element block, 257 x 256, an empty
+   leaf, AdamW's vector tail and bf16 p and g, the quantiser's all-zero
+   block, outlier, NaN and the quantise mode) and at qwen2.5-3b's
+   14 full-width leaves, timed there beside 28 / 16 bytes an element and
+   (AdamW) ``torch._fused_adamw_`` over the same lists; then
+   the training kernels at qwen2.5-3b's training shape (B = 2, T =
    2048, 16 heads over 2 KV heads of 128, causal, bf16, queries at PEAK_Q
    times the unit scale): the flash forward with each row's log-sum-exp
    (``flash_attention.train``) against its plain version, its ``o`` bit for
@@ -257,8 +267,9 @@ Phases (each synchronised; any failure exits non-zero):
    on 2 gloo CPU ranks (the restored state bit for bit the saved arrays,
    each rank holding half the f32 master elements of every leaf that
    ``zero1_specs`` splits over data, both counts printed, the next losses
-   within 1e-4 of the CPU rank's).  No kernels-line
-   entry: 9j adds no kernel and counts no launch;
+   within 1e-4 of the CPU rank's).  The card rank's AdamW and
+   quantiser launches (one each per leaf and step in (a)) count under
+   ``adamw`` and ``grad_quant``;
    9k. tensor and expert parallelism over a ``model`` axis of 2, in gloo
    ranks sharing cuda:0 (NCCL cannot put two ranks on one GPU; their step
    times are two ranks time-sharing the card, not a TP speed): (a)
@@ -324,8 +335,10 @@ phase 4e, ``.vlm`` and ``.g4d128`` from 4g and 4i, ``.phi3`` and
 call site (``.encoder`` / ``.cross_prefill`` / ``.cross_decode``) from
 4h; every other launch of phases 4, 4c, 4d, 4f-4i and 8a-8c under its
 kernel's own entry; ``flash_attention.train`` and ``flash_attention_bwd``
-from phase 9b; the entries of phases 9d-9g from the phase of their shape,
-seamless's three attentions by the site its wrappers counted
+from phase 9b; ``adamw`` from phases 9b, 9d-9g, 9i and 9j (every leaf's
+update), ``grad_quant`` from 9j; the entries of phases 9d-9g from the
+phase of their shape, seamless's three attentions by the site its
+wrappers counted
 (``train_entries``); the training ``.mla`` entries from phase 9i, the
 ``.moe`` entries none (``ZERO_LAUNCHES`` says why), the ``.tp`` entries
 from phase 9k (a)'s two ranks, the ``.mesh`` entries from phase 10's
@@ -422,6 +435,12 @@ REPLACES = {
     "ssd_scan_bwd": "src/repro/models/mamba2.py:96 ssd_chunked (the oracle "
                     "of src/repro/kernels/ssd_scan.py:73), differentiated by "
                     "jax.value_and_grad (src/repro/train/trainer.py:155)",
+    "adamw": "src/repro/train/optimizer.py:48 upd, fused by XLA in the "
+             "jitted train_step (src/repro/train/trainer.py:150)",
+    "grad_quant": "src/repro/train/grad_compress.py:90 "
+                  "compressed_allreduce_flat (with _quant / _dequant, "
+                  ":31-41), fused by XLA in the jitted train_step "
+                  "(src/repro/train/trainer.py:150)",
 }
 SOURCES = {
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
@@ -435,6 +454,8 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+    "adamw": "src/repro_torch/csrc/adamw.cu",
+    "grad_quant": "src/repro_torch/csrc/grad_quant.cu",
 }
 
 
@@ -3053,6 +3074,263 @@ def phase_train_kernels(results):
           f"{B}, clusters of {c}, {g // c} heads a rank)")
 
 
+# ------------------------------------------------ optimizer-step kernels
+
+OPTIM_STEP = 3          # phase 9a's AdamW entry: the bias corrections and
+#                         learning rate of update 3 of 9b's schedule
+OPTIM_SCALE = 0.37      # its clip factor: a clipped step
+
+
+def model_leaves(cfg):
+    """(name, shape) of ``cfg``'s parameters as ``Trainer`` holds them on
+    one rank (fp32 masters), from an LM on the meta device."""
+    from repro_torch.models.lm import LM
+    return [(n, tuple(p.shape)) for n, p in
+            LM(cfg, device="meta", master=True).named_parameters()]
+
+
+def leaf_count(cfg):
+    """Non-empty leaves of ``cfg``: AdamW launches a step on one rank."""
+    return sum(1 for _, shape in model_leaves(cfg) if math.prod(shape))
+
+
+def division_form():
+    """How the card's eager chain divides a CUDA tensor by a CPU scalar
+    (``mu / c1``, ``nu / c2``, ``/ 127.0``): "reciprocal" where every
+    quotient is x * (1.0f / c) bit for bit and some differs from the IEEE
+    x / c, "ieee" for the reverse, else "other".  ``csrc/adamw.cu`` and
+    ``csrc/grad_quant.cu`` reproduce "reciprocal"."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(1 << 22, generator=gen, device="cuda")
+    forms = {}
+    for c in (0.271, 0.999, 0.0975, 127.0):
+        c32 = torch.tensor(c, dtype=torch.float32)
+        eager = x / (c if c == 127.0 else c32)   # _quant divides by 127.0
+        recip = x * (torch.tensor(1.0) / c32).cuda()
+        ieee = x / c32.cuda()
+        forms[c] = ("reciprocal" if torch.equal(eager, recip)
+                    and not torch.equal(recip, ieee) else
+                    "ieee" if torch.equal(eager, ieee)
+                    and not torch.equal(recip, ieee) else "other")
+    return forms
+
+
+def adamw_leaves(shapes, p_dtype, g_dtype, seed):
+    """(p, g, mu, nu) on the card for each shape, from a seed: p ~ 0.02 N,
+    g ~ 1e-3 N, mu ~ 1e-4 N, nu ~ 1e-6 U(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for shape in shapes:
+        def draw(k, dtype, uniform=False):
+            t = torch.empty(shape, dtype=torch.float32, device="cuda")
+            (t.uniform_(generator=gen) if uniform
+             else t.normal_(generator=gen)).mul_(k)
+            return t.to(dtype)
+        out.append((draw(0.02, p_dtype), draw(1e-3, g_dtype),
+                    draw(1e-4, torch.float32),
+                    draw(1e-6, torch.float32, uniform=True)))
+    return out
+
+
+def adamw_kwargs():
+    """The scalars of phase 9a's AdamW entry: update OPTIM_STEP of 9b's
+    schedule (``adamw_scalars``) and the reference's b1, b2, eps."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.optimizer import adamw_scalars
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                      remat="block")
+    lr, c1, c2, decay = adamw_scalars(
+        hp, torch.tensor(OPTIM_STEP, dtype=torch.int32))
+    return dict(lr=lr, c1=c1, c2=c2, decay=decay, b1=hp.b1, b2=hp.b2,
+                eps=hp.eps)
+
+
+def check_adamw(leaves, scale, kw, label):
+    """Each leaf's kernel update against the plain version on copies of
+    its inputs, p, mu and nu bit for bit; returns the largest absolute
+    difference (0)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.optimizer import adamw_leaf
+    worst = 0.0
+    for p, g, mu, nu in leaves:
+        want = [t.clone() for t in (p, g, mu, nu)]
+        ref.adamw_leaf_ref(*want, scale, **kw)
+        adamw_leaf(p, g, mu, nu, scale, **kw)
+        for name, got, w in (("p", p, want[0]), ("mu", mu, want[2]),
+                             ("nu", nu, want[3])):
+            if got.numel():
+                worst = max(worst, float((got.float() - w.float()).abs()
+                                         .max()))
+            require(torch.equal(got, w), f"{label}: adamw's {name} of a "
+                    f"{tuple(p.shape)} {p.dtype} leaf (g {g.dtype}) is not "
+                    f"its plain version's bit for bit")
+        del want
+    return worst
+
+
+def quant_vectors(sizes, seed):
+    """(g, e) flat f32 on the card for each size: g ~ 1e-3 N, e ~ 1e-5 N."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.randn(n, generator=gen, device="cuda").mul_(1e-3),
+             torch.randn(n, generator=gen, device="cuda").mul_(1e-5))
+            for n in sizes]
+
+
+def check_grad_quant(vectors, label):
+    """The error-feedback pass on each (g, e) against the plain version on
+    copies: Q(g + e) and e' equal, NaN where it has NaN;
+    returns the largest absolute difference (0)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.optimizer import grad_quant
+    worst = 0.0
+    for g, e in vectors:
+        want = ref.ef_quant_ref(g.clone(), e.clone())
+        got = grad_quant(g, e)
+        for name, a, b in zip(("Q(g + e)", "e'"), got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m: f"{label}: grad_quant's "
+                                       f"{name} at n={g.numel()}: {m}")
+            d = (a.float() - b.float()).abs()
+            d = d[~d.isnan()]           # NaN in both, where the input has one
+            if d.numel():
+                worst = max(worst, float(d.max()))
+    return worst
+
+
+def phase_optim_kernels(results):
+    """Phase 9a, the optimizer-step kernels (entries ``adamw`` and
+    ``grad_quant``): first the division form of the card's eager chain
+    (``division_form``), then each kernel against its plain version on
+    the card, bit for bit, at odd sizes (one 256-element block, 257 x 256,
+    an empty leaf, 4099 and 65795 elements for AdamW's vector tail, bf16 p
+    and g, and for the quantiser an all-zero block, an outlier, a NaN and
+    the quantise mode) and at qwen2.5-3b's 14 full-width
+    leaves as phase 9b holds them (the quantiser's padded to 256); times by
+    graph replay over the 14 leaves (one launch each), the plain versions'
+    by CUDA events, ``torch._fused_adamw_`` over the same tensor lists as
+    AdamW's yardstick of time (it places eps and the bias corrections
+    otherwise); bounds: 28 bytes an element (AdamW) and 16 (the
+    quantiser's error-feedback pass) at 3.35 TB/s."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.optimizer import adamw_leaf, grad_quant
+    from repro_torch.train.grad_compress import padded_size
+    gc.collect()
+    torch.cuda.empty_cache()
+    forms = division_form()
+    print(f"[kernel] division of a CUDA tensor by a CPU scalar in the eager "
+          f"chain, by divisor: {forms}")
+    require(set(forms.values()) == {"reciprocal"}, f"the eager chain's "
+            f"division is not x * (1.0f / c) for every divisor: {forms}; "
+            f"csrc/adamw.cu and csrc/grad_quant.cu assume it is")
+    kw = adamw_kwargs()
+    scale = torch.tensor(OPTIM_SCALE, device="cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    odd = (256, 257 * 256, 0, 4099, 65795)
+    for p_dt, g_dt in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)):
+        check_adamw(adamw_leaves([(n,) for n in odd], p_dt, g_dt, 7), scale,
+                    kw, f"9a adamw odd sizes p {p_dt} g {g_dt}")
+    print(f"[kernel] adamw: bit for bit its plain version at {odd} "
+          f"elements, p / g in f32 / f32, bf16 / bf16, bf16 / f32, f32 / "
+          f"bf16 (an empty leaf launches nothing)")
+    vecs = quant_vectors((256, 257 * 256, 0), 8)
+    g, e = vecs[1]
+    g[:256] = 0.0
+    e[:256] = 0.0                       # an all-zero block
+    g[256 + 9] = 40.0                   # an outlier
+    g[5 * 256 + 3] = float("nan")       # a NaN gradient
+    check_grad_quant(vecs, "9a grad_quant odd sizes")
+    require(bool(g[5 * 256:6 * 256].isnan().all()) and bool(
+        e[5 * 256:6 * 256].isnan().all()) and bool(
+        torch.isfinite(g[6 * 256:]).all()), "9a grad_quant: a NaN "
+        "gradient does not make its block, and only its block, NaN")
+    x = quant_vectors((257 * 256,), 10)[0][0]
+    for a, b in zip(grad_quant(x), ref.quant_ref(x)):
+        require(torch.equal(a, b), "9a grad_quant: the quantise mode is not "
+                "quant_ref's bit for bit")
+    print("[kernel] grad_quant: bit for bit its plain version at 256, "
+          "257 x 256 (an all-zero block, an outlier, a NaN: its block NaN, "
+          "the rest finite) and 0 elements, and in quantise mode")
+    del vecs, g, e, x
+
+    shapes = [s for _, s in model_leaves(get_config(ARCH))]
+    n_el = sum(math.prod(s) for s in shapes)
+    leaves = adamw_leaves(shapes, f32, f32, 11)
+    err = check_adamw(leaves, scale, kw, "9a adamw at qwen2.5-3b's leaves")
+
+    def update():
+        for p, g, mu, nu in leaves:
+            adamw_leaf(p, g, mu, nu, scale, **kw)
+
+    def plain():
+        for p, g, mu, nu in leaves:
+            ref.adamw_leaf_ref(p, g, mu, nu, scale, **kw)
+
+    lists = [list(t) for t in zip(*leaves)]
+    steps = [torch.tensor(float(OPTIM_STEP), device="cuda") for _ in shapes]
+
+    def library():
+        torch._fused_adamw_(*lists, [], steps, lr=float(kw["lr"]),
+                            beta1=kw["b1"], beta2=kw["b2"],
+                            weight_decay=TrainHParams().weight_decay,
+                            eps=kw["eps"],
+                            amsgrad=False, maximize=False)
+    ms = graph_ms(update, reps=5, replays=3)
+    lib_ms = graph_ms(library, reps=5, replays=3)
+    plain_ms = eager_ms(plain, iters=3)
+    bound = bound_ms(28 * n_el + 4)
+    shape = (f"qwen2.5-3b's {len(shapes)} leaves, {n_el} f32 elements, one "
+             f"launch a leaf")
+    results["adamw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=lib_ms, shape=shape)
+    print(f"[kernel] adamw: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {bound[0]:.5f} ({bound[1]}: 28 B an element) "
+          f"library_ms {lib_ms:.4f} (torch._fused_adamw_ over the same "
+          f"lists; other placement of eps and the bias corrections) | "
+          f"{shape}; max_abs_err {err} ({SMI})")
+    del leaves, lists, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sizes = [padded_size(math.prod(s)) for s in shapes]
+    vecs = quant_vectors(sizes, 12)
+    err = check_grad_quant(vecs, "9a grad_quant at qwen2.5-3b's leaves")
+
+    def quantise():
+        for g, e in vecs:
+            grad_quant(g, e)
+
+    def plain_q():
+        for g, e in vecs:
+            ref.ef_quant_ref(g, e)
+    ms = graph_ms(quantise, reps=5, replays=3)
+    plain_ms = eager_ms(plain_q, iters=3)
+    n_q = sum(sizes)
+    bound = bound_ms(16 * n_q)
+    shape = (f"qwen2.5-3b's {len(sizes)} leaves padded to 256, {n_q} f32 "
+             f"elements, error feedback on one rank (Q(g + e) over g, e' "
+             f"over e), one launch a leaf")
+    results["grad_quant"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound[0], bound_by=bound[1],
+                                 library_ms=None, shape=shape)
+    print(f"[kernel] grad_quant: kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound[0]:.5f} ({bound[1]}: 16 B an "
+          f"element) library_ms none (no single call) | {shape}; "
+          f"max_abs_err {err} ({SMI})")
+    del vecs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_train(cfg):
     """Phase 9b: full-width training through ``Trainer``; returns the
     training kernels' launch counts of the run."""
@@ -3087,10 +3365,13 @@ def phase_train(cfg):
             f"training: a loss or grad norm is not finite: {tr.log}")
     require(counts == {"flash_attention.train": 2 * L * TRAIN_STEPS,
                        "flash_attention_bwd": L * TRAIN_STEPS,
-                       "ssd_scan_bwd": 0}
+                       "ssd_scan_bwd": 0,
+                       "adamw": leaf_count(cfg) * TRAIN_STEPS,
+                       "grad_quant": 0}
             and not any(serving.values()),
             f"training: launches {counts} (serving and by site {serving}) "
-            f"are not two forwards and one backward per layer and step")
+            f"are not two forwards and one backward per layer and step "
+            f"and one AdamW launch per leaf and step")
     steady = [r["ms"] for r in tr.log[1:]]
     print(f"[train] {cfg.name} at its published width and depth "
           f"({cfg.param_count() / 1e9:.3f} G parameters, fp32 master "
@@ -3495,7 +3776,9 @@ def train_launches(cfg, steps, remat=True):
     nothing whatever ``remat`` says, as the reference's.  The flash calls
     by site as well (``flash_attention.train.<site>``,
     ``flash_attention_bwd.<site>``): encdec's encoder layers under
-    ``encoder``, its cross-attention under ``cross_prefill``."""
+    ``encoder``, its cross-attention under ``cross_prefill``.  Per leaf
+    and step one AdamW launch; no quantiser launch (no ``grad_compress``).
+    """
     from repro_torch.models.hybrid import n_invocations
     attn, ssd = {"encdec": lambda: (cfg.encdec.enc_layers
                                     + 2 * cfg.encdec.dec_layers, 0),
@@ -3506,7 +3789,8 @@ def train_launches(cfg, steps, remat=True):
     k = 2 if remat and cfg.family != "hybrid" else 1
     out = {"flash_attention.train": k * attn * steps,
            "flash_attention_bwd": attn * steps,
-           "ssd_scan_bwd": ssd * steps, "ssd_scan": k * ssd * steps}
+           "ssd_scan_bwd": ssd * steps, "ssd_scan": k * ssd * steps,
+           "adamw": leaf_count(cfg) * steps, "grad_quant": 0}
     by_site = ({"encoder": cfg.encdec.enc_layers,
                 "cross_prefill": cfg.encdec.dec_layers}
                if cfg.family == "encdec" else {})
@@ -3714,8 +3998,9 @@ def family_train_agreement(arch, dev="cuda", steps=FAMILY_STEPS, cfg=None):
 
 
 def phase_train_families(counts):
-    """Phases 9d-9h; adds each phase's launches to ``counts`` under the
-    kernels line's entries (by shape, see ``train_entries``)."""
+    """Phases 9d-9i; adds each phase's launches to ``counts`` under the
+    kernels line's entries (by shape, see ``train_entries``), and their
+    AdamW launches to ``adamw``'s."""
     import torch
     from repro_torch.configs import get_config
     enc = get_config(ENCDEC_ARCH)
@@ -3741,7 +4026,10 @@ def phase_train_families(counts):
     torch.cuda.empty_cache()
     for k, n in train_entries(runs).items():
         counts[k] = counts.get(k, 0) + n
-    counts.update(moe_entries(phase_train_moe()))
+    moe = phase_train_moe()
+    counts.update(moe_entries(moe))
+    counts["adamw"] = counts.get("adamw", 0) + sum(
+        r["adamw"] for r in (*runs.values(), moe))
 
 
 def phase_train_moe(dev="cuda", cfg=None, B=TRAIN_B, T=TRAIN_T):
@@ -3873,11 +4161,13 @@ def dist_rank(case):
 
     * ``full``: (a) ``case["arch"]`` (the smoke config on the CPU) through
       ``Trainer`` on ``make_host_mesh()``, megatron + ZeRO-1 +
-      ``grad_compress``, remat block, B x T, DIST_STEPS steps; then the
-      final weights' loss on the last step's batch;
+      ``grad_compress``, remat block, B x T, DIST_STEPS steps, with the
+      training kernels' launches; then the final weights' loss on the last
+      step's batch;
     * ``narrow``: (b) the narrow model on ``make_host_mesh()`` under
       megatron + ``grad_compress`` (checkpoints into ``case["ckpt_dir"]``)
-      and under fsdp, DIST_NARROW_STEPS steps each;
+      and under fsdp, DIST_NARROW_STEPS steps each, and the launches of
+      both runs;
     * ``reshard``: (c) that megatron + ``grad_compress`` run resumed from
       the step-2 checkpoint in ``case["ckpt_dir"]`` on this group's ranks,
       all data-parallel (``make_elastic_mesh(world, model=1)``): its
@@ -3886,6 +4176,7 @@ def dist_rank(case):
     import torch.distributed as dist
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import TrainHParams
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_elastic_mesh, make_host_mesh
     from repro_torch.train.trainer import Trainer
     dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
@@ -3902,7 +4193,9 @@ def dist_rank(case):
         tr = Trainer(cfg, hp, batch_per_step=case["B"], seq_len=case["T"],
                      mesh=make_host_mesh(), seed=0, device=dev)
         t_init = time.perf_counter() - t0
+        ops.reset_launch_counts()
         tr.run(DIST_STEPS, log_every=1)
+        launches = ops.train_launch_counts()
         with torch.no_grad():
             after = float(tr.lm.loss(tr.data.batch_at(DIST_STEPS - 1))[0])
         mem = {"peak": 0.0, "reserved": 0.0, "retries": 0}
@@ -3912,9 +4205,10 @@ def dist_rank(case):
                    "retries": torch.cuda.memory_stats()["num_alloc_retries"]}
         return {"log": tr.log, "after": after, "t_init": t_init,
                 "mesh": str(tr.mesh.shape), "params": cfg.param_count(),
-                **mem}
+                "leaves": leaf_count(cfg), "launches": launches, **mem}
     if case["part"] == "narrow":
         out = {}
+        ops.reset_launch_counts()
         for name, compress, d in (("megatron", True, case["ckpt_dir"]),
                                   ("fsdp", False, None)):
             tr = narrow_dist_trainer(name, compress, dev, make_host_mesh(),
@@ -3922,6 +4216,7 @@ def dist_rank(case):
             tr.run(DIST_NARROW_STEPS, log_every=1)
             out[name] = [r["loss"] for r in tr.log]
             del tr
+        out["launches"] = ops.train_launch_counts()
         return out
     tr = narrow_dist_trainer("megatron", True, dev,
                              make_elastic_mesh(dist.get_world_size(),
@@ -3968,7 +4263,10 @@ def phase_train_dist(dev="cuda"):
     (c) ``dev``'s world-1 step-2 checkpoint of (b) resumed on 2 gloo ranks:
         the restored state bit for bit the saved arrays, each rank holding
         half the f32 master elements of every data-split leaf (ZeRO-1),
-        the next losses within 1e-4 of (b)'s CPU run."""
+        the next losses within 1e-4 of (b)'s CPU run.
+
+    Returns the AdamW and quantiser launches of (a) and (b) on ``dev``'s
+    rank."""
     import tempfile
     import torch
     from repro_torch.launch.spawn import run_ranks
@@ -4005,6 +4303,13 @@ def phase_train_dist(dev="cuda"):
                 f"9j (a): the final weights' loss on the last step's batch, "
                 f"{card['after']:.4f}, is not below its loss before the "
                 f"update, {losses[-1]:.4f}")
+        # One rank: per leaf and step one quantiser pass (Q(g + e), no
+        # ring) and one AdamW launch; none counted on the CPU.
+        per = card["leaves"] * DIST_STEPS if dev == "cuda" else 0
+        got = {k: card["launches"][k] for k in ("adamw", "grad_quant")}
+        require(got == {"adamw": per, "grad_quant": per},
+                f"9j (a): launches {got}, not {per} of each (one per leaf "
+                f"and step)")
         print(f"[train:dist] {full['arch']} ({full['width']} width, "
               f"{card['params'] / 1e9:.3f} G parameters) on mesh "
               f"{card['mesh']} over one {dev} rank, megatron + ZeRO-1 + "
@@ -4016,11 +4321,13 @@ def phase_train_dist(dev="cuda"):
               f"update {card['after']:.4f}; peak memory {card['peak']:.2f} "
               f"GiB ({card['reserved']:.2f} reserved, {card['retries']} "
               f"allocator retries; this process held "
-              f"{held:.2f} GiB) ({SMI})")
+              f"{held:.2f} GiB); launches {card['launches']} ({SMI})")
         case = dict(part="narrow", ckpt_dir=str(tmp / "world1"))
         on_dev = run(1, device=dev, args=[case])[0]
         on_cpu = run(1, device="cpu",
                      args=[dict(case, ckpt_dir=str(tmp / "cpu"))])[0]
+        launches = {k: card["launches"][k] + on_dev["launches"][k]
+                    for k in ("adamw", "grad_quant")}
         for name in ("megatron", "fsdp"):
             a, b = on_dev[name], on_cpu[name]
             require(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(a, b)),
@@ -4072,6 +4379,7 @@ def phase_train_dist(dev="cuda"):
               f"{[round(x, 6) for x in on_cpu['megatron'][2:]]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 # ------------------------------------------ tensor / expert parallelism
@@ -5780,6 +6088,7 @@ def main() -> int:
     for k, n_launch in rest.items():
         counts[k] = counts.get(k, 0) + n_launch
     lap("4g-4i vlm, encdec, dense")
+    phase_optim_kernels(results)
     phase_train_kernels(results)
     phase_family_train_kernels(results)
     phase_moe_train_kernels(results)
@@ -5790,7 +6099,8 @@ def main() -> int:
     lap("9b-9c training")
     phase_train_families(counts)
     lap("9d-9i families' training")
-    phase_train_dist()
+    for k, n_launch in phase_train_dist().items():
+        counts[k] += n_launch
     lap("9j data parallelism")
     counts.update(phase_train_tp())
     lap("9k tensor parallelism")

@@ -6,10 +6,10 @@ each kernel's plain version, CUDA tensors launch the hand-written kernel
 (or raise).  :func:`launch_counts` reads every serving kernel's launch
 counter, :func:`flash_site_counts` the flash kernel's by call site,
 :func:`train_launch_counts` the training kernels' (the flash forward with
-its log-sum-exp, the flash backward and the SSD-scan backward; the SSD
-scan's training forward is the serving call and counts under
-``ssd_scan``) and :func:`train_site_counts` the training flash kernels'
-by call site.
+its log-sum-exp, the flash backward, the SSD-scan backward, the AdamW
+update and the gradient quantiser; the SSD scan's training forward is the
+serving call and counts under ``ssd_scan``) and :func:`train_site_counts`
+the training flash kernels' by call site.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_attention_lse,
 )
+from repro_torch.kernels.optimizer import adamw_leaf, grad_quant
 from repro_torch.kernels.page_compact import (
     page_compact,
     page_gather,
@@ -86,10 +87,14 @@ def train_launch_counts() -> Dict[str, int]:
     """Training kernels' launches since the last :func:`reset_launch_counts`:
     the flash forward with its log-sum-exp (``flash_attention.train``), the
     flash backward (``flash_attention_bwd``) and the SSD-scan backward
-    (``ssd_scan_bwd``), each one per call whatever its launches."""
+    (``ssd_scan_bwd``), each one per call whatever its launches; the AdamW
+    update (``adamw``, one per non-empty leaf and step) and the gradient
+    quantiser (``grad_quant``, one per non-empty vector it quantises)."""
     return {"flash_attention.train": flash_attention_lse.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
-            "ssd_scan_bwd": ssd_scan_bwd.launches}
+            "ssd_scan_bwd": ssd_scan_bwd.launches,
+            "adamw": adamw_leaf.launches,
+            "grad_quant": grad_quant.launches}
 
 
 def train_site_counts() -> Dict[str, int]:
@@ -119,6 +124,8 @@ def reset_launch_counts() -> None:
     for fn in (flash_attention_lse, flash_attention_bwd):
         fn.site_launches = dict.fromkeys(fn.site_launches, 0)
     ssd_scan_bwd.launches = 0
+    adamw_leaf.launches = 0
+    grad_quant.launches = 0
 
 
 __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
@@ -127,5 +134,6 @@ __all__ = ["KERNELS", "paged_attention_kernel", "paged_attention_dual",
            "page_compact", "flash_attention", "ssd_scan", "ssd_scan_bwd",
            "launch_counts",
            "flash_attention_lse", "flash_attention_bwd", "flash_site_counts",
+           "adamw_leaf", "grad_quant",
            "train_launch_counts", "train_site_counts",
            "reset_launch_counts"]

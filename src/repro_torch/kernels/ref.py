@@ -209,3 +209,59 @@ def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh=None, *, chunk: int, h0=None):
     got = [torch.zeros_like(t) if g is None else g
            for t, g in zip(leaves, got)]
     return (*got[:5], got[5] if h0 is not None else None)
+
+
+def adamw_leaf_ref(p, g, mu, nu, scale, *, lr, c1, c2, decay, b1, b2, eps):
+    """One leaf's AdamW update in place, the port's eager chain in the
+    reference's order (``repro/train/optimizer.py``'s ``upd``): ``p`` f32
+    or bf16, ``g`` f32 (scaled, then squared, in place) or bf16, ``mu`` /
+    ``nu`` f32; ``scale`` the clip factor (0-d, on the leaf's device);
+    ``lr``, ``c1``, ``c2``, ``decay`` f32 0-d CPU tensors; ``b1``, ``b2``,
+    ``eps`` Python floats.  Returns ``p``."""
+    g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
+    # Python floats, as the reference's: 1 - b1 is taken in double and
+    # rounded to f32 once.
+    mu.mul_(b1).add_(g * (1 - b1))
+    nu.mul_(b2).add_(g.square_().mul_(1 - b2))
+    upd = mu / c1
+    upd.div_((nu / c2).sqrt_().add_(eps)).mul_(lr)
+    if p.dtype == torch.float32:
+        p.mul_(decay).sub_(upd)
+    else:
+        p.copy_(p.float().mul_(decay).sub_(upd))
+    return p
+
+
+QUANT_BLOCK = 256
+
+
+def quant_ref(x32, work=None):
+    """fp32 [n] -> (int8 [n / 256, 256], scales fp32 [n / 256]).
+
+    The reference's bits (max |x| from ``aminmax``; the division, rounding
+    and clamping in place), in ``work`` (f32 [n], overwritten) when given,
+    else in one temporary the size of ``x32``: the embedding leaf of a 3B
+    model is 1.24 GB."""
+    xb = x32.reshape(-1, QUANT_BLOCK)
+    lo, hi = torch.aminmax(xb, dim=1, keepdim=True)
+    scale = torch.maximum(hi, lo.neg_()) / 127.0 + 1e-12
+    y = torch.div(xb, scale, out=None if work is None
+                  else work.view(-1, QUANT_BLOCK))
+    q = y.round_().clamp_(-127, 127).to(torch.int8)
+    return q, scale[:, 0]
+
+
+def dequant_ref(q, scale, out=None):
+    """int8 [n / 256, 256] x scales -> f32 [n], into ``out`` if given."""
+    out = q.float() if out is None else out.view(q.shape).copy_(q)
+    return out.reshape(-1, QUANT_BLOCK).mul_(scale[:, None]).reshape(-1)
+
+
+def ef_quant_ref(g32, err):
+    """Error feedback on one flat f32 vector, in place: ``err`` becomes
+    e' = (g + e) - Q(g + e) and ``g32`` Q(g + e) (after serving as the
+    quantizer's work buffer).  Returns (Q(g + e), e')."""
+    x = err.add_(g32)
+    q, s = quant_ref(x, work=g32)
+    xq = dequant_ref(q, s, out=g32)
+    return xq, x.sub_(xq)

@@ -13,7 +13,9 @@ synchronisation), and traces ``--trace-steps`` with ``torch.profiler``:
 device time by kernel per step, grouped (flash forward, flash backward,
 matrix products, the rest), and the device's busy share of an unprofiled
 step.  Then, on one more step's gradients, the optimizer alone (CUDA
-events): the global norm, and the whole AdamW update that includes it.
+events): the global norm, and the whole AdamW update that includes it,
+beside the AdamW kernel's device ms a step from the trace (its group,
+``csrc/adamw.cu``, one launch a leaf).
 For the ssm and hybrid families (``--arch mamba2-1.3b``, ``zamba2-1.2b``)
 the SSD scan's forward and backward kernels are groups of their own.
 ``--layers N`` cuts the depth to N layers at the published widths (a MoE
@@ -22,8 +24,10 @@ state does not fit the card whole (deepseek-v2-lite-16b: ``--layers 5``)
 can be profiled; the JSON line names the cut under ``reduced``.
 ``--grad-compress`` trains with the int8 compression of the gradients
 (on one device: ``Q(g + e)`` and the new error feedback per leaf) and
-also times that pass alone on one step's gradients.  ``--model N`` traces
-a rank's step under tensor parallelism: run it under ``torchrun
+also times that pass alone on one step's gradients, beside the
+quantiser kernel's device ms a step from the trace
+(``csrc/grad_quant.cu``).  ``--model N`` traces a rank's step under
+tensor parallelism: run it under ``torchrun
 --nproc-per-node W`` (mesh (W / N, N), megatron), on W cards over NCCL or,
 with ``--backend gloo``, as W gloo ranks sharing one card (their step
 times then share it too); rank 0 prints.  The JSON line
@@ -51,6 +55,8 @@ GROUPS = (("flash_forward", ("flash_attention_tc_kernel",
           ("ssd_backward", ("ssd_bwd_",)),
           ("ssd_forward", ("ssd_states_kernel", "ssd_pass_kernel",
                            "ssd_out_kernel", "ssd_scan_f32_kernel")),
+          ("adamw", ("adamw_kernel",)),
+          ("grad_quant", ("grad_quant_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
@@ -193,7 +199,10 @@ def main(argv=None):
         "groups_ms_per_step": groups,
         "global_norm_ms": norm_ms,
         "adamw_update_ms": adamw_ms,
+        "adamw_kernel_ms": groups.get("adamw", 0.0),
         "compress_ms": compress_ms,
+        "grad_quant_kernel_ms": (groups.get("grad_quant", 0.0)
+                                 if args.grad_compress else None),
         "top_kernels_ms_per_step": [
             {"name": name[:90], "group": group_of(name),
              "ms": us / per * 1e-3, "calls": c // per}

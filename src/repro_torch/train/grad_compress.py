@@ -21,37 +21,26 @@ goes on the wire: the result is ``dequant(quant(g + e))``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-BLOCK = 256
+from repro_torch.kernels.optimizer import BLOCK, grad_quant
 
 
-def _quant(x32: torch.Tensor, work: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 [n] -> (int8 [n / BLOCK, BLOCK], scales fp32 [n / BLOCK]).
-
-    The reference's bits (max |x| from ``aminmax``; the division, rounding
-    and clamping in place), in ``work`` (f32 [n], overwritten) when given,
-    else in one temporary the size of ``x32``: the embedding leaf of a 3B
-    model is 1.24 GB."""
-    xb = x32.reshape(-1, BLOCK)
-    lo, hi = torch.aminmax(xb, dim=1, keepdim=True)
-    scale = torch.maximum(hi, lo.neg_()) / 127.0 + 1e-12
-    y = torch.div(xb, scale, out=None if work is None
-                  else work.view(-1, BLOCK))
-    q = y.round_().clamp_(-127, 127).to(torch.int8)
-    return q, scale[:, 0]
+def _quant(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 [n] -> (int8 [n / BLOCK, BLOCK], scales fp32 [n / BLOCK]), the
+    reference's bits: on the card the quantise mode of
+    ``csrc/grad_quant.cu``, on the CPU ``kernels/ref.py::quant_ref``."""
+    return grad_quant(x32)
 
 
-def _dequant(q: torch.Tensor, scale: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """int8 [n / BLOCK, BLOCK] x scales -> f32 [n], into ``out`` if given."""
-    out = q.float() if out is None else out.view(q.shape).copy_(q)
-    return out.reshape(-1, BLOCK).mul_(scale[:, None]).reshape(-1)
+def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 [n / BLOCK, BLOCK] x scales -> fp32 [n]: a ring hop's received
+    payload, one eager multiply on every device."""
+    return q.float().mul_(scale[:, None]).reshape(-1)
 
 
 def _size(group) -> int:
@@ -106,12 +95,12 @@ def compressed_allreduce_flat(g32: torch.Tensor, err: torch.Tensor, group
     is Q(g + e) itself.
 
     In place, for memory (the reference's bits all the same): ``err``
-    becomes e' and is returned as it; ``g32`` is overwritten (the
-    quantizer's work buffer, then Q(g + e), which one rank returns)."""
+    becomes e' and is returned as it; ``g32`` is overwritten with Q(g + e),
+    which one rank returns.  The pass is one launch of
+    ``csrc/grad_quant.cu`` on the card (:func:`grad_quant`), the eager
+    chain ``kernels/ref.py::ef_quant_ref`` on the CPU."""
     n_dev = _size(group)
-    x = err.add_(g32)
-    xq = _dequant(*_quant(x, work=g32), out=g32)
-    new_err = x.sub_(xq)
+    xq, new_err = grad_quant(g32, err)
     if n_dev == 1:
         return xq, new_err
     return _ring_allreduce_q(xq, group).div_(n_dev), new_err

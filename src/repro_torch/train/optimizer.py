@@ -10,8 +10,13 @@ back to the parameter's dtype.  Scalars are f32 0-d tensors, as the
 reference's are f32 arrays.
 
 Unlike the reference's pure functions, :func:`adamw_update` updates the
-params, the moments and the (f32) grads in place: at full width each copy
-is 12 GB, and the card holds four of them.
+params and the moments in place: at full width each copy is 12 GB, and
+the card holds four of them.  Each leaf's update is one call of
+:func:`repro_torch.kernels.optimizer.adamw_leaf`: on the card one launch
+of the fused kernel (``csrc/adamw.cu``, the eager chain's bits; the clip
+scale stays on the card), on the CPU the eager chain
+(``kernels/ref.py::adamw_leaf_ref``), which also overwrites the f32
+grads.
 
 Under data parallelism the update runs on this rank's shards (ZeRO-1 /
 FSDP): each leaf's update is elementwise, and only the clip scale needs
@@ -31,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import TrainHParams
+from repro_torch.kernels.optimizer import adamw_leaf
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -77,39 +83,37 @@ def global_norm(tensors: Iterable[torch.Tensor], group=None,
     return torch.sqrt(total)
 
 
+def adamw_scalars(hp: TrainHParams, step: torch.Tensor):
+    """(lr, c1, c2, decay) of update ``step`` (int32 0-d, CPU, counted from
+    1) as f32 0-d CPU tensors: the learning rate, the bias corrections
+    ``1 - b ** step`` and ``1 - lr * weight_decay``."""
+    lr = lr_schedule(hp, step)
+    c1 = 1 - _f32(hp.b1) ** step.float()
+    c2 = 1 - _f32(hp.b2) ** step.float()
+    return lr, c1, c2, 1 - lr * hp.weight_decay
+
+
 @torch.no_grad()
 def adamw_update(params: Tensors, grads: Tensors, state, hp: TrainHParams,
                  *, counted: Optional[Collection[str]] = None, group=None
                  ) -> Tuple[Tensors, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}); the
     params and ``state["mu"]`` / ``state["nu"]`` are updated in place,
-    ``state["step"]`` is replaced, and f32 grads are overwritten (scaled,
-    then squared).  Under data parallelism ``params``, ``grads`` and the
-    moments are this rank's shards, ``counted`` names the leaves whose
-    squares this rank adds to the grad norm (default: all) and ``group``
-    the ranks that norm sums over (:func:`global_norm`)."""
+    ``state["step"]`` is replaced; on the CPU f32 grads are overwritten
+    (scaled, then squared), on the card only read.  Under data
+    parallelism ``params``, ``grads`` and the moments are this rank's
+    shards, ``counted`` names the leaves whose squares this rank adds to
+    the grad norm (default: all) and ``group`` the ranks that norm sums
+    over (:func:`global_norm`)."""
     step = state["step"] + 1
     gn = global_norm((grads[n] for n in params
                       if counted is None or n in counted), group,
                      next(iter(params.values())).device)
     scale = torch.clamp(hp.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
-    lr = lr_schedule(hp, step)
-    c1 = 1 - _f32(hp.b1) ** step.float()
-    c2 = 1 - _f32(hp.b2) ** step.float()
-    decay = 1 - lr * hp.weight_decay
+    lr, c1, c2, decay = adamw_scalars(hp, step)
     for n, p in params.items():
-        mu, nu = state["mu"][n], state["nu"][n]
-        g = grads[n]
-        g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
-        # Python floats, as the reference's: 1 - b1 is taken in double and
-        # rounded to f32 once.
-        mu.mul_(hp.b1).add_(g * (1 - hp.b1))
-        nu.mul_(hp.b2).add_(g.square_().mul_(1 - hp.b2))
-        upd = mu / c1
-        upd.div_((nu / c2).sqrt_().add_(hp.eps)).mul_(lr)
-        if p.dtype == torch.float32:
-            p.mul_(decay).sub_(upd)
-        else:
-            p.copy_(p.float().mul_(decay).sub_(upd))
+        adamw_leaf(p, grads[n], state["mu"][n], state["nu"][n], scale,
+                   lr=lr, c1=c1, c2=c2, decay=decay, b1=hp.b1, b2=hp.b2,
+                   eps=hp.eps)
     return params, {"step": step, "mu": state["mu"], "nu": state["nu"]}, {
         "grad_norm": gn, "lr": lr}

@@ -1546,7 +1546,8 @@ def test_cuda_trainer_step_matches_the_cpu(cuda_device):
     (kernels) and on the CPU (plain versions) from the same weights: each
     step's loss and grad norm within 1e-4 relative (f32, other summation
     order; TF32 off), and the card's launches: per step two training
-    forwards (remat recomputes) and one backward per layer."""
+    forwards (remat recomputes) and one backward per layer, and one AdamW
+    launch per leaf."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainHParams
     from repro_torch.train.trainer import Trainer
@@ -1572,9 +1573,10 @@ def test_cuda_trainer_step_matches_the_cpu(cuda_device):
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
     assert c_gpu == {"flash_attention.train": 2 * 2 * cfg.n_layers,
                      "flash_attention_bwd": 2 * cfg.n_layers,
-                     "ssd_scan_bwd": 0}
+                     "ssd_scan_bwd": 0, "adamw": 2 * len(params),
+                     "grad_quant": 0}
     assert c_cpu == {"flash_attention.train": 0, "flash_attention_bwd": 0,
-                     "ssd_scan_bwd": 0}
+                     "ssd_scan_bwd": 0, "adamw": 0, "grad_quant": 0}
 
 
 @pytest.mark.cuda
@@ -1723,3 +1725,243 @@ def test_cuda_family_train_step_matches_the_cpu(cuda_device, arch):
         sys.path.remove(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.family_train_agreement(arch, "cuda", steps=2)
+
+
+# ------------------------------------------------ optimizer-step kernels
+
+def _adamw_inputs(dev, n, p_dtype, g_dtype, seed=51):
+    """p, g, mu, nu of n elements from a seed (nu >= 0), in place-ready
+    contiguous tensors on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = (torch.randn(n, generator=gen, device=dev) * 0.02).to(p_dtype)
+    g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(g_dtype)
+    mu = torch.randn(n, generator=gen, device=dev) * 1e-4
+    nu = torch.rand(n, generator=gen, device=dev) * 1e-6
+    return p, g, mu, nu
+
+
+def _adamw_kwargs(step=3):
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train.optimizer import adamw_scalars
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=6)
+    lr, c1, c2, decay = adamw_scalars(hp, torch.tensor(step,
+                                                       dtype=torch.int32))
+    return dict(lr=lr, c1=c1, c2=c2, decay=decay, b1=hp.b1, b2=hp.b2,
+                eps=hp.eps)
+
+
+def _adamw_against_plain(inputs, scale, kw):
+    """The kernel on ``inputs`` and the plain version on copies; asserts p,
+    mu and nu equal bit for bit (NaN where the plain version has NaN)."""
+    from repro_torch.kernels.optimizer import adamw_leaf
+    want = [t.clone() for t in inputs]
+    ref.adamw_leaf_ref(*want, scale, **kw)
+    p, g, mu, nu = inputs
+    adamw_leaf(p, g, mu, nu, scale, **kw)
+    torch.cuda.synchronize()
+    for got, w in ((p, want[0]), (mu, want[2]), (nu, want[3])):
+        torch.testing.assert_close(got, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("n", [1, 3, 256, 4099, 257 * 256, 65795])
+def test_cuda_adamw_leaf_bitwise_plain(cuda_device, n, p_dtype, g_dtype):
+    """The fused AdamW kernel against the eager chain on the card, bit for
+    bit, at odd sizes (the 4-element vectors' tail) and every p / g dtype
+    pair, with a clipped step's scale on the card."""
+    inputs = _adamw_inputs(cuda_device, n, getattr(torch, p_dtype),
+                           getattr(torch, g_dtype))
+    scale = torch.tensor(0.37, device=cuda_device)
+    _adamw_against_plain(inputs, scale, _adamw_kwargs())
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_leaf_beyond_2_31_bytes(cuda_device):
+    """A leaf of 2^29 + 5 f32 elements (each tensor > 2^31 bytes: 64-bit
+    offsets), bit for bit the plain version."""
+    inputs = _adamw_inputs(cuda_device, (1 << 29) + 5, torch.float32,
+                           torch.float32)
+    _adamw_against_plain(inputs, torch.tensor(1.0, device=cuda_device),
+                         _adamw_kwargs())
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_leaf_nan_gradient_propagates(cuda_device):
+    """A NaN gradient element makes its p, mu and nu NaN and leaves every
+    other element finite, as the plain version."""
+    inputs = _adamw_inputs(cuda_device, 4099, torch.float32, torch.float32)
+    inputs[1][17] = float("nan")
+    _adamw_against_plain(inputs, torch.tensor(1.0, device=cuda_device),
+                         _adamw_kwargs())
+    p, _, mu, nu = inputs
+    for t in (p, mu, nu):
+        assert bool(t[17].isnan())
+        assert int(t.isnan().sum()) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_leaf_empty_and_refusals(cuda_device):
+    """An empty leaf launches nothing; a tensor that is not contiguous,
+    not 16-byte aligned, of another dtype or with a scale on the CPU
+    raises."""
+    from repro_torch.kernels.optimizer import adamw_leaf
+    kw = _adamw_kwargs()
+    scale = torch.tensor(1.0, device=cuda_device)
+    before = ops.train_launch_counts()["adamw"]
+    adamw_leaf(*_adamw_inputs(cuda_device, 0, torch.float32, torch.float32),
+               scale, **kw)
+    assert ops.train_launch_counts()["adamw"] == before
+    p, g, mu, nu = _adamw_inputs(cuda_device, 1024, torch.float32,
+                                 torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_leaf(p[::2], g[::2], mu[::2], nu[::2], scale, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        adamw_leaf(p[1:], g[1:], mu[1:], nu[1:], scale, **kw)
+    with pytest.raises(ValueError, match="float16"):
+        adamw_leaf(p.half(), g, mu, nu, scale, **kw)
+    with pytest.raises(ValueError, match="scale"):
+        adamw_leaf(p, g, mu, nu, scale.cpu(), **kw)
+    with pytest.raises(ValueError, match="differ"):
+        adamw_leaf(p, g[:512], mu, nu, scale, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_update_adds_no_synchronisation(cuda_device):
+    """``adamw_update`` over qwen2.5-3b's leaves at its widths (2 layers):
+    no synchronisation with the card (the clip scale stays there), one
+    launch per leaf, and every leaf bit for bit the plain version given the
+    same scale and scalars."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optimizer import (adamw_init, adamw_scalars,
+                                             adamw_update, global_norm)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    shapes = {n: p.shape for n, p in LM(cfg, device="meta",
+                                        master=True).named_parameters()}
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    params = {n: torch.randn(s, generator=gen, device=cuda_device) * 0.02
+              for n, s in shapes.items()}
+    grads = {n: torch.randn(s, generator=gen, device=cuda_device)
+             for n, s in shapes.items()}      # norm >> 1: a clipped step
+    hp = TrainHParams(lr=3e-4, warmup_steps=2, total_steps=6)
+    state = adamw_init(params)
+    want_p = {n: p.clone() for n, p in params.items()}
+    want_g = {n: g.clone() for n, g in grads.items()}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state, metrics = adamw_update(params, grads, state, hp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.train_launch_counts()["adamw"] == len(shapes)
+    gn = global_norm(want_g.values())
+    scale = torch.clamp(hp.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
+    assert float(scale) < 1
+    lr, c1, c2, decay = adamw_scalars(hp, state["step"])
+    for n in shapes:
+        mu, nu = torch.zeros_like(want_p[n]), torch.zeros_like(want_p[n])
+        ref.adamw_leaf_ref(want_p[n], want_g[n], mu, nu, scale, lr=lr,
+                           c1=c1, c2=c2, decay=decay, b1=hp.b1, b2=hp.b2,
+                           eps=hp.eps)
+        assert torch.equal(params[n], want_p[n]), n
+        assert torch.equal(state["mu"][n], mu), n
+        assert torch.equal(state["nu"][n], nu), n
+
+
+def _quant_inputs(dev, n, seed=61):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(n, generator=gen, device=dev) * 1e-3,
+            torch.randn(n, generator=gen, device=dev) * 1e-5)
+
+
+def _quant_against_plain(g, e):
+    from repro_torch.kernels.optimizer import grad_quant
+    want = ref.ef_quant_ref(g.clone(), e.clone())
+    got = grad_quant(g, e)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 3, 257, 4099])
+def test_cuda_grad_quant_bitwise_plain(cuda_device, n_blocks):
+    """The error-feedback quantiser against the eager chain on the card,
+    bit for bit (Q(g + e) and e'), with an all-zero block and an outlier;
+    and its quantise mode (the int8 payload and the scales) against
+    ``quant_ref``."""
+    from repro_torch.kernels.optimizer import grad_quant
+    g, e = _quant_inputs(cuda_device, 256 * n_blocks)
+    g[:256] = 0.0
+    e[:256] = 0.0
+    g[-3] = 50.0
+    x = (g + e).clone()
+    for a, b in zip(grad_quant(x), ref.quant_ref(x)):
+        assert torch.equal(a, b)
+    _quant_against_plain(g, e)
+
+
+@pytest.mark.cuda
+def test_cuda_grad_quant_beyond_2_31_bytes(cuda_device):
+    """2^29 + 256 f32 elements (each vector > 2^31 bytes: 64-bit
+    offsets), bit for bit the plain version in both modes."""
+    from repro_torch.kernels.optimizer import grad_quant
+    g, e = _quant_inputs(cuda_device, (1 << 29) + 256)
+    for a, b in zip(grad_quant(g), ref.quant_ref(g)):
+        assert torch.equal(a, b)
+    _quant_against_plain(g, e)
+
+
+@pytest.mark.cuda
+def test_cuda_grad_quant_nan_gradient_propagates(cuda_device):
+    """A NaN gradient makes its whole block NaN in Q(g + e) and e' (as
+    ``aminmax`` gives the block a NaN scale) and no other block."""
+    g, e = _quant_inputs(cuda_device, 256 * 5)
+    g[2 * 256 + 7] = float("nan")
+    _quant_against_plain(g, e)
+    assert bool(g[512:768].isnan().all()) and bool(e[512:768].isnan().all())
+    rest = torch.cat([g[:512], g[768:], e[:512], e[768:]])
+    assert bool(torch.isfinite(rest).all())
+
+
+@pytest.mark.cuda
+def test_cuda_grad_quant_empty_and_refusals(cuda_device):
+    """An empty vector launches nothing; a length not a multiple of 256, a
+    misaligned or strided vector, or another dtype raises."""
+    from repro_torch.kernels.optimizer import grad_quant
+    before = ops.train_launch_counts()["grad_quant"]
+    g, e = _quant_inputs(cuda_device, 0)
+    out = grad_quant(g, e)
+    assert len(out) == 2 and out[0] is g and out[1] is e
+    q, s = grad_quant(g)
+    assert q.shape == (0, 256) and s.shape == (0,)
+    assert ops.train_launch_counts()["grad_quant"] == before
+    g, e = _quant_inputs(cuda_device, 1024 + 256)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        grad_quant(g[:1000], e[:1000])
+    with pytest.raises(ValueError, match="aligned"):
+        grad_quant(g[1:1025], e[1:1025])
+    with pytest.raises(ValueError, match="contiguous"):
+        grad_quant(g.view(-1, 2)[:, 0][:512], e[:512])
+    with pytest.raises(ValueError, match="float64"):
+        grad_quant(g[:1024].double(), e[:1024].double())
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_allreduce_one_rank_is_the_kernel(cuda_device):
+    """``compressed_allreduce_flat`` on one rank: one quantiser launch, the
+    plain version's bits."""
+    from repro_torch.train.grad_compress import compressed_allreduce_flat
+    g, e = _quant_inputs(cuda_device, 256 * 33)
+    want = ref.ef_quant_ref(g.clone(), e.clone())
+    before = ops.train_launch_counts()["grad_quant"]
+    got = compressed_allreduce_flat(g, e, None)
+    assert ops.train_launch_counts()["grad_quant"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

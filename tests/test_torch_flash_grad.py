@@ -108,7 +108,8 @@ def test_autograd_function_matches_jax_grad(shape, causal):
     # CPU tensors run the plain versions: no kernel launched.
     assert ops.train_launch_counts() == {"flash_attention.train": 0,
                                          "flash_attention_bwd": 0,
-                                         "ssd_scan_bwd": 0}
+                                         "ssd_scan_bwd": 0, "adamw": 0,
+                                         "grad_quant": 0}
 
 
 def test_autograd_function_equals_plain_versions_bitwise():

@@ -115,8 +115,10 @@ def test_chip_smoke_train_launches_account_for_every_layer(chip_smoke):
     cross-attention layers (forwards twice under remat), the encoder's
     and the cross-attention's also by site, 48 SSD scans for mamba2 (twice
     under remat), 38 SSD scans and 6 shared-block calls for zamba2
-    whatever remat says; and the kernels line's entries take each
-    family's launches at its own shape, seamless's by site."""
+    whatever remat says; one AdamW launch per leaf and step (seamless 28
+    leaves, mamba2 11, zamba2 30) and no quantiser launch; and the kernels
+    line's entries take each family's launches at its own shape,
+    seamless's by site."""
     from repro_torch.configs import get_config
     enc = get_config("seamless-m4t-large-v2")
     no_site = {f"{k}.{s}": 0 for k in ("flash_attention.train",
@@ -128,15 +130,17 @@ def test_chip_smoke_train_launches_account_for_every_layer(chip_smoke):
         "flash_attention.train.encoder": 144,
         "flash_attention.train.cross_prefill": 144,
         "flash_attention_bwd.encoder": 72,
-        "flash_attention_bwd.cross_prefill": 72}
+        "flash_attention_bwd.cross_prefill": 72, "adamw": 84,
+        "grad_quant": 0}
     assert chip_smoke.train_launches(get_config("mamba2-1.3b"), 3) == {
         **no_site, "flash_attention.train": 0, "flash_attention_bwd": 0,
-        "ssd_scan_bwd": 144, "ssd_scan": 288}
+        "ssd_scan_bwd": 144, "ssd_scan": 288, "adamw": 33, "grad_quant": 0}
     for remat in (True, False):
         assert chip_smoke.train_launches(get_config("zamba2-1.2b"), 3,
                                          remat) == {
             **no_site, "flash_attention.train": 18,
-            "flash_attention_bwd": 18, "ssd_scan_bwd": 114, "ssd_scan": 114}
+            "flash_attention_bwd": 18, "ssd_scan_bwd": 114, "ssd_scan": 114,
+            "adamw": 90, "grad_quant": 0}
     vlm = dataclasses.replace(get_config("llava-next-mistral-7b"),
                               n_layers=chip_smoke.VLM_TRAIN_LAYERS)
     runs = {"encdec": chip_smoke.train_launches(enc, 3),
