@@ -46,6 +46,10 @@ class MosaicManager:
         self.seq_tokens: Dict[int, int] = {}
         self.rmap: Dict[int, Tuple[int, int]] = {}
         self._pending_copies: List[CopyOp] = []
+        # OutOfMemory-triggered passes that compacted every owner, and
+        # those after which the retried allocation failed again.
+        self.oom_compactions = 0
+        self.oom_refusals = 0
         # Host-tier residency (DESIGN.md §6): same hooks as BaselineMMU so
         # engines/benchmarks measure demand paging under either manager.
         self.residency = ResidencyTracker(
@@ -105,7 +109,12 @@ class MosaicManager:
             # Paper step 9–10: compaction frees frames for future allocations.
             for o in self.owners():
                 self.compact(o)
-            return fn()
+            self.oom_compactions += 1
+            try:
+                return fn()
+            except OutOfMemory:
+                self.oom_refusals += 1
+                raise
 
     # -- deallocation --------------------------------------------------------------
 

@@ -96,7 +96,6 @@ compaction are updated in place.
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 from typing import Deque, Dict, List, Mapping, Optional, Tuple
 
@@ -112,6 +111,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.page_ops import PageCtx
 from repro_torch.serving.dma import (AsyncDMAEngine, DMAJob, Key, Prefetcher,
                                      StagingBuffer)
+from repro_torch.serving import spans
 from repro_torch.serving.host_tier import HostPageStore, PrefixIndex
 from repro_torch.serving.kv_cache import ShardedKVCache
 
@@ -139,7 +139,6 @@ class EngineStats:
     compaction_copies: int = 0
     wall_s: float = 0.0
     coalesced_sum: float = 0.0   # running sum of per-step coalesced fraction
-    occupancy_sum: float = 0.0
     # Host-tier demand paging, modeled by the link model (as the reference).
     faults: int = 0              # base pages faulted in
     fault_dmas: int = 0          # DMA descriptors (contiguous runs)
@@ -178,7 +177,12 @@ class EngineStats:
     # Per-admission modeled latency samples (µs): prefilled tokens x
     # prefill_us_per_token.
     admit_lat_us: List[float] = dataclasses.field(default_factory=list)
-    # Measured on this engine's device (host clock around synchronised work).
+    # Measured on this engine's device (host clock around synchronised
+    # work), each fed by the phase span of the same region
+    # (:mod:`repro_torch.serving.spans`): wall_s by serve.step, prefill_s
+    # by serve.prefill_fwd, decode_s by serve.decode, d2h_s by serve.d2h,
+    # h2d_s by serve.h2d, prefix_h2d_s by serve.prefix_h2d and
+    # admit_hit_us / admit_cold_us by serve.prefill.
     prefill_s: float = 0.0       # prefill forwards, argmax included
     decode_s: float = 0.0        # decode forwards, argmax included
     d2h_bytes: int = 0           # eviction payloads copied off the device
@@ -238,23 +242,11 @@ class EngineStats:
     def coalesced_mean(self) -> float:
         return self.coalesced_sum / max(self.decode_steps, 1)
 
-    @property
-    def occupancy_mean(self) -> float:
-        return self.occupancy_sum / max(self.decode_steps, 1)
-
     def admit_hit_mean_us(self) -> float:
         return self.admit_hit_us / max(self.admit_hits, 1)
 
     def admit_cold_mean_us(self) -> float:
         return self.admit_cold_us / max(self.admit_colds, 1)
-
-    def admit_p99_us(self, start: int = 0) -> float:
-        """p99 of the modeled per-admission latencies (µs), optionally
-        over the samples from index ``start`` on.  0.0 when no samples."""
-        samples = self.admit_lat_us[start:]
-        if not samples:
-            return 0.0
-        return float(np.percentile(np.asarray(samples), 99))
 
     def tok_per_s(self) -> float:
         if self.wall_s <= 0.0:
@@ -529,6 +521,11 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _span(self, name: str, stat: Optional[str] = None) -> spans.span:
+        """A phase span of this engine; ``stat`` names the
+        :class:`EngineStats` field that also takes its seconds."""
+        return spans.span(name, stat, self.stats)
+
     def _index(self, ids: List[int]) -> torch.Tensor:
         return torch.tensor(ids, dtype=torch.int32, device=self.device)
 
@@ -575,8 +572,10 @@ class ServingEngine:
                 if victim is None:
                     break
                 self._preempt(victim)
+            spans.count("admit_tries")
             ok = self._resume(cand) if resume else self._admit_one(cand)
             if not ok:
+                spans.count("admit_refused")
                 skipped.add(cand.rid)
                 continue
             (self.preempted if resume else self.queue).remove(cand)
@@ -619,25 +618,27 @@ class ServingEngine:
         swapped out on a path that ends in admission.  Returns False
         (leaving ``req`` unallocated) when no victim remains.
         """
-        while True:
-            try:
-                self.cache.allocate(req.rid, n_tokens)
-            except OutOfMemory:
-                self.cache.free(req.rid)   # roll back the partial allocation
+        with self._span("serve.alloc"):
+            while True:
+                try:
+                    self.cache.allocate(req.rid, n_tokens)
+                except OutOfMemory:
+                    # Roll back the partial allocation.
+                    self.cache.free(req.rid)
+                    victim = self._pick_victim(below_priority=below_priority,
+                                               exclude=exclude + (req.rid,))
+                    if victim is None:
+                        return False
+                    self._preempt(victim)
+                    continue
+                if self._growth_guard_ok(req):
+                    return True
+                self.cache.free(req.rid)
                 victim = self._pick_victim(below_priority=below_priority,
                                            exclude=exclude + (req.rid,))
                 if victim is None:
                     return False
                 self._preempt(victim)
-                continue
-            if self._growth_guard_ok(req):
-                return True
-            self.cache.free(req.rid)
-            victim = self._pick_victim(below_priority=below_priority,
-                                       exclude=exclude + (req.rid,))
-            if victim is None:
-                return False
-            self._preempt(victim)
 
     def _gather_pages(self, entries: List[Tuple[int, int, int]]
                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -654,9 +655,8 @@ class ServingEngine:
         kp = kops.page_gather(k, gidx)               # [L, n, ptok, kv, dh]
         vp = kops.page_gather(v, gidx)
         self._sync()
-        t0 = time.perf_counter()
-        kp, vp = kp.cpu(), vp.cpu()
-        self.stats.d2h_s += time.perf_counter() - t0
+        with self._span("serve.d2h", "d2h_s"):
+            kp, vp = kp.cpu(), vp.cpu()
         self.stats.d2h_bytes += kp.nbytes + vp.nbytes
         self.stats.gathers += 1
         return [(kp[:, i], vp[:, i]) for i in range(len(entries))]
@@ -690,31 +690,34 @@ class ServingEngine:
     def _preempt(self, victim: Request) -> None:
         """Swap a request out: resident pages → host store at base-page
         granularity, pages freed for other tenants."""
-        rid = victim.rid
-        # Pending compaction plans rewrote tables already; land the payload
-        # copies before gathering through those tables.
-        self._run_compaction()
-        pages = self.cache.mapped_pages(rid)     # [(shard, vpn, ppn)]
-        # A just-resumed victim may still hold non-resident pages whose
-        # payloads never left the host store: gather only resident ones.
-        resident = [
-            (s, vpn, ppn) for s, vpn, ppn in pages
-            if self.cache.mgrs[s].residency.resident[ppn]
-        ]
-        payloads = self._gather_pages(resident)
-        for (s, vpn, _ppn), (kp, vp) in zip(resident, payloads):
-            self.host.put(rid, s, vpn, kp, vp)
-        # The gather is outbound DMA traffic on the channels' "out" lanes.
-        self._enqueue_outbound([(rid, s, vpn) for s, vpn, _p in resident],
-                               resident, payloads, kind="evict")
-        self.cache.evict_pages(resident)
-        self._saved_tokens[rid] = self.cache.seq_tokens[rid]
-        self.cache.free(rid)
-        self.active.remove(victim)
-        victim.preemptions += 1
-        self.preempted.append(victim)
-        self.host.note_swap_out()
-        self.stats.swaps_out += 1
+        with self._span("serve.preempt"):
+            rid = victim.rid
+            # Pending compaction plans rewrote tables already; land the
+            # payload copies before gathering through those tables.
+            self._run_compaction()
+            pages = self.cache.mapped_pages(rid)     # [(shard, vpn, ppn)]
+            # A just-resumed victim may still hold non-resident pages whose
+            # payloads never left the host store: gather only resident ones.
+            resident = [
+                (s, vpn, ppn) for s, vpn, ppn in pages
+                if self.cache.mgrs[s].residency.resident[ppn]
+            ]
+            payloads = self._gather_pages(resident)
+            for (s, vpn, _ppn), (kp, vp) in zip(resident, payloads):
+                self.host.put(rid, s, vpn, kp, vp)
+            # The gather is outbound DMA traffic on the channels' "out"
+            # lanes.
+            self._enqueue_outbound(
+                [(rid, s, vpn) for s, vpn, _p in resident], resident,
+                payloads, kind="evict")
+            self.cache.evict_pages(resident)
+            self._saved_tokens[rid] = self.cache.seq_tokens[rid]
+            self.cache.free(rid)
+            self.active.remove(victim)
+            victim.preemptions += 1
+            self.preempted.append(victim)
+            self.host.note_swap_out()
+            self.stats.swaps_out += 1
 
     def preempt(self, rid: int, *, hold: bool = False) -> bool:
         """Proactively swap an active request out.  It resumes when
@@ -964,10 +967,9 @@ class ServingEngine:
         kp = torch.stack([p[0] for p in payloads], dim=1)
         vp = torch.stack([p[1] for p in payloads], dim=1)
         self._sync()
-        t0 = time.perf_counter()
-        kp, vp = kp.to(self.device), vp.to(self.device)
-        self._sync()
-        self.stats.h2d_s += time.perf_counter() - t0
+        with self._span("serve.h2d", "h2d_s"):
+            kp, vp = kp.to(self.device), vp.to(self.device)
+            self._sync()
         self.stats.h2d_bytes += kp.nbytes + vp.nbytes
         return kp, vp
 
@@ -975,10 +977,11 @@ class ServingEngine:
               vp: torch.Tensor) -> None:
         """Scatter device-resident pages into the pools at global page ids
         ``gidx``: one kernel launch per pool over all layers."""
-        idx = self._index(gidx)
-        k, v = self.pools
-        kops.page_scatter(k, idx, kp)
-        kops.page_scatter(v, idx, vp)
+        with self._span("serve.land"):
+            idx = self._index(gidx)
+            k, v = self.pools
+            kops.page_scatter(k, idx, kp)
+            kops.page_scatter(v, idx, vp)
         self.stats.landings += 1
 
     def _scatter_pages(self, gidx: List[int],
@@ -1398,23 +1401,24 @@ class ServingEngine:
         latency sample (admit_lat_us): tokens actually prefilled x
         prefill_us_per_token, plus the disk stall a cache hit paid to
         promote spilled prefix frames back."""
-        t0 = time.perf_counter()
         T = len(req.prompt)
-        match = self._match_prefix(req)
-        promote_us = self._prefill_suffix(req, match) if match else None
+        with self._span("serve.prefill") as sp:
+            match = self._match_prefix(req)
+            promote_us = self._prefill_suffix(req, match) if match else None
+            if promote_us is None:
+                if match:
+                    # The matched payloads were quarantined mid-admission:
+                    # full prefill; the prefix is re-parked at completion.
+                    self.stats.prefix_rederives += 1
+                self._prefill_full(req)
         if promote_us is not None:
             self.stats.admit_hits += 1
-            self.stats.admit_hit_us += (time.perf_counter() - t0) * 1e6
+            self.stats.admit_hit_us += sp.seconds * 1e6
             model_us = (T - len(match) * self.geo.page_tokens) \
                 * self.prefill_us_per_token + promote_us
         else:
-            if match:
-                # The matched payloads were quarantined mid-admission:
-                # full prefill; the prefix is re-parked at completion.
-                self.stats.prefix_rederives += 1
-            self._prefill_full(req)
             self.stats.admit_colds += 1
-            self.stats.admit_cold_us += (time.perf_counter() - t0) * 1e6
+            self.stats.admit_cold_us += sp.seconds * 1e6
             model_us = T * self.prefill_us_per_token
         self.stats.admit_lat_us.append(model_us)
 
@@ -1465,25 +1469,23 @@ class ServingEngine:
         pk = pk.reshape(L, 1, P, *pk.shape[3:])
         pv = pv.reshape(L, 1, P, *pv.shape[3:])
         self._sync()
-        t0 = time.perf_counter()
-        pk, pv = pk.to(self.device), pv.to(self.device)
-        self._sync()
-        self.stats.prefix_h2d_s += time.perf_counter() - t0
+        with self._span("serve.prefix_h2d", "prefix_h2d_s"):
+            pk, pv = pk.to(self.device), pv.to(self.device)
+            self._sync()
         self.stats.prefix_h2d_bytes += pk.nbytes + pv.nbytes
-        t0 = time.perf_counter()
-        Tpad = ((T + ptok - 1) // ptok) * ptok
-        tokens = torch.zeros((1, Tpad - P), dtype=torch.int32)
-        tokens[0, :T - P] = torch.from_numpy(
-            np.asarray(req.prompt[P:], np.int32))
-        ctx = self._ctx_global(self.cache.pack_ctx(
-            [req.rid], self.mpps, device=self.device))
-        logits, _, state = self.lm.prefill(
-            {"tokens": tokens.to(self.device)}, self.pools, ctx,
-            last_pos=self._index([T - 1 - P]), prefix_kv=(pk, pv),
-            prefix_len=P)
-        self.states[req.rid] = state
-        req.out.append(int(torch.argmax(logits[0])))
-        self.stats.prefill_s += time.perf_counter() - t0
+        with self._span("serve.prefill_fwd", "prefill_s"):
+            Tpad = ((T + ptok - 1) // ptok) * ptok
+            tokens = torch.zeros((1, Tpad - P), dtype=torch.int32)
+            tokens[0, :T - P] = torch.from_numpy(
+                np.asarray(req.prompt[P:], np.int32))
+            ctx = self._ctx_global(self.cache.pack_ctx(
+                [req.rid], self.mpps, device=self.device))
+            logits, _, state = self.lm.prefill(
+                {"tokens": tokens.to(self.device)}, self.pools, ctx,
+                last_pos=self._index([T - 1 - P]), prefix_kv=(pk, pv),
+                prefix_len=P)
+            self.states[req.rid] = state
+            req.out.append(int(torch.argmax(logits[0])))
         self.stats.prefill_tokens += T - P      # compute actually done
         self.stats.prefix_reused_tokens += P
         # Admission-time fault-in through the async pipeline: the first
@@ -1601,28 +1603,28 @@ class ServingEngine:
         # before the device reads them (and before the pages freed by
         # compaction are overwritten by this prefill).
         self._run_compaction()
-        t0 = time.perf_counter()
-        ctx = self._ctx_global(self.cache.pack_ctx(
-            [req.rid], self.mpps, device=self.device))
-        tokens = torch.zeros((1, Tpad), dtype=torch.int32)
-        tokens[0, :T] = torch.from_numpy(np.asarray(req.prompt, np.int32))
-        batch = {"tokens": tokens.to(self.device)}
-        # The frontends are stubs, as in the reference: zero image patches
-        # (vlm) and zero source frames (encdec).
-        dtype = getattr(torch, self.cfg.dtype)
-        if self.cfg.family == "vlm":
-            batch["patch_embeds"] = torch.zeros(
-                (1, self.cfg.frontend_tokens, self.cfg.d_model), dtype=dtype,
-                device=self.device)
-        if self.cfg.family == "encdec":
-            batch["src_embeds"] = torch.zeros(
-                (1, self.cfg.encdec.source_len, self.cfg.d_model),
-                dtype=dtype, device=self.device)
-        logits, _, state = self.lm.prefill(batch, self.pools, ctx,
-                                           last_pos=self._index([T - 1]))
-        self.states[req.rid] = state
-        req.out.append(int(torch.argmax(logits[0])))
-        self.stats.prefill_s += time.perf_counter() - t0
+        with self._span("serve.prefill_fwd", "prefill_s"):
+            ctx = self._ctx_global(self.cache.pack_ctx(
+                [req.rid], self.mpps, device=self.device))
+            tokens = torch.zeros((1, Tpad), dtype=torch.int32)
+            tokens[0, :T] = torch.from_numpy(
+                np.asarray(req.prompt, np.int32))
+            batch = {"tokens": tokens.to(self.device)}
+            # The frontends are stubs, as in the reference: zero image
+            # patches (vlm) and zero source frames (encdec).
+            dtype = getattr(torch, self.cfg.dtype)
+            if self.cfg.family == "vlm":
+                batch["patch_embeds"] = torch.zeros(
+                    (1, self.cfg.frontend_tokens, self.cfg.d_model),
+                    dtype=dtype, device=self.device)
+            if self.cfg.family == "encdec":
+                batch["src_embeds"] = torch.zeros(
+                    (1, self.cfg.encdec.source_len, self.cfg.d_model),
+                    dtype=dtype, device=self.device)
+            logits, _, state = self.lm.prefill(
+                batch, self.pools, ctx, last_pos=self._index([T - 1]))
+            self.states[req.rid] = state
+            req.out.append(int(torch.argmax(logits[0])))
         # Tokens beyond T within the padded page are unused; the tracked
         # length stays T (+1 for the decode append).
         self.stats.prefill_tokens += T
@@ -1677,23 +1679,30 @@ class ServingEngine:
         """One engine iteration: (async/fused: drain completed prefetches)
         → admit → grow → compact → fault in → decode (async/fused: while
         the next step's prefetches are in flight) → (fused: settle) →
-        retire."""
-        if not self.alive:
-            return False        # a crashed engine does no work
-        t0 = time.perf_counter()
-        # Advance the host tier's write-back pipeline to the engine clock:
-        # frames whose spill completed persist now, before this step's
-        # admissions and parks consult park_allowed().
-        self.host.pump(self._clock_us)
-        if self.fault_mode in ("async", "fused"):
-            # Publish transfers that finished during the last decode so
-            # admission's resumes and this step's fault-in see them.
-            self._drain_prefetches()
-        self._admit()
+        retire.  Each phase runs in its span and every call leaves one
+        record in the step log (:mod:`repro_torch.serving.spans`)."""
+        with spans.step_record(self.engine_id, self.cache):
+            if not self.alive:
+                return False        # a crashed engine does no work
+            with self._span("serve.step", "wall_s"):
+                return self._step()
+
+    def _step(self) -> bool:
+        with self._span("serve.host_tier"):
+            # Advance the host tier's write-back pipeline to the engine
+            # clock: frames whose spill completed persist now, before this
+            # step's admissions and parks consult park_allowed().
+            self.host.pump(self._clock_us)
+            if self.fault_mode in ("async", "fused"):
+                # Publish transfers that finished during the last decode so
+                # admission's resumes and this step's fault-in see them.
+                self._drain_prefetches()
+        with self._span("serve.admit"):
+            self._admit()
         if not self.active:
-            self.stats.wall_s += time.perf_counter() - t0
             return False
-        runnable = self._append_with_preemption()
+        with self._span("serve.grow"):
+            runnable = self._append_with_preemption()
         if not runnable:
             # A permanent stall means some request can never grow: fail
             # loudly rather than spinning to the step cap.
@@ -1704,14 +1713,14 @@ class ServingEngine:
                     f"steps: active requests "
                     f"{sorted(r.rid for r in self.active)} cannot grow "
                     f"(pool too small or fragmentation unrecoverable)")
-            self.stats.wall_s += time.perf_counter() - t0
             return bool(self.active or self.queue or self.preempted)
         self._stalled_steps = 0
         seqs = [r.rid for r in runnable]
         # Appends under pressure may compact: execute the copy plan before
         # decode consumes the updated tables.
         self._run_compaction()
-        lost = self._fault_in(seqs)
+        with self._span("serve.fault_in"):
+            lost = self._fault_in(seqs)
         if lost:
             # A spill quarantine destroyed some batch members' payloads
             # mid-promote: restart them from the prompt, decode the rest.
@@ -1722,39 +1731,57 @@ class ServingEngine:
                 if self.fault_mode == "fused":
                     # No decode window opens: settle the collected jobs
                     # and land the staged payloads now.
-                    self._settle_fused()
-                self.stats.wall_s += time.perf_counter() - t0
+                    with self._span("serve.settle"):
+                        self._settle_fused()
                 return bool(self.active or self.queue or self.preempted)
-        ctx = self._ctx_global(self.cache.pack_ctx(seqs, self.mpps,
-                                                   device=self.device))
-        if self.fault_mode == "fused":
-            # Decode on what is resident plus this step's staged arrivals.
-            ctx = self._attach_staging(ctx)
+        with self._span("serve.pack"):
+            ctx = self._ctx_global(self.cache.pack_ctx(seqs, self.mpps,
+                                                       device=self.device))
+            if self.fault_mode == "fused":
+                # Decode on what is resident plus this step's staged
+                # arrivals.
+                ctx = self._attach_staging(ctx)
         if self.fault_mode in ("async", "fused"):
             # Predicted next-step touches ride the channels during decode.
-            self._issue_prefetch()
-        t_dec = time.perf_counter()
-        toks = self._index([r.out[-1] for r in runnable])
-        pos = self._index([self.cache.seq_tokens[r.rid] - 1
-                           for r in runnable])
-        state = self._stack_states(seqs)
-        logits, _, state = self.lm.decode_step(toks, pos, self.pools, ctx,
-                                               state)
-        nxt = logits.argmax(dim=-1).cpu().tolist()
-        dt = time.perf_counter() - t_dec
-        self.stats.decode_s += dt
+            with self._span("serve.prefetch"):
+                self._issue_prefetch()
+        with self._span("serve.decode", "decode_s") as dec:
+            toks = self._index([r.out[-1] for r in runnable])
+            pos = self._index([self.cache.seq_tokens[r.rid] - 1
+                               for r in runnable])
+            state = self._stack_states(seqs)
+            logits, _, state = self.lm.decode_step(toks, pos, self.pools,
+                                                   ctx, state)
+            nxt = logits.argmax(dim=-1).cpu().tolist()
         # The decode step is the window in-flight transfers hide in: the
         # modeled width if configured, else the measured time.
         self._clock_us += (self.decode_window_us
                            if self.decode_window_us is not None
-                           else dt * 1e6)
+                           else dec.seconds * 1e6)
         if self.fault_mode == "fused":
             # Settle the consumed jobs (only tails past the window are
             # exposed) and scatter the staged pages before any eviction.
-            self._settle_fused()
+            with self._span("serve.settle"):
+                self._settle_fused()
         # The decode window may have carried queued write-backs past their
         # disk-ready time: persist them before the completion parks below.
-        self.host.pump(self._clock_us)
+        with self._span("serve.host_tier"):
+            self.host.pump(self._clock_us)
+        with self._span("serve.retire"):
+            self._retire(runnable, seqs, nxt, state)
+        self._run_compaction()
+        with self._span("serve.pool_stats"):
+            st = self.cache.stats()
+        spans.count("coalesced_fraction", st.get("coalesced_fraction", 0.0))
+        self.stats.coalesced_sum += st.get("coalesced_fraction", 0.0)
+        self.stats.decode_steps += 1
+        return True
+
+    def _retire(self, runnable: List[Request], seqs: List[int],
+                nxt: List[int], state: Dict[str, torch.Tensor]) -> None:
+        """After decode: the translation meter, the batch's states split
+        back, each row's token appended, and finished requests parked in
+        the prefix cache and freed."""
         self._meter_translation(runnable)
         self._unstack_states(seqs, state)
         done_now = []
@@ -1771,7 +1798,8 @@ class ServingEngine:
         for r in done_now:
             # Park the finished prompt's pages in the prefix cache before
             # the pages are freed and the host copies dropped.
-            self._park_prefix(r)
+            with self._span("serve.park"):
+                self._park_prefix(r)
             if self.translation_meter is not None:
                 # The address space retires with the sequence.
                 for s in range(self.cache.S):
@@ -1786,13 +1814,6 @@ class ServingEngine:
             self.prefetch.stats["wasted_pages"] += dropped
             self.prefetch.cancel_seq(r.rid)
             self._saved_tokens.pop(r.rid, None)
-        self._run_compaction()
-        st = self.cache.stats()
-        self.stats.coalesced_sum += st.get("coalesced_fraction", 0.0)
-        self.stats.occupancy_sum += st.get("occupancy", 0.0)
-        self.stats.decode_steps += 1
-        self.stats.wall_s += time.perf_counter() - t0
-        return True
 
     def _meter_translation(self, runnable: List[Request]) -> None:
         """Run this step's KV page tables through the translation meter.
@@ -1829,22 +1850,23 @@ class ServingEngine:
         """Execute pending CAC copy plans on the device (one kernel launch
         per pool over all layers).  With the translation meter on, the
         remapped pages' subregions are splintered out of its TLB."""
-        ops = self.cache.drain_copy_ops()
-        if ops and self.translation_meter is not None:
-            for s, op in ops:
-                owner_vpn = self.cache.mgrs[s].rmap.get(op.dst_ppn)
-                if owner_vpn is not None:
-                    self.translation_meter.splinter(
-                        (owner_vpn[0], s), owner_vpn[1])
-        if not ops or self.pools is None:
-            return
-        pps = self.cache.pages_per_shard
-        src = self._index([s * pps + op.src_ppn for s, op in ops])
-        dst = self._index([s * pps + op.dst_ppn for s, op in ops])
-        k, v = self.pools
-        kops.page_compact(k, src, dst)
-        kops.page_compact(v, src, dst)
-        self.stats.compaction_copies += len(ops)
+        with self._span("serve.compact"):
+            ops = self.cache.drain_copy_ops()
+            if ops and self.translation_meter is not None:
+                for s, op in ops:
+                    owner_vpn = self.cache.mgrs[s].rmap.get(op.dst_ppn)
+                    if owner_vpn is not None:
+                        self.translation_meter.splinter(
+                            (owner_vpn[0], s), owner_vpn[1])
+            if not ops or self.pools is None:
+                return
+            pps = self.cache.pages_per_shard
+            src = self._index([s * pps + op.src_ppn for s, op in ops])
+            dst = self._index([s * pps + op.dst_ppn for s, op in ops])
+            k, v = self.pools
+            kops.page_compact(k, src, dst)
+            kops.page_compact(v, src, dst)
+            self.stats.compaction_copies += len(ops)
 
     # ------------------------------------------------------------- states
 

@@ -304,6 +304,12 @@ class ShardedKVCache:
                 agg[k] /= n
         return agg
 
+    def oom_counts(self) -> Tuple[int, int]:
+        """The sub-pools' OutOfMemory compaction passes and the refusals
+        among them, summed (0, 0 under a manager without compaction)."""
+        return (sum(getattr(m, "oom_compactions", 0) for m in self.mgrs),
+                sum(getattr(m, "oom_refusals", 0) for m in self.mgrs))
+
     def check_invariants(self):
         for m in self.mgrs:
             m.check_invariants()
