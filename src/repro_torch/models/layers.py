@@ -125,9 +125,17 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    g = x @ w_gate
-    u = x @ w_up
-    h = F.silu(g.float()).to(x.dtype) * u
+    """SwiGLU with the gate's SiLU in f32.  Where no autograd graph is
+    recorded (serving) the SiLU and the product run in place and the up
+    projection waits until the gate's f32 copy is gone: the same values,
+    half the temporaries at their peak."""
+    if torch.is_grad_enabled():
+        g = x @ w_gate
+        u = x @ w_up
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        h = F.silu((x @ w_gate).float(), inplace=True).to(x.dtype)
+        h.mul_(x @ w_up)
     return h @ w_down
 
 

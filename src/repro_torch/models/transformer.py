@@ -12,7 +12,8 @@ Attention (:mod:`repro_torch.models.mla`); its FFN is SwiGLU or, with
     kernel (plain version on CPU tensors), plus an en-masse scatter of each
     layer's K/V (MLA: its latent payloads) into its pool slice.  Dense
     layers run their row-wise work on fixed-shape row blocks
-    (:data:`PREFILL_ROWS`), so a suffix row gets the full prefill's bits,
+    (:data:`PREFILL_ROWS`) written in place into whole-prompt outputs and
+    the residual stream, so a suffix row gets the full prefill's bits,
     and suffix-only prefill prepends a cached prefix's K/V to the keys and
     writes only the suffix pages; MoE and MLA stacks have no prefix cache
     (as the reference) and run each layer over the whole prompt;
@@ -222,20 +223,33 @@ def _project_qkv(cfg: ModelConfig, p, x, positions):
 PREFILL_ROWS = 512
 
 
-def _row_blocks(fn, *xs):
-    """``fn`` applied to [B, T, ...] inputs in blocks of PREFILL_ROWS rows
-    (the last zero-padded); returns its output tensor(s) for the T rows."""
+def _row_block(x, i: int, n: int):
+    """Rows i .. i + n of x [B, T, ...] as one PREFILL_ROWS-row block: a
+    view when the block is whole, else a zero-padded copy."""
+    if n == PREFILL_ROWS:
+        return x[:, i:i + n]
+    blk = x.new_zeros((x.shape[0], PREFILL_ROWS, *x.shape[2:]))
+    blk[:, :n] = x[:, i:i + n]
+    return blk
+
+
+def _row_blocks(fn, xs, out=None):
+    """``fn`` applied to [B, T, ...] inputs ``xs`` in blocks of
+    PREFILL_ROWS rows (the last zero-padded), each block's rows written
+    into its output tensor(s) [B, T, ...]: into ``out`` when given (a
+    block may write the rows it read: block i reads only rows i), else
+    into new tensors.  Returns the tuple of outputs."""
     T = xs[0].shape[1]
-    pad = (-T) % PREFILL_ROWS
-    if pad:
-        xs = [torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))],
-                        dim=1) for x in xs]
-    outs = [fn(*(x[:, i:i + PREFILL_ROWS] for x in xs))
-            for i in range(0, T + pad, PREFILL_ROWS)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts, dim=1)[:, :T].contiguous()
-                     for parts in zip(*outs))
-    return torch.cat(outs, dim=1)[:, :T].contiguous()
+    for i in range(0, T, PREFILL_ROWS):
+        n = min(PREFILL_ROWS, T - i)
+        ys = fn(*(_row_block(x, i, n) for x in xs))
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        if out is None:
+            out = tuple(y.new_empty((y.shape[0], T, *y.shape[2:]))
+                        for y in ys)
+        for o, y in zip(out, ys):
+            o[:, i:i + n] = y[:, :n]
+    return out
 
 
 def _attn_in(cfg: ModelConfig, lp, x, positions):
@@ -548,7 +562,12 @@ def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
     ``prefix_kv``: layer-stacked cached-prefix K/V ([L, B, P, Hkv, dh]
     pair) for suffix-only prefill; each layer attends over its slice, and
     ``tok_offset`` (= P) keeps the cached pages out of the pool write.
-    ``par``: a serving mesh (module docstring; no cached prefix there)."""
+    ``par``: a serving mesh (module docstring; no cached prefix there).
+
+    On the dense row-block path ``x`` [B, T, d] is the residual stream,
+    updated in place and returned: the stack holds one whole-prompt
+    residual, and each layer's q, k, v and attention output only while it
+    needs them."""
     if on_mesh(par):
         if prefix_kv is not None or tok_offset:
             raise NotImplementedError("a cached prefix has no mesh path")
@@ -559,14 +578,17 @@ def decoder_stack_prefill(cfg: ModelConfig, params: DecoderParams, x,
     k_pools, v_pools = pools
     for l in range(params.n_layers):
         lp = params.layer(l)
-        q, k, v = _row_blocks(functools.partial(_attn_in, cfg, lp), x,
-                              positions)
+        q, k, v = _row_blocks(functools.partial(_attn_in, cfg, lp),
+                              (x, positions))
         pkv = None if prefix_kv is None else (prefix_kv[0][l],
                                               prefix_kv[1][l])
         o = prefill_attention(q, k, v, pkv)
         prefill_write_op(k, v, k_pools[l], v_pools[l], ctx,
                          tok_offset=tok_offset)
-        x = _row_blocks(functools.partial(_attn_out_ffn, cfg, lp), x, o)
+        del q, k, v
+        _row_blocks(functools.partial(_attn_out_ffn, cfg, lp), (x, o),
+                    out=(x,))
+        del o
     return x, pools
 
 

@@ -47,12 +47,14 @@ blocks give a suffix row the full prefill's bits.
 
 On a CUDA device every page movement, every prefill attention and every
 decode attention runs in the port's hand-written kernels
-(``repro_torch.kernels``); the gathers' ``.cpu()`` and the fault-in
-scatter's ``.to(device)`` are the real PCIe transfers, timed into
-:class:`EngineStats`.  The modeled counters (``faults``, ``fault_dmas``,
-``bytes_in``, ``transfer_us``, the prefix counters) come from the same
-link model and bookkeeping as the reference's, so both engines report them
-equal for the same schedule.
+(``repro_torch.kernels``); the gathers' copies to the host and the
+fault-in scatters' copies to the card are the real PCIe transfers, moved a
+frame at a time through page-locked slots
+(:mod:`repro_torch.serving.page_ring`; counted in ``xfer_chunks``) and
+timed into :class:`EngineStats`.  The modeled counters (``faults``,
+``fault_dmas``, ``bytes_in``, ``transfer_us``, the prefix counters) come
+from the same link model and bookkeeping as the reference's, so both
+engines report them equal for the same schedule.
 
 Families: all six of the LM's.  The recurrent families keep each request's
 decode state (``self.states``: ``{"ssm", "conv"}``), and encdec its cross
@@ -114,6 +116,7 @@ from repro_torch.serving.dma import (AsyncDMAEngine, DMAJob, Key, Prefetcher,
 from repro_torch.serving import spans
 from repro_torch.serving.host_tier import HostPageStore, PrefixIndex
 from repro_torch.serving.kv_cache import ShardedKVCache
+from repro_torch.serving.page_ring import PageRing
 
 
 @dataclasses.dataclass
@@ -190,7 +193,9 @@ class EngineStats:
     h2d_bytes: int = 0           # fault-in payloads copied onto the device
     h2d_s: float = 0.0
     landings: int = 0            # page_scatter batches (K and V launch each)
-    gathers: int = 0             # page_gather batches: evictions and parks
+    gathers: int = 0             # page_gather batches (ring chunks): evictions
+                                 # and parks
+    xfer_chunks: int = 0         # chunks the page ring moved, both ways
     prefix_h2d_bytes: int = 0    # cached prefix KV copied up for attention
     prefix_h2d_s: float = 0.0
     fused_steps: int = 0         # decode steps that read staged pages
@@ -470,6 +475,11 @@ class ServingEngine:
                                         device=self.device)
                             for shape, dtype in shapes)
                       if shapes else None)
+        # Gathers to and fault-in landings from the host store move in
+        # chunks of one frame through page-locked slots
+        # (:mod:`repro_torch.serving.page_ring`).
+        self._ring = (PageRing(self.pools, geometry.frame_pages)
+                      if self.pools is not None else None)
         # Per-request decode state (ssm / hybrid: {"ssm", "conv"}; encdec:
         # {"cross_k", "cross_v"}; each with a batch axis of 1), kept on the
         # device across preemption: only KV pages swap.
@@ -643,23 +653,25 @@ class ServingEngine:
     def _gather_pages(self, entries: List[Tuple[int, int, int]]
                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Device→host gather of [(shard, vpn, ppn)] pool pages (an
-        eviction or a park): one kernel launch per pool over all layers,
-        then one copy to the host.
+        eviction or a park) through the page ring: per chunk one kernel
+        launch per pool over all layers and one copy to the host.
         Returns per-page (k_page, v_page) CPU payloads (none without
         pools)."""
         if not entries or self.pools is None:
             return []
         pps = self.cache.pages_per_shard
         gidx = self._index([s * pps + ppn for s, _v, ppn in entries])
-        k, v = self.pools
-        kp = kops.page_gather(k, gidx)               # [L, n, ptok, kv, dh]
-        vp = kops.page_gather(v, gidx)
         self._sync()
         with self._span("serve.d2h", "d2h_s"):
-            kp, vp = kp.cpu(), vp.cpu()
+            (kp, vp), chunks = self._ring.gather(gidx)  # [L, n, ptok, ...]
         self.stats.d2h_bytes += kp.nbytes + vp.nbytes
-        self.stats.gathers += 1
+        self.stats.gathers += chunks
+        self._count_chunks(chunks)
         return [(kp[:, i], vp[:, i]) for i in range(len(entries))]
+
+    def _count_chunks(self, chunks: int) -> None:
+        self.stats.xfer_chunks += chunks
+        spans.count("xfer_chunks", chunks)
 
     def _enqueue_outbound(self, keys: List[Key],
                           entries: List[Tuple[int, int, int]],
@@ -962,8 +974,9 @@ class ServingEngine:
 
     def _upload(self, payloads: List[Tuple[torch.Tensor, torch.Tensor]]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Copy host payloads to the device as [L, n, ptok, n_kv, dh] K and
-        V tensors: the host→device transfer of demand paging, timed."""
+        """Copy host payloads to the device whole, as [L, n, ptok, n_kv,
+        dh] K and V tensors: the fused path's step-local stage, which
+        decode reads whole; timed."""
         kp = torch.stack([p[0] for p in payloads], dim=1)
         vp = torch.stack([p[1] for p in payloads], dim=1)
         self._sync()
@@ -973,12 +986,12 @@ class ServingEngine:
         self.stats.h2d_bytes += kp.nbytes + vp.nbytes
         return kp, vp
 
-    def _land(self, gidx: List[int], kp: torch.Tensor,
+    def _land(self, idx: torch.Tensor, kp: torch.Tensor,
               vp: torch.Tensor) -> None:
         """Scatter device-resident pages into the pools at global page ids
-        ``gidx``: one kernel launch per pool over all layers."""
+        ``idx`` (int32 on the device): one kernel launch per pool over all
+        layers."""
         with self._span("serve.land"):
-            idx = self._index(gidx)
             k, v = self.pools
             kops.page_scatter(k, idx, kp)
             kops.page_scatter(v, idx, vp)
@@ -987,10 +1000,18 @@ class ServingEngine:
     def _scatter_pages(self, gidx: List[int],
                        payloads: List[Tuple[torch.Tensor, torch.Tensor]]
                        ) -> None:
-        """Land faulted host payloads in the device pools."""
+        """Land faulted host payloads in the device pools through the page
+        ring: the host→device transfer of demand paging, timed from the
+        first chunk's packing to the last chunk's landing."""
         if not gidx:
             return
-        self._land(gidx, *self._upload(payloads))
+        idx = self._index(gidx)
+        self._sync()
+        with self._span("serve.h2d", "h2d_s"):
+            chunks = self._ring.scatter(idx, payloads, self._land)
+            self._sync()
+        self.stats.h2d_bytes += sum(k.nbytes + v.nbytes for k, v in payloads)
+        self._count_chunks(chunks)
 
     def _fault_in(self, seqs: List[int]) -> set:
         """touch() this step's pages and fault the missing ones in: blocking
@@ -1290,7 +1311,7 @@ class ServingEngine:
                 self._scatter_pages(gidx,
                                     [pl for _sp, pl, _t in self._fused_staged])
             else:
-                self._land(gidx, *self._fused_stage)
+                self._land(self._index(gidx), *self._fused_stage)
             self._fused_staged = []
             self._fused_stage = None
 

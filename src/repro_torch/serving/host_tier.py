@@ -18,9 +18,10 @@ Two kinds of tenant share the store, as in the reference:
   prefix, and ``drop_seq`` of a finished request can never evict them.
 
 Payloads are CPU torch tensors (numpy has no bfloat16): the engine's
-eviction and parking gathers copy them off the card (``.cpu()``) and its
-fault-in scatter copies them back (``.to(device)``) — the PCIe transfers of
-demand paging.  :class:`PrefixPage` and :class:`PrefixIndex` are copies of
+eviction and parking gathers copy them off the card and its fault-in
+scatter copies them back, a frame at a time through page-locked slots
+(:mod:`repro_torch.serving.page_ring`) — the PCIe transfers of demand
+paging.  :class:`PrefixPage` and :class:`PrefixIndex` are copies of
 the reference's with their logic unchanged; only the payload type differs.
 
 Below host DRAM sits the disk tier, :class:`SpillStore`: one file per

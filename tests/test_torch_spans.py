@@ -43,7 +43,9 @@ PARENTS = {
     "serve.compact": {"serve.step", "serve.admit", "serve.preempt",
                       "serve.prefill", "serve.park"},
     "serve.h2d": {"serve.fault_in", "serve.pack", "serve.settle"},
-    "serve.land": {"serve.fault_in", "serve.settle"},
+    # The page ring lands each chunk inside the transfer's serve.h2d; the
+    # fused path lands its stage after decode.
+    "serve.land": {"serve.h2d", "serve.settle"},
     "serve.park": {"serve.retire"},
 }
 
